@@ -1,0 +1,94 @@
+"""Generation / reconstruction (the serve path) — port of
+pcfm/train/evaluate.py.
+
+  * sample: latent-flow integration z ~ flow(N(0, s^2)) -> point flow
+  * recon:  z = enc(GT) -> point-flow integration from the prior
+
+Both default to the EMA weights (``cfg.ema_eval``).  The priors are drawn
+from a ``torch.Generator`` unless they are handed in (``z0`` / ``x0``), so
+a test can give both frameworks the same draws.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from pcfm_torch.config import Config
+from pcfm_torch.sample.integrators import get_sampler
+from pcfm_torch.sample.priors import make_latent_prior, make_pf_prior
+from pcfm_torch.train.state import ModelBundle
+
+
+def _cond_full(cfg: Config, z: torch.Tensor,
+               cond_j: Optional[torch.Tensor]) -> torch.Tensor:
+    """Point-flow condition [z || cond], zero-padded when cond is absent."""
+    if cond_j is not None:
+        return torch.cat([z, cond_j.to(z.dtype)], dim=1)
+    if cfg.cond_dim > 0:
+        pad = torch.zeros((z.shape[0], cfg.cond_dim), dtype=z.dtype,
+                          device=z.device)
+        return torch.cat([z, pad], dim=1)
+    return z
+
+
+def _pf_prior(cfg: Config, generator, shape) -> torch.Tensor:
+    return make_pf_prior(generator, shape, cfg.point_prior_std,
+                         cfg.color_prior, cfg.color_prior_std)
+
+
+def make_recon_fn(bundle: ModelBundle, use_ema: Optional[bool] = None):
+    """recon(pts, rgb, cond_j, generator, x0=None) -> x (B, N, D)."""
+    cfg = bundle.cfg
+    use_ema = cfg.ema_eval if use_ema is None else use_ema
+    sampler = get_sampler(cfg.sampler)
+
+    @torch.no_grad()
+    def recon(pts, rgb, cond_j, generator=None, x0=None):
+        if cfg.enc_in_channels == 6:
+            rgb_in = rgb if rgb is not None else torch.zeros_like(pts)
+            enc_in = torch.cat([pts, rgb_in], dim=-1)
+        else:
+            enc_in = pts
+        z, _ = bundle.enc(enc_in)
+        cond_full = _cond_full(cfg, z, cond_j)
+        b, n = pts.shape[:2]
+        if x0 is None:
+            x0 = _pf_prior(cfg, generator, (b, n, cfg.pf_point_dim))
+        return sampler(bundle.pf_velocity_fn(use_ema), x0,
+                       max(1, cfg.sample_steps), cond=cond_full,
+                       guidance_scale=cfg.guidance_scale)
+
+    return recon
+
+
+def make_sample_fn(bundle: ModelBundle, use_ema: Optional[bool] = None):
+    """sample(cond_j, generator, batch, n_points, z0=None, x0=None) ->
+    x (B, N, D): unconditional latent flow, then the point flow."""
+    cfg = bundle.cfg
+    use_ema = cfg.ema_eval if use_ema is None else use_ema
+    if float(cfg.eval_oversample) > 1.0:
+        raise NotImplementedError(
+            "eval_oversample > 1 (FPS subsampling) is not yet ported to "
+            "pcfm_torch")
+    sampler = get_sampler(cfg.sampler)
+
+    @torch.no_grad()
+    def sample(cond_j, generator, batch: int, n_points: int, z0=None,
+               x0=None):
+        if z0 is None:
+            z0 = make_latent_prior(generator, batch, cfg.latent_dim,
+                                   cfg.latent_prior_std)
+        # the latent flow is unconditional; its NFE is overridable
+        lat_steps = int(cfg.latent_sample_steps) or max(1, cfg.sample_steps)
+        z = sampler(bundle.lf_velocity_fn(use_ema), z0, lat_steps,
+                    cond=None, guidance_scale=0.0)
+        cond_full = _cond_full(cfg, z, cond_j)
+        if x0 is None:
+            x0 = _pf_prior(cfg, generator, (batch, n_points,
+                                            cfg.pf_point_dim))
+        return sampler(bundle.pf_velocity_fn(use_ema), x0,
+                       max(1, cfg.sample_steps), cond=cond_full,
+                       guidance_scale=cfg.guidance_scale)
+
+    return sample

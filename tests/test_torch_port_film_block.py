@@ -1,0 +1,206 @@
+"""The port's fused FiLM block (pcfm_torch/ops/film_block.py) against the
+JAX package's kernel (pcfm/ops/pallas/film_block.py, interpret mode).
+
+On the CPU the wrapper runs its plain-torch version; the CUDA kernel is
+held against that plain version by the ``gpu`` tests.  The module imports
+JAX only through a fixture, so that on a card without JAX the ``gpu``
+tests run alone (``--noconftest``: tests/conftest.py sets up JAX):
+
+    python -m pytest tests/test_torch_port_film_block.py -m gpu --noconftest
+"""
+import os
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from pcfm_torch.ops import film_block as fb  # noqa: E402
+
+# fp32 on both sides; measured 1.4e-6 at (2, 300, 128)
+ATOL = 1e-5
+
+
+def _inputs(seed, b=2, n=300, c=128):
+    """numpy inputs in the JAX layout (w is (in, out))."""
+    rng = np.random.RandomState(seed)
+    f = np.float32
+    return dict(h=(0.7 * rng.randn(b, n, c)).astype(f),
+                s=(1.0 + 0.1 * rng.randn(c)).astype(f),
+                t=(0.1 * rng.randn(c)).astype(f),
+                gamma=(0.2 * rng.randn(b, c)).astype(f),
+                beta=(0.2 * rng.randn(b, c)).astype(f),
+                w=(rng.randn(c, c) / np.sqrt(c)).astype(f),
+                b=(0.1 * rng.randn(c)).astype(f))
+
+
+def _port_args(a, device="cpu", dtype=torch.float32):
+    """Port argument order; w goes over to the torch Linear (out, in)."""
+    t = {k: torch.from_numpy(v).to(device) for k, v in a.items()}
+    t["w"] = t["w"].T.contiguous()
+    for k in ("h", "gamma", "beta"):
+        t[k] = t[k].to(dtype)
+    return [t[k] for k in ("h", "s", "t", "gamma", "beta", "w", "b")]
+
+
+@pytest.fixture
+def jax_fb():
+    """(jnp, the JAX package's film_block module)."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from pcfm.ops.pallas import film_block
+    return jnp, film_block
+
+
+@pytest.mark.parametrize("n", [300, 256, 77])
+def test_reference_matches_jax_kernel(jax_fb, n):
+    jnp, jax_fb = jax_fb
+    a = _inputs(0, n=n)
+    want = np.asarray(jax_fb.film_block(
+        *[jnp.asarray(a[k]) for k in ("h", "s", "t", "gamma", "beta", "w",
+                                      "b")], True))
+    got = fb.film_block(*_port_args(a)).numpy()
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+
+
+def test_stats_match_jax_kernel(jax_fb):
+    jnp, jax_fb = jax_fb
+    a = _inputs(1, n=200, c=256)
+    args = [jnp.asarray(a[k]) for k in ("h", "s", "t", "gamma", "beta", "w",
+                                        "b")]
+    y_j, (_, mean_j, rstd_j) = jax_fb._film_fwd_impl(*args, True)
+    y, mean, rstd = fb.film_block_forward(*_port_args(a))
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_j), atol=ATOL)
+    np.testing.assert_allclose(mean.numpy(), np.asarray(mean_j)[:, :200],
+                               atol=1e-6)
+    np.testing.assert_allclose(rstd.numpy(), np.asarray(rstd_j)[:, :200],
+                               rtol=1e-5)
+
+
+def test_cpu_call_runs_plain_version_and_counts_no_launch():
+    args = _port_args(_inputs(2, n=40))
+    before = fb.launches
+    y = fb.film_block(*args)
+    assert fb.launches == before
+    torch.testing.assert_close(y, fb.film_block_reference(*args), rtol=0,
+                               atol=0)
+
+
+def test_cpu_bf16_keeps_dtype():
+    y = fb.film_block(*_port_args(_inputs(3, n=33), dtype=torch.bfloat16))
+    assert y.dtype == torch.bfloat16 and y.shape == (2, 33, 128)
+
+
+@pytest.mark.parametrize("bad", ["c", "w", "gamma", "rank"])
+def test_shape_checks(bad):
+    a = _inputs(4, n=16)
+    args = _port_args(a)
+    if bad == "c":
+        args = _port_args(_inputs(4, n=16, c=96))
+    elif bad == "w":
+        args[5] = args[5][:, :64]
+    elif bad == "gamma":
+        args[3] = args[3][:1]
+    else:
+        args[0] = args[0][0]
+    with pytest.raises(ValueError):
+        fb.film_block(*args)
+
+
+def _fake_nvcc(tmp_path, monkeypatch, script):
+    """Point the builder at a stand-in nvcc and a private build dir."""
+    from pcfm_torch.ops import build
+    nvcc = tmp_path / "cuda" / "bin" / "nvcc"
+    nvcc.parent.mkdir(parents=True)
+    nvcc.write_text("#!/bin/sh\n" + script)
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "cuda"))
+    monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(build, "LIB_PATH", str(tmp_path / "build" / "lib.so"))
+    return build
+
+
+def test_build_failure_raises_with_nvcc_output(tmp_path, monkeypatch):
+    build = _fake_nvcc(tmp_path, monkeypatch,
+                       'echo "film_block.cu(3): error: boom" >&2; exit 2\n')
+    with pytest.raises(RuntimeError, match="boom"):
+        build.build()
+    assert not (tmp_path / "build" / "lib.so").exists()
+
+
+def test_build_rebuilds_only_when_stale(tmp_path, monkeypatch):
+    # the stand-in writes its -o argument, like nvcc
+    build = _fake_nvcc(tmp_path, monkeypatch, """
+while [ "$1" != "-o" ]; do shift; done
+echo lib > "$2"
+echo "ptxas info: Used 1 registers"
+""")
+    assert build.sources() and all(s.endswith(".cu")
+                                   for s in build.sources())
+    first = build.build()
+    assert first["built"] and "registers" in first["log"]
+    assert not build.is_stale() and not build.build()["built"]
+    lib = tmp_path / "build" / "lib.so"
+    old = max(os.path.getmtime(s) for s in build.sources()) - 10
+    os.utime(lib, (old, old))                      # a source is newer
+    assert build.is_stale() and build.build()["built"]
+
+
+# ------------------------------------------------------------ on the card
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,n,tol", [(torch.float32, 300, 3e-2),
+                                         (torch.bfloat16, 300, 6e-2),
+                                         (torch.bfloat16, 1000, 6e-2)])
+def test_kernel_matches_plain_version(cuda, dtype, n, tol):
+    # the kernel's product is bf16 x bf16 -> fp32 (the TPU kernel's DEFAULT
+    # precision); the plain version multiplies in fp32
+    args = _port_args(_inputs(5, n=n, c=256), cuda, dtype)
+    before = fb.launches
+    y, mean, rstd = fb.film_block_forward(*args)
+    torch.cuda.synchronize()
+    assert fb.launches == before + 1
+    want, mean_r, rstd_r = fb.film_block_reference_forward(*args)
+    torch.testing.assert_close(y.float(), want.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(mean, mean_r, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(rstd, rstd_r, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_kernel_refuses_grad_and_mixed_dtypes(cuda):
+    args = _port_args(_inputs(6, n=64), cuda, torch.bfloat16)
+    w = args[5].clone().requires_grad_(True)
+    with pytest.raises(RuntimeError, match="backward"):
+        fb.film_block(*args[:5], w, args[6])
+    with torch.no_grad():
+        fb.film_block(*args[:5], w, args[6])
+    with pytest.raises(TypeError):
+        fb.film_block(*args[:3], args[3].float(), *args[4:])
+
+
+@pytest.mark.gpu
+def test_sample_cli_on_card_goes_through_kernel(cuda, tmp_path):
+    from pcfm.config import Config
+    from pcfm_torch.sample import cli
+    from pcfm_torch.train import checkpoint
+    from pcfm_torch.train.state import ModelBundle
+    cfg = Config(latent_dim=16, pf_width=128, pf_depth=3, pf_emb_dim=32,
+                 lf_width=64, lf_depth=3, lf_emb_dim=16, enc_width=32,
+                 has_rgb=True, cond_dim=2, fused_trunk="on", sample_steps=2)
+    checkpoint.save(str(tmp_path), 1, ModelBundle(
+        cfg, "cpu", torch.Generator().manual_seed(10)))
+    for extra in ([], ["--guidance_scale", "0.5"]):
+        before = fb.launches
+        x = cli.main(["--out_dir", str(tmp_path), "--num_samples", "2",
+                      "--n_points", "300", *extra])
+        # 2 FiLM blocks x 2 Heun steps x 2 evaluations, CFG in one batch
+        assert fb.launches - before == 8
+        assert x.shape == (2, 300, 6) and np.isfinite(x).all()
