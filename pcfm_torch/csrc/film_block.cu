@@ -45,6 +45,8 @@
 #include <cuda_runtime.h>
 #include <mma.h>
 
+#include "film_common.cuh"
+
 using namespace nvcuda;
 
 namespace {
@@ -58,35 +60,6 @@ constexpr int A_PAD = 8;            // bf16 row padding of the A operand
 constexpr int W_LD = KCHUNK + 8;    // W tile kept n-major: [NCHUNK][W_LD]
 constexpr int E_LD = NCHUNK + 4;    // fp32 epilogue staging: [ROWS][E_LD]
 constexpr int MAX_C = 1024;         // A operand (64 x C bf16) must fit
-constexpr float LN_EPS = 1e-5f;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// f = LN(h) * (1 + gamma) + beta, in the TPU kernel's order of operations
-__device__ __forceinline__ float film_f(float x, float mean, float rstd,
-                                        float s, float t, float g,
-                                        float be) {
-  const float u = (x - mean) * rstd * s + t;
-  return u * (1.0f + g) + be;
-}
 
 // 128 x 32 fp32 tile of W (rows n0.., columns k0..) into registers:
 // 1024 float4, four per thread, 128 contiguous bytes per W row

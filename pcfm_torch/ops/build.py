@@ -1,10 +1,11 @@
 """Build the port's CUDA kernels from the repo's sources, at first use.
 
-Every ``pcfm_torch/csrc/*.cu`` is compiled by ``nvcc`` for Hopper
-(``sm_90a``) into ONE shared library with a plain C interface, loaded with
-``ctypes``: no PyTorch headers and no ninja, so a build takes seconds.  The
-library lands in ``pcfm_torch/_build/`` (git-ignored) and is rebuilt when a
-source is newer than it.  A failed build raises with nvcc's output.
+Every ``pcfm_torch/csrc/*.cu`` is compiled by its own ``nvcc`` for Hopper
+(``sm_90a``), all of them at once, and the objects are linked into ONE
+shared library with a plain C interface, loaded with ``ctypes``: no
+PyTorch headers and no ninja, so a build takes seconds.  The library lands
+in ``pcfm_torch/_build/`` (git-ignored) and is rebuilt when a source or a
+header is newer than it.  A failed build raises with nvcc's output.
 """
 from __future__ import annotations
 
@@ -21,12 +22,17 @@ SRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 LIB_PATH = os.path.join(BUILD_DIR, "libpcfm_kernels.so")
 
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+COMPILE_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                 "-Xptxas", "-v", "-c"]
 
 
 def sources() -> list:
     return sorted(glob.glob(os.path.join(SRC_DIR, "*.cu")))
+
+
+def headers() -> list:
+    return sorted(glob.glob(os.path.join(SRC_DIR, "*.cuh")))
 
 
 def nvcc() -> str:
@@ -46,7 +52,19 @@ def is_stale() -> bool:
     if not os.path.isfile(LIB_PATH):
         return True
     built = os.path.getmtime(LIB_PATH)
-    return any(os.path.getmtime(s) > built for s in sources())
+    return any(os.path.getmtime(s) > built for s in sources() + headers())
+
+
+def _run_all(cmds: list) -> list:
+    """Start every command at once; (cmd, returncode, output) for each."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in cmds]
+    results = []
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        results.append((cmd, proc.returncode, out))
+    return results
 
 
 def build(force: bool = False) -> dict:
@@ -57,20 +75,30 @@ def build(force: bool = False) -> dict:
     if not force and not is_stale():
         return {"path": LIB_PATH, "built": False, "seconds": 0.0, "log": ""}
     os.makedirs(BUILD_DIR, exist_ok=True)
-    # compile to a private name, then rename: concurrent builders never
+    # build under private names, then rename: concurrent builders never
     # load a half-written library
-    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, *sources()]
+    tag = f"{os.getpid()}.tmp"
+    objs = [os.path.join(BUILD_DIR, f"{os.path.basename(s)}.{tag}.o")
+            for s in sources()]
+    tmp = f"{LIB_PATH}.{tag}"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    try:
+        results = _run_all([[nvcc(), *COMPILE_FLAGS, "-o", o, s]
+                            for s, o in zip(sources(), objs)])
+        if all(rc == 0 for _, rc, _ in results):
+            results += _run_all([[nvcc(), *ARCH_FLAGS, "-shared", "-o", tmp,
+                                  *objs]])
+        log = "".join(out for _, _, out in results)
+        for cmd, rc, out in results:
+            if rc != 0:
+                raise RuntimeError(f"nvcc failed (exit {rc}):\n"
+                                   f"{' '.join(cmd)}\n{out}")
+        os.replace(tmp, LIB_PATH)
+    finally:
+        for path in (*objs, tmp):
+            if os.path.exists(path):
+                os.remove(path)
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{log}")
-    os.replace(tmp, LIB_PATH)
     return {"path": LIB_PATH, "built": True, "seconds": seconds, "log": log}
 
 

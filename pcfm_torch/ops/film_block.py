@@ -9,15 +9,17 @@ Port of pcfm/ops/pallas/film_block.py (forward).  One trunk block is
 ``w`` is the torch ``Linear`` weight (out, in), the transpose of the JAX
 kernel's (in, out) operand.
 
-``film_block`` launches the hand-written CUDA kernel
-(pcfm_torch/csrc/film_block.cu) for CUDA tensors and raises on what the
-kernel does not take; for CPU tensors it runs ``film_block_reference``, the
-plain-torch version that the CPU tests and the on-card comparison use.
-Forward only: the backward kernel is not ported yet, so CUDA inputs that
-require grad raise instead of differentiating through the plain version.
+``film_block`` is a ``torch.autograd.Function``.  For CUDA tensors its
+forward launches the hand-written CUDA kernel (pcfm_torch/csrc/
+film_block.cu) and its backward the backward kernel (pcfm_torch/csrc/
+film_block_bwd.cu, port of ``_bwd_kernel``); both raise on what the
+kernels do not take.  For CPU tensors the two directions run
+``film_block_reference_forward`` and ``film_block_reference_backward``,
+the plain-torch versions that the CPU tests and the on-card comparison use.
 
-``launches`` counts kernel launches (never plain-version calls), so a run
-can show that its path went through the kernel.
+``launches`` and ``bwd_launches`` count kernel launches of each direction
+(never plain-version calls), so a run can show that its path went through
+the kernels.
 """
 from __future__ import annotations
 
@@ -28,8 +30,10 @@ import torch
 
 LN_EPS = 1e-5
 MAX_C = 1024          # the 64 x C bf16 A operand must fit in shared memory
+MAX_C_BWD = 512       # the backward also keeps 64 x C fp32 dp on chip
 
 launches = 0
+bwd_launches = 0
 
 
 def _stats(h32: torch.Tensor):
@@ -55,6 +59,32 @@ def film_block_reference(h, s, t, gamma, beta, w, b) -> torch.Tensor:
     return film_block_reference_forward(h, s, t, gamma, beta, w, b)[0]
 
 
+def film_block_reference_backward(dy, h, s, t, gamma, beta, w, mean, rstd):
+    """Plain-torch restatement of ``_bwd_kernel``
+    (pcfm/ops/pallas/film_block.py:93-123) in fp32 math, from the forward's
+    saved statistics.  Returns the seven gradients in the forward's argument
+    order: (dh in h.dtype, ds, dt, dgamma and dbeta in gamma's dtype, dW
+    (out, in) like ``w``, db), the small ones fp32."""
+    h32, dy32 = h.to(torch.float32), dy.to(torch.float32)
+    g = gamma[:, None, :].to(torch.float32)
+    xhat = (h32 - mean) * rstd
+    u = xhat * s + t
+    f = u * (1.0 + g) + beta[:, None, :].to(torch.float32)
+    sig = torch.sigmoid(f)
+    dp = dy32 @ w.to(torch.float32)
+    df = dy32 + sig * (1.0 + f * (1.0 - sig)) * dp
+    c = h.shape[-1]
+    dw = dy32.reshape(-1, c).T @ (f * sig).reshape(-1, c)
+    du = df * (1.0 + g)
+    dxhat = du * s
+    m1 = dxhat.mean(dim=-1, keepdim=True)
+    m2 = (dxhat * xhat).mean(dim=-1, keepdim=True)
+    dh = rstd * (dxhat - m1 - xhat * m2)
+    return (dh.to(h.dtype), (du * xhat).sum(dim=(0, 1)), du.sum(dim=(0, 1)),
+            (df * u).sum(dim=1).to(gamma.dtype),
+            df.sum(dim=1).to(beta.dtype), dw, dy32.sum(dim=(0, 1)))
+
+
 def _check_shapes(h, s, t, gamma, beta, w, b):
     if h.dim() != 3:
         raise ValueError(f"film_block: h must be (B, N, C), got "
@@ -78,43 +108,52 @@ def _lib():
     ptr = ctypes.c_void_p
     lib.pcfm_film_block_fwd.argtypes = [ptr] * 10 + [ctypes.c_int] * 4 + [ptr]
     lib.pcfm_film_block_fwd.restype = ctypes.c_int
+    lib.pcfm_film_block_bwd.argtypes = [ptr] * 17 + [ctypes.c_int] * 4 + [ptr]
+    lib.pcfm_film_block_bwd.restype = ctypes.c_int
+    lib.pcfm_film_block_bwd_workspace.argtypes = [ctypes.c_int] * 3
+    lib.pcfm_film_block_bwd_workspace.restype = ctypes.c_longlong
     lib.pcfm_cuda_error_string.argtypes = [ctypes.c_int]
     lib.pcfm_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _launch(h, s, t, gamma, beta, w, b):
-    global launches
-    args = {"h": h, "s": s, "t": t, "gamma": gamma, "beta": beta, "w": w,
-            "b": b}
+def _check_operands(h, args: dict, max_c: int):
+    """What both kernels need of their operands: one device, contiguous,
+    h's dtype for the per-row and per-cloud tensors, fp32 for the rest."""
     for name, x in args.items():
         if x.device != h.device:
             raise ValueError(f"film_block: {name} is on {x.device}, h on "
                              f"{h.device}")
         if not x.is_contiguous():
             raise ValueError(f"film_block: {name} must be contiguous")
-    if torch.is_grad_enabled() and any(x.requires_grad
-                                       for x in args.values()):
-        raise RuntimeError("film_block: the backward kernel is not yet "
-                           "ported; call the CUDA kernel under "
-                           "torch.no_grad()")
-    if h.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"film_block: h must be bf16 or fp32, got {h.dtype}")
-    for name in ("gamma", "beta"):
-        if args[name].dtype != h.dtype:
-            raise TypeError(f"film_block: {name} must have h's dtype "
-                            f"{h.dtype}, got {args[name].dtype}")
-    for name in ("s", "t", "w", "b"):
-        if args[name].dtype != torch.float32:
-            raise TypeError(f"film_block: {name} must be fp32, got "
-                            f"{args[name].dtype}")
+        want = h.dtype if name in ("h", "dy", "gamma", "beta") \
+            else torch.float32
+        if name == "h" and h.dtype not in (torch.bfloat16, torch.float32):
+            raise TypeError(f"film_block: h must be bf16 or fp32, got "
+                            f"{h.dtype}")
+        if x.dtype != want:
+            raise TypeError(f"film_block: {name} must be {want}, got "
+                            f"{x.dtype}")
     bsz, n, c = h.shape
-    if c > MAX_C or bsz > 65535 or n == 0:
-        raise ValueError(f"film_block kernel takes C <= {MAX_C}, "
+    if c > max_c or bsz > 65535 or n == 0:
+        raise ValueError(f"film_block kernel takes C <= {max_c}, "
                          f"B <= 65535, N > 0; got {tuple(h.shape)}")
-    if w.data_ptr() % 16:
-        raise ValueError("film_block: w must be 16-byte aligned")
+    for name, x in args.items():       # the kernels' 16-byte loads
+        if x.data_ptr() % 16:
+            raise ValueError(f"film_block: {name} must be 16-byte aligned")
 
+
+def _raise_on(err: int, what: str):
+    if err != 0:
+        msg = _lib().pcfm_cuda_error_string(err).decode()
+        raise RuntimeError(f"{what} kernel launch failed: {msg} ({err})")
+
+
+def _launch(h, s, t, gamma, beta, w, b):
+    global launches
+    _check_operands(h, {"h": h, "s": s, "t": t, "gamma": gamma,
+                        "beta": beta, "w": w, "b": b}, MAX_C)
+    bsz, n, c = h.shape
     y = torch.empty_like(h)
     mean = torch.empty((bsz, n, 1), dtype=torch.float32, device=h.device)
     rstd = torch.empty_like(mean)
@@ -125,11 +164,52 @@ def _launch(h, s, t, gamma, beta, w, b):
             beta.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
             mean.data_ptr(), rstd.data_ptr(), bsz, n, c,
             int(h.dtype == torch.bfloat16), stream)
-    if err != 0:
-        msg = _lib().pcfm_cuda_error_string(err).decode()
-        raise RuntimeError(f"film_block kernel launch failed: {msg} ({err})")
+    _raise_on(err, "film_block")
     launches += 1
     return y, mean, rstd
+
+
+def _launch_bwd(dy, h, s, t, gamma, beta, w, mean, rstd):
+    global bwd_launches
+    _check_operands(h, {"dy": dy, "h": h, "s": s, "t": t, "gamma": gamma,
+                        "beta": beta, "w": w, "mean": mean, "rstd": rstd},
+                    MAX_C_BWD)
+    bsz, n, c = h.shape
+    if dy.shape != h.shape or mean.shape != (bsz, n, 1) \
+            or rstd.shape != (bsz, n, 1):
+        raise ValueError("film_block backward: dy must be h's shape and "
+                         "mean, rstd (B, N, 1)")
+    f32 = dict(dtype=torch.float32, device=h.device)
+    dh = torch.empty_like(h)
+    dw = torch.empty((c, c), **f32)
+    dgamma, dbeta = torch.empty_like(gamma), torch.empty_like(beta)
+    db, ds, dt = (torch.empty(c, **f32) for _ in range(3))
+    floats = _lib().pcfm_film_block_bwd_workspace(bsz, n, c)
+    if floats < 0:
+        raise ValueError(f"film_block backward kernel does not take "
+                         f"{tuple(h.shape)}")
+    work = torch.empty(floats, **f32)
+    with torch.cuda.device(h.device):
+        stream = torch.cuda.current_stream(h.device).cuda_stream
+        err = _lib().pcfm_film_block_bwd(
+            dy.data_ptr(), h.data_ptr(), s.data_ptr(), t.data_ptr(),
+            gamma.data_ptr(), beta.data_ptr(), w.data_ptr(), mean.data_ptr(),
+            rstd.data_ptr(), dh.data_ptr(), dw.data_ptr(), dgamma.data_ptr(),
+            dbeta.data_ptr(), db.data_ptr(), ds.data_ptr(), dt.data_ptr(),
+            work.data_ptr(), bsz, n, c, int(h.dtype == torch.bfloat16),
+            stream)
+    _raise_on(err, "film_block backward")
+    bwd_launches += 1
+    return dh, ds, dt, dgamma, dbeta, dw, db
+
+
+def _device_route(h, what: str) -> bool:
+    """True for the kernel (CUDA), False for the plain version (CPU)."""
+    if h.is_cuda:
+        return True
+    if h.device.type != "cpu":
+        raise ValueError(f"{what}: no kernel for device {h.device}")
+    return False
 
 
 def film_block_forward(h, s, t, gamma, beta, w, b):
@@ -137,15 +217,44 @@ def film_block_forward(h, s, t, gamma, beta, w, b):
     rstd (B, N, 1) fp32.  CUDA tensors run the kernel, CPU tensors the
     plain version."""
     _check_shapes(h, s, t, gamma, beta, w, b)
-    if h.is_cuda:
+    if _device_route(h, "film_block"):
         return _launch(h, s, t, gamma, beta, w, b)
-    if h.device.type != "cpu":
-        raise ValueError(f"film_block: no kernel for device {h.device}")
     return film_block_reference_forward(h, s, t, gamma, beta, w, b)
+
+
+def film_block_backward(dy, h, s, t, gamma, beta, w, mean, rstd):
+    """The seven gradients of ``film_block`` (see
+    ``film_block_reference_backward``) from dy (B, N, C) in h.dtype and the
+    forward's saved statistics.  CUDA tensors run the backward kernel, CPU
+    tensors the plain version."""
+    if _device_route(h, "film_block backward"):
+        return _launch_bwd(dy, h, s, t, gamma, beta, w, mean, rstd)
+    return film_block_reference_backward(dy, h, s, t, gamma, beta, w, mean,
+                                         rstd)
+
+
+class FilmBlockFunction(torch.autograd.Function):
+    """The fused block with its backward (JAX: the ``custom_vjp`` of
+    pcfm/ops/pallas/film_block.py).  Saves h, mean and rstd, as ``_film_fwd``
+    saves them, and recomputes f in the backward."""
+
+    @staticmethod
+    def forward(ctx, h, s, t, gamma, beta, w, b):
+        y, mean, rstd = film_block_forward(h, s, t, gamma, beta, w, b)
+        ctx.save_for_backward(h, s, t, gamma, beta, w, mean, rstd)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        h, s, t, gamma, beta, w, mean, rstd = ctx.saved_tensors
+        # the JAX rule: dy in h's dtype (film_block.py:192); autograd may
+        # hand over a strided dy, the kernel takes a contiguous one
+        dy = dy.to(h.dtype).contiguous()
+        return film_block_backward(dy, h, s, t, gamma, beta, w, mean, rstd)
 
 
 def film_block(h, s, t, gamma, beta, w, b) -> torch.Tensor:
     """Fused trunk block: h (B, N, C); s, t, b (C,); gamma, beta (B, C);
-    w (C, C) torch Linear weight.  Returns y (B, N, C) in h.dtype.
-    C must be a multiple of 128."""
-    return film_block_forward(h, s, t, gamma, beta, w, b)[0]
+    w (C, C) torch Linear weight.  Returns y (B, N, C) in h.dtype and is
+    differentiable in every argument.  C must be a multiple of 128."""
+    return FilmBlockFunction.apply(h, s, t, gamma, beta, w, b)

@@ -1,1 +1,2 @@
-"""Model bundle, sample/recon functions and checkpoints of the port."""
+"""Training of the port: model bundle and train state, train step, loop,
+sample/recon functions, checkpoints, CLI."""

@@ -3,10 +3,19 @@
 A checkpoint is one ``torch.save`` dict with the reference trainer's keys
 (reference train.py:682-708): module state_dicts ``encoder``, ``pf``,
 ``lf``; EMA shadows ``ema_pf``, ``ema_lf`` keyed like the state_dicts;
-``args`` (the Config as a dict), ``cond_dim``, ``epoch``, ``global_step``.
+``opt`` (the AdamW state_dict, three groups as the reference's); ``args``
+(the Config as a dict), ``cond_dim``, ``epoch``, ``global_step``.
 pcfm/interop/torch_ckpt.py:state_from_reference_ckpt reads it unchanged,
-so a port checkpoint loads into the JAX package.  Optimizer state comes
-with the training port.
+so a port checkpoint loads into the JAX package.
+
+``auto_resume`` restores with the reference's tolerance (train.py:459-516,
+as pcfm/train/checkpoint.py:restore_tolerant): entries whose name and shape
+match are loaded and the rest keeps its fresh value (non-strict model load;
+for the EMA shadows, the key union with the current shadow); the optimizer
+state is restored all or nothing, with a warning when it does not fit; the
+reference's legacy top-level keys ``model`` and ``opt_main`` are read as
+``pf`` and ``opt``.
+Old checkpoints are deleted down to the newest ``keep_last_ckpts``.
 """
 from __future__ import annotations
 
@@ -18,42 +27,70 @@ from typing import Optional, Tuple
 import torch
 
 from pcfm_torch.config import Config
-from pcfm_torch.train.state import ModelBundle
+from pcfm_torch.train.state import ModelBundle, TrainState
 
 _CKPT_RE = re.compile(r"hybrid_ep(\d+)\.pt$")
+# reference train.py:487,504
+LEGACY_KEY_MAP = {"model": "pf", "opt_main": "opt"}
 
 
 def ckpt_dir(out_dir: str) -> str:
     return os.path.join(os.path.abspath(out_dir), "ckpts")
 
 
+def _to_cpu(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu()
+    if isinstance(x, dict):
+        return {k: _to_cpu(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_to_cpu(v) for v in x)
+    return x
+
+
 def save(out_dir: str, epoch: int, bundle: ModelBundle,
-         global_step: int = 0) -> str:
+         global_step: int = 0, opt: Optional[torch.optim.Optimizer] = None,
+         keep_last: int = 0) -> str:
     d = ckpt_dir(out_dir)
     os.makedirs(d, exist_ok=True)
     path = os.path.join(d, f"hybrid_ep{epoch:04d}.pt")
-    ckpt = {k: {n: v.detach().cpu() for n, v in m.state_dict().items()}
-            for k, m in bundle.modules().items()}
+    ckpt = {k: _to_cpu(m.state_dict()) for k, m in bundle.modules().items()}
+    if opt is not None:
+        ckpt["opt"] = _to_cpu(opt.state_dict())
     ckpt.update(args=dataclasses.asdict(bundle.cfg),
                 cond_dim=int(bundle.cfg.cond_dim), epoch=int(epoch),
                 global_step=int(global_step))
     tmp = f"{path}.tmp"
     torch.save(ckpt, tmp)
     os.replace(tmp, path)               # a reader never sees half a file
+    gc_old(out_dir, keep_last)
     return path
+
+
+def _list(out_dir: str) -> list:
+    """[(epoch, path)] of the checkpoints under out_dir, oldest first."""
+    d = ckpt_dir(out_dir)
+    if not os.path.isdir(d):
+        return []
+    return sorted((int(m.group(1)), os.path.join(d, fn))
+                  for fn in os.listdir(d) if (m := _CKPT_RE.match(fn)))
 
 
 def find_latest(out_dir: str) -> Tuple[Optional[str], int]:
     """(path, epoch) of the newest checkpoint, or (None, 0)."""
-    d = ckpt_dir(out_dir)
-    if not os.path.isdir(d):
-        return None, 0
-    best_ep, best_path = 0, None
-    for fn in os.listdir(d):
-        m = _CKPT_RE.match(fn)
-        if m and int(m.group(1)) > best_ep:
-            best_ep, best_path = int(m.group(1)), os.path.join(d, fn)
-    return best_path, best_ep
+    found = _list(out_dir)
+    return (found[-1][1], found[-1][0]) if found else (None, 0)
+
+
+def gc_old(out_dir: str, keep_last: int) -> None:
+    """Delete all but the newest ``keep_last`` checkpoints (0: keep all)."""
+    if keep_last > 0:
+        for _, path in _list(out_dir)[:-keep_last]:
+            os.remove(path)
+
+
+def _read(path: str) -> dict:
+    return torch.load(path, map_location="cpu", weights_only=True)
 
 
 def load(path: str, device, overrides: Optional[dict] = None
@@ -61,7 +98,7 @@ def load(path: str, device, overrides: Optional[dict] = None
     """Rebuild (cfg, bundle, ckpt) from a checkpoint.  ``overrides``
     replaces Config fields (None values are ignored) before the modules
     are built; weights load strictly."""
-    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    ckpt = _read(path)
     cfg = Config(**{k: v for k, v in ckpt["args"].items()
                     if k in {f.name for f in dataclasses.fields(Config)}})
     cfg = cfg.replace(cond_dim=int(ckpt.get("cond_dim", cfg.cond_dim)),
@@ -72,3 +109,80 @@ def load(path: str, device, overrides: Optional[dict] = None
     for key, module in bundle.modules().items():
         module.load_state_dict(ckpt.get(key) or ckpt[key.replace("ema_", "")])
     return cfg, bundle, ckpt
+
+
+def _load_matching(module: torch.nn.Module, sd: dict) -> Tuple[int, list]:
+    """Load the entries of ``sd`` whose name and shape match; the rest of
+    ``module`` keeps its value.  Returns (loaded count, kept names)."""
+    own = module.state_dict()
+    take = {k: v for k, v in sd.items()
+            if k in own and tuple(v.shape) == tuple(own[k].shape)}
+    module.load_state_dict(take, strict=False)
+    return len(take), sorted(set(own) - set(take))
+
+
+def _opt_fits(opt: torch.optim.Optimizer, sd: dict) -> bool:
+    """Every saved moment has its parameter's shape (torch's own
+    load_state_dict checks only the group sizes)."""
+    params = [p for g in opt.param_groups for p in g["params"]]
+    for idx, st in sd.get("state", {}).items():
+        if not 0 <= int(idx) < len(params):
+            return False
+        for key in ("exp_avg", "exp_avg_sq"):
+            if key in st and tuple(st[key].shape) != tuple(
+                    params[int(idx)].shape):
+                return False
+    return True
+
+
+def restore_tolerant(path: str, state: TrainState,
+                     verbose: bool = True) -> dict:
+    """Non-strict restore of ``path`` into ``state``; returns the
+    checkpoint dict (see the module docstring)."""
+    ckpt = _read(path)
+    for old, new in LEGACY_KEY_MAP.items():
+        if old in ckpt and new not in ckpt:
+            ckpt[new] = ckpt.pop(old)
+    n_loaded, kept = 0, []
+    for key, module in state.bundle.modules().items():
+        # a checkpoint without EMA shadows seeds them from the live weights
+        sd = ckpt.get(key) or ckpt.get(key.replace("ema_", "")) or {}
+        n, k = _load_matching(module, sd)
+        n_loaded += n
+        kept += [f"{key}/{name}" for name in k]
+    opt_sd = ckpt.get("opt")
+    why = "absent" if opt_sd is None else ""
+    if opt_sd is not None and not _opt_fits(state.opt, opt_sd):
+        why = "moment shapes differ from this run's parameters"
+    if not why:
+        try:     # torch builds the new state first: a failure changes nothing
+            state.opt.load_state_dict(opt_sd)
+        except (ValueError, KeyError) as e:
+            why = str(e)
+    if verbose:
+        print(f"[Auto-Resume] tolerant restore: {n_loaded} loaded, "
+              f"{len(kept)} kept fresh"
+              + (f", optimizer state RESET ({why})" if why else ""))
+        for name in kept[:8]:
+            print(f"[Auto-Resume][WARN] kept fresh: {name}")
+    state.step = int(ckpt.get("global_step", 0) or 0)
+    return ckpt
+
+
+def auto_resume(out_dir: str, state: TrainState,
+                verbose: bool = True) -> Tuple[int, int]:
+    """Restore the newest checkpoint, if any.  Returns (start_epoch,
+    global_step); start_epoch is 1 when there is no checkpoint."""
+    path, ep = find_latest(out_dir)
+    if path is None:
+        if verbose:
+            print("[Auto-Resume] No checkpoint found. "
+                  "Start training from scratch.")
+        return 1, 0
+    if verbose:
+        print(f"[Auto-Resume] Found latest ckpt: {path} (ep={ep})")
+    ckpt = restore_tolerant(path, state, verbose=verbose)
+    last_epoch = int(ckpt.get("epoch", ep))
+    if verbose:
+        print(f"[Auto-Resume] Resume from epoch {last_epoch}.")
+    return last_epoch + 1, state.step

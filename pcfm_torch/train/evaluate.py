@@ -6,15 +6,20 @@ pcfm/train/evaluate.py.
 
 Both default to the EMA weights (``cfg.ema_eval``).  The priors are drawn
 from a ``torch.Generator`` unless they are handed in (``z0`` / ``x0``), so
-a test can give both frameworks the same draws.
+a test can give both frameworks the same draws.  ``dump_clouds`` and
+``val_cd`` are the training loop's validation outputs.
 """
 from __future__ import annotations
 
+import os
 from typing import Optional
 
+import numpy as np
 import torch
 
+from pcfm.data.ply import save_point_cloud_ply, save_point_cloud_ply_rgb
 from pcfm_torch.config import Config
+from pcfm_torch.ops.chamfer import chamfer_l2
 from pcfm_torch.sample.integrators import get_sampler
 from pcfm_torch.sample.priors import make_latent_prior, make_pf_prior
 from pcfm_torch.train.state import ModelBundle
@@ -92,3 +97,24 @@ def make_sample_fn(bundle: ModelBundle, use_ema: Optional[bool] = None):
                        guidance_scale=cfg.guidance_scale)
 
     return sample
+
+
+def dump_clouds(x: np.ndarray, gt_pts: np.ndarray,
+                gt_rgb: Optional[np.ndarray], out_dir: str, count: int):
+    """PLY dumps of predictions + ground truth (train.py:345-353)."""
+    os.makedirs(out_dir, exist_ok=True)
+    for i in range(min(count, x.shape[0])):
+        pred, gt = (os.path.join(out_dir, f"{k}_{i}.ply")
+                    for k in ("pred", "gt"))
+        if x.shape[-1] == 6 and gt_rgb is not None:
+            save_point_cloud_ply_rgb(x[i, :, :3], np.clip(x[i, :, 3:], 0, 1),
+                                     pred)
+            save_point_cloud_ply_rgb(gt_pts[i], np.clip(gt_rgb[i], 0, 1), gt)
+        else:
+            save_point_cloud_ply(x[i, :, :3], pred)
+            save_point_cloud_ply(gt_pts[i], gt)
+
+
+def val_cd(x: torch.Tensor, pts: torch.Tensor) -> float:
+    """Mean train-time CD between generated and ground-truth xyz."""
+    return float(chamfer_l2(x[:, :, :3], pts).mean())

@@ -1,17 +1,29 @@
-"""Model bundle — port of the ``ModelBundle`` of pcfm/train/state.py.
+"""Model bundle and train state — port of pcfm/train/state.py and the
+update rule of pcfm/train/flat_opt.py.
 
-Builds the encoder, point flow and latent flow from a ``Config`` with the
-dtype policy of the JAX package (``amp and use_bf16`` -> bf16 compute, fp32
-parameters), plus EMA shadows that start equal to the live weights (as
-``init_state`` does).  Optimizer, EMA update and train state come with the
-training port.
+``ModelBundle`` builds the encoder, point flow and latent flow from a
+``Config`` with the dtype policy of the JAX package (``amp and use_bf16``
+-> bf16 compute, fp32 parameters), plus EMA shadows that start equal to the
+live weights (as ``init_state`` does).
+
+The optimizer is torch's AdamW (fused on CUDA) with the reference's three
+parameter groups (enc / pf / lf, train.py:249-253), b1 0.9, b2 0.999,
+eps 1e-8 and decoupled weight decay: the same update as optax.adamw and the
+JAX package's flat AdamW, with each group's warmup + cosine LR evaluated at
+the pre-increment step and held at ``min_lr`` past the end.  The joint
+global-norm clip runs on the gradients before the moments, with pcfm's
+formula ``g * clip / max(gnorm, clip)`` (flat_opt.py:62-64).  There is no
+raveled parameter vector, so ``cfg.flat_optimizer`` selects nothing here.
 """
 from __future__ import annotations
 
 import copy
-from typing import Callable
+import dataclasses
+import math
+from typing import Callable, List
 
 import torch
+from torch import nn
 
 from pcfm_torch.config import Config
 from pcfm_torch.models.encoder import ShapeEncoder
@@ -61,3 +73,111 @@ class ModelBundle:
     def lf_velocity_fn(self, use_ema: bool) -> Callable:
         """v(y, t, cond) of the EMA or the live latent flow."""
         return self.ema_lf if use_ema else self.lf
+
+
+GROUP_LR = {"enc": "lr_enc", "pf": "lr_pf", "lf": "lr_lf"}
+
+
+def cosine_lr(step: int, total: int, base_lr: float, min_lr: float = 1e-6,
+              warmup: int = 0) -> float:
+    """Linear warmup from ``min_lr``, then cosine to ``min_lr``, held there
+    past ``total`` (pcfm/train/state.py:cosine_lr)."""
+    if step < warmup:
+        return min_lr + (base_lr - min_lr) * step / max(1, warmup)
+    t = min(max((step - warmup) / max(1, total - warmup), 0.0), 1.0)
+    return min_lr + 0.5 * (base_lr - min_lr) * (1.0 + math.cos(math.pi * t))
+
+
+def count_parameters(module: nn.Module) -> int:
+    return sum(p.numel() for p in module.parameters())
+
+
+def make_optimizer(bundle: ModelBundle) -> torch.optim.AdamW:
+    """AdamW over the live enc / pf / lf parameters, one group each; each
+    group keeps its name and base LR, ``lr`` is set before every step."""
+    cfg = bundle.cfg
+    groups = [{"params": list(getattr(bundle, name).parameters()),
+               "name": name, "base_lr": getattr(cfg, attr),
+               "lr": getattr(cfg, attr)} for name, attr in GROUP_LR.items()]
+    cuda = bundle.device.type == "cuda"
+    return torch.optim.AdamW(groups, betas=(0.9, 0.999), eps=1e-8,
+                             weight_decay=cfg.weight_decay, fused=cuda,
+                             foreach=not cuda)
+
+
+def clip_by_global_norm_(grads: List[torch.Tensor], clip: float
+                         ) -> torch.Tensor:
+    """Joint global-norm clip in place, ``g * clip / max(gnorm, clip)``;
+    returns the pre-clip norm (the ``grad_norm`` metric), on the device."""
+    gnorm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    if clip and clip > 0:
+        torch._foreach_mul_(grads, clip / torch.clamp_min(gnorm, clip))
+    return gnorm
+
+
+@torch.no_grad()
+def ema_update(shadow: nn.Module, live: nn.Module, decay: float) -> None:
+    """shadow <- shadow * d + live * (1 - d) on every float parameter and
+    buffer (pcfm/train/state.py:ema_update)."""
+    def floats(m):
+        return [x for x in (*m.parameters(), *m.buffers())
+                if x.is_floating_point()]
+    s = floats(shadow)
+    torch._foreach_mul_(s, decay)
+    torch._foreach_add_(s, floats(live), alpha=1.0 - decay)
+
+
+@dataclasses.dataclass
+class TrainState:
+    """What one training run updates: the modules with their EMA shadows,
+    the optimizer, and the global step (a host integer: the LR schedule
+    needs no device sync)."""
+    bundle: ModelBundle
+    opt: torch.optim.AdamW
+    total_steps: int
+    step: int = 0
+
+    def trainable(self) -> List[torch.Tensor]:
+        return [p for g in self.opt.param_groups for p in g["params"]]
+
+    def apply_gradients(self) -> torch.Tensor:
+        """From the ``.grad`` of every trainable parameter: joint clip,
+        AdamW, EMA, step + 1.  Returns the pre-clip global norm."""
+        cfg = self.bundle.cfg
+        params = self.trainable()
+        for p in params:
+            if p.grad is None:  # JAX differentiates every leaf: zero, not skip
+                p.grad = torch.zeros_like(p)
+        gnorm = clip_by_global_norm_([p.grad for p in params],
+                                     cfg.grad_clip_norm or 0.0)
+        for g in self.opt.param_groups:  # LR at the pre-increment step
+            g["lr"] = (cosine_lr(self.step, self.total_steps, g["base_lr"],
+                                 cfg.min_lr, cfg.warmup_steps)
+                       if cfg.use_cosine_lr else g["base_lr"])
+        self.opt.step()
+        ema_update(self.bundle.ema_pf, self.bundle.pf, cfg.ema_decay)
+        ema_update(self.bundle.ema_lf, self.bundle.lf, cfg.ema_decay)
+        self.step += 1
+        return gnorm
+
+
+def check_ported(cfg: Config) -> None:
+    """Raise before a run starts for training options the port lacks."""
+    missing = [name for name, on in (
+        ("lambda_emd > 0 (endpoint EMD loss)", cfg.lambda_emd > 0),
+        ("lambda_adv > 0 (CondAdversary)", cfg.lambda_adv > 0),
+        ("fm_coupling='sliced_ot'", cfg.fm_coupling == "sliced_ot"))
+        if on]
+    if missing:
+        raise NotImplementedError(f"{', '.join(missing)}: not yet ported "
+                                  "to pcfm_torch")
+
+
+def init_state(cfg: Config, device, total_steps: int,
+               generator: torch.Generator) -> TrainState:
+    """Fresh modules (drawn from ``generator``), EMA = init, a zero-step
+    optimizer."""
+    check_ported(cfg)
+    bundle = ModelBundle(cfg, device, generator)
+    return TrainState(bundle=bundle, opt=make_optimizer(bundle),
+                      total_steps=total_steps)

@@ -1,0 +1,159 @@
+"""The flow-matching train step — port of pcfm/train/step.py (reference
+train.py:553-673).
+
+  * encoder z = enc([pts || rgb * color_on])  (geometry warmup zeroes RGB)
+  * point-flow FM: t ~ Beta(a, 1), x_t = (1 - t) x0 + t x1, target
+    v = x1 - x0, MSE split pos / colour with lambda_color * color_on
+  * latent-flow FM on detached z (unconditional)
+  * optional zreg / var / cov / pair penalties on z
+  * joint grad clip, per-group AdamW, EMA of the point and latent flows
+
+The random draws (t, priors, CFG drop mask, latent t and noise, pair
+indices) come from an explicit ``torch.Generator`` on the batch's device,
+or are handed in as ``draws``, so a test can give both frameworks the same
+numbers.  Beta(a, 1) is drawn as ``u ** (1 / a)`` with u ~ U(0, 1) (its CDF
+is x^a): ``torch.distributions.Beta`` takes no generator.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from pcfm_torch.sample.priors import make_pf_prior
+from pcfm_torch.train.state import TrainState
+
+
+def mse(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.mean((a.to(torch.float32) - b.to(torch.float32)) ** 2)
+
+
+def beta_a1(generator: torch.Generator, a: float, n: int) -> torch.Tensor:
+    """n draws of Beta(a, 1), skewed toward 1 for a > 1."""
+    u = torch.rand(n, generator=generator, device=generator.device)
+    return u ** (1.0 / a)
+
+
+def fm_interpolate(t: torch.Tensor, x1: torch.Tensor, z0: torch.Tensor):
+    """x_t = (1 - t) z0 + t x1 and the target velocity x1 - z0."""
+    tb = t.reshape((x1.shape[0],) + (1,) * (x1.ndim - 1))
+    return (1.0 - tb) * z0 + tb * x1, x1 - z0
+
+
+def _rgb_path(cfg, batch) -> bool:
+    return cfg.pf_point_dim == 6 and batch.get("rgb") is not None
+
+
+def make_draws(cfg, batch: Dict[str, torch.Tensor],
+               generator: torch.Generator, drop_p_now: float
+               ) -> Dict[str, torch.Tensor]:
+    """Every random number of one step, from ``generator``:
+    ``t`` (B,), ``x0`` the point prior (B, N, D) before ``color_on``,
+    ``drop`` the CFG drop mask (B,) (1 = dropped), ``t_z`` (B,), ``eps_z``
+    (B, latent) and, with ``lambda_pair > 0``, ``idx2`` (B, N)."""
+    bsz, n, _ = batch["pts"].shape
+    dev = generator.device
+    d = 6 if _rgb_path(cfg, batch) else 3
+    draws = {
+        "t": beta_a1(generator, cfg.t_beta_a, bsz),
+        "x0": make_pf_prior(generator, (bsz, n, d), cfg.point_prior_std,
+                            cfg.color_prior, cfg.color_prior_std),
+        "drop": (torch.rand(bsz, generator=generator, device=dev)
+                 < drop_p_now).to(torch.float32),
+        "t_z": beta_a1(generator, cfg.t_beta_a, bsz),
+        "eps_z": torch.randn((bsz, cfg.latent_dim), generator=generator,
+                             device=dev) * cfg.latent_prior_std}
+    if cfg.lambda_pair > 0:
+        draws["idx2"] = torch.randint(0, n, (bsz, n), generator=generator,
+                                      device=dev)
+    return draws
+
+
+def compute_loss(bundle, batch: Dict[str, torch.Tensor],
+                 draws: Dict[str, torch.Tensor], color_on: float):
+    """(loss, metrics) of one batch (pcfm/train/step.py:loss_fn).  batch:
+    'pts' (B, N, 3); optional 'rgb' (B, N, 3) in [0, 1]; optional 'cond'
+    (B, C)."""
+    cfg = bundle.cfg
+    pts = batch["pts"].to(torch.float32)
+    rgb, cond = batch.get("rgb"), batch.get("cond")
+    bsz = pts.shape[0]
+    if cond is None and cfg.cond_dim > 0:
+        # zero-pad a missing condition (keeps pf_cond_dim consistent)
+        cond = torch.zeros((bsz, cfg.cond_dim), device=pts.device)
+
+    x0 = draws["x0"]
+    if _rgb_path(cfg, batch):
+        data_pf = torch.cat([pts, rgb * color_on], dim=-1)
+        # geometry warmup: colour prior zeroed together with colour data
+        x0 = torch.cat([x0[..., :3], x0[..., 3:] * color_on], dim=-1)
+    else:
+        data_pf = pts
+    x_t, target_v = fm_interpolate(draws["t"], data_pf, x0)
+
+    if cfg.enc_in_channels == 6:
+        rgb_in = rgb if rgb is not None else torch.zeros_like(pts)
+        enc_in = torch.cat([pts, rgb_in * color_on], dim=-1)
+    else:
+        enc_in = pts
+    z, _ = bundle.enc(enc_in)
+    cond_full = z if cond is None else torch.cat([z, cond.to(z.dtype)], 1)
+    pred_v = bundle.pf(x_t, draws["t"], cond_full, draws["drop"][:, None])
+
+    if cfg.pf_point_dim == 6:
+        loss_pos = mse(pred_v[..., :3], target_v[..., :3])
+        loss_col = mse(pred_v[..., 3:], target_v[..., 3:])
+        # warmup: colour loss excluded (color_on = 0)
+        loss_point = loss_pos + cfg.lambda_color * color_on * loss_col
+    else:
+        loss_pos = mse(pred_v, target_v)
+        loss_col = torch.zeros((), device=pts.device)
+        loss_point = loss_pos
+
+    # latent flow on detached z (train.py:635-645)
+    z_det = z.detach()
+    y_t, target_vz = fm_interpolate(draws["t_z"], z_det, draws["eps_z"])
+    loss_latent = mse(bundle.lf(y_t, draws["t_z"], None), target_vz)
+
+    loss = cfg.lambda_point * loss_point + cfg.lambda_latent * loss_latent
+    metrics = {"loss_point": loss_point, "loss_latent": loss_latent,
+               "loss_pos": loss_pos, "loss_col": loss_col}
+    if cfg.lambda_zreg > 0:
+        metrics["loss_zreg"] = torch.mean(z ** 2)
+        loss = loss + cfg.lambda_zreg * metrics["loss_zreg"]
+    if cfg.lambda_var > 0:
+        std = torch.sqrt(torch.var(z, dim=0, unbiased=False) + 1e-4)
+        metrics["loss_var"] = torch.mean(torch.relu(1.0 - std))
+        loss = loss + cfg.lambda_var * metrics["loss_var"]
+    if cfg.lambda_cov > 0:
+        zc = z - z.mean(dim=0, keepdim=True)
+        cov = (zc.T @ zc) / max(1, bsz - 1)
+        off = cov - torch.diag(torch.diag(cov))
+        metrics["loss_cov"] = torch.sum(off ** 2) / z.shape[-1]
+        loss = loss + cfg.lambda_cov * metrics["loss_cov"]
+    if cfg.lambda_pair > 0:
+        # a second random subsample of the same clouds must encode alike
+        idx2 = draws["idx2"][..., None].expand(-1, -1, enc_in.shape[-1])
+        z2, _ = bundle.enc(torch.gather(enc_in, 1, idx2))
+        metrics["loss_pair"] = mse(z, z2)
+        loss = loss + cfg.lambda_pair * metrics["loss_pair"]
+    metrics["loss"] = loss
+    return loss, metrics
+
+
+def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
+               generator: Optional[torch.Generator], color_on: float,
+               drop_p_now: float,
+               draws: Optional[Dict[str, torch.Tensor]] = None
+               ) -> Dict[str, torch.Tensor]:
+    """One optimizer step in place on ``state``.  Returns the metrics as
+    0-d device tensors (no host sync): the losses and the pre-clip
+    ``grad_norm``."""
+    if draws is None:
+        draws = make_draws(state.bundle.cfg, batch, generator, drop_p_now)
+    state.opt.zero_grad(set_to_none=True)
+    loss, metrics = compute_loss(state.bundle, batch, draws, color_on)
+    loss.backward()
+    out = {k: v.detach() for k, v in metrics.items()}
+    out["grad_norm"] = state.apply_gradients()
+    return out

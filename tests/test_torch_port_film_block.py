@@ -107,6 +107,79 @@ def test_shape_checks(bad):
         fb.film_block(*args)
 
 
+_NAMES = ("h", "s", "t", "gamma", "beta", "w", "b")
+
+
+def _grad_close(got, want, rel, where=""):
+    """|got - want| <= rel * max|want|, elementwise."""
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    assert got.shape == want.shape, where
+    scale = max(float(np.abs(want).max()), 1e-30)
+    np.testing.assert_allclose(got / scale, want / scale, atol=rel, rtol=0,
+                               err_msg=where)
+
+
+@pytest.mark.parametrize("n", [256, 200])
+def test_backward_matches_jax_grad(jax_fb, n):
+    # the port's autograd Function (plain backward on the CPU) against
+    # jax.grad through the Pallas kernel's custom_vjp (interpret mode)
+    jnp, jax_fb = jax_fb
+    import jax
+    a = _inputs(7, n=n, c=256)
+    dy = np.random.RandomState(8).randn(2, n, 256).astype(np.float32)
+    want = jax.grad(
+        lambda *x: jnp.sum(jax_fb.film_block(*x, True) * dy),
+        argnums=tuple(range(7)))(*[jnp.asarray(a[k]) for k in _NAMES])
+    args = [x.requires_grad_(True) for x in _port_args(a)]
+    before = fb.bwd_launches
+    got = torch.autograd.grad(fb.film_block(*args), args,
+                              torch.from_numpy(dy))
+    assert fb.bwd_launches == before                  # CPU: plain version
+    for name, g, w in zip(_NAMES, got, want):
+        w = np.asarray(w)
+        if name == "w":                               # JAX (in, out)
+            w = w.T
+        _grad_close(g.numpy(), w, 1e-4, name)
+
+
+def test_reference_backward_matches_autograd():
+    a = _inputs(9, n=123, c=256)
+    args = [x.requires_grad_(True) for x in _port_args(a)]
+    dy = torch.from_numpy(
+        np.random.RandomState(10).randn(2, 123, 256).astype(np.float32))
+    want = torch.autograd.grad(fb.film_block_reference(*args), args, dy)
+    with torch.no_grad():
+        _, mean, rstd = fb.film_block_reference_forward(*args)
+        got = fb.film_block_reference_backward(dy, *args[:6], mean, rstd)
+    for name, g, w in zip(_NAMES, got, want):
+        _grad_close(g, w, 1e-5, name)
+
+
+def test_backward_keeps_jax_dtypes():
+    # dh in h's dtype, dgamma / dbeta in gamma's, the weights' grads fp32
+    args = [x.requires_grad_(True)
+            for x in _port_args(_inputs(11, n=40), dtype=torch.bfloat16)]
+    y = fb.film_block(*args)
+    grads = torch.autograd.grad(y.float().square().sum(), args)
+    assert [g.dtype for g in grads] == [x.dtype for x in args]
+    assert grads[0].dtype == torch.bfloat16 and grads[5].dtype == \
+        torch.float32
+    assert all(torch.isfinite(g.float()).all() for g in grads)
+
+
+def test_backward_takes_strided_dy():
+    # autograd may hand the Function a non-contiguous dy (here: a transposed
+    # view); the result must equal the contiguous one's
+    args = [x.requires_grad_(True) for x in _port_args(_inputs(12, n=64))]
+    y = fb.film_block(*args)
+    dy = torch.randn(2, 128, 64).transpose(1, 2)
+    assert not dy.is_contiguous()
+    got = torch.autograd.grad(y, args, dy)
+    want = torch.autograd.grad(fb.film_block(*args), args, dy.contiguous())
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
 def _fake_nvcc(tmp_path, monkeypatch, script):
     """Point the builder at a stand-in nvcc and a private build dir."""
     from pcfm_torch.ops import build
@@ -175,15 +248,28 @@ def test_kernel_matches_plain_version(cuda, dtype, n, tol):
 
 
 @pytest.mark.gpu
-def test_kernel_refuses_grad_and_mixed_dtypes(cuda):
-    args = _port_args(_inputs(6, n=64), cuda, torch.bfloat16)
-    w = args[5].clone().requires_grad_(True)
-    with pytest.raises(RuntimeError, match="backward"):
-        fb.film_block(*args[:5], w, args[6])
+@pytest.mark.parametrize("dtype,n", [(torch.float32, 300),
+                                     (torch.bfloat16, 1000)])
+def test_kernel_backward_matches_plain_and_refuses_mixed_dtypes(cuda, dtype,
+                                                                n):
+    # gradients go through the backward kernel (one launch) and match the
+    # plain backward within bf16-product error relative to each one's max
+    args = [x.requires_grad_(True)
+            for x in _port_args(_inputs(6, n=n, c=256), cuda, dtype)]
+    dy = torch.randn(2, n, 256, device=cuda).to(dtype)
+    y = fb.film_block(*args)
+    before = fb.bwd_launches
+    got = torch.autograd.grad(y, args, dy)
+    torch.cuda.synchronize()
+    assert fb.bwd_launches == before + 1
     with torch.no_grad():
-        fb.film_block(*args[:5], w, args[6])
+        _, mean, rstd = fb.film_block_forward(*args)
+        want = fb.film_block_reference_backward(dy, *args[:6], mean, rstd)
+    for name, g, w in zip(_NAMES, got, want):
+        assert g.dtype == w.dtype, name
+        _grad_close(g.float().cpu(), w.float().cpu(), 2e-2, name)
     with pytest.raises(TypeError):
-        fb.film_block(*args[:3], args[3].float(), *args[4:])
+        fb.film_block(*args[:3], args[3].detach().double(), *args[4:])
 
 
 @pytest.mark.gpu
@@ -204,3 +290,23 @@ def test_sample_cli_on_card_goes_through_kernel(cuda, tmp_path):
         # 2 FiLM blocks x 2 Heun steps x 2 evaluations, CFG in one batch
         assert fb.launches - before == 8
         assert x.shape == (2, 300, 6) and np.isfinite(x).all()
+
+
+@pytest.mark.gpu
+def test_train_step_on_card_goes_through_both_kernels(cuda):
+    from pcfm.config import Config
+    from pcfm_torch.train import state, step
+    cfg = Config(latent_dim=16, enc_width=32, pf_width=128, pf_depth=3,
+                 pf_emb_dim=32, lf_width=64, lf_depth=3, lf_emb_dim=16,
+                 has_rgb=True, cond_dim=1, fused_trunk="on")
+    st = state.init_state(cfg, cuda, 10, torch.Generator().manual_seed(0))
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    batch = {"pts": torch.randn(2, 300, 3, device=cuda),
+             "rgb": torch.rand(2, 300, 3, device=cuda),
+             "cond": torch.rand(2, 1, device=cuda)}
+    fwd, bwd = fb.launches, fb.bwd_launches
+    m = step.train_step(st, batch, gen, 1.0, 0.1)
+    torch.cuda.synchronize()
+    # pf_depth 3: two fused FiLM blocks, one forward and one backward each
+    assert (fb.launches - fwd, fb.bwd_launches - bwd) == (2, 2)
+    assert all(torch.isfinite(v) for v in m.values())
