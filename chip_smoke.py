@@ -33,7 +33,28 @@ failure:
    trunk in turns (x 293 steps = s/epoch), peak memory, and the kernels'
    share of device time from one torch.profiler run;
 9. determinism: two 3-step runs from one seed and batch (kernel trunk)
-   give bitwise-equal losses and parameters.
+   give bitwise-equal losses and parameters;
+10. voxel kernels vs plain: the gather and the scatter against their
+   plain-torch versions (fp32 math) at the hybrid's stage shapes
+   ((R, C) = (32, 128), (16, 256), (8, 256); 8 and 16 clouds x 20 000
+   points; K = 1 and 8; bf16 and fp32 inputs), two launches bitwise equal,
+   CUDA-event times of the kernel, the plain version and the one PyTorch
+   call that computes the same function (``F.grid_sample`` for the K = 8
+   gather, ``scatter_reduce(mean)`` for the K = 1 scatter-mean);
+11. the hybrid main path: a full-width hybrid checkpoint of the bench
+   configuration with the Config's ContextNet (128/256/256 channels, 2/2/2
+   blocks, resolutions 32/16/8, SE, GroupNorm 32, global branch, bf16
+   island; head 512/6/256 with the kernel trunk), random weights from a
+   seeded generator, through the sampling CLI (``--device cuda``), plain
+   and with guidance 0.25: exact launch counts (FiLM block 5 x 100, gather
+   and scatter one each per PVConv per evaluation: 6 x 100), 8 finite
+   clouds and PLYs, peak memory;
+12. hybrid Heun x 50 ms/shape (three runs after a warm-up) and one
+   torch.profiler run: device time and launches of the gather, the
+   scatter, the FiLM block and the convolutions, and the idle share;
+13. end to end: the full-width hybrid velocity on the same checkpoint and
+   inputs at (2, 20 000), on the card (bf16, kernels) and on the CPU (fp32,
+   plain versions), within HYB_E2E_REL_TOL of each other.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -67,6 +88,27 @@ GRAD_REL_TOL = 2e-2
 TRAIN_SAMPLE_STEPS = 4               # validation sampler of the CLI phase
 STEPS_PER_EPOCH = 293                # bench.py's epoch at batch 8
 TIMED_STEPS = 10
+HYB_DIR = os.path.join(RUN_DIR, "hybrid")
+# the hybrid's ContextNet stages (Config defaults): (resolution, channels)
+VOXEL_STAGES = ((32, 128), (16, 256), (8, 256))
+PVCONVS = 6                          # ctx_stage_blocks 2 + 2 + 2
+# gather / scatter vs plain (fp32 math): both sum the same fp32 products of
+# the same inputs, in another order (the plain scatter's index_add_ uses
+# atomics on the card, in an order that changes from run to run), so the
+# error of an output is bounded relative to the sum of the magnitudes of
+# its products (up to ~10^4 of them for a central voxel at R = 8):
+# |kernel - plain| <= VOXEL_TOL * sum |w * x| + VOXEL_ATOL
+VOXEL_TOL = 1e-5
+VOXEL_ATOL = 1e-6
+# the card's bf16 island and head against the CPU's fp32 plain path, for
+# one velocity evaluation: max abs error over max |v|
+HYB_E2E_REL_TOL = 5e-2
+HYB_E2E_POINTS = (2, 20000)
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, dense bf16 tensor-core
+# and fp32 (non-tensor) FLOP/s
+HBM_BPS = 3.35e12
+BF16_FLOPS = 989e12
+FP32_FLOPS = 67e12
 
 
 def sh(*cmd) -> str:
@@ -389,32 +431,14 @@ def train_state(torch, trunk: str):
 
 def kernel_share(prof_dir: str, torch, fn, steps: int) -> dict:
     """One torch.profiler run of ``steps`` calls of ``fn``: device time by
-    kernel from the trace's kernel events."""
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            fn()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    os.makedirs(prof_dir, exist_ok=True)
-    path = os.path.join(prof_dir, "train_step_trace.json")
-    prof.export_chrome_trace(path)
-    with open(path) as f:
-        events = json.load(f)["traceEvents"]
-    kernels = [e for e in events if e.get("cat") == "kernel"]
-    by_name = {}
-    for e in kernels:
-        by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"]
-    busy = sum(by_name.values())
-    ours = sum(v for k, v in by_name.items() if "film_block" in k)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
-    return {"wall_ms": wall_us / 1e3 / steps, "busy_ms": busy / 1e3 / steps,
-            "film_block_ms": ours / 1e3 / steps,
+    kernel and the FiLM-block kernels' share of it."""
+    prof = profile_kernels(torch, fn, steps, {"film_block": ("film_block",)},
+                           os.path.join(prof_dir, "train_step_trace.json"))
+    ours, busy = prof["film_block"][0], prof["busy_ms"]
+    return {"wall_ms": prof["wall_ms"], "busy_ms": busy,
+            "film_block_ms": ours,
             "film_block_share": ours / busy if busy else 0.0,
-            "top": [(k[:90], v / 1e3 / steps) for k, v in top]}
+            "top": [(k, v) for k, v, _ in prof["top"][:10]]}
 
 
 def train_step_time(torch):
@@ -494,6 +518,342 @@ def determinism(torch):
         raise RuntimeError("train step is not bitwise reproducible")
 
 
+def bound_ms(nbytes: float, flops: float, peak_flops: float) -> tuple:
+    """(least time in ms, "bytes" or "operations"): the larger of the
+    bytes over the HBM rate and the operations over the peak rate."""
+    t_bytes = nbytes / HBM_BPS * 1e3
+    t_ops = flops / peak_flops * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def film_bounds(bsz: int, n: int, c: int) -> dict:
+    """Least times of the FiLM-block kernels at (bsz, n, c) bf16: each
+    input read once and each output written once; the products on the
+    bf16 tensor cores (forward silu(f) @ W^T; backward dy @ W and the dW
+    product)."""
+    act, rows = bsz * n * c * 2, bsz * n
+    fwd_bytes = (2 * act + c * c * 4 + 3 * c * 4 + 2 * bsz * c * 2
+                 + 2 * rows * 4)
+    bwd_bytes = (3 * act + 2 * c * c * 4 + 2 * rows * 4 + 2 * c * 4
+                 + 4 * bsz * c * 2 + 3 * c * 4)
+    return {"fwd": bound_ms(fwd_bytes, 2 * rows * c * c, BF16_FLOPS),
+            "bwd": bound_ms(bwd_bytes, 4 * rows * c * c, BF16_FLOPS)}
+
+
+def voxel_bounds(torch, ids, w, dense, out_rows: int, what: str) -> tuple:
+    """Least time of one gather or scatter on these inputs: the rows it
+    must read (gather: the distinct grid rows the ids name; scatter: every
+    update row), ids and weights, and the fp32 output written once; one
+    multiply-add per (entry, channel) at the fp32 rate."""
+    bsz, c, es = dense.shape[0], dense.shape[-1], dense.element_size()
+    if what == "gather":
+        offs = torch.arange(bsz, device=ids.device)[:, None, None]
+        rows = int((ids.long() + offs * dense.shape[1]).unique().numel())
+    else:
+        rows = bsz * dense.shape[1]
+    nbytes = rows * c * es + ids.numel() * 4 + w.numel() * 4 \
+        + bsz * out_rows * c * 4
+    return bound_ms(nbytes, 2 * ids.numel() * c, FP32_FLOPS)
+
+
+def timed_turns(fns: dict, rounds: int = 2, reps: int = 10) -> dict:
+    """Median CUDA-event ms of each function, timed in turns (plain,
+    kernel, kernel, plain, ...) after one warm-up call each."""
+    names = list(fns)
+    order = (names + names[::-1]) * rounds
+    times = {k: [] for k in names}
+    for k in names:
+        fns[k]()
+    for k in order:
+        times[k].append(cuda_ms(fns[k], reps))
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
+def voxel_vs_plain(tvs, torch):
+    """Phase 10: both voxel kernels against their plain versions at the
+    hybrid's stage shapes.  Returns {(kernel, R, C, B, K, dtype): row}."""
+    import torch.nn.functional as F
+    from pcfm_torch.models.context import VOXEL_EPS
+    out = {}
+    for bsz in (B, 2 * B):
+        g = torch.Generator(device=DEVICE).manual_seed(SEED + 4)
+        pts = torch.randn(bsz, N, 3, device=DEVICE, generator=g)
+        # the ContextNet's entry sort by the R = 32 voxel id
+        perm, inv = tvs.sort_perm_by_voxel(pts, VOXEL_STAGES[0][0],
+                                           eps=VOXEL_EPS)
+        pts = tvs.permute_points(pts, perm)
+        for r, c in VOXEL_STAGES:
+            cache = tvs.build_stage_cache(pts, r, eps=VOXEL_EPS)
+            v = r ** 3
+            ids8, w8 = cache["corners"]
+            cases = {1: (cache["plan"].ids, cache["inv_pt"][:, None, :],
+                         cache["plan"]),
+                     8: (ids8, w8, tvs.scatter_plan(ids8, v))}
+            for dtype in (torch.bfloat16, torch.float32):
+                grid = torch.randn(bsz, v, c, device=DEVICE,
+                                   generator=g).to(dtype)
+                upd = torch.randn(bsz, N, c, device=DEVICE,
+                                  generator=g).to(dtype)
+                for k, (ids, w, plan) in cases.items():
+                    out.update(voxel_case(tvs, torch, F, cache, r, c, bsz, k,
+                                          dtype, ids, w, plan, grid, upd))
+                del grid, upd
+            del cache, cases
+        torch.cuda.empty_cache()
+    return out
+
+
+def voxel_case(tvs, torch, F, cache, r, c, bsz, k, dtype, ids, w, plan,
+               grid, upd) -> dict:
+    """One (R, C, B, K, dtype) case of phase 10, both kernels."""
+    v = r ** 3
+    tag = f"R={r} C={c} B={bsz} K={k} {str(dtype)[6:]}"
+    fns = {"gather": (lambda: tvs.voxel_gather(grid, ids, w),
+                      lambda: tvs.voxel_gather_reference(grid, ids, w)),
+           "scatter": (lambda: tvs.voxel_scatter(upd, w, plan),
+                       lambda: tvs.voxel_scatter_reference(upd, ids, w, v))}
+    magnitude = {  # the same sums over |w * x|
+        "gather": lambda: tvs.voxel_gather_reference(grid.abs(), ids,
+                                                     w.abs()),
+        "scatter": lambda: tvs.voxel_scatter_reference(upd.abs(), ids,
+                                                       w.abs(), v)}
+    library = {}
+    if k == 8:             # trilinear devoxelize: grid_sample on the 5-D grid
+        grid5 = grid.view(bsz, r, r, r, c).permute(0, 4, 1, 2, 3)
+        loc = (cache["norm_coords"].flip(-1) * (2.0 / (r - 1)) - 1.0)
+        loc = loc.view(bsz, 1, 1, N, 3).to(dtype)
+        library["gather"] = lambda: F.grid_sample(
+            grid5, loc, mode="bilinear", padding_mode="zeros",
+            align_corners=True)
+    else:                  # weights 1 / count: the scatter-mean
+        idx = ids[:, 0].long()[..., None].expand(-1, -1, c).contiguous()
+        zeros = torch.zeros((bsz, v, c), dtype=dtype, device=DEVICE)
+        library["scatter"] = lambda: zeros.scatter_reduce(
+            1, idx, upd, "mean", include_self=False)
+    rows = {}
+    for what, (kern, plain) in fns.items():
+        got, again = kern(), kern()
+        torch.cuda.synchronize()
+        ref = plain()
+        err = (got - ref).abs()
+        worst = (err / (VOXEL_TOL * magnitude[what]() + VOXEL_ATOL)).max()
+        ok = worst.item() <= 1.0 and bool(torch.isfinite(got).all())
+        if not ok or not torch.equal(got, again):
+            raise RuntimeError(f"voxel_{what} {tag}: disagrees with its "
+                               f"plain version (max abs err "
+                               f"{err.max().item():.4g}, max err/bound "
+                               f"{worst.item():.4g}) or differs between "
+                               f"two launches")
+        lib_note = ""
+        if what in library:
+            lib_out = library[what]().float()
+            if what == "gather":
+                lib_out = lib_out.view(bsz, c, N).transpose(1, 2)
+            lib_note = (f"; library call max abs diff "
+                        f"{(lib_out - ref).abs().max().item():.3g}")
+        t = timed_turns({"plain": plain, "kernel": kern,
+                         **({"library": library[what]}
+                            if what in library else {})})
+        dense = grid if what == "gather" else upd
+        bms, by = voxel_bounds(torch, ids, w, dense,
+                               N if what == "gather" else v, what)
+        lib_t = f", library {t['library']:.4f} ms" if "library" in t else ""
+        print(f"[voxel] {what} {tag}: max abs err {err.max().item():.4g} "
+              f"(max err/bound {worst.item():.3g}), bitwise equal across "
+              f"two launches"
+              f"{lib_note}; kernel {t['kernel']:.4f} ms, plain "
+              f"{t['plain']:.4f} ms{lib_t}; bound {bms:.4f} ms ({by})")
+        rows[(what, r, c, bsz, k, dtype)] = {
+            "max_abs_err": err.max().item(), "ms": t["kernel"],
+            "plain_ms": t["plain"], "library_ms": t.get("library"),
+            "bound_ms": bms, "bound_by": by}
+        del got, again, ref, err, worst
+    return rows
+
+
+def hybrid_cfg(**kw):
+    """The bench configuration with the hybrid point flow (the Config's
+    ContextNet defaults, bf16 island, kernel trunk)."""
+    return bench_cfg(pf_backbone="hybrid", **kw)
+
+
+def reset_counts(fb, tvs):
+    fb.launches = fb.bwd_launches = 0
+    for name in tvs.launches:
+        tvs.launches[name] = 0
+
+
+def hybrid_main_path(fb, tvs, torch, np):
+    """Phase 11: the sampling CLI on a full-width hybrid checkpoint.
+    Returns the launch counts of the plain (no CFG) run."""
+    from pcfm_torch.sample import cli
+    from pcfm_torch.train import checkpoint
+    from pcfm_torch.train.state import ModelBundle
+
+    shutil.rmtree(HYB_DIR, ignore_errors=True)
+    gen = torch.Generator().manual_seed(SEED)
+    bundle = ModelBundle(hybrid_cfg(), DEVICE, gen)
+    with torch.no_grad():
+        # leave the zero-init start (head_out, the FiLM1d affines), so the
+        # PVConv pyramid reaches the velocity
+        for name, p in bundle.pf.named_parameters():
+            if name.endswith(("head_out.weight", "film.affine.weight")):
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.02)
+        bundle.ema_pf.load_state_dict(bundle.pf.state_dict())
+    path = checkpoint.save(HYB_DIR, 1, bundle)
+    n_params = sum(p.numel() for p in bundle.pf.parameters())
+    print(f"[hybrid] wrote {os.path.relpath(path, ROOT)} (point flow "
+          f"{n_params / 1e6:.3f} M parameters)")
+    del bundle
+
+    want = {"film_block": FILM_BLOCKS * NFE,
+            "voxel_gather": PVCONVS * NFE, "voxel_scatter": PVCONVS * NFE}
+    result = {}
+    for name, extra in (("heun50", []),
+                        ("heun50_cfg0.25", ["--guidance_scale", "0.25"])):
+        save_dir = os.path.join(HYB_DIR, name)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(fb, tvs)
+        t0 = time.perf_counter()
+        x = cli.main(["--out_dir", HYB_DIR, "--save_dir", save_dir,
+                      "--num_samples", str(B), "--n_points", str(N),
+                      "--seed", str(SEED), "--device", "cuda", *extra])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {"film_block": fb.launches, **tvs.launches}
+        plys = sorted(os.listdir(save_dir))
+        headers = {ply_vertices(os.path.join(save_dir, p)) for p in plys}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"[hybrid] {name}: launches {got} (expected {want}: FiLM "
+              f"{FILM_BLOCKS} blocks and {PVCONVS} PVConvs x one scatter + "
+              f"one gather, x {NFE} evaluations), {len(plys)} PLYs, clouds "
+              f"{x.shape}, finite {bool(np.isfinite(x).all())}, |x| max "
+              f"{np.abs(x).max():.4g}, CLI wall {wall:.3f} s incl. load and "
+              f"PLY writes, peak device memory {peak:.3f} GiB")
+        rgb_ply = (N, ("x", "y", "z", "red", "green", "blue"))
+        if got != want or fb.bwd_launches:
+            raise RuntimeError(f"{name}: launches {got}, expected {want}")
+        if (len(plys) != B or headers != {rgb_ply}
+                or x.shape != (B, N, 6) or not np.isfinite(x).all()):
+            raise RuntimeError(f"{name}: bad output")
+        result[name] = dict(got, peak_gib=peak)
+    return result
+
+
+def profile_kernels(torch, fn, calls: int, groups: dict,
+                    trace: str) -> dict:
+    """One torch.profiler run of ``calls`` calls of ``fn``: device time
+    and launches by kernel group (a group matches kernel names containing
+    any of its words), device-busy time and the wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    os.makedirs(os.path.dirname(trace), exist_ok=True)
+    prof.export_chrome_trace(trace)
+    with open(trace) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("cat") == "kernel"]
+    by_name, count = {}, {}
+    for e in events:
+        by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"]
+        count[e["name"]] = count.get(e["name"], 0) + 1
+    busy = sum(by_name.values())
+    out = {"wall_ms": wall_us / 1e3 / calls, "busy_ms": busy / 1e3 / calls,
+           "top": [(k[:90], v / 1e3 / calls, count[k]) for k, v in
+                   sorted(by_name.items(), key=lambda kv: -kv[1])[:12]]}
+    for group, words in groups.items():
+        names = [k for k in by_name if any(w in k.lower() for w in words)]
+        out[group] = (sum(by_name[k] for k in names) / 1e3 / calls,
+                      sum(count[k] for k in names) // calls)
+        out[f"{group}_kernels"] = sorted({k[:60] for k in names})
+    return out
+
+
+def hybrid_ms_per_shape(torch):
+    """Phase 12: hybrid Heun x 50 ms/shape, then a profiled run."""
+    from pcfm_torch.sample.cli import load_run
+    from pcfm_torch.train.evaluate import make_sample_fn
+
+    _, bundle, _ = load_run(HYB_DIR, None, DEVICE)
+    sample = make_sample_fn(bundle)
+
+    def run():
+        return sample(None, torch.Generator(device=DEVICE).manual_seed(SEED),
+                      B, N)
+
+    times = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3 / B)
+    ms = statistics.median(times[1:])
+    print(f"[hybrid] Heun x50 at {B} x {N}: "
+          f"{' '.join(f'{t:.2f}' for t in times)} ms/shape (first is "
+          f"warm-up; median {ms:.2f})")
+    groups = {"voxel_gather": ("voxel_gather",),
+              "voxel_scatter": ("voxel_scatter",),
+              "film_block": ("film_block",),
+              "conv3d": ("fprop", "conv", "cudnn")}
+    prof = profile_kernels(torch, run, 1, groups,
+                           os.path.join(HYB_DIR, "sample_trace.json"))
+    idle = 1 - prof["busy_ms"] / prof["wall_ms"]
+    print(f"[hybrid] profiler, one Heun x50 run: {prof['wall_ms']:.1f} ms "
+          f"wall, {prof['busy_ms']:.1f} ms device busy (idle share "
+          f"{idle:.3f})")
+    for group in groups:
+        g_ms, g_n = prof[group]
+        print(f"[hybrid]   {group}: {g_ms:.2f} ms device time, {g_n} "
+              f"launches, {g_ms / prof['busy_ms']:.3f} of device time "
+              f"({len(prof[group + '_kernels'])} kernel names: "
+              f"{'; '.join(prof[group + '_kernels'])})")
+    for name, k_ms, k_n in prof["top"]:
+        print(f"[hybrid]   {k_ms:9.2f} ms  {k_n:5d} x  {name}")
+    return {"ms_per_shape": ms, "profile": prof, "idle_share": idle}
+
+
+def hybrid_end_to_end(tvs, torch):
+    """Phase 13: one full-width hybrid velocity, card (bf16, kernels) vs
+    CPU (fp32, plain versions), on the same checkpoint and inputs."""
+    from pcfm_torch.sample.cli import load_run
+    b, n = HYB_E2E_POINTS
+    cfg = hybrid_cfg()
+    g = torch.Generator().manual_seed(SEED + 5)
+    x = torch.randn(b, n, 6, generator=g)
+    t = torch.rand(b, generator=g)
+    cond = torch.randn(b, cfg.pf_cond_dim, generator=g)
+    out = {}
+    for dev, over in ((DEVICE, None), ("cpu", {"amp": False,
+                                               "ctx_dtype": "fp32"})):
+        _, bundle, _ = load_run(HYB_DIR, over, dev)
+        before = dict(tvs.launches)
+        with torch.no_grad():
+            v = bundle.ema_pf.eval()(x.to(dev), t.to(dev), cond.to(dev))
+        out[dev] = v.float().cpu()
+        launched = {k: tvs.launches[k] - before[k] for k in before}
+        if launched != dict.fromkeys(before, PVCONVS if dev == DEVICE
+                                     else 0):
+            raise RuntimeError(f"end to end on {dev}: voxel launches "
+                               f"{launched}")
+        del bundle
+    ref = out["cpu"]
+    rel = (out[DEVICE] - ref).abs().max().item() / ref.abs().max().item()
+    print(f"[hybrid] end to end, one velocity at ({b}, {n}): card bf16 "
+          f"kernels vs CPU fp32 plain: max abs err / max |v| {rel:.4g} "
+          f"(bound {HYB_E2E_REL_TOL}; max |v| {ref.abs().max().item():.4g})")
+    if not torch.isfinite(out[DEVICE]).all() or rel > HYB_E2E_REL_TOL:
+        raise RuntimeError("hybrid velocity: card and CPU disagree")
+    return rel
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -504,6 +864,7 @@ def main() -> int:
 
     from pcfm_torch.ops import build
     from pcfm_torch.ops import film_block as fb
+    from pcfm_torch.ops import voxel_sorted as tvs
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -527,6 +888,34 @@ def main() -> int:
     fwd_train, bwd_train, steps = train_cli(fb, torch)
     step = train_step_time(torch)
     determinism(torch)
+    vox = voxel_vs_plain(tvs, torch)
+    hyb = hybrid_main_path(fb, tvs, torch, np)
+    hyb_ms = hybrid_ms_per_shape(torch)
+    hyb_rel = hybrid_end_to_end(tvs, torch)
+
+    film = film_bounds(B, N, C)
+    # the main path's shapes: R = 32 stage, 8 clouds, bf16 features;
+    # devoxelize is the K = 8 gather, avg_voxelize the K = 1 scatter
+    gather = vox[("gather", 32, 128, B, 8, torch.bfloat16)]
+    scatter = vox[("scatter", 32, 128, B, 1, torch.bfloat16)]
+    hyb_prof = hyb_ms["profile"]
+
+    def voxel_entry(name, source, replaces, row, what, **extra):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": hyb["heun50"][name],
+                "max_abs_err": max(r["max_abs_err"] for key, r in vox.items()
+                                   if key[0] == what),
+                "ms": row["ms"], "plain_ms": row["plain_ms"],
+                "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+                "library_ms": row["library_ms"],
+                "shape": {"gather": [B, 32 ** 3, 128, 8],
+                          "scatter": [B, N, 128, 1]}[what],
+                "profiled_ms_per_run": hyb_prof[name][0],
+                "launches_cfg": hyb["heun50_cfg0.25"][name], **extra}
+
+    # the card again, beside the numbers (the first line may scroll away)
+    print(sh("nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"))
 
     print(json.dumps({"kernels": [{
         "name": "film_block_fwd", "route": "cuda",
@@ -535,6 +924,8 @@ def main() -> int:
         "launches": launches,
         "max_abs_err": max(v[0] for v in kv.values()),
         "ms": kv[B][1], "plain_ms": kv[B][2],
+        "bound_ms": film["fwd"][0], "bound_by": film["fwd"][1],
+        "library_ms": None,
         "shape": [B, N, C],
         "ms_2b": kv[2 * B][1], "plain_ms_2b": kv[2 * B][2],
         "sample_heun50_ms_per_shape": ms["on"],
@@ -546,12 +937,24 @@ def main() -> int:
         "launches": bwd_train, "train_steps": steps,
         "max_abs_err": max(v[0] for v in bw.values()),
         "max_err_over_grad_max": max(v[1] for v in bw.values()),
-        "ms": bw[B][2], "plain_ms": bw[B][3], "shape": [B, N, C],
+        "ms": bw[B][2], "plain_ms": bw[B][3],
+        "bound_ms": film["bwd"][0], "bound_by": film["bwd"][1],
+        "library_ms": None, "shape": [B, N, C],
         "ms_2b": bw[2 * B][2], "plain_ms_2b": bw[2 * B][3],
         "train_ms_per_step": step["ms_on"],
         "train_plain_trunk_ms_per_step": step["ms_off"],
         "train_peak_gib": step["peak_gib_on"],
-        "train_film_block_share": step["share"]["film_block_share"]}]}))
+        "train_film_block_share": step["share"]["film_block_share"]},
+        voxel_entry("voxel_gather", "pcfm_torch/csrc/voxel_gather.cu",
+                    "pcfm/ops/pallas/voxel_sorted.py:150", gather, "gather",
+                    hybrid_heun50_ms_per_shape=hyb_ms["ms_per_shape"],
+                    hybrid_idle_share=hyb_ms["idle_share"],
+                    hybrid_peak_gib=hyb["heun50"]["peak_gib"],
+                    hybrid_peak_gib_cfg=hyb["heun50_cfg0.25"]["peak_gib"],
+                    hybrid_end_to_end_rel_err=hyb_rel),
+        voxel_entry("voxel_scatter", "pcfm_torch/csrc/voxel_scatter.cu",
+                    "pcfm/ops/pallas/voxel_sorted.py:182", scatter,
+                    "scatter")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

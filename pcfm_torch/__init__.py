@@ -2,18 +2,26 @@
 
 The JAX package ``pcfm`` is the reference; this package mirrors its module
 paths and names and is held against it by the ``tests/test_torch_port_*``
-parity tests.  It imports ``torch`` and never ``jax``; the framework-free
-``pcfm.config``, ``pcfm.data`` and ``pcfm.utils`` are shared.
+parity tests.  It imports ``torch`` and never ``jax``, and nothing of
+``pcfm``: the framework-free ``Config``, data layer and runtime helpers are
+copied here (``pcfm_torch.config``, ``pcfm_torch.data``,
+``pcfm_torch.utils``).  Entry points run on the card unless the caller
+asks for the CPU (``pcfm_torch.device``).
 
-Layout (ported so far: the ``mlp`` sampling and training paths):
-  pcfm_torch.nn       inits, FiLMBlock
-  pcfm_torch.models   timestep embedding, VelocityNet,
-                      ConditionalLatentVelocityNet, ShapeEncoder
-  pcfm_torch.ops      the fused FiLM-block CUDA kernels (forward and
-                      backward) and their builder; plain-torch chamfer
+Layout (ported so far: the ``mlp`` sampling and training paths and the
+``hybrid`` sampling path):
+  pcfm_torch.nn       inits, FiLMBlock, FiLM1d, GroupNorm / BatchNorm,
+                      SharedMLP, SE3d, PVConv
+  pcfm_torch.models   timestep embedding, VelocityNet(WithContext),
+                      ConditionalLatentVelocityNet, ShapeEncoder,
+                      ContextNet, HybridMLP
+  pcfm_torch.ops      the CUDA kernels (fused FiLM block forward and
+                      backward, voxel gather and scatter) and their
+                      builder; voxel coordinate math; plain-torch chamfer
   pcfm_torch.train    ModelBundle, optimizer and train state, train step,
                       loop, sample/recon functions, checkpoints, train CLI
   pcfm_torch.sample   priors, fixed-grid ODE integrators, sampling CLI
+  pcfm_torch.data     datasets, host loader, PLY IO
   pcfm_torch.interop  JAX param trees -> port state_dicts
 """
 

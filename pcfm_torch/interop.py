@@ -2,10 +2,11 @@
 
 The inverse of pcfm/interop/torch_ckpt.py's ``*_from_sd``: a flax param
 tree of the JAX package (nested dicts of numpy arrays, e.g.
-``jax.device_get(state.params["pf"])``) becomes a state_dict that the
-port's modules load with ``load_state_dict``.  flax Dense kernels are
-(in, out); torch Linear weights are (out, in).  No jax is imported: the
-trees are plain numpy.
+``jax.device_get(state.params["pf"])``, with ``batch_stats`` for the
+hybrid) becomes a state_dict that the port's modules load with
+``load_state_dict``.  flax Dense kernels are (in, out); torch Linear
+weights are (out, in); flax Conv kernels (D, H, W, in, out), torch's
+(out, in, D, H, W).  No jax is imported: the trees are plain numpy.
 """
 from __future__ import annotations
 
@@ -82,4 +83,140 @@ def shape_encoder_to_sd(p: Tree) -> Dict[str, torch.Tensor]:
     for j in range(n_hidden):
         sd.update(_dense(p[f"head_{j}"], f"head_{j}", f"head.{2 * j}"))
     sd.update(_dense(p["head_out"], "head_out", f"head.{2 * n_hidden}"))
+    return sd
+
+
+# ------------------------------------------------------------ hybrid
+
+def _conv1d(p: Tree, where: str, prefix: str) -> Dict[str, torch.Tensor]:
+    """flax Dense -> reference Conv1d(k=1): weight (out, in, 1), bias (a
+    bias-free Dense gets bias 0)."""
+    kernel = np.asarray(p["kernel"], np.float32)
+    if kernel.ndim != 2:
+        raise ValueError(f"{where}: Dense kernel {kernel.shape} is not 2-D")
+    bias = np.asarray(p["bias"], np.float32) if "bias" in p \
+        else np.zeros(kernel.shape[1], np.float32)
+    return {f"{prefix}.weight": torch.from_numpy(kernel.T[:, :, None].copy()),
+            f"{prefix}.bias": torch.from_numpy(bias.copy())}
+
+
+def _bn(p: Tree, s: Tree, where: str, prefix: str, width: int
+        ) -> Dict[str, torch.Tensor]:
+    """flax BatchNorm params {scale, bias} + batch_stats {mean, var} ->
+    torch BatchNorm entries (num_batches_tracked 0)."""
+    sd = _norm(p, where, prefix, width)
+    for src, dst in (("mean", "running_mean"), ("var", "running_var")):
+        v = np.asarray(s[src], np.float32)
+        if v.shape != (width,):
+            raise ValueError(f"{where}: {src} {v.shape} != ({width},)")
+        sd[f"{prefix}.{dst}"] = torch.from_numpy(v.copy())
+    sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+    return sd
+
+
+def _shared_mlp(p: Tree, s: Tree, where: str, prefix: str
+                ) -> Dict[str, torch.Tensor]:
+    """JAX SharedMLP (dense_0 without bias, bn_0) -> reference
+    ``layers.0`` Conv1d (bias 0) + ``layers.1`` BatchNorm."""
+    sd = _conv1d(p["dense_0"], f"{where}/dense_0", f"{prefix}.layers.0")
+    width = sd[f"{prefix}.layers.0.weight"].shape[0]
+    sd.update(_bn(p["bn_0"], s["bn_0"], f"{where}/bn_0",
+                  f"{prefix}.layers.1", width))
+    return sd
+
+
+def _norm_layer(p: Tree, s: Tree, where: str, prefix: str, width: int
+                ) -> Dict[str, torch.Tensor]:
+    """make_norm's params: GroupNorm {scale, bias}, BatchNorm1d
+    {bn: {scale, bias}} (+ stats), or nothing (norm 'none')."""
+    if p is None:
+        return {}
+    if "bn" in p:
+        return _bn(p["bn"], s["bn"], f"{where}/bn", prefix, width)
+    return _norm(p, where, prefix, width)
+
+
+def _pvconv(p: Tree, s: Tree, where: str, prefix: str
+            ) -> Dict[str, torch.Tensor]:
+    sd = {}
+    for j, (ci, bi) in enumerate(((0, 1), (3, 4))):
+        kernel = np.asarray(p[f"conv3d_{j}"]["kernel"], np.float32)
+        if kernel.ndim != 5:
+            raise ValueError(f"{where}/conv3d_{j}: kernel {kernel.shape}")
+        out = kernel.shape[-1]
+        # flax (D, H, W, in, out) -> torch (out, in, D, H, W)
+        sd[f"{prefix}.voxel_layers.{ci}.weight"] = torch.from_numpy(
+            kernel.transpose(4, 3, 0, 1, 2).copy())
+        sd[f"{prefix}.voxel_layers.{ci}.bias"] = torch.zeros(out)
+        sd.update(_bn(p[f"bn3d_{j}"], s[f"bn3d_{j}"], f"{where}/bn3d_{j}",
+                      f"{prefix}.voxel_layers.{bi}", out))
+    if "se" in p:
+        for name, idx in (("fc1", 0), ("fc2", 2)):
+            kernel = np.asarray(p["se"][name]["kernel"], np.float32)
+            sd[f"{prefix}.voxel_layers.6.fc.{idx}.weight"] = \
+                torch.from_numpy(kernel.T.copy())
+    sd.update(_shared_mlp(p["point_features"], s["point_features"],
+                          f"{where}/point_features",
+                          f"{prefix}.point_features"))
+    return sd
+
+
+def pvconv_to_sd(p: Tree, s: Tree) -> Dict[str, torch.Tensor]:
+    """JAX ``PVConv`` params + batch_stats -> port ``PVConv`` state_dict."""
+    return {k[len("pvconv."):]: v
+            for k, v in _pvconv(p, s, "pvconv", "pvconv").items()}
+
+
+def context_net_to_sd(p: Tree, s: Tree) -> Dict[str, torch.Tensor]:
+    """JAX ``ContextNet`` params + batch_stats -> port ``ContextNet``
+    state_dict (the inverse of pcfm/interop/torch_ckpt.py
+    context_net_from_sd)."""
+    sd = {}
+    for name in ("t_proj", "c_proj"):
+        sd.update(_dense(p[name], name, name))
+    sd.update(_conv1d(p["head_pre"], "head_pre", "head_pre"))
+    sd.update(_conv1d(p["head_out"], "head_out", "head_out"))
+    width = sd["head_pre.weight"].shape[0]
+    sd.update(_norm_layer(p.get("head_norm"), s.get("head_norm", {}),
+                          "head_norm", "head_norm", width))
+    if "ctx_from_emb" in p:
+        sd.update(_dense(p["ctx_from_emb"], "ctx_from_emb",
+                         "ctx_from_emb.0"))
+    if "global_0" in p:
+        sd.update(_dense(p["global_0"], "global_0", "global_mlp.0"))
+        sd.update(_dense(p["global_1"], "global_1", "global_mlp.2"))
+    stages = sorted(int(k.split("_")[1]) for k in p
+                    if k.startswith("stage_"))
+    for si in stages:
+        sp, ss = p[f"stage_{si}"], s[f"stage_{si}"]
+        pre = f"stages.{si}"
+        sd.update(_shared_mlp(sp["proj"], ss["proj"], f"stage_{si}/proj",
+                              f"{pre}.proj"))
+        for bi in _blocks(sp):
+            bp, bs = sp[f"block_{bi}"], ss[f"block_{bi}"]
+            where, b = f"stage_{si}/block_{bi}", f"{pre}.blocks.{bi}"
+            sd.update(_pvconv(bp["pvconv"], bs["pvconv"], f"{where}/pvconv",
+                              f"{b}.pvconv"))
+            sd.update(_shared_mlp(bp["post"], bs["post"], f"{where}/post",
+                                  f"{b}.post"))
+            sd.update(_dense(bp["film"]["affine"], f"{where}/film/affine",
+                             f"{b}.film.affine"))
+            width = sd[f"{b}.post.layers.0.weight"].shape[0]
+            sd.update(_norm_layer(bp["film"].get("norm"),
+                                  bs.get("film", {}).get("norm", {}),
+                                  f"{where}/film/norm", f"{b}.film.norm",
+                                  width))
+    return sd
+
+
+def hybrid_to_sd(p: Tree, s: Tree) -> Dict[str, torch.Tensor]:
+    """JAX ``HybridMLP`` params {ctx_net, head} + batch_stats {ctx_net} ->
+    port ``HybridMLP`` state_dict, keyed like the reference's
+    (``ctx_net.*``, ``head.*``); the inverse of
+    pcfm/interop/torch_ckpt.py:hybrid_from_sd.  Conv biases are written as
+    0, the JAX running means as they are."""
+    sd = {f"ctx_net.{k}": v for k, v in
+          context_net_to_sd(p["ctx_net"], s["ctx_net"]).items()}
+    sd.update({f"head.{k}": v
+               for k, v in velocity_net_to_sd(p["head"]).items()})
     return sd

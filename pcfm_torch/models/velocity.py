@@ -1,8 +1,11 @@
-"""Per-point velocity network — port of pcfm/models/velocity.py.
+"""Per-point velocity networks — port of pcfm/models/velocity.py.
 
 ``VelocityNet`` is the ``mlp`` point-flow backbone (reference
 models.py:82-153): a per-point residual MLP on [x || emb(t, cond)] with
-FiLM between blocks.  Parameter names follow the reference state_dict
+FiLM between blocks.  ``VelocityNetWithContext`` is the hybrid's head
+(models.py:546-601): the same trunk on [x || ctx || emb(t, cond)], so the
+fused FiLM-block kernel serves it too.  Parameter names follow the
+reference state_dict
 (``t_proj``, ``c_proj``, ``input``, ``blocks.{i}.1``, ``films.{i}.norm``,
 ``films.{i}.affine``, ``out.1``), so reference checkpoints and
 pcfm/interop/torch_ckpt.py read it directly.
@@ -63,7 +66,7 @@ class VelocityNet(nn.Module):
                  emb_dim: int = 256, point_dim: int = 3,
                  dtype: torch.dtype = torch.float32,
                  fused_trunk: str = "auto", film_every: int = 1, *,
-                 generator: torch.Generator, device=None):
+                 generator: torch.Generator, device=None, ctx_dim: int = 0):
         super().__init__()
         self.cond_dim, self.emb_dim = cond_dim, emb_dim
         self.t_proj = linear(emb_dim, emb_dim, normal02_, generator, device)
@@ -71,9 +74,9 @@ class VelocityNet(nn.Module):
                              generator, device)
         self.width, self.point_dim = width, point_dim
         self.dtype, self.fused_trunk = dtype, fused_trunk
-        self.film_every = film_every
-        self.input = linear(point_dim + emb_dim, width, kaiming_normal_,
-                            generator, device)
+        self.film_every, self.ctx_dim = film_every, ctx_dim
+        self.input = linear(point_dim + ctx_dim + emb_dim, width,
+                            kaiming_normal_, generator, device)
         blocks, films = [], {}
         for i in range(depth - 1):
             if i % film_every == 0:
@@ -105,20 +108,50 @@ class VelocityNet(nn.Module):
             h = h + dense(silu(h), lin, self.dtype)
         return h
 
+    def _head(self, x: torch.Tensor, t: torch.Tensor, cond, cond_drop_mask,
+              ctx: Optional[torch.Tensor]) -> torch.Tensor:
+        """input Linear on [x || ctx || emb] -> trunk -> output Linear."""
+        b, n, d = x.shape
+        if d != self.point_dim:
+            raise ValueError(f"{type(self).__name__} expected point_dim="
+                             f"{self.point_dim}, got {d}")
+        x = x.to(self.dtype)
+        emb = t_c_embed(self, t, cond, cond_drop_mask, b)          # (B, E)
+        parts = [x] if ctx is None else [x, ctx.to(self.dtype)]
+        h = torch.cat(parts + [emb[:, None, :].expand(b, n, self.emb_dim)],
+                      dim=-1)
+        h = dense(h, self.input, self.dtype)
+        h = self._trunk(h, emb)
+        return dense(silu(h), self.out[1], self.dtype).to(torch.float32)
+
     def forward(self, x: torch.Tensor, t: torch.Tensor,
                 cond: Optional[torch.Tensor],
                 cond_drop_mask: Optional[torch.Tensor] = None
                 ) -> torch.Tensor:
         """x (B, N, point_dim), t (B,), cond (B, cond_dim) or None,
         cond_drop_mask (B, 1) with 1 = dropped -> v (B, N, point_dim) fp32."""
-        b, n, d = x.shape
-        if d != self.point_dim:
-            raise ValueError(f"VelocityNet expected point_dim="
-                             f"{self.point_dim}, got {d}")
-        x = x.to(self.dtype)
-        emb = t_c_embed(self, t, cond, cond_drop_mask, b)          # (B, E)
-        h = torch.cat([x, emb[:, None, :].expand(b, n, self.emb_dim)],
-                      dim=-1)
-        h = dense(h, self.input, self.dtype)
-        h = self._trunk(h, emb)
-        return dense(silu(h), self.out[1], self.dtype).to(torch.float32)
+        return self._head(x, t, cond, cond_drop_mask, None)
+
+
+class VelocityNetWithContext(VelocityNet):
+    """The hybrid head (pcfm/models/velocity.py:205): VelocityNet's trunk on
+    [x || ctx || emb]; ``ctx`` (B, N, ctx_dim) comes from ContextNet."""
+
+    def __init__(self, cond_dim: int, point_dim: int = 3, ctx_dim: int = 64,
+                 width: int = 512, depth: int = 6, emb_dim: int = 256,
+                 dtype: torch.dtype = torch.float32,
+                 fused_trunk: str = "auto", film_every: int = 1, *,
+                 generator: torch.Generator, device=None):
+        super().__init__(cond_dim, width=width, depth=depth, emb_dim=emb_dim,
+                         point_dim=point_dim, dtype=dtype,
+                         fused_trunk=fused_trunk, film_every=film_every,
+                         generator=generator, device=device, ctx_dim=ctx_dim)
+
+    def forward(self, x: torch.Tensor, t: torch.Tensor,
+                cond: Optional[torch.Tensor], ctx: torch.Tensor,
+                cond_drop_mask: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+        if tuple(ctx.shape[:2]) != tuple(x.shape[:2]):
+            raise ValueError(f"ctx shape {tuple(ctx.shape)} does not fit x "
+                             f"{tuple(x.shape)}")
+        return self._head(x, t, cond, cond_drop_mask, ctx)

@@ -1,1 +1,2 @@
-"""Building blocks: inits matching the JAX package, FiLMBlock."""
+"""Building blocks: inits and norm layers matching the JAX package,
+FiLMBlock, FiLM1d, SharedMLP, SE3d, PVConv."""

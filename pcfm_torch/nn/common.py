@@ -1,7 +1,9 @@
-"""Initializers matching pcfm/nn/common.py (and flax's lecun_normal).
+"""Initializers and norm layers matching pcfm/nn/common.py (and flax's
+lecun_normal, GroupNorm and BatchNorm).
 
 Every draw comes from an explicit ``torch.Generator``.  Weights are torch
-``Linear`` layout (out, in), so fan_in is ``weight.shape[1]``.
+``Linear`` layout (out, in), so fan_in is ``weight.shape[1]``.  Norm layers
+are channel-last, with fp32 statistics, and carry torch's parameter names.
 """
 from __future__ import annotations
 
@@ -16,10 +18,26 @@ _TRUNC_STD = 0.87962566103423978
 
 
 @torch.no_grad()
+def kaiming_normal_tensor_(w: torch.Tensor, fan_in: int,
+                           generator: torch.Generator) -> None:
+    """Untruncated normal, std sqrt(2 / fan_in), on any weight."""
+    w.normal_(0.0, math.sqrt(2.0 / fan_in), generator=generator)
+
+
+@torch.no_grad()
+def lecun_normal_tensor_(w: torch.Tensor, fan_in: int,
+                         generator: torch.Generator) -> None:
+    """flax lecun_normal on any weight: normal truncated at +-2 sigma with
+    sigma = sqrt(1 / fan_in) / 0.8796 (fan_in = in x receptive field)."""
+    std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+    nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
+                          generator=generator)
+
+
+@torch.no_grad()
 def kaiming_normal_(lin: nn.Linear, generator: torch.Generator) -> None:
     """Untruncated normal, std sqrt(2 / fan_in); zero bias."""
-    std = math.sqrt(2.0 / lin.weight.shape[1])
-    lin.weight.normal_(0.0, std, generator=generator)
+    kaiming_normal_tensor_(lin.weight, lin.weight.shape[1], generator)
     lin.bias.zero_()
 
 
@@ -34,9 +52,7 @@ def normal02_(lin: nn.Linear, generator: torch.Generator) -> None:
 def lecun_normal_(lin: nn.Linear, generator: torch.Generator) -> None:
     """flax lecun_normal: normal truncated at +-2 sigma with
     sigma = sqrt(1 / fan_in) / 0.8796; zero bias (FiLM affine)."""
-    std = math.sqrt(1.0 / lin.weight.shape[1]) / _TRUNC_STD
-    nn.init.trunc_normal_(lin.weight, 0.0, std, -2.0 * std, 2.0 * std,
-                          generator=generator)
+    lecun_normal_tensor_(lin.weight, lin.weight.shape[1], generator)
     lin.bias.zero_()
 
 
@@ -55,3 +71,111 @@ def dense(x: torch.Tensor, lin: nn.Linear, dtype: torch.dtype
     are cast to the compute dtype and the result stays in it."""
     return nn.functional.linear(x.to(dtype), lin.weight.to(dtype),
                                 lin.bias.to(dtype))
+
+
+# ------------------------------------------------------------ norms
+
+def choose_gn_groups(channels: int, prefer: int = 32) -> int:
+    """GroupNorm group count (pcfm/nn/common.py:29, reference
+    models.py:303-310): gcd(channels, prefer), or the largest of 32..2
+    that divides ``channels`` when the gcd is 1."""
+    prefer = min(prefer, channels)
+    g = max(math.gcd(channels, prefer), 1)
+    if g == 1 and channels >= 16:
+        for cand in (32, 16, 8, 4, 2):
+            if channels % cand == 0 and cand <= channels:
+                return cand
+    return g
+
+
+class GroupNorm(nn.Module):
+    """flax ``nn.GroupNorm(num_groups, epsilon)`` on channel-last (B, ..., C)
+    tensors: per (cloud, group) statistics over every point and the group's
+    C / G channels, in fp32 with flax's fast variance (E[x^2] - E[x]^2,
+    clipped at 0); ``(x - mean) * (rsqrt(var + eps) * scale) + bias``;
+    fp32 out.  Parameters ``weight`` / ``bias`` as torch's GroupNorm."""
+
+    def __init__(self, groups: int, channels: int, eps: float = 1e-5,
+                 device=None):
+        super().__init__()
+        if channels % groups:
+            raise ValueError(f"GroupNorm: {groups} groups do not divide "
+                             f"{channels} channels")
+        self.groups, self.eps = groups, eps
+        self.weight = nn.Parameter(torch.ones(channels, device=device))
+        self.bias = nn.Parameter(torch.zeros(channels, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, c = x.shape[0], x.shape[-1]
+        g = self.groups
+        xg = x.to(torch.float32).reshape(b, -1, g, c // g)
+        mean = xg.mean(dim=(1, 3), keepdim=True)
+        var = ((xg * xg).mean(dim=(1, 3), keepdim=True)
+               - mean * mean).clamp_min(0.0)
+        mul = torch.rsqrt(var + self.eps) * self.weight.reshape(g, c // g)
+        y = (xg - mean) * mul + self.bias.reshape(g, c // g)
+        return y.reshape(x.shape)
+
+
+class BatchNorm(nn.Module):
+    """BatchNorm over the channel-last axis with torch's state_dict names
+    (``weight``, ``bias``, ``running_mean``, ``running_var``,
+    ``num_batches_tracked``), so reference checkpoints load as they are.
+
+    Eval arithmetic of flax BatchNorm / pcfm's FlatBatchNorm
+    (pcfm/nn/common.py:78-119): ``(x - mean) * (scale * rsqrt(var + eps))
+    + bias`` from the running statistics, the multiplier computed in fp32
+    and everything cast to ``dtype`` (the normalize dtype; fp32 unless the
+    caller asks for the island's bf16).  ``shift`` is the bias of the
+    layer before it (a reference Conv1d / Conv3d bias), folded into the
+    mean as the JAX package folds it (``running_mean - bias``).  Training
+    statistics (flax momentum 0.9, biased variance) are not ported yet."""
+
+    def __init__(self, channels: int, eps: float, device=None):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(channels, device=device))
+        self.bias = nn.Parameter(torch.zeros(channels, device=device))
+        self.register_buffer("running_mean",
+                             torch.zeros(channels, device=device))
+        self.register_buffer("running_var",
+                             torch.ones(channels, device=device))
+        self.register_buffer("num_batches_tracked",
+                             torch.tensor(0, dtype=torch.long,
+                                          device=device))
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        # reference EMA shadows keep only float entries: no counter
+        state_dict.setdefault(prefix + "num_batches_tracked",
+                              self.num_batches_tracked)
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
+
+    def forward(self, x: torch.Tensor, shift: torch.Tensor | None = None,
+                dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        if self.training:
+            raise NotImplementedError(
+                "BatchNorm training statistics (hybrid training) are not "
+                "yet ported to pcfm_torch: run the module in eval mode")
+        mean = self.running_mean if shift is None \
+            else self.running_mean - shift
+        mul = (self.weight * torch.rsqrt(self.running_var + self.eps)
+               ).to(dtype)
+        return (x.to(dtype) - mean.to(dtype)) * mul + self.bias.to(dtype)
+
+
+class Identity(nn.Module):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+
+def make_norm(norm_type: str, channels: int, gn_groups: int = 32,
+              device=None) -> nn.Module:
+    """pcfm/nn/common.py:make_norm for (B, N, C): GroupNorm (eps 1e-5),
+    BatchNorm1d semantics (eps 1e-5) for "batch" / "syncbn", else
+    identity."""
+    if norm_type == "group":
+        return GroupNorm(choose_gn_groups(channels, gn_groups), channels,
+                         device=device)
+    if norm_type in ("batch", "syncbn"):
+        return BatchNorm(channels, eps=1e-5, device=device)
+    return Identity()

@@ -6,6 +6,10 @@ shared library with a plain C interface, loaded with ``ctypes``: no
 PyTorch headers and no ninja, so a build takes seconds.  The library lands
 in ``pcfm_torch/_build/`` (git-ignored) and is rebuilt when a source or a
 header is newer than it.  A failed build raises with nvcc's output.
+
+``use_kernel`` and ``check_launch`` are the wrappers' shared rules: a CUDA
+tensor launches the kernel (a CPU tensor runs its plain version), and a
+launch that returns an error raises with CUDA's message.
 """
 from __future__ import annotations
 
@@ -106,4 +110,24 @@ def build(force: bool = False) -> dict:
 def load_library() -> ctypes.CDLL:
     """Build if needed, then load the kernels' library (once per process)."""
     build()
-    return ctypes.CDLL(LIB_PATH)
+    lib = ctypes.CDLL(LIB_PATH)
+    lib.pcfm_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.pcfm_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def use_kernel(x, what: str) -> bool:
+    """True for a CUDA tensor (the kernel runs), False for a CPU tensor
+    (the plain version runs); no kernel exists for any other device."""
+    if x.is_cuda:
+        return True
+    if x.device.type != "cpu":
+        raise ValueError(f"{what}: no kernel for device {x.device}")
+    return False
+
+
+def check_launch(err: int, what: str) -> None:
+    """Raise on the cudaError_t a kernel's C entry point returned."""
+    if err != 0:
+        msg = load_library().pcfm_cuda_error_string(err).decode()
+        raise RuntimeError(f"{what} kernel launch failed: {msg} ({err})")

@@ -28,6 +28,8 @@ import functools
 
 import torch
 
+from pcfm_torch.ops.build import check_launch, load_library, use_kernel
+
 LN_EPS = 1e-5
 MAX_C = 1024          # the 64 x C bf16 A operand must fit in shared memory
 MAX_C_BWD = 512       # the backward also keeps 64 x C fp32 dp on chip
@@ -103,8 +105,7 @@ def _check_shapes(h, s, t, gamma, beta, w, b):
 
 @functools.lru_cache(maxsize=None)
 def _lib():
-    from pcfm_torch.ops import build
-    lib = build.load_library()
+    lib = load_library()
     ptr = ctypes.c_void_p
     lib.pcfm_film_block_fwd.argtypes = [ptr] * 10 + [ctypes.c_int] * 4 + [ptr]
     lib.pcfm_film_block_fwd.restype = ctypes.c_int
@@ -112,8 +113,6 @@ def _lib():
     lib.pcfm_film_block_bwd.restype = ctypes.c_int
     lib.pcfm_film_block_bwd_workspace.argtypes = [ctypes.c_int] * 3
     lib.pcfm_film_block_bwd_workspace.restype = ctypes.c_longlong
-    lib.pcfm_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.pcfm_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -143,12 +142,6 @@ def _check_operands(h, args: dict, max_c: int):
             raise ValueError(f"film_block: {name} must be 16-byte aligned")
 
 
-def _raise_on(err: int, what: str):
-    if err != 0:
-        msg = _lib().pcfm_cuda_error_string(err).decode()
-        raise RuntimeError(f"{what} kernel launch failed: {msg} ({err})")
-
-
 def _launch(h, s, t, gamma, beta, w, b):
     global launches
     _check_operands(h, {"h": h, "s": s, "t": t, "gamma": gamma,
@@ -164,7 +157,7 @@ def _launch(h, s, t, gamma, beta, w, b):
             beta.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
             mean.data_ptr(), rstd.data_ptr(), bsz, n, c,
             int(h.dtype == torch.bfloat16), stream)
-    _raise_on(err, "film_block")
+    check_launch(err, "film_block")
     launches += 1
     return y, mean, rstd
 
@@ -198,18 +191,9 @@ def _launch_bwd(dy, h, s, t, gamma, beta, w, mean, rstd):
             dbeta.data_ptr(), db.data_ptr(), ds.data_ptr(), dt.data_ptr(),
             work.data_ptr(), bsz, n, c, int(h.dtype == torch.bfloat16),
             stream)
-    _raise_on(err, "film_block backward")
+    check_launch(err, "film_block backward")
     bwd_launches += 1
     return dh, ds, dt, dgamma, dbeta, dw, db
-
-
-def _device_route(h, what: str) -> bool:
-    """True for the kernel (CUDA), False for the plain version (CPU)."""
-    if h.is_cuda:
-        return True
-    if h.device.type != "cpu":
-        raise ValueError(f"{what}: no kernel for device {h.device}")
-    return False
 
 
 def film_block_forward(h, s, t, gamma, beta, w, b):
@@ -217,7 +201,7 @@ def film_block_forward(h, s, t, gamma, beta, w, b):
     rstd (B, N, 1) fp32.  CUDA tensors run the kernel, CPU tensors the
     plain version."""
     _check_shapes(h, s, t, gamma, beta, w, b)
-    if _device_route(h, "film_block"):
+    if use_kernel(h, "film_block"):
         return _launch(h, s, t, gamma, beta, w, b)
     return film_block_reference_forward(h, s, t, gamma, beta, w, b)
 
@@ -227,7 +211,7 @@ def film_block_backward(dy, h, s, t, gamma, beta, w, mean, rstd):
     ``film_block_reference_backward``) from dy (B, N, C) in h.dtype and the
     forward's saved statistics.  CUDA tensors run the backward kernel, CPU
     tensors the plain version."""
-    if _device_route(h, "film_block backward"):
+    if use_kernel(h, "film_block backward"):
         return _launch_bwd(dy, h, s, t, gamma, beta, w, mean, rstd)
     return film_block_reference_backward(dy, h, s, t, gamma, beta, w, mean,
                                          rstd)

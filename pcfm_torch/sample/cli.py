@@ -3,8 +3,9 @@ pcfm/sample/cli.py with the same flags.
 
 Loads the newest ``ckpts/hybrid_ep*.pt`` under --out_dir (config from its
 ``args``, overridable from the command line), runs the latent-flow ->
-point-flow pipeline on the GPU when there is one (else the CPU), and
-writes PLY files.
+point-flow pipeline on the card (``--device cpu`` asks for the CPU; without
+CUDA and without that flag it is an error), and writes PLY files.  The
+point flow runs in eval mode (BatchNorm running statistics).
 
     python -m pcfm_torch.sample.cli --out_dir RUN --num_samples 8 \
         --n_points 20000
@@ -18,25 +19,28 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from pcfm.data.ply import save_point_cloud_ply, save_point_cloud_ply_rgb
+from pcfm_torch.data.ply import (save_point_cloud_ply,
+                                 save_point_cloud_ply_rgb)
+from pcfm_torch.device import DEVICES, resolve_device
 from pcfm_torch.train import checkpoint as ckpt
 from pcfm_torch.train.evaluate import make_sample_fn
 
 
-def default_device() -> torch.device:
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
-
-
-def load_run(out_dir: str, overrides: Optional[dict] = None, device=None):
-    """Rebuild (cfg, bundle, epoch) from the newest checkpoint."""
+def load_run(out_dir: str, overrides: Optional[dict] = None,
+             device="cuda"):
+    """Rebuild (cfg, bundle, epoch) from the newest checkpoint, on
+    ``device`` ("cuda", or "cpu" when asked)."""
+    device = resolve_device(device)
     path, ep = ckpt.find_latest(out_dir)
     if path is None:
         raise FileNotFoundError(f"no checkpoint under {out_dir}/ckpts")
-    cfg, bundle, _ = ckpt.load(path, device or default_device(), overrides)
+    cfg, bundle, _ = ckpt.load(path, device, overrides)
     return cfg, bundle, ep
 
 
-def main(argv: Optional[Sequence[str]] = None) -> np.ndarray:
+def main(argv: Optional[Sequence[str]] = None, device=None) -> np.ndarray:
+    """Parse ``argv``, sample, write PLYs; returns the clouds.  ``device``
+    (a keyword for callers) overrides ``--device``."""
     p = argparse.ArgumentParser("pcfm_torch sampling")
     p.add_argument("--out_dir", type=str, required=True,
                    help="training run dir containing ckpts/")
@@ -58,12 +62,15 @@ def main(argv: Optional[Sequence[str]] = None) -> np.ndarray:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--cond", type=float, nargs="*", default=None,
                    help="joint condition values (broadcast to all samples)")
+    p.add_argument("--device", type=str, default="cuda", choices=DEVICES,
+                   help="where the run goes: the card (default; an error "
+                        "without CUDA) or, when asked, the CPU")
     args = p.parse_args(argv)
 
     over = {k: getattr(args, k) for k in
             ("sample_steps", "latent_sample_steps", "sampler",
              "guidance_scale", "eval_oversample", "latent_prior_std")}
-    cfg, bundle, ep = load_run(args.out_dir, over)
+    cfg, bundle, ep = load_run(args.out_dir, over, device or args.device)
     sample_fn = make_sample_fn(bundle)
 
     cond = None

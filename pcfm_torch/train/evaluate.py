@@ -4,25 +4,42 @@ pcfm/train/evaluate.py.
   * sample: latent-flow integration z ~ flow(N(0, s^2)) -> point flow
   * recon:  z = enc(GT) -> point-flow integration from the prior
 
-Both default to the EMA weights (``cfg.ema_eval``).  The priors are drawn
+Both default to the EMA weights (``cfg.ema_eval``) and run the networks in
+eval mode (the hybrid's BatchNorms on their running statistics).  The
+priors are drawn
 from a ``torch.Generator`` unless they are handed in (``z0`` / ``x0``), so
 a test can give both frameworks the same draws.  ``dump_clouds`` and
 ``val_cd`` are the training loop's validation outputs.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 from typing import Optional
 
 import numpy as np
 import torch
 
-from pcfm.data.ply import save_point_cloud_ply, save_point_cloud_ply_rgb
 from pcfm_torch.config import Config
+from pcfm_torch.data.ply import (save_point_cloud_ply,
+                                 save_point_cloud_ply_rgb)
 from pcfm_torch.ops.chamfer import chamfer_l2
 from pcfm_torch.sample.integrators import get_sampler
 from pcfm_torch.sample.priors import make_latent_prior, make_pf_prior
 from pcfm_torch.train.state import ModelBundle
+
+
+@contextlib.contextmanager
+def eval_mode(*modules: torch.nn.Module):
+    """Run ``modules`` in eval mode, restoring each one's mode after."""
+    modes = [m.training for m in modules]
+    for m in modules:
+        m.eval()
+    try:
+        yield
+    finally:
+        for m, was in zip(modules, modes):
+            m.train(was)
 
 
 def _cond_full(cfg: Config, z: torch.Tensor,
@@ -55,14 +72,15 @@ def make_recon_fn(bundle: ModelBundle, use_ema: Optional[bool] = None):
             enc_in = torch.cat([pts, rgb_in], dim=-1)
         else:
             enc_in = pts
-        z, _ = bundle.enc(enc_in)
-        cond_full = _cond_full(cfg, z, cond_j)
-        b, n = pts.shape[:2]
-        if x0 is None:
-            x0 = _pf_prior(cfg, generator, (b, n, cfg.pf_point_dim))
-        return sampler(bundle.pf_velocity_fn(use_ema), x0,
-                       max(1, cfg.sample_steps), cond=cond_full,
-                       guidance_scale=cfg.guidance_scale)
+        pf = bundle.pf_velocity_fn(use_ema)
+        with eval_mode(bundle.enc, pf):
+            z, _ = bundle.enc(enc_in)
+            cond_full = _cond_full(cfg, z, cond_j)
+            b, n = pts.shape[:2]
+            if x0 is None:
+                x0 = _pf_prior(cfg, generator, (b, n, cfg.pf_point_dim))
+            return sampler(pf, x0, max(1, cfg.sample_steps), cond=cond_full,
+                           guidance_scale=cfg.guidance_scale)
 
     return recon
 
@@ -84,17 +102,18 @@ def make_sample_fn(bundle: ModelBundle, use_ema: Optional[bool] = None):
         if z0 is None:
             z0 = make_latent_prior(generator, batch, cfg.latent_dim,
                                    cfg.latent_prior_std)
-        # the latent flow is unconditional; its NFE is overridable
-        lat_steps = int(cfg.latent_sample_steps) or max(1, cfg.sample_steps)
-        z = sampler(bundle.lf_velocity_fn(use_ema), z0, lat_steps,
-                    cond=None, guidance_scale=0.0)
-        cond_full = _cond_full(cfg, z, cond_j)
-        if x0 is None:
-            x0 = _pf_prior(cfg, generator, (batch, n_points,
-                                            cfg.pf_point_dim))
-        return sampler(bundle.pf_velocity_fn(use_ema), x0,
-                       max(1, cfg.sample_steps), cond=cond_full,
-                       guidance_scale=cfg.guidance_scale)
+        lf, pf = bundle.lf_velocity_fn(use_ema), bundle.pf_velocity_fn(use_ema)
+        with eval_mode(lf, pf):
+            # the latent flow is unconditional; its NFE is overridable
+            lat_steps = int(cfg.latent_sample_steps) \
+                or max(1, cfg.sample_steps)
+            z = sampler(lf, z0, lat_steps, cond=None, guidance_scale=0.0)
+            cond_full = _cond_full(cfg, z, cond_j)
+            if x0 is None:
+                x0 = _pf_prior(cfg, generator, (batch, n_points,
+                                                cfg.pf_point_dim))
+            return sampler(pf, x0, max(1, cfg.sample_steps), cond=cond_full,
+                           guidance_scale=cfg.guidance_scale)
 
     return sample
 

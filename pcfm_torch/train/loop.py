@@ -1,6 +1,7 @@
 """The training loop — port of pcfm/train/loop.py for one device.
 
-  * data from the framework-free pcfm.data (datasets, host loader)
+  * data from pcfm_torch.data (the port's copy of the framework-free
+    pcfm.data: datasets, host loader)
   * ModelBundle + AdamW (3 groups) + EMA, auto-resume from ckpts/*.pt
   * per epoch: geometry-warmup and CFG-warmup scalars, then the steps
   * per save_every: checkpoint + validation recon / sample PLY dumps + CD
@@ -20,15 +21,15 @@ from collections import deque
 import numpy as np
 import torch
 
-from pcfm.config import Config
-from pcfm.data import DataLoader, get_datasets, to_model_batch
-from pcfm.utils import MetricEMA, seed_all
-from pcfm_torch.sample.cli import default_device
+from pcfm_torch.config import Config
+from pcfm_torch.data import DataLoader, get_datasets, to_model_batch
+from pcfm_torch.device import resolve_device
 from pcfm_torch.train import checkpoint as ckpt
 from pcfm_torch.train.evaluate import (dump_clouds, make_recon_fn,
                                        make_sample_fn, val_cd)
 from pcfm_torch.train.state import count_parameters, init_state
 from pcfm_torch.train.step import train_step
+from pcfm_torch.utils import MetricEMA, seed_all
 
 
 def check_single_device(cfg: Config) -> None:
@@ -85,10 +86,11 @@ def _progress(total: int, desc: str):
     return tqdm(total=total, desc=desc, leave=False)
 
 
-def train(cfg: Config, verbose: bool = True, device=None) -> dict:
-    """Run training to cfg.epochs; returns summary metrics."""
+def train(cfg: Config, verbose: bool = True, device="cuda") -> dict:
+    """Run training to cfg.epochs on ``device`` ("cuda", or "cpu" when
+    asked); returns summary metrics."""
     check_single_device(cfg)
-    device = torch.device(device) if device is not None else default_device()
+    device = resolve_device(device)
     seed_all(cfg.seed)
     os.makedirs(cfg.out_dir, exist_ok=True)
 
@@ -131,7 +133,7 @@ def train(cfg: Config, verbose: bool = True, device=None) -> dict:
     prof, steps_seen = None, 0
     tb = None
     if cfg.tensorboard:
-        from pcfm.utils.tb import SummaryWriter
+        from pcfm_torch.utils.tb import SummaryWriter
         tb = SummaryWriter(os.path.join(cfg.out_dir, "tb"))
 
     for ep in range(start_epoch, cfg.epochs + 1):

@@ -3,8 +3,13 @@ update rule of pcfm/train/flat_opt.py.
 
 ``ModelBundle`` builds the encoder, point flow and latent flow from a
 ``Config`` with the dtype policy of the JAX package (``amp and use_bf16``
--> bf16 compute, fp32 parameters), plus EMA shadows that start equal to the
-live weights (as ``init_state`` does).
+-> bf16 compute, fp32 parameters; the hybrid's ContextNet island in
+``ctx_dtype``), plus EMA shadows that start equal to the live weights (as
+``init_state`` does).  ``pf_backbone`` is ``mlp`` or ``hybrid``.  The
+hybrid's ``voxel_backend`` flag selects nothing in the port: on CUDA
+tensors the voxel kernels run at every stage, on CPU tensors their plain
+versions (pcfm_torch/ops/voxel_sorted.py); the flag stays in the Config,
+and so in the checkpoint, as it was given.
 
 The optimizer is torch's AdamW (fused on CUDA) with the reference's three
 parameter groups (enc / pf / lf, train.py:249-253), b1 0.9, b2 0.999,
@@ -27,6 +32,7 @@ from torch import nn
 
 from pcfm_torch.config import Config
 from pcfm_torch.models.encoder import ShapeEncoder
+from pcfm_torch.models.hybrid import HybridMLP
 from pcfm_torch.models.latent import ConditionalLatentVelocityNet
 from pcfm_torch.models.velocity import VelocityNet
 
@@ -46,15 +52,34 @@ class ModelBundle:
                                 width=cfg.enc_width, depth=cfg.enc_depth,
                                 in_channels=cfg.enc_in_channels, dtype=dtype,
                                 **kw)
-        if cfg.pf_backbone != "mlp":
-            raise NotImplementedError(
-                f"pf_backbone '{cfg.pf_backbone}' is not yet ported to "
-                "pcfm_torch (only 'mlp')")
-        self.pf = VelocityNet(cond_dim=cfg.pf_cond_dim, width=cfg.pf_width,
-                              depth=cfg.pf_depth, emb_dim=cfg.pf_emb_dim,
-                              point_dim=cfg.pf_point_dim, dtype=dtype,
-                              fused_trunk=cfg.fused_trunk,
-                              film_every=cfg.pf_film_every, **kw)
+        if cfg.pf_backbone == "mlp":
+            self.pf = VelocityNet(
+                cond_dim=cfg.pf_cond_dim, width=cfg.pf_width,
+                depth=cfg.pf_depth, emb_dim=cfg.pf_emb_dim,
+                point_dim=cfg.pf_point_dim, dtype=dtype,
+                fused_trunk=cfg.fused_trunk, film_every=cfg.pf_film_every,
+                **kw)
+        elif cfg.pf_backbone == "hybrid":
+            self.pf = HybridMLP(
+                cond_dim=cfg.pf_cond_dim, point_dim=cfg.pf_point_dim,
+                ctx_dim=cfg.ctx_dim, ctx_emb_dim=cfg.ctx_emb_dim,
+                stage_channels=tuple(cfg.ctx_stage_channels),
+                stage_blocks=tuple(cfg.ctx_stage_blocks),
+                stage_res=tuple(cfg.ctx_stage_res),
+                with_se=cfg.ctx_with_se, norm_type=cfg.ctx_norm,
+                gn_groups=cfg.ctx_gn_groups,
+                with_global=cfg.ctx_with_global,
+                voxel_normalize=cfg.ctx_voxel_normalize, use_t_gate=True,
+                t_gate_k=cfg.ctx_t_gate_k, t_gate_tau=cfg.ctx_t_gate_tau,
+                pf_width=cfg.pf_width, pf_depth=cfg.pf_depth,
+                pf_emb_dim=cfg.pf_emb_dim, dtype=dtype,
+                fused_trunk=cfg.fused_trunk, film_every=cfg.pf_film_every,
+                ctx_island_dtype=(torch.bfloat16 if cfg.ctx_dtype == "bf16"
+                                  else torch.float32),
+                grid_bn=cfg.grid_bn, **kw)
+        else:
+            raise ValueError(f"unknown pf_backbone '{cfg.pf_backbone}' "
+                             "(mlp | hybrid)")
         self.lf = ConditionalLatentVelocityNet(
             latent_dim=cfg.latent_dim, cond_dim=0, width=cfg.lf_width,
             depth=cfg.lf_depth, emb_dim=cfg.lf_emb_dim, dtype=dtype, **kw)
@@ -67,7 +92,8 @@ class ModelBundle:
 
     def pf_velocity_fn(self, use_ema: bool) -> Callable:
         """v(x, t, cond) for the samplers: the EMA or the live point flow
-        (eval mode; the module itself is the velocity function)."""
+        (the module itself is the velocity function; the samplers run it
+        in eval mode, ``train.evaluate.eval_mode``)."""
         return self.ema_pf if use_ema else self.pf
 
     def lf_velocity_fn(self, use_ema: bool) -> Callable:
@@ -166,7 +192,9 @@ def check_ported(cfg: Config) -> None:
     missing = [name for name, on in (
         ("lambda_emd > 0 (endpoint EMD loss)", cfg.lambda_emd > 0),
         ("lambda_adv > 0 (CondAdversary)", cfg.lambda_adv > 0),
-        ("fm_coupling='sliced_ot'", cfg.fm_coupling == "sliced_ot"))
+        ("fm_coupling='sliced_ot'", cfg.fm_coupling == "sliced_ot"),
+        ("pf_backbone='hybrid' training (BatchNorm statistics, the voxel "
+         "kernels' backward)", cfg.pf_backbone == "hybrid"))
         if on]
     if missing:
         raise NotImplementedError(f"{', '.join(missing)}: not yet ported "

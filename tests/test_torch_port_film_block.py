@@ -274,7 +274,7 @@ def test_kernel_backward_matches_plain_and_refuses_mixed_dtypes(cuda, dtype,
 
 @pytest.mark.gpu
 def test_sample_cli_on_card_goes_through_kernel(cuda, tmp_path):
-    from pcfm.config import Config
+    from pcfm_torch.config import Config
     from pcfm_torch.sample import cli
     from pcfm_torch.train import checkpoint
     from pcfm_torch.train.state import ModelBundle
@@ -294,7 +294,7 @@ def test_sample_cli_on_card_goes_through_kernel(cuda, tmp_path):
 
 @pytest.mark.gpu
 def test_train_step_on_card_goes_through_both_kernels(cuda):
-    from pcfm.config import Config
+    from pcfm_torch.config import Config
     from pcfm_torch.train import state, step
     cfg = Config(latent_dim=16, enc_width=32, pf_width=128, pf_depth=3,
                  pf_emb_dim=32, lf_width=64, lf_depth=3, lf_emb_dim=16,

@@ -1,0 +1,91 @@
+"""The port stands alone: it imports nothing of JAX or of the JAX package,
+its own copies (Config, the train parser) agree with the JAX package's, and
+its entry points go to the card unless the caller asks for the CPU."""
+import argparse
+import dataclasses
+import subprocess
+import sys
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from pcfm.config import Config as JaxConfig  # noqa: E402
+from pcfm.train.cli import build_parser as jax_parser  # noqa: E402
+from pcfm_torch import device as tdevice  # noqa: E402
+from pcfm_torch.config import Config  # noqa: E402
+from pcfm_torch.sample import cli as sample_cli  # noqa: E402
+from pcfm_torch.train import cli as train_cli  # noqa: E402
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    code = (
+        "import importlib, pkgutil, sys, pcfm_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages("
+        "pcfm_torch.__path__, 'pcfm_torch.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "assert {'pcfm_torch.data.loader', 'pcfm_torch.utils.tb', "
+        "'pcfm_torch.models.context', 'pcfm_torch.ops.voxel_sorted'} "
+        "<= set(names), names\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'flax', "
+        "'optax', 'orbax') or m == 'pcfm' or m.startswith('pcfm.') "
+        "or m.startswith('jax.'))\n"
+        "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_config_matches_the_jax_config():
+    def fields(cls):
+        return {f.name: (f.default if f.default is not dataclasses.MISSING
+                         else f.default_factory())
+                for f in dataclasses.fields(cls)}
+    assert fields(Config) == fields(JaxConfig)
+    cfg = Config(has_rgb=True, use_rgb_in_latent=False, cond_dim=3)
+    jcfg = JaxConfig(has_rgb=True, use_rgb_in_latent=False, cond_dim=3)
+    for prop in ("enc_in_channels", "pf_point_dim", "pf_cond_dim"):
+        assert getattr(cfg, prop) == getattr(jcfg, prop), prop
+    assert Config.from_json(cfg.to_json()) == cfg
+    assert cfg.to_json() == jcfg.to_json()
+    assert cfg.replace(seed=5).seed == 5 and cfg.seed == 123
+
+
+def _options(parser: argparse.ArgumentParser) -> dict:
+    return {tuple(a.option_strings): (a.dest, a.default, a.type, a.choices,
+                                      a.nargs, a.const)
+            for a in parser._actions if a.option_strings}
+
+
+def test_train_parser_matches_the_jax_parser():
+    port, jax = _options(train_cli.build_parser()), _options(jax_parser())
+    device = port.pop(("--device",))
+    assert device[1] == "cuda" and tuple(device[3]) == ("cuda", "cpu")
+    assert port == jax
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_need_cuda_or_an_explicit_cpu(no_cuda, tmp_path):
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        sample_cli.main(["--out_dir", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        train_cli.main(["--dataset_type", "synthetic", "--out_dir",
+                        str(tmp_path)])
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        sample_cli.load_run(str(tmp_path))
+    # asked for, the CPU is taken (here: no checkpoint to load)
+    with pytest.raises(FileNotFoundError):
+        sample_cli.main(["--out_dir", str(tmp_path), "--device", "cpu"])
+
+
+def test_resolve_device(no_cuda):
+    assert tdevice.resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tdevice.resolve_device(None)
+    with pytest.raises(ValueError, match="one of"):
+        tdevice.resolve_device("mps")

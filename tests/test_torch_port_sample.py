@@ -12,7 +12,7 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from pcfm.config import Config  # noqa: E402
+from pcfm.config import Config as JaxConfig  # noqa: E402
 from pcfm.data.ply import load_ply  # noqa: E402
 from pcfm.interop.torch_ckpt import state_from_reference_ckpt  # noqa: E402
 from pcfm.sample import integrators as jint  # noqa: E402
@@ -22,6 +22,7 @@ from pcfm.train.evaluate import make_recon_fn as jax_recon  # noqa: E402
 from pcfm.train.state import ModelBundle as JaxBundle  # noqa: E402
 from pcfm.train.state import init_state  # noqa: E402
 from pcfm_torch import interop  # noqa: E402
+from pcfm_torch.config import Config  # noqa: E402
 from pcfm_torch.ops import film_block as fb  # noqa: E402
 from pcfm_torch.sample import cli  # noqa: E402
 from pcfm_torch.sample import integrators as tint  # noqa: E402
@@ -104,13 +105,18 @@ def test_priors(color):
         make_pf_prior(g, (1, 2, 6), 1.0, "bad")
 
 
-def _small_cfg(**kw):
+def _small_cfgs(**kw):
+    """The same settings as the port's Config and the JAX package's."""
     base = dict(latent_dim=16, pf_width=128, pf_depth=3, pf_emb_dim=32,
                 lf_width=64, lf_depth=3, lf_emb_dim=16, enc_width=32,
                 has_rgb=True, cond_dim=2, amp=False, sample_steps=3,
                 tr_max_sample_points=64, epochs=1, seed=0)
     base.update(kw)
-    return Config(**base)
+    return Config(**base), JaxConfig(**base)
+
+
+def _small_cfg(**kw):
+    return _small_cfgs(**kw)[0]
 
 
 def _jax_state(cfg, seed):
@@ -151,10 +157,10 @@ def _port_bundle(cfg, state):
     ("euler", 0.5, "off", True),
     ("heun", 0.5, "on", True)])
 def test_sample_slice_matches_jax(sampler, guidance, fused, with_cond):
-    cfg = _small_cfg(sampler=sampler, guidance_scale=guidance,
-                     fused_trunk=fused, latent_sample_steps=2)
-    state = _jax_state(cfg, seed=3)
-    jb = JaxBundle(cfg)
+    cfg, jcfg = _small_cfgs(sampler=sampler, guidance_scale=guidance,
+                            fused_trunk=fused, latent_sample_steps=2)
+    state = _jax_state(jcfg, seed=3)
+    jb = JaxBundle(jcfg)
     rng = np.random.RandomState(4)
     b, n = 2, 50
     z0 = rng.randn(b, cfg.latent_dim).astype(np.float32)
@@ -166,7 +172,8 @@ def test_sample_slice_matches_jax(sampler, guidance, fused, with_cond):
     js = jint.get_sampler(sampler)
     z = js(jb.lf_velocity_fn(state.ema_lf["params"]), jnp.asarray(z0), 2,
            cond=None, guidance_scale=0.0)
-    cf = jax_cond_full(cfg, z, None if cond is None else jnp.asarray(cond))
+    cf = jax_cond_full(jcfg, z,
+                       None if cond is None else jnp.asarray(cond))
     want = np.asarray(js(jb.pf_velocity_fn(state.ema_pf["params"], {}),
                          jnp.asarray(x0), 3, cond=cf,
                          guidance_scale=guidance))
@@ -183,8 +190,8 @@ def test_sample_slice_matches_jax(sampler, guidance, fused, with_cond):
 
 
 def test_recon_matches_jax():
-    cfg = _small_cfg(sampler="heun")
-    state = _jax_state(cfg, seed=5)
+    cfg, jcfg = _small_cfgs(sampler="heun")
+    state = _jax_state(jcfg, seed=5)
     rng = np.random.RandomState(6)
     pts = rng.randn(2, 40, 3).astype(np.float32)
     rgb = rng.rand(2, 40, 3).astype(np.float32)
@@ -192,7 +199,7 @@ def test_recon_matches_jax():
     key = jax.random.PRNGKey(7)
     x0 = np.asarray(jax_prior(key, (2, 40, 6), cfg.point_prior_std,
                               cfg.color_prior, cfg.color_prior_std))
-    want = np.asarray(jax_recon(JaxBundle(cfg))(
+    want = np.asarray(jax_recon(JaxBundle(jcfg))(
         state, jnp.asarray(pts), jnp.asarray(rgb), None, key))
     got = make_recon_fn(_port_bundle(cfg, state))(
         _t(pts), _t(rgb), None, x0=_t(x0)).numpy()
@@ -207,7 +214,7 @@ def test_eval_oversample_not_ported():
 
 
 def test_checkpoint_loads_into_jax(tmp_path):
-    cfg = _small_cfg(pf_depth=4)
+    cfg, jcfg = _small_cfgs(pf_depth=4)
     bundle = ModelBundle(cfg, "cpu", torch.Generator().manual_seed(8))
     with torch.no_grad():                # EMA apart from the live weights
         for p in bundle.ema_pf.parameters():
@@ -220,7 +227,7 @@ def test_checkpoint_loads_into_jax(tmp_path):
     assert {"encoder", "pf", "lf", "ema_pf", "ema_lf", "args", "cond_dim",
             "epoch", "global_step"} <= set(ckpt)
 
-    _, jstate, _ = state_from_reference_ckpt(ckpt, cfg)
+    _, jstate, _ = state_from_reference_ckpt(ckpt, jcfg)
     assert int(jstate.step) == 40
     for got, module in ((jstate.params["pf"], bundle.pf),
                         (jstate.ema_pf["params"], bundle.ema_pf)):
@@ -246,7 +253,8 @@ def test_sample_cli_writes_plys(tmp_path):
     before = fb.launches
     x = cli.main(["--out_dir", str(tmp_path), "--num_samples", "3",
                   "--n_points", "64", "--sample_steps", "2",
-                  "--guidance_scale", "0.25", "--cond", "0.5"])
+                  "--guidance_scale", "0.25", "--cond", "0.5",
+                  "--device", "cpu"])
     assert fb.launches == before                  # CPU: no kernel
     assert x.shape == (3, 64, 6) and np.isfinite(x).all()
     out = tmp_path / "generated"
@@ -255,5 +263,5 @@ def test_sample_cli_writes_plys(tmp_path):
     assert xyz.shape == (64, 3) and rgb.shape == (64, 3)
     np.testing.assert_allclose(xyz, x[0, :, :3], atol=1e-5)
     with pytest.raises(FileNotFoundError):
-        cli.main(["--out_dir", str(tmp_path / "empty")])
+        cli.main(["--out_dir", str(tmp_path / "empty"), "--device", "cpu"])
 

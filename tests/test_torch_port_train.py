@@ -8,6 +8,7 @@ pcfm/train/step.py:73-106,139-140).  The JAX fused trunk runs its Pallas
 kernel in interpret mode; the port's runs its plain backward.
 """
 import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -23,11 +24,12 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from pcfm.config import Config  # noqa: E402
+from pcfm.config import Config as JaxConfig  # noqa: E402
 from pcfm.ops import chamfer as jax_chamfer  # noqa: E402
 from pcfm.train import state as jax_state  # noqa: E402
 from pcfm.train.step import train_step as jax_train_step  # noqa: E402
 from pcfm_torch import interop  # noqa: E402
+from pcfm_torch.config import Config  # noqa: E402
 from pcfm_torch.models import VelocityNet  # noqa: E402
 from pcfm_torch.ops import chamfer  # noqa: E402
 from pcfm_torch.train import checkpoint, cli, state, step  # noqa: E402
@@ -53,9 +55,14 @@ def _close_to_max(got, want, rel, where=""):
                                err_msg=where)
 
 
-def _port_state(jcfg, jparams, total_steps):
+def _cfgs(**kw):
+    """The same settings as the port's Config and the JAX package's."""
+    return Config(**kw), JaxConfig(**kw)
+
+
+def _port_state(cfg, jparams, total_steps):
     """A port TrainState holding the JAX params."""
-    st = state.init_state(jcfg, "cpu", total_steps,
+    st = state.init_state(cfg, "cpu", total_steps,
                           torch.Generator().manual_seed(0))
     for name, conv in TO_SD.items():
         sd = conv(jax.device_get(jparams[name]))
@@ -114,11 +121,11 @@ def test_cosine_lr_matches_jax():
 def test_optimizer_matches_jax_flat_adamw():
     """Identical gradients for 4 steps into JAX's flat AdamW and the port's
     AdamW: warmup, three group LRs, a clip that binds, weight decay."""
-    cfg = Config(**TINY, has_rgb=True, cond_dim=1, warmup_steps=2,
-                 grad_clip_norm=0.05, lr_enc=1e-3, lr_pf=3e-4, lr_lf=2e-4,
-                 weight_decay=1e-2, use_cosine_lr=True)
+    cfg, jcfg = _cfgs(**TINY, has_rgb=True, cond_dim=1, warmup_steps=2,
+                      grad_clip_norm=0.05, lr_enc=1e-3, lr_pf=3e-4,
+                      lr_lf=2e-4, weight_decay=1e-2, use_cosine_lr=True)
     total = 10
-    _, jst, tx = jax_state.init_state(cfg, jax.random.PRNGKey(0), total)
+    _, jst, tx = jax_state.init_state(jcfg, jax.random.PRNGKey(0), total)
     params, opt_state = jst.params, jst.opt_state
     st = _port_state(cfg, params, total)
     named = _port_named(st)
@@ -199,15 +206,16 @@ def _jax_draws(cfg, rng, bsz, n, drop_p):
 
 @pytest.mark.parametrize("fused", ["on", "off"])
 def test_train_step_matches_jax(fused):
-    cfg = Config(**TINY, has_rgb=True, cond_dim=1, fused_trunk=fused,
-                 warmup_steps=0, grad_clip_norm=1.0, lambda_zreg=0.1,
-                 lambda_var=0.5, lambda_cov=0.05, lambda_pair=0.2)
+    cfg, jcfg = _cfgs(**TINY, has_rgb=True, cond_dim=1, fused_trunk=fused,
+                      warmup_steps=0, grad_clip_norm=1.0, lambda_zreg=0.1,
+                      lambda_var=0.5, lambda_cov=0.05, lambda_pair=0.2)
     bsz, n, total, drop_p, color_on = 3, 40, 20, 0.5, 1.0
     rng = np.random.RandomState(4)
     batch = {"pts": rng.randn(bsz, n, 3).astype(np.float32) * 0.5,
              "rgb": rng.rand(bsz, n, 3).astype(np.float32),
              "cond": rng.rand(bsz, 1).astype(np.float32)}
-    bundle, jst, tx = jax_state.init_state(cfg, jax.random.PRNGKey(5), total)
+    bundle, jst, tx = jax_state.init_state(jcfg, jax.random.PRNGKey(5),
+                                           total)
     # move every leaf off its init (zero biases would hide a misplaced one)
     params = jax.tree_util.tree_map(
         lambda p: p + 0.05 * jnp.asarray(rng.randn(*p.shape), p.dtype),
@@ -288,7 +296,7 @@ def test_unported_knobs_raise_at_init(knob):
 def test_unported_parallelism_raises(tmp_path):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         cli.main(["--dataset_type", "synthetic", "--dp", "2",
-                  "--out_dir", str(tmp_path)])
+                  "--out_dir", str(tmp_path), "--device", "cpu"])
 
 
 # ------------------------------------------------------------ chamfer
@@ -323,7 +331,7 @@ ARGV = ["--dataset_type", "synthetic", "--batch_size", "16",
         "--lf_depth", "3", "--lf_emb_dim", "16", "--warmup_steps", "2",
         "--sample_steps", "2", "--geom_warmup_epochs", "1",
         "--vis_count", "1", "--num_workers", "0", "--fused_trunk", "on",
-        "--save_every", "1"]
+        "--save_every", "1", "--device", "cpu"]
 
 
 def _run_cli(argv):
@@ -385,7 +393,7 @@ def test_loop_writes_profile_trace(tmp_path):
     cfg = cli.parse_config(ARGV + ["--out_dir", str(tmp_path / "run"),
                                    "--epochs", "1"])
     out = train(cfg.replace(profile_dir=str(tmp_path / "prof"),
-                            profile_steps=2), verbose=False)
+                            profile_steps=2), verbose=False, device="cpu")
     assert out["epochs_run"] == 1
     assert (tmp_path / "prof" / "trace.json").is_file()
 
@@ -426,17 +434,20 @@ def test_epoch_without_batches_is_a_clear_error(tmp_path):
      "--partnet_report_file_train", "/tmp/report.json",
      "--out_dir", "/tmp/run"]])
 def test_parser_is_the_jax_parser(argv):
+    # the port's own copy of the parser reads every argv as the JAX one
     from pcfm.train.cli import parse_config
-    assert cli.parse_config(argv) == parse_config(argv)
+    got = cli.parse_config(argv)
+    assert isinstance(got, Config)
+    assert dataclasses.asdict(got) == dataclasses.asdict(parse_config(argv))
 
 
 def test_epoch_scalars_match_jax():
     from pcfm.train.loop import epoch_scalars as jax_scalars
     from pcfm_torch.train.loop import epoch_scalars
-    cfg = Config(has_rgb=True, geom_warmup_epochs=2,
-                 cfg_drop_warmup_epochs=4, cfg_drop_p=0.2)
+    cfg, jcfg = _cfgs(has_rgb=True, geom_warmup_epochs=2,
+                      cfg_drop_warmup_epochs=4, cfg_drop_p=0.2)
     for ep in range(1, 7):
-        got, want = epoch_scalars(cfg, ep), jax_scalars(cfg, ep)
+        got, want = epoch_scalars(cfg, ep), jax_scalars(jcfg, ep)
         np.testing.assert_allclose(got, [float(w) for w in want], rtol=1e-6)
 
 
