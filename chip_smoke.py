@@ -54,7 +54,22 @@ failure:
    scatter, the FiLM block and the convolutions, and the idle share;
 13. end to end: the full-width hybrid velocity on the same checkpoint and
    inputs at (2, 20 000), on the card (bf16, kernels) and on the CPU (fp32,
-   plain versions), within HYB_E2E_REL_TOL of each other.
+   plain versions), within HYB_E2E_REL_TOL of each other;
+14. chamfer kernel vs plain: the nearest-neighbour kernel against its
+   plain-torch version at (8 | 16, 20 000, 3) fp32 both ways, N != M off
+   the tile, duplicated targets (ties must go to the lowest index) and the
+   suite's pairs form (32 clouds x 2048 points, all 32^2 pairs), within
+   CHAMFER_REL_TOL, bitwise equal across two launches; CUDA-event times of
+   the kernel, the plain version and ``cdist`` + ``min``;
+15. the evaluation CLI at full width on phase 7's trained run (8 x 20 000,
+   synthetic; recon and gen, 2 batches, Heun x 50): exact chamfer launches
+   (2 a batch), 500 FiLM-block launches per Heun x 50 call, finite
+   recon_ / gen_ cd, emd, fscore, precision, recall; the streamed EMD's
+   time per batch and a profile of one batch's metrics;
+16. the suite: a full-width mlp checkpoint with random weights (the
+   synthetic test split at 2048 points) through ``--mode suite
+   --suite_size 32 --suite_emd --suite_seeds 0,1``: exact launches, finite
+   MMD / COV / 1-NNA bands in range.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -104,6 +119,17 @@ VOXEL_ATOL = 1e-6
 # one velocity evaluation: max abs error over max |v|
 HYB_E2E_REL_TOL = 5e-2
 HYB_E2E_POINTS = (2, 20000)
+# chamfer kernel vs plain: the same fp32 difference form, the kernel's
+# fused multiply-adds aside: |d_kernel - d_plain| <= CHAMFER_REL_TOL *
+# max(d) + CHAMFER_ATOL; indices equal unless the kernel's neighbour is
+# within that of the best (a near tie)
+CHAMFER_REL_TOL = 1e-6
+CHAMFER_ATOL = 1e-9
+SUITE_CLOUDS, SUITE_POINTS = 32, 2048
+EVAL_BATCHES = 2
+# cdist's launch grid takes at most 2^31 - 1 (cloud x row x column)
+# entries a call, so the yardstick runs in calls of at most this many
+CDIST_MAX_ENTRIES = 2 ** 31 - 1
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, dense bf16 tensor-core
 # and fp32 (non-tensor) FLOP/s
 HBM_BPS = 3.35e12
@@ -556,16 +582,18 @@ def voxel_bounds(torch, ids, w, dense, out_rows: int, what: str) -> tuple:
     return bound_ms(nbytes, 2 * ids.numel() * c, FP32_FLOPS)
 
 
-def timed_turns(fns: dict, rounds: int = 2, reps: int = 10) -> dict:
+def timed_turns(fns: dict, rounds: int = 2, reps=10) -> dict:
     """Median CUDA-event ms of each function, timed in turns (plain,
-    kernel, kernel, plain, ...) after one warm-up call each."""
+    kernel, kernel, plain, ...) after one warm-up call each; ``reps`` is
+    the calls a timing, one number or one for each function."""
     names = list(fns)
     order = (names + names[::-1]) * rounds
     times = {k: [] for k in names}
     for k in names:
         fns[k]()
     for k in order:
-        times[k].append(cuda_ms(fns[k], reps))
+        times[k].append(cuda_ms(fns[k], reps if isinstance(reps, int)
+                                else reps[k]))
     return {k: statistics.median(v) for k, v in times.items()}
 
 
@@ -677,10 +705,12 @@ def hybrid_cfg(**kw):
     return bench_cfg(pf_backbone="hybrid", **kw)
 
 
-def reset_counts(fb, tvs):
+def reset_counts(fb, tvs, tc=None):
     fb.launches = fb.bwd_launches = 0
     for name in tvs.launches:
         tvs.launches[name] = 0
+    if tc is not None:
+        tc.launches = 0
 
 
 def hybrid_main_path(fb, tvs, torch, np):
@@ -854,6 +884,259 @@ def hybrid_end_to_end(tvs, torch):
     return rel
 
 
+def chamfer_bound(clouds: int, pairs: int, n: int, m: int,
+                  d: int) -> tuple:
+    """Least time of both ways of the nearest-neighbour search over
+    ``pairs`` pairs of (n, d) / (m, d) fp32 clouds: the ``clouds`` distinct
+    clouds read once, (dist, idx) of every point written once; 3 d - 1
+    FLOP a (query, target) pair and way, at the fp32 rate."""
+    nbytes = clouds * (n + m) // 2 * d * 4 + pairs * (n + m) * 8
+    return bound_ms(nbytes, 2 * pairs * n * m * (3 * d - 1), FP32_FLOPS)
+
+
+def cdist_min(torch, q, t):
+    """The yardstick: ``cdist`` (difference form) then ``min`` both ways,
+    in as few calls as cdist's launch grid takes (CDIST_MAX_ENTRIES)."""
+    per = max(1, CDIST_MAX_ENTRIES // (q.shape[1] * t.shape[1]))
+    out = []
+    for s in range(0, q.shape[0], per):
+        c = torch.cdist(q[s:s + per], t[s:s + per],
+                        compute_mode="donot_use_mm_for_euclid_dist")
+        out.append((c.min(-1), c.min(-2)))
+    return out
+
+
+def check_nn(tc, torch, q, t, qi, ti, dist, idx, tag: str) -> tuple:
+    """One way of the kernel against the plain version: distances within
+    the stated tolerance, indices equal except on near ties, where the
+    kernel's neighbour must be within it of the best.  Returns (max abs
+    err, indices that differ, tolerance)."""
+    ref_d, ref_i = tc.chamfer_nn_reference(q, t, qi, ti)
+    tol = CHAMFER_REL_TOL * ref_d.max().item() + CHAMFER_ATOL
+    err = (dist - ref_d).abs().max().item()
+    qq = q[torch.as_tensor(qi, device=q.device).long()]
+    tt = t[torch.as_tensor(ti, device=q.device).long()]
+    chosen = ((qq - torch.gather(tt, 1, idx.long()[..., None].expand(
+        -1, -1, q.shape[-1]))) ** 2).sum(-1)
+    differ = idx != ref_i
+    near = (chosen - ref_d)[differ].abs().max().item() if differ.any() \
+        else 0.0
+    if not torch.isfinite(dist).all() or err > tol or near > tol:
+        raise RuntimeError(f"chamfer_nn {tag}: max abs err {err:.4g}, "
+                           f"{int(differ.sum())} indices differ by up to "
+                           f"{near:.4g} (tolerance {tol:.4g})")
+    return err, int(differ.sum()), tol
+
+
+def chamfer_timed(tag, kernel, plain, library, bound) -> dict:
+    """Kernel and plain CUDA-event ms in turns, beside the bound; the
+    yardstick (seconds a call) timed once, when given."""
+    t = timed_turns({"plain": plain, "kernel": kernel}, rounds=1,
+                    reps={"plain": 1, "kernel": 10})
+    lib = cuda_ms(library, reps=1) if library else None
+    lib_note = f", cdist + min {lib:.1f} ms (one run)" if lib else ""
+    print(f"[chamfer] {tag}: kernel {t['kernel']:.4f} ms, plain "
+          f"{t['plain']:.3f} ms{lib_note}; bound {bound[0]:.4f} ms "
+          f"({bound[1]})")
+    return {"ms": t["kernel"], "plain_ms": t["plain"], "library_ms": lib,
+            "bound_ms": bound[0], "bound_by": bound[1]}
+
+
+def chamfer_vs_plain(tc, torch):
+    """Phase 14: the chamfer kernel against its plain version.  Returns
+    {B: timed row, "suite": timed row, "max_abs_err": x}."""
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 6)
+
+    def rnd(*shape):
+        return torch.randn(*shape, device=DEVICE, generator=g)
+
+    out, worst = {}, 0.0
+
+    def both_ways(a, b, tag):
+        nonlocal worst
+        pairs = list(range(a.shape[0]))
+        got, again = tc.chamfer_distance(a, b), tc.chamfer_distance(a, b)
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            raise RuntimeError(f"chamfer_nn {tag}: two launches differ")
+        e1, n1, tol = check_nn(tc, torch, a, b, pairs, pairs, got[0],
+                               got[2], tag)
+        e2, n2, _ = check_nn(tc, torch, b, a, pairs, pairs, got[1], got[3],
+                             tag)
+        worst = max(worst, e1, e2)
+        print(f"[chamfer] {tag}: max abs err {max(e1, e2):.4g} (tolerance "
+              f"{tol:.4g}), {n1 + n2} indices differ on near ties, bitwise "
+              f"equal across two launches")
+        return got
+
+    for bsz in (B, 2 * B):
+        a, b = rnd(bsz, N, 3), rnd(bsz, N, 3)
+        pairs = list(range(bsz))
+        got = both_ways(a, b, f"({bsz}, {N}, 3) both ways")
+        if bsz == B:       # the yardstick takes seconds: the main shape only
+            lib = cdist_min(torch, a, b)
+            per = lib[0][0][0].shape[0]
+            lib_err = (lib[0][0][0] ** 2 - got[0][:per]).abs().max().item()
+            print(f"[chamfer] ({bsz}, {N}, 3): cdist + min in {len(lib)} "
+                  f"calls, max |cdist^2 - kernel| {lib_err:.3g}")
+            del lib
+        out[bsz] = chamfer_timed(
+            f"({bsz}, {N}, 3) both ways",
+            lambda: tc.chamfer_distance(a, b),
+            lambda: (tc.chamfer_nn_reference(a, b, pairs, pairs),
+                     tc.chamfer_nn_reference(b, a, pairs, pairs)),
+            (lambda: cdist_min(torch, a, b)) if bsz == B else None,
+            chamfer_bound(2 * bsz, bsz, N, N, 3))
+        del a, b, got
+        torch.cuda.empty_cache()
+    both_ways(rnd(B, 20011, 3), rnd(B, 17389, 3), f"({B}, 20011 vs 17389, 3)")
+    base = rnd(B, N // 2, 3)
+    got = both_ways(rnd(B, N, 3), torch.cat([base, base], dim=1),
+                    f"({B}, {N} vs {N // 2} x 2 duplicated, 3)")
+    if int(got[2].max()) >= N // 2:
+        raise RuntimeError("chamfer_nn: a tie went to the higher index")
+    print(f"[chamfer] duplicated targets: every query chose the lower copy")
+
+    sets = rnd(SUITE_CLOUDS, SUITE_POINTS, 3)
+    qi = torch.arange(SUITE_CLOUDS).repeat_interleave(SUITE_CLOUDS)
+    ti = torch.arange(SUITE_CLOUDS).repeat(SUITE_CLOUDS)
+    d1, i1 = tc.chamfer_nn(sets, sets, qi, ti)
+    d2, i2 = tc.chamfer_nn(sets, sets, qi, ti)
+    torch.cuda.synchronize()
+    err, differ, tol = check_nn(tc, torch, sets, sets, qi, ti, d1, i1,
+                                "suite pairs")
+    diag = d1.view(SUITE_CLOUDS, SUITE_CLOUDS, -1).diagonal()
+    if not (torch.equal(d1, d2) and torch.equal(i1, i2)) \
+            or diag.abs().max().item() != 0.0:
+        raise RuntimeError("chamfer_nn suite pairs: launches differ or a "
+                           "cloud is not at distance 0 from itself")
+    worst = max(worst, err)
+    print(f"[chamfer] suite pairs ({SUITE_CLOUDS}^2 pairs of {SUITE_POINTS} "
+          f"points): max abs err {err:.4g} (tolerance {tol:.4g}), {differ} "
+          f"indices differ on near ties, bitwise equal, self pairs 0")
+    pairs_q, pairs_t = sets[qi], sets[ti]
+    out["suite"] = chamfer_timed(
+        f"suite pairs form, {SUITE_CLOUDS ** 2} pairs both ways",
+        lambda: (tc.chamfer_nn(sets, sets, qi, ti),
+                 tc.chamfer_nn(sets, sets, ti, qi)),
+        lambda: (tc.chamfer_nn_reference(sets, sets, qi, ti),
+                 tc.chamfer_nn_reference(sets, sets, ti, qi)),
+        lambda: cdist_min(torch, pairs_q, pairs_t),
+        chamfer_bound(SUITE_CLOUDS, SUITE_CLOUDS ** 2, SUITE_POINTS,
+                      SUITE_POINTS, 3))
+    out["max_abs_err"] = worst
+    del sets, pairs_q, pairs_t
+    torch.cuda.empty_cache()
+    return out
+
+
+def eval_cli_full_width(fb, tvs, tc, torch):
+    """Phase 15: the evaluation CLI on phase 7's trained run, then the
+    streamed EMD's time per batch and a profile of one batch's metrics."""
+    from pcfm_torch.eval import cli
+    from pcfm_torch.eval.metrics import _pick_chunk, cloud_metrics
+    from pcfm_torch.ops.emd import earth_mover_distance_streamed
+    run = os.path.join(RUN_DIR, "train")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(fb, tvs, tc)
+    t0 = time.perf_counter()
+    out = cli.main(["--out_dir", run, "--mode", "both", "--max_batches",
+                    str(EVAL_BATCHES), "--sample_steps", "50", "--device",
+                    "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = {"chamfer_nn": tc.launches, "film_block": fb.launches,
+           "film_block_bwd": fb.bwd_launches, **tvs.launches}
+    # recon and gen: per batch one chamfer_distance (2 launches) and one
+    # point-flow Heun x 50 (5 blocks x 100 evaluations)
+    calls = 2 * EVAL_BATCHES
+    want = {"chamfer_nn": 2 * calls, "film_block": calls * FILM_BLOCKS * NFE,
+            "film_block_bwd": 0, **dict.fromkeys(tvs.launches, 0)}
+    keys = [f"{m}_{k}" for m in ("recon", "gen")
+            for k in ("cd", "emd", "fscore", "precision", "recall")]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[eval] CLI --mode both, {EVAL_BATCHES} batches of {B} x {N}, "
+          f"Heun x 50: launches {got} (expected {want}), wall {wall:.3f} s "
+          f"incl. load, data and metrics, peak device memory {peak:.3f} GiB")
+    if got != want or out.get("n_clouds") != EVAL_BATCHES * B \
+            or not all(math.isfinite(out.get(k, math.nan)) for k in keys):
+        raise RuntimeError(f"evaluation CLI: launches {got} or output {out}")
+
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 7)
+    x = torch.randn(B, N, 3, device=DEVICE, generator=g)
+    y = torch.randn(B, N, 3, device=DEVICE, generator=g) * 0.5
+    chunk = _pick_chunk(N, N)
+    emd_ms = cuda_ms(lambda: earth_mover_distance_streamed(x, y, chunk),
+                     reps=1)
+    print(f"[eval] streamed EMD at {B} x {N} (chunk {chunk}): "
+          f"{emd_ms:.1f} ms a batch")
+    groups = {"chamfer_nn": ("chamfer_nn",), "exp": ("exp",),
+              "gemm": ("gemm", "cutlass", "xmma")}
+    prof = profile_kernels(torch, lambda: cloud_metrics(x, y), 1, groups,
+                           os.path.join(RUN_DIR, "eval_metrics_trace.json"))
+    print(f"[eval] profiler, one batch's cloud_metrics: "
+          f"{prof['wall_ms']:.1f} ms wall, {prof['busy_ms']:.1f} ms device "
+          f"busy (idle share {1 - prof['busy_ms'] / prof['wall_ms']:.3f})")
+    for group in groups:
+        g_ms, g_n = prof[group]
+        print(f"[eval]   {group}: {g_ms:.2f} ms device time, {g_n} launches")
+    for name, k_ms, k_n in prof["top"][:8]:
+        print(f"[eval]   {k_ms:9.2f} ms  {k_n:5d} x  {name}")
+    return {"launches": got, "wall_s": wall, "emd_ms": emd_ms,
+            "profile": prof, "peak_gib": peak}
+
+
+def suite_full_width(fb, tvs, tc, torch):
+    """Phase 16: the MMD / COV / 1-NNA suite on a full-width mlp checkpoint
+    with random weights."""
+    from pcfm_torch.eval import cli
+    from pcfm_torch.train import checkpoint
+    from pcfm_torch.train.state import ModelBundle
+    suite_dir = os.path.join(RUN_DIR, "suite")
+    shutil.rmtree(suite_dir, ignore_errors=True)
+    bundle = ModelBundle(bench_cfg(dataset_type="synthetic",
+                                   te_max_sample_points=SUITE_POINTS),
+                         DEVICE, torch.Generator().manual_seed(SEED))
+    checkpoint.save(suite_dir, 1, bundle)
+    del bundle
+    seeds = (0, 1)
+    torch.cuda.synchronize()
+    reset_counts(fb, tvs, tc)
+    t0 = time.perf_counter()
+    out = cli.main(["--out_dir", suite_dir, "--mode", "suite",
+                    "--suite_size", str(SUITE_CLOUDS), "--suite_emd",
+                    "--suite_seeds", ",".join(map(str, seeds)),
+                    "--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = {"chamfer_nn": tc.launches, "film_block": fb.launches,
+           "film_block_bwd": fb.bwd_launches, **tvs.launches}
+    # per seed: SUITE_CLOUDS / B sampling calls of Heun x 50, and three
+    # cd matrices (gen-ref, gen-gen, ref-ref) of 2 launches each
+    want = {"chamfer_nn": len(seeds) * 3 * 2,
+            "film_block": len(seeds) * SUITE_CLOUDS // B * FILM_BLOCKS * NFE,
+            "film_block_bwd": 0, **dict.fromkeys(tvs.launches, 0)}
+    print(f"[suite] CLI --mode suite, {SUITE_CLOUDS} clouds x "
+          f"{SUITE_POINTS} points, CD and EMD, seeds {seeds}: launches "
+          f"{got} (expected {want}), wall {wall:.3f} s; "
+          + ", ".join(f"{k} {out[k]['mean']:.4g} [{out[k]['min']:.4g}, "
+                      f"{out[k]['max']:.4g}]" for m in ("cd", "emd")
+                      for k in (f"mmd_{m}", f"cov_{m}", f"nna_{m}")))
+    ok = got == want and out.get("n_clouds") == SUITE_CLOUDS \
+        and len(out.get("per_seed", ())) == len(seeds)
+    for m in ("cd", "emd"):
+        for k, lo, hi in ((f"mmd_{m}", 0.0, math.inf), (f"cov_{m}", 0.0, 1.0),
+                          (f"nna_{m}", 0.0, 1.0), (f"nna_{m}_se", 0.0, 1.0)):
+            band = out.get(k, {})
+            vals = [band.get(x, math.nan) for x in ("min", "mean", "max")]
+            ok = ok and all(math.isfinite(v) and lo <= v <= hi
+                            for v in vals) and vals == sorted(vals)
+    if not ok:
+        raise RuntimeError(f"suite: launches {got} or output {out}")
+    return {"launches": got, "wall_s": wall}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -863,6 +1146,7 @@ def main() -> int:
     import numpy as np
 
     from pcfm_torch.ops import build
+    from pcfm_torch.ops import chamfer as tc
     from pcfm_torch.ops import film_block as fb
     from pcfm_torch.ops import voxel_sorted as tvs
 
@@ -892,6 +1176,9 @@ def main() -> int:
     hyb = hybrid_main_path(fb, tvs, torch, np)
     hyb_ms = hybrid_ms_per_shape(torch)
     hyb_rel = hybrid_end_to_end(tvs, torch)
+    cham = chamfer_vs_plain(tc, torch)
+    ev = eval_cli_full_width(fb, tvs, tc, torch)
+    su = suite_full_width(fb, tvs, tc, torch)
 
     film = film_bounds(B, N, C)
     # the main path's shapes: R = 32 stage, 8 clouds, bf16 features;
@@ -954,7 +1241,21 @@ def main() -> int:
                     hybrid_end_to_end_rel_err=hyb_rel),
         voxel_entry("voxel_scatter", "pcfm_torch/csrc/voxel_scatter.cu",
                     "pcfm/ops/pallas/voxel_sorted.py:182", scatter,
-                    "scatter")]}))
+                    "scatter"), {
+        "name": "chamfer_nn", "route": "cuda",
+        "source": "pcfm_torch/csrc/chamfer_nn.cu",
+        "replaces": "pcfm/ops/pallas/chamfer_v3.py:19",
+        "launches": ev["launches"]["chamfer_nn"],
+        "max_abs_err": cham["max_abs_err"], **cham[B],
+        "shape": [B, N, N, 3],
+        **{f"{k}_2b": v for k, v in cham[2 * B].items()
+           if k not in ("bound_by", "library_ms")},
+        **{f"suite_{k}": v for k, v in cham["suite"].items()},
+        "suite_shape": [SUITE_CLOUDS ** 2, SUITE_POINTS, SUITE_POINTS, 3],
+        "launches_suite": su["launches"]["chamfer_nn"],
+        "eval_cli_wall_s": ev["wall_s"], "suite_cli_wall_s": su["wall_s"],
+        "streamed_emd_ms_per_batch": ev["emd_ms"],
+        "eval_metrics_profiled_chamfer_ms": ev["profile"]["chamfer_nn"][0]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -14,6 +14,7 @@ a test can give both frameworks the same draws.  ``dump_clouds`` and
 from __future__ import annotations
 
 import contextlib
+import math
 import os
 from typing import Optional
 
@@ -24,6 +25,7 @@ from pcfm_torch.config import Config
 from pcfm_torch.data.ply import (save_point_cloud_ply,
                                  save_point_cloud_ply_rgb)
 from pcfm_torch.ops.chamfer import chamfer_l2
+from pcfm_torch.ops.sampling import furthest_point_sample_indices, gather
 from pcfm_torch.sample.integrators import get_sampler
 from pcfm_torch.sample.priors import make_latent_prior, make_pf_prior
 from pcfm_torch.train.state import ModelBundle
@@ -87,13 +89,15 @@ def make_recon_fn(bundle: ModelBundle, use_ema: Optional[bool] = None):
 
 def make_sample_fn(bundle: ModelBundle, use_ema: Optional[bool] = None):
     """sample(cond_j, generator, batch, n_points, z0=None, x0=None) ->
-    x (B, N, D): unconditional latent flow, then the point flow."""
+    x (B, N, D): unconditional latent flow, then the point flow.
+
+    With ``cfg.eval_oversample = k > 1`` the point flow integrates
+    ceil(k * N) points (``x0`` then holds that many) and furthest point
+    sampling takes N of them: the flow treats points i.i.d., so
+    oversampling is exact, and FPS evens out the local density."""
     cfg = bundle.cfg
     use_ema = cfg.ema_eval if use_ema is None else use_ema
-    if float(cfg.eval_oversample) > 1.0:
-        raise NotImplementedError(
-            "eval_oversample > 1 (FPS subsampling) is not yet ported to "
-            "pcfm_torch")
+    oversample = max(1.0, float(cfg.eval_oversample))
     sampler = get_sampler(cfg.sampler)
 
     @torch.no_grad()
@@ -109,11 +113,16 @@ def make_sample_fn(bundle: ModelBundle, use_ema: Optional[bool] = None):
                 or max(1, cfg.sample_steps)
             z = sampler(lf, z0, lat_steps, cond=None, guidance_scale=0.0)
             cond_full = _cond_full(cfg, z, cond_j)
+            n_gen = int(math.ceil(n_points * oversample))
             if x0 is None:
-                x0 = _pf_prior(cfg, generator, (batch, n_points,
+                x0 = _pf_prior(cfg, generator, (batch, n_gen,
                                                 cfg.pf_point_dim))
-            return sampler(pf, x0, max(1, cfg.sample_steps), cond=cond_full,
-                           guidance_scale=cfg.guidance_scale)
+            x = sampler(pf, x0, max(1, cfg.sample_steps), cond=cond_full,
+                        guidance_scale=cfg.guidance_scale)
+        if n_gen > n_points:
+            x = gather(x, furthest_point_sample_indices(x[..., :3],
+                                                        n_points))
+        return x
 
     return sample
 

@@ -2,7 +2,10 @@
 its own copies (Config, the train parser) agree with the JAX package's, and
 its entry points go to the card unless the caller asks for the CPU."""
 import argparse
+import contextlib
 import dataclasses
+import io
+import re
 import subprocess
 import sys
 
@@ -14,6 +17,7 @@ from pcfm.config import Config as JaxConfig  # noqa: E402
 from pcfm.train.cli import build_parser as jax_parser  # noqa: E402
 from pcfm_torch import device as tdevice  # noqa: E402
 from pcfm_torch.config import Config  # noqa: E402
+from pcfm_torch.eval import cli as eval_cli  # noqa: E402
 from pcfm_torch.sample import cli as sample_cli  # noqa: E402
 from pcfm_torch.train import cli as train_cli  # noqa: E402
 
@@ -26,7 +30,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "assert {'pcfm_torch.data.loader', 'pcfm_torch.utils.tb', "
-        "'pcfm_torch.models.context', 'pcfm_torch.ops.voxel_sorted'} "
+        "'pcfm_torch.models.context', 'pcfm_torch.ops.voxel_sorted', "
+        "'pcfm_torch.eval.cli', 'pcfm_torch.eval.metrics', "
+        "'pcfm_torch.ops.emd', 'pcfm_torch.ops.sampling'} "
         "<= set(names), names\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'flax', "
         "'optax', 'orbax') or m == 'pcfm' or m.startswith('pcfm.') "
@@ -65,6 +71,23 @@ def test_train_parser_matches_the_jax_parser():
     assert port == jax
 
 
+def _help_options(main) -> set:
+    """The option strings a CLI's --help lists."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf), pytest.raises(SystemExit):
+        main(["--help"])
+    return set(re.findall(r"(?<![\w-])--\w+", buf.getvalue()))
+
+
+def test_eval_cli_options_are_the_jax_options_and_device():
+    from pcfm.eval.cli import main as jax_eval_main
+    port, jax = _help_options(eval_cli.main), _help_options(jax_eval_main)
+    assert "--suite_seeds" in jax and "--help" in jax
+    assert port == jax | {"--device"}
+    device = _options(eval_cli.build_parser())[("--device",)]
+    assert device[1] == "cuda" and tuple(device[3]) == ("cuda", "cpu")
+
+
 @pytest.fixture
 def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -78,9 +101,13 @@ def test_entry_points_need_cuda_or_an_explicit_cpu(no_cuda, tmp_path):
                         str(tmp_path)])
     with pytest.raises(RuntimeError, match="--device cpu"):
         sample_cli.load_run(str(tmp_path))
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        eval_cli.main(["--out_dir", str(tmp_path)])
     # asked for, the CPU is taken (here: no checkpoint to load)
     with pytest.raises(FileNotFoundError):
         sample_cli.main(["--out_dir", str(tmp_path), "--device", "cpu"])
+    with pytest.raises(FileNotFoundError):
+        eval_cli.main(["--out_dir", str(tmp_path), "--device", "cpu"])
 
 
 def test_resolve_device(no_cuda):

@@ -77,8 +77,7 @@ def test_guided_is_one_batched_call():
 
 
 def test_get_sampler_errors():
-    with pytest.raises(NotImplementedError, match="dopri5"):
-        tint.get_sampler("dopri5")
+    assert tint.get_sampler("dopri5") is tint.dopri5_sample
     with pytest.raises(ValueError, match="unknown sampler"):
         tint.get_sampler("nope")
 
@@ -207,10 +206,12 @@ def test_recon_matches_jax():
 
 
 def test_eval_oversample_not_ported():
+    # ported since: ceil(k N) points are integrated, FPS keeps N
+    # (tests/test_torch_port_eval.py holds it against JAX)
     cfg = _small_cfg(eval_oversample=2.0)
     bundle = ModelBundle(cfg, "cpu", torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="eval_oversample"):
-        make_sample_fn(bundle)
+    x = make_sample_fn(bundle)(None, torch.Generator().manual_seed(1), 2, 30)
+    assert x.shape == (2, 30, cfg.pf_point_dim) and torch.isfinite(x).all()
 
 
 def test_checkpoint_loads_into_jax(tmp_path):
