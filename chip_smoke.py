@@ -9,9 +9,12 @@ failure:
 
 1. build every kernel of the path from pcfm_torch/csrc with nvcc;
 2. kernel vs plain: the fused FiLM-block kernel against its plain-torch
-   version (fp32 math, TF32 off) at the sampling path's shapes
-   (8 and 16 clouds x 20 000 points x 512 channels, bf16), error and
-   CUDA-event times of both;
+   version (fp32 math, TF32 off), bitwise equal across two launches, at
+   the sampling path's shapes (8 and 16 clouds x 20 000 points x 512
+   channels) and the edges (1 and 129 points; bf16 and fp32; C = 1024);
+   CUDA-event times of the kernel, the plain version and one torch.matmul
+   of the same product alone (a yardstick, not used by the port), and the
+   W bytes the kernel reads from L2;
 3. main path: a full-width reference-format checkpoint of the bench
    configuration (bench.py: 8 clouds x 20 000 RGB points, latent 128,
    cond_dim 1, mlp point flow 512/6/256, latent flow 512/6/256, bf16
@@ -181,51 +184,89 @@ def bench_cfg(**kw):
     return Config(**base)
 
 
+def film_inputs(torch, g, bsz: int, n: int, c: int, dtype) -> tuple:
+    """The forward's arguments at (bsz, n, c), h / gamma / beta in dtype."""
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, device=DEVICE, generator=g) * scale
+    h = rnd(bsz, n, c, scale=0.7).to(dtype)
+    s, t = 1.0 + rnd(c, scale=0.1), rnd(c, scale=0.1)
+    gamma = rnd(bsz, c, scale=0.2).to(dtype)
+    beta = rnd(bsz, c, scale=0.2).to(dtype)
+    w, b = rnd(c, c, scale=c ** -0.5), rnd(c, scale=0.1)
+    return h, s, t, gamma, beta, w, b
+
+
+def check_forward(fb, torch, args) -> float:
+    """The forward kernel against its plain version (atol = rtol =
+    KERNEL_TOL on y; mean within 1e-5, rstd within 1e-4 relative), two
+    launches bitwise equal. Returns the max abs error of y."""
+    h = args[0]
+    tag = f"{tuple(h.shape)} {str(h.dtype).replace('torch.', '')}"
+    y, mean, rstd = fb.film_block_forward(*args)
+    again = fb.film_block_forward(*args)
+    torch.cuda.synchronize()
+    y_ref, mean_ref, rstd_ref = fb.film_block_reference_forward(*args)
+    err = (y.float() - y_ref.float()).abs()
+    bound = KERNEL_TOL + KERNEL_TOL * y_ref.float().abs()
+    ok = bool((err <= bound).all()) and bool(torch.isfinite(y).all())
+    mean_err = (mean - mean_ref).abs().max().item()
+    rstd_rel = ((rstd - rstd_ref).abs() / rstd_ref).max().item()
+    same = all(torch.equal(a, b) for a, b in zip((y, mean, rstd), again))
+    print(f"[kernel] film_block {tag}: max abs err {err.max().item():.6g}, "
+          f"max err/bound {(err / bound).max().item():.4g} "
+          f"(atol=rtol={KERNEL_TOL}); mean err {mean_err:.3g}, rstd rel "
+          f"err {rstd_rel:.3g}; two launches bitwise equal: {same}")
+    if not ok or mean_err > 1e-5 or rstd_rel > 1e-4 or not same:
+        raise RuntimeError(f"film_block kernel disagrees with its plain "
+                           f"version at {tag}")
+    return err.max().item()
+
+
+def film_w_l2_bytes(bsz: int, n: int, c: int) -> tuple:
+    """W bytes read from L2 per forward call: (this kernel: every block of
+    128 rows (64 for C > 512) reads the packed bf16 W, plus the pack's
+    fp32 read; the PR 1 wmma kernel: every 64-row block read the fp32 W)."""
+    rows = 128 if c <= 512 else 64
+    new = -(-n // rows) * bsz * c * c * 2 + c * c * 4
+    return new, -(-n // 64) * bsz * c * c * 4
+
+
 def kernel_vs_plain(fb, torch):
-    """Phase 2. Returns (max abs err, kernel ms, plain ms) at B and 2B."""
+    """Phase 2. Edge cases (N = 1, 129 and the main N at C = 512, bf16 and
+    fp32, B = 8 and 16; C = 1024), then CUDA-event times at the main
+    shapes: the kernel, its plain version and one torch.matmul of the
+    same (B*N, C) x (C, C) bf16 product alone (a yardstick of the product
+    part; the port never calls it). Returns ({B: (kernel ms, plain ms,
+    gemm-only ms)}, max abs err over every case)."""
     g = torch.Generator(device=DEVICE).manual_seed(SEED)
+    worst = 0.0
+    cases = [(bsz, n, C, dtype) for dtype in (torch.bfloat16, torch.float32)
+             for bsz in (B, 2 * B) for n in (1, 129, N)]
+    cases += [(2, 300, 1024, torch.bfloat16), (2, 300, 1024, torch.float32)]
+    for bsz, n, c, dtype in cases:
+        worst = max(worst, check_forward(
+            fb, torch, film_inputs(torch, g, bsz, n, c, dtype)))
+        torch.cuda.empty_cache()
     out = {}
     for bsz in (B, 2 * B):
-        def rnd(*shape, scale=1.0):
-            return torch.randn(*shape, device=DEVICE, generator=g) * scale
-        h = rnd(bsz, N, C, scale=0.7).bfloat16()
-        s, t = 1.0 + rnd(C, scale=0.1), rnd(C, scale=0.1)
-        gamma = rnd(bsz, C, scale=0.2).bfloat16()
-        beta = rnd(bsz, C, scale=0.2).bfloat16()
-        w, b = rnd(C, C, scale=C ** -0.5), rnd(C, scale=0.1)
-        args = (h, s, t, gamma, beta, w, b)
-
-        y, mean, rstd = fb.film_block_forward(*args)
-        torch.cuda.synchronize()
-        y_ref, mean_ref, rstd_ref = fb.film_block_reference_forward(*args)
-        err = (y.float() - y_ref.float()).abs()
-        bound = KERNEL_TOL + KERNEL_TOL * y_ref.float().abs()
-        ok = bool((err <= bound).all()) and bool(torch.isfinite(y).all())
-        mean_err = (mean - mean_ref).abs().max().item()
-        rstd_rel = ((rstd - rstd_ref).abs() / rstd_ref).max().item()
-        print(f"[kernel] film_block ({bsz}, {N}, {C}) bf16: max abs err "
-              f"{err.max().item():.6g}, max err/bound "
-              f"{(err / bound).max().item():.4g} (atol=rtol={KERNEL_TOL}); "
-              f"mean err {mean_err:.3g}, rstd rel err {rstd_rel:.3g}")
-        if not ok or mean_err > 1e-5 or rstd_rel > 1e-4:
-            raise RuntimeError(f"film_block kernel disagrees with its plain "
-                               f"version at B={bsz}")
-
+        args = film_inputs(torch, g, bsz, N, C, torch.bfloat16)
+        a2d = args[0].reshape(-1, C)
+        wt = args[5].T.contiguous().bfloat16()
         # plain, kernel, kernel, plain: compare inside one call, in turns
-        fns = {"kernel": lambda: fb.film_block(*args),
-               "plain": lambda: fb.film_block_reference(*args)}
-        times = {"kernel": [], "plain": []}
-        for name in ("plain", "kernel", "kernel", "plain") * 3:
-            fns[name]()
-            times[name].append(cuda_ms(fns[name]))
-        k_ms = statistics.median(times["kernel"])
-        p_ms = statistics.median(times["plain"])
-        print(f"[kernel] film_block ({bsz}, {N}, {C}): kernel {k_ms:.4f} ms,"
-              f" plain fp32 {p_ms:.4f} ms (median of 6 x 10 launches)")
-        out[bsz] = (err.max().item(), k_ms, p_ms)
-        del h, y, y_ref, err, bound
+        t = timed_turns({"kernel": lambda: fb.film_block(*args),
+                         "plain": lambda: fb.film_block_reference(*args),
+                         "gemm": lambda: torch.matmul(a2d, wt)}, rounds=3)
+        l2_new, l2_old = film_w_l2_bytes(bsz, N, C)
+        print(f"[kernel] film_block ({bsz}, {N}, {C}): kernel "
+              f"{t['kernel']:.4f} ms, plain fp32 {t['plain']:.4f} ms, "
+              f"torch.matmul ({bsz * N}, {C}) x ({C}, {C}) bf16 alone "
+              f"{t['gemm']:.4f} ms (medians of 6 x 10 calls in turns); W "
+              f"read from L2 per call {l2_new / 1e9:.3f} GB (PR 1's wmma "
+              f"kernel: {l2_old / 1e9:.3f} GB)")
+        out[bsz] = (t["kernel"], t["plain"], t["gemm"])
+        del args, a2d
         torch.cuda.empty_cache()
-    return out
+    return out, worst
 
 
 def backward_vs_plain(fb, torch):
@@ -1164,7 +1205,7 @@ def main() -> int:
         if "registers" in line or "spill" in line:
             print(f"[build] {line.strip()}")
 
-    kv = kernel_vs_plain(fb, torch)
+    kv, kv_err = kernel_vs_plain(fb, torch)
     launches = main_path(fb, torch, np)
     ms = sample_ms_per_shape(torch)
     trunk_end_to_end(torch)
@@ -1209,12 +1250,13 @@ def main() -> int:
         "source": "pcfm_torch/csrc/film_block.cu",
         "replaces": "pcfm/ops/pallas/film_block.py:56",
         "launches": launches,
-        "max_abs_err": max(v[0] for v in kv.values()),
-        "ms": kv[B][1], "plain_ms": kv[B][2],
+        "max_abs_err": kv_err,
+        "ms": kv[B][0], "plain_ms": kv[B][1],
         "bound_ms": film["fwd"][0], "bound_by": film["fwd"][1],
-        "library_ms": None,
+        "library_ms": None, "gemm_only_ms": kv[B][2],
         "shape": [B, N, C],
-        "ms_2b": kv[2 * B][1], "plain_ms_2b": kv[2 * B][2],
+        "ms_2b": kv[2 * B][0], "plain_ms_2b": kv[2 * B][1],
+        "gemm_only_ms_2b": kv[2 * B][2],
         "sample_heun50_ms_per_shape": ms["on"],
         "sample_heun50_plain_trunk_ms_per_shape": ms["off"],
         "launches_train_cli": fwd_train}, {

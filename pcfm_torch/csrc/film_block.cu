@@ -9,243 +9,470 @@
 //   y          = f + silu(f) @ W^T + bias          (W: torch Linear, out x in)
 //
 // and writes y in h's dtype plus the per-row mean and rstd (fp32), which the
-// backward kernel will reuse.
+// backward kernel reuses.
 //
-// Design (simple and correct first):
-//   * a block owns ROWS = 64 rows of ONE cloud, so gamma/beta are per block;
-//     the ragged last tile of a cloud is masked (rows >= N are never read
-//     or written, their A rows are zero);
-//   * each warp computes its rows' statistics in fp32 and stages silu(f) as
-//     bf16 in shared memory (the whole 64 x C A operand stays on chip);
-//   * the product runs on the tensor cores through nvcuda::wmma
-//     (bf16 x bf16 -> fp32, the TPU kernel's DEFAULT-precision dot), over
-//     128-column output chunks; W is read as fp32 in 128 x 32 tiles,
-//     converted to bf16 in shared memory, the next tile prefetched into
-//     registers while the current one is multiplied;
-//   * the epilogue recomputes f from h and the saved statistics, adds the
-//     product and the bias, and stores y.
+// Design:
+//   * a pack kernel turns the fp32 W (out, in) into bf16 once per call, in
+//     the byte order the wgmma B descriptor reads: tiles of 128 output rows
+//     x 64 k, K-major, 128-byte swizzled (wgmma_common.cuh), in the order
+//     the product consumes them, so each ring stage is ONE contiguous
+//     16 KB bulk copy completed on an mbarrier (no tensor map, no driver
+//     API);
+//   * a block owns ROWS = 128 rows of one cloud (64 for C > 512, so that
+//     the A operand fits): one or two consumer warpgroups of 64 rows and
+//     one producer warp that keeps a 4-stage ring of W tiles full from
+//     the block's start, so the first tiles arrive during the statistics;
+//   * statistics with h read once from device memory: one warp per row,
+//     16-byte loads, 4 rows in flight a warp, the two-pass mean and
+//     variance from registers; each warp writes silu(f) as bf16 straight
+//     into the swizzled K-major A operand (the whole ROWS x C tile stays
+//     in shared memory);
+//   * the product on wgmma m64n128k16 (bf16 x bf16 -> fp32, the TPU
+//     kernel's DEFAULT-precision dot), A and B from shared memory, over
+//     128-column output chunks and 64-deep k stages; a stage goes back to
+//     the producer after the wgmma.wait_group that covers it;
+//   * the epilogue works on the accumulator registers: f is recomputed in
+//     fp32 from h (the block's own tile, just read: an L2 hit), the saved
+//     statistics and s, t, gamma, beta, bias staged once per block in
+//     shared memory; y is stored as 2-element (4-byte bf16 / 8-byte fp32)
+//     vectors, 16 contiguous bytes a row per warp instruction.
+//   * no atomics and a fixed order: two launches are bitwise equal.
 //
-// What bounds it at (B, N, C) = (8, 20000, 512): it reads h and writes y
+// What bounds it at (B, N, C) = (8, 20000, 512): it must read h and write y
 // (2 x 164 MB in bf16) plus W and the stats, about 0.33 GB (~0.1 ms at
-// 3.35 TB/s), and does 2 * 160k * 512^2 = 84 GFLOP (~0.09 ms at 989 TFLOP/s
-// dense bf16). Both double at B = 16 (classifier-free guidance). Memory and
-// tensor cores are about balanced, so a fast kernel has to overlap them.
+// 3.35 TB/s), and do 2 * 160k * 512^2 = 84 GFLOP (~0.085 ms at
+// 989 TFLOP/s dense bf16). A 128-row tile is ~128 KB of h from HBM, 67
+// MFLOP of wgmma and an epilogue over 64k outputs; with one block per SM
+// (~205 KB of shared memory) these three run one after the other inside a
+// block, and only the W ring overlaps them.
 //
-// What this design leaves on the table (work for later kernels):
-//   * wmma/mma.sync reach a fraction of the wgmma rate; no TMA, no
-//     warp specialisation, no persistent schedule;
-//   * every block re-reads all of W (1 MB fp32) from L2 and converts it;
-//     a pre-converted bf16 W, larger row tiles or a cluster-shared W would
-//     cut that traffic;
-//   * h is read three times (two statistics passes and the epilogue),
-//     mostly from L1/L2; scalar, not 16-byte, loads and stores;
-//   * only a single W tile is in shared memory (register prefetch, no
-//     multi-stage cp.async ring).
+// What it leaves for later:
+//   * overlap across tiles: a persistent block that loads tile i+1's h and
+//     computes its statistics while tile i's product runs, or two smaller
+//     blocks per SM;
+//   * each block still reads all of W (0.5 MB bf16) from L2: a cluster
+//     that multicasts each stage would divide that traffic;
+//   * the epilogue's 16-byte row segments could be staged through shared
+//     memory for full-line stores.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
+
+#include <cstdint>
 
 #include "film_common.cuh"
-
-using namespace nvcuda;
+#include "wgmma_common.cuh"
 
 namespace {
 
-constexpr int ROWS = 64;            // rows (points) of one cloud per block
-constexpr int THREADS = 256;        // 8 warps
-constexpr int WARPS = THREADS / 32;
-constexpr int NCHUNK = 128;         // output columns per GEMM pass
-constexpr int KCHUNK = 32;          // reduction depth of one staged W tile
-constexpr int A_PAD = 8;            // bf16 row padding of the A operand
-constexpr int W_LD = KCHUNK + 8;    // W tile kept n-major: [NCHUNK][W_LD]
-constexpr int E_LD = NCHUNK + 4;    // fp32 epilogue staging: [ROWS][E_LD]
-constexpr int MAX_C = 1024;         // A operand (64 x C bf16) must fit
+constexpr int N_TILE = 128;   // output columns per chunk (wgmma n)
+constexpr int K_TILE = 64;    // k per ring stage: one 128-byte swizzle row
+constexpr int STAGES = 4;     // W ring depth
+constexpr int STAGE_BYTES = N_TILE * K_TILE * 2;
+constexpr int ROW_BATCH = 4;  // rows a warp has in flight in the stats pass
+constexpr int MAX_C = 1024;
+constexpr int PACK_THREADS = 256;
 
-// 128 x 32 fp32 tile of W (rows n0.., columns k0..) into registers:
-// 1024 float4, four per thread, 128 contiguous bytes per W row
-__device__ __forceinline__ void load_w_tile(const float* __restrict__ w,
-                                            int c, int n0, int k0,
-                                            float4 (&pre)[4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int idx = threadIdx.x + i * THREADS;
-    const int n = idx >> 3, k4 = idx & 7;
-    pre[i] = *reinterpret_cast<const float4*>(
-        w + static_cast<size_t>(n0 + n) * c + k0 + k4 * 4);
-  }
+// WG consumer warpgroups of 64 rows, plus one producer warp
+template <int WG>
+struct Tile {
+  static constexpr int ROWS = 64 * WG;
+  static constexpr int THREADS = 128 * WG + 32;
+  // 8-value groups of a row a lane holds: C / 8 <= 32 * GROUPS
+  static constexpr int GROUPS = WG == 2 ? 2 : 4;
+};
+
+size_t smem_bytes(int rows, int c) {
+  return 1024 +                                       // alignment slack
+         static_cast<size_t>(rows) * c * 2 +          // A, bf16
+         static_cast<size_t>(STAGES) * STAGE_BYTES +  // W ring
+         5 * static_cast<size_t>(c) * 4 +             // s, t, gamma, beta, b
+         2 * static_cast<size_t>(rows) * 4 +          // mean, rstd
+         2 * STAGES * 8;                              // full, empty barriers
 }
 
-__device__ __forceinline__ void store_w_tile(__nv_bfloat16* ws,
-                                             const float4 (&pre)[4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int idx = threadIdx.x + i * THREADS;
-    const int n = idx >> 3, k4 = idx & 7;
-    __nv_bfloat162* dst =
-        reinterpret_cast<__nv_bfloat162*>(ws + n * W_LD + k4 * 4);
-    dst[0] = __floats2bfloat162_rn(pre[i].x, pre[i].y);
-    dst[1] = __floats2bfloat162_rn(pre[i].z, pre[i].w);
-  }
-}
-
-size_t smem_bytes(int c) {
-  return static_cast<size_t>(ROWS) * (c + A_PAD) * sizeof(__nv_bfloat16) +
-         static_cast<size_t>(NCHUNK) * W_LD * sizeof(__nv_bfloat16) +
-         static_cast<size_t>(ROWS) * E_LD * sizeof(float) +
-         2 * ROWS * sizeof(float);
-}
-
+// 8 consecutive values of a row, as loaded (16 bytes of bf16, 32 of fp32)
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
+struct Group;
+
+template <>
+struct Group<__nv_bfloat16> {
+  uint4 v;
+  __device__ __forceinline__ void load(const __nv_bfloat16* p) {
+    v = __ldg(reinterpret_cast<const uint4*>(p));
+  }
+  __device__ __forceinline__ void clear() { v = make_uint4(0u, 0u, 0u, 0u); }
+  __device__ __forceinline__ void unpack(float (&x)[8]) const {
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      x[2 * i] = __uint_as_float(w[i] << 16);
+      x[2 * i + 1] = __uint_as_float(w[i] & 0xFFFF0000u);
+    }
+  }
+};
+
+template <>
+struct Group<float> {
+  float4 a, b;
+  __device__ __forceinline__ void load(const float* p) {
+    a = __ldg(reinterpret_cast<const float4*>(p));
+    b = __ldg(reinterpret_cast<const float4*>(p + 4));
+  }
+  __device__ __forceinline__ void clear() {
+    a = b = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  __device__ __forceinline__ void unpack(float (&x)[8]) const {
+    x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
+    x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
+  }
+};
+
+__device__ __forceinline__ uint32_t bf16x2_bits(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+__device__ __forceinline__ uint4 pack_bf16x8(const float (&x)[8]) {
+  return make_uint4(bf16x2_bits(x[0], x[1]), bf16x2_bits(x[2], x[3]),
+                    bf16x2_bits(x[4], x[5]), bf16x2_bits(x[6], x[7]));
+}
+
+__device__ __forceinline__ void load8(const float* p, float (&x)[8]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
+  x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
+}
+
+__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+// Offset (in bf16 values) of W[n, k] in the packed buffer: the stage of
+// output tile n / 128 and k tile k / 64, in the product's order (output
+// tile outer), then row n % 128 of that stage with its 16-byte chunks
+// swizzled. pack_w_reference (ops/film_block.py) is the same formula.
+__device__ __forceinline__ size_t packed_offset(int n, int k, int c) {
+  const int r = n % N_TILE, j = (k % K_TILE) / 8;
+  const size_t stage = static_cast<size_t>(n / N_TILE) * (c / K_TILE) +
+                       k / K_TILE;
+  return (stage * N_TILE + r) * K_TILE + ((j ^ (r & 7)) * 8) + (k & 7);
+}
+
+// one thread per 8 consecutive k of one W row: two 16-byte loads, one
+// 16-byte store
+__global__ void __launch_bounds__(PACK_THREADS)
+    pack_w_kernel(const float* __restrict__ w,
+                  __nv_bfloat16* __restrict__ packed, int c) {
+  const int idx = blockIdx.x * PACK_THREADS + threadIdx.x;
+  if (idx >= c * (c / 8)) return;
+  const int n = idx / (c / 8), k = (idx % (c / 8)) * 8;
+  float x[8];
+  load8(w + static_cast<size_t>(n) * c + k, x);
+  *reinterpret_cast<uint4*>(packed + packed_offset(n, k, c)) =
+      pack_bf16x8(x);
+}
+
+template <typename T, int WG>
+__global__ void __launch_bounds__(Tile<WG>::THREADS, 1)
     film_block_fwd_kernel(const T* __restrict__ h,
                           const float* __restrict__ s,
                           const float* __restrict__ t,
                           const T* __restrict__ gamma,
                           const T* __restrict__ beta,
-                          const float* __restrict__ w,
+                          const __nv_bfloat16* __restrict__ w_packed,
                           const float* __restrict__ bias,
                           T* __restrict__ y, float* __restrict__ mean_out,
                           float* __restrict__ rstd_out, int n_points,
                           int c) {
-  // every region starts on a 128-byte boundary: 64 * (c + 8) * 2 and
-  // 128 * 40 * 2 and 64 * 132 * 4 are multiples of 128 for c % 128 == 0
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int a_ld = c + A_PAD;
-  __nv_bfloat16* as = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* ws = as + ROWS * a_ld;
-  float* es = reinterpret_cast<float*>(ws + NCHUNK * W_LD);
-  float* s_mean = es + ROWS * E_LD;
+  constexpr int ROWS = Tile<WG>::ROWS;
+  constexpr int THREADS = Tile<WG>::THREADS;
+  constexpr int GROUPS = Tile<WG>::GROUPS;
+
+  // A and the ring on 1024-byte boundaries (the swizzle repeats every
+  // 1024 bytes of address); ROWS * C * 2 and STAGE_BYTES keep that
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* a_tile = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* ring = a_tile + static_cast<size_t>(ROWS) * c * 2;
+  float* p_s = reinterpret_cast<float*>(ring + STAGES * STAGE_BYTES);
+  float* p_t = p_s + c;
+  float* p_g = p_t + c;
+  float* p_be = p_g + c;
+  float* p_bias = p_be + c;
+  float* s_mean = p_bias + c;
   float* s_rstd = s_mean + ROWS;
+  uint64_t* full = reinterpret_cast<uint64_t*>(s_rstd + ROWS);
+  uint64_t* empty = full + STAGES;
 
   const int row0 = blockIdx.x * ROWS;
   const size_t cloud_row0 = static_cast<size_t>(blockIdx.y) * n_points;
-  const T* g_c = gamma + static_cast<size_t>(blockIdx.y) * c;
-  const T* be_c = beta + static_cast<size_t>(blockIdx.y) * c;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
-  // 1. statistics and silu(f) -> shared memory, one warp per row
-  for (int r = warp; r < ROWS; r += WARPS) {
-    const int n = row0 + r;
-    __nv_bfloat16* a_row = as + r * a_ld;
-    if (n >= n_points) {
-      for (int k = lane; k < c; k += 32) a_row[k] = __float2bfloat16(0.0f);
-      continue;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < STAGES; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], WG);
     }
-    const T* h_row = h + (cloud_row0 + n) * c;
-    float sum = 0.0f;
-    for (int k = lane; k < c; k += 32) sum += to_f32(h_row[k]);
-    const float mean = warp_sum(sum) / c;
-    float sq = 0.0f;
-    for (int k = lane; k < c; k += 32) {
-      const float d = to_f32(h_row[k]) - mean;
-      sq += d * d;
-    }
-    const float rstd = rsqrtf(warp_sum(sq) / c + LN_EPS);
-    for (int k = lane; k < c; k += 32) {
-      const float f = film_f(to_f32(h_row[k]), mean, rstd, s[k], t[k],
-                             to_f32(g_c[k]), to_f32(be_c[k]));
-      a_row[k] = __float2bfloat16(f / (1.0f + expf(-f)));
-    }
-    if (lane == 0) {
-      s_mean[r] = mean;
-      s_rstd[r] = rstd;
-      mean_out[cloud_row0 + n] = mean;
-      rstd_out[cloud_row0 + n] = rstd;
-    }
+    mbar_fence_init();
+  }
+  const T* g_c = gamma + static_cast<size_t>(blockIdx.y) * c;
+  const T* be_c = beta + static_cast<size_t>(blockIdx.y) * c;
+  for (int k = threadIdx.x; k < c; k += THREADS) {
+    p_s[k] = s[k];
+    p_t[k] = t[k];
+    p_g[k] = to_f32(g_c[k]);
+    p_be[k] = to_f32(be_c[k]);
+    p_bias[k] = bias[k];
   }
   __syncthreads();
 
-  // 2. y[:, n0:n0+128] = f + silu(f) @ W^T + bias, chunk by chunk
-  const int wr = warp >> 1;  // this warp's 16-row slice of the tile
-  const int wc = warp & 1;   // and its 64-column half of the chunk
-  for (int n0 = 0; n0 < c; n0 += NCHUNK) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[j], 0.0f);
-    float4 pre[4];
-    load_w_tile(w, c, n0, 0, pre);
-    for (int k0 = 0; k0 < c; k0 += KCHUNK) {
-      __syncthreads();  // the previous W tile (and epilogue) is done
-      store_w_tile(ws, pre);
-      __syncthreads();
-      if (k0 + KCHUNK < c) load_w_tile(w, c, n0, k0 + KCHUNK, pre);
-#pragma unroll
-      for (int kk = 0; kk < KCHUNK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major>
-            a;
-        wmma::load_matrix_sync(a, as + (wr * 16) * a_ld + k0 + kk, a_ld);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          // B(k, n) = W[n, k]: the n-major tile is B in column-major order
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                         wmma::col_major>
-              bf;
-          wmma::load_matrix_sync(bf, ws + (wc * 64 + j * 16) * W_LD + kk,
-                                 W_LD);
-          wmma::mma_sync(acc[j], a, bf, acc[j]);
-        }
+  const int k_tiles = c / K_TILE;
+  if (warp == 4 * WG) {
+    // producer: stage i holds packed tile i, in the consumers' order
+    if (lane == 0) {
+      const int total = (c / N_TILE) * k_tiles;
+      for (int i = 0; i < total; ++i) {
+        const int st = i % STAGES;
+        mbar_wait(&empty[st], ((i / STAGES) & 1) ^ 1);
+        mbar_arrive_expect_tx(&full[st], STAGE_BYTES);
+        bulk_copy_g2s(ring + st * STAGE_BYTES,
+                      w_packed + static_cast<size_t>(i) * N_TILE * K_TILE,
+                      STAGE_BYTES, &full[st]);
       }
     }
+    return;
+  }
+
+  // ---- consumers: statistics and silu(f) of this warp's 16 rows into A
+  const int wg = warp >> 2;
+  const int groups = c >> 3;
+  for (int rb = warp * 16; rb < warp * 16 + 16; rb += ROW_BATCH) {
+    Group<T> raw[ROW_BATCH][GROUPS];
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      wmma::store_matrix_sync(es + (wr * 16) * E_LD + wc * 64 + j * 16,
-                              acc[j], E_LD, wmma::mem_row_major);
-    __syncthreads();
-    for (int i = threadIdx.x; i < ROWS * NCHUNK; i += THREADS) {
-      const int r = i / NCHUNK, col = i % NCHUNK;
-      const int n = row0 + r;
+    for (int rr = 0; rr < ROW_BATCH; ++rr) {
+      const int n = row0 + rb + rr;
+#pragma unroll
+      for (int gi = 0; gi < GROUPS; ++gi) {
+        const int gidx = lane + 32 * gi;
+        if (n < n_points && gidx < groups)
+          raw[rr][gi].load(h + (cloud_row0 + n) * c + gidx * 8);
+        else
+          raw[rr][gi].clear();
+      }
+    }
+    float mean[ROW_BATCH], rstd[ROW_BATCH];
+#pragma unroll
+    for (int rr = 0; rr < ROW_BATCH; ++rr) {
+      float sum = 0.0f;
+#pragma unroll
+      for (int gi = 0; gi < GROUPS; ++gi) {
+        float x[8];
+        raw[rr][gi].unpack(x);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) sum += x[e];
+      }
+      mean[rr] = warp_sum(sum) / c;
+      float sq = 0.0f;
+#pragma unroll
+      for (int gi = 0; gi < GROUPS; ++gi) {
+        if (lane + 32 * gi >= groups) continue;  // padding, not zeros
+        float x[8];
+        raw[rr][gi].unpack(x);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const float d = x[e] - mean[rr];
+          sq += d * d;
+        }
+      }
+      rstd[rr] = rsqrtf(warp_sum(sq) / c + LN_EPS);
+    }
+#pragma unroll
+    for (int gi = 0; gi < GROUPS; ++gi) {
+      const int gidx = lane + 32 * gi;
+      if (gidx >= groups) continue;
+      float sv[8], tv[8], gv[8], bv[8];
+      load8(p_s + gidx * 8, sv);
+      load8(p_t + gidx * 8, tv);
+      load8(p_g + gidx * 8, gv);
+      load8(p_be + gidx * 8, bv);
+      const int kb = gidx >> 3, j = gidx & 7;
+#pragma unroll
+      for (int rr = 0; rr < ROW_BATCH; ++rr) {
+        const int r = rb + rr;
+        uint4 out = make_uint4(0u, 0u, 0u, 0u);  // rows past N: zeros
+        if (row0 + r < n_points) {
+          float x[8];
+          raw[rr][gi].unpack(x);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            const float f =
+                film_f(x[e], mean[rr], rstd[rr], sv[e], tv[e], gv[e], bv[e]);
+            x[e] = f / (1.0f + expf(-f));
+          }
+          out = pack_bf16x8(x);
+        }
+        *reinterpret_cast<uint4*>(a_tile + static_cast<size_t>(kb) * ROWS * 128 +
+                                  r * 128 + ((j ^ (r & 7)) << 4)) = out;
+      }
+    }
+    if (lane == 0) {
+#pragma unroll
+      for (int rr = 0; rr < ROW_BATCH; ++rr) {
+        const int r = rb + rr, n = row0 + r;
+        if (n >= n_points) continue;
+        s_mean[r] = mean[rr];
+        s_rstd[r] = rstd[rr];
+        mean_out[cloud_row0 + n] = mean[rr];
+        rstd_out[cloud_row0 + n] = rstd[rr];
+      }
+    }
+  }
+  // the generic-proxy stores to A (and the stats) before wgmma reads A
+  fence_proxy_async();
+  named_barrier_sync(1 + wg, 128);
+
+  // ---- the product, chunk by chunk, and the epilogue from the registers
+  const int tid = threadIdx.x & 127;
+  const uint32_t a_base = smem_u32(a_tile) + wg * 64 * 128;
+  const uint32_t ring_base = smem_u32(ring);
+  const int er = wg * 64 + (warp & 3) * 16 + (lane >> 2);  // rows er, er+8
+  const int ec = 2 * (lane & 3);
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+  int it = 0;
+  for (int n0 = 0; n0 < c; n0 += N_TILE) {
+    for (int kt = 0; kt < k_tiles; ++kt, ++it) {
+      const int st = it % STAGES;
+      mbar_wait(&full[st], (it / STAGES) & 1);
+#pragma unroll
+      for (int i = 0; i < 64; ++i) fence_operand(acc[i]);
+      wgmma_fence();
+      const uint64_t da = desc_sw128(a_base + kt * ROWS * 128);
+      const uint64_t db = desc_sw128(ring_base + st * STAGE_BYTES);
+#pragma unroll
+      for (int kk = 0; kk < K_TILE / 16; ++kk)
+        wgmma_m64n128k16(acc, da + 2 * kk, db + 2 * kk, (kt | kk) != 0);
+      wgmma_commit();
+      if (kt > 0) {
+        wgmma_wait<1>();  // the previous stage's products are done
+        if (tid == 0) mbar_arrive(&empty[(it - 1) % STAGES]);
+      }
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < 64; ++i) fence_operand(acc[i]);
+    if (tid == 0) mbar_arrive(&empty[(it - 1) % STAGES]);
+
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int r = er + 8 * hr, n = row0 + r;
       if (n >= n_points) continue;
-      const int k = n0 + col;
-      const size_t off = (cloud_row0 + n) * c + k;
-      const float f = film_f(to_f32(h[off]), s_mean[r], s_rstd[r], s[k],
-                             t[k], to_f32(g_c[k]), to_f32(be_c[k]));
-      y[off] = from_f32<T>(f + es[r * E_LD + col] + bias[k]);
+      const float mu = s_mean[r], rs = s_rstd[r];
+      const size_t off = (cloud_row0 + n) * c;
+#pragma unroll
+      for (int j = 0; j < N_TILE / 8; ++j) {
+        const int k = n0 + 8 * j + ec;
+        const float2 x = load2(h + off + k);
+        const float2 sv = *reinterpret_cast<const float2*>(p_s + k);
+        const float2 tv = *reinterpret_cast<const float2*>(p_t + k);
+        const float2 gv = *reinterpret_cast<const float2*>(p_g + k);
+        const float2 bv = *reinterpret_cast<const float2*>(p_be + k);
+        const float2 bb = *reinterpret_cast<const float2*>(p_bias + k);
+        const float f0 = film_f(x.x, mu, rs, sv.x, tv.x, gv.x, bv.x);
+        const float f1 = film_f(x.y, mu, rs, sv.y, tv.y, gv.y, bv.y);
+        store2(y + off + k, f0 + acc[4 * j + 2 * hr] + bb.x,
+               f1 + acc[4 * j + 2 * hr + 1] + bb.y);
+      }
     }
   }
 }
 
-template <typename T>
+int launch_pack(const void* w, void* packed, int c, cudaStream_t stream) {
+  const int items = c * (c / 8);
+  pack_w_kernel<<<(items + PACK_THREADS - 1) / PACK_THREADS, PACK_THREADS, 0,
+                  stream>>>(static_cast<const float*>(w),
+                            static_cast<__nv_bfloat16*>(packed), c);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int WG>
 int launch(const void* h, const void* s, const void* t, const void* gamma,
-           const void* beta, const void* w, const void* bias, void* y,
+           const void* beta, const void* w_packed, const void* bias, void* y,
            void* mean, void* rstd, int b, int n, int c,
            cudaStream_t stream) {
-  const size_t smem = smem_bytes(c);
+  constexpr int ROWS = Tile<WG>::ROWS;
+  const size_t smem = smem_bytes(ROWS, c);
   cudaError_t err = cudaFuncSetAttribute(
-      film_block_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      film_block_fwd_kernel<T, WG>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((n + ROWS - 1) / ROWS, b);
-  film_block_fwd_kernel<T><<<grid, THREADS, smem, stream>>>(
+  film_block_fwd_kernel<T, WG><<<grid, Tile<WG>::THREADS, smem, stream>>>(
       static_cast<const T*>(h), static_cast<const float*>(s),
       static_cast<const float*>(t), static_cast<const T*>(gamma),
-      static_cast<const T*>(beta), static_cast<const float*>(w),
+      static_cast<const T*>(beta),
+      static_cast<const __nv_bfloat16*>(w_packed),
       static_cast<const float*>(bias), static_cast<T*>(y),
       static_cast<float*>(mean), static_cast<float*>(rstd), n, c);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+int launch_any(const void* h, const void* s, const void* t,
+               const void* gamma, const void* beta, const void* w_packed,
+               const void* bias, void* y, void* mean, void* rstd, int b,
+               int n, int c, cudaStream_t stream) {
+  if (c <= 32 * 8 * Tile<2>::GROUPS)  // two warpgroups up to C = 512
+    return launch<T, 2>(h, s, t, gamma, beta, w_packed, bias, y, mean, rstd,
+                        b, n, c, stream);
+  return launch<T, 1>(h, s, t, gamma, beta, w_packed, bias, y, mean, rstd, b,
+                      n, c, stream);
+}
+
+bool bad_c(int c) { return c <= 0 || c % N_TILE != 0 || c > MAX_C; }
+
 }  // namespace
 
-// Plain C entry point (bound with ctypes). Pointers are device pointers of
-// contiguous tensors: h, y (b, n, c) and gamma, beta (b, c) in bf16 when
-// is_bf16 else fp32; s, t, bias (c,), w (c, c), mean, rstd (b, n) fp32.
-// Launches on `stream`, does not synchronise, returns a cudaError_t code.
+// Plain C entry points (bound with ctypes). Pointers are device pointers of
+// contiguous tensors; each call launches on `stream`, does not synchronise
+// and returns a cudaError_t code.
+
+// w (c, c) fp32 -> w_packed (c * c bf16), the B operand's layout
+extern "C" int pcfm_film_block_pack_w(const void* w, void* w_packed, int c,
+                                      void* stream) {
+  if (bad_c(c)) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_pack(w, w_packed, c, static_cast<cudaStream_t>(stream));
+}
+
+// h, y (b, n, c) and gamma, beta (b, c) in bf16 when is_bf16 else fp32;
+// s, t, bias (c,), w (c, c), mean, rstd (b, n) fp32; w_packed is scratch of
+// c * c bf16, filled from w by the pack kernel before the forward runs.
 extern "C" int pcfm_film_block_fwd(const void* h, const void* s,
                                    const void* t, const void* gamma,
                                    const void* beta, const void* w,
-                                   const void* bias, void* y, void* mean,
-                                   void* rstd, int b, int n, int c,
-                                   int is_bf16, void* stream) {
-  if (b <= 0 || n <= 0 || c <= 0 || c % NCHUNK != 0 || c > MAX_C ||
-      b > 65535)
+                                   const void* bias, void* w_packed, void* y,
+                                   void* mean, void* rstd, int b, int n,
+                                   int c, int is_bf16, void* stream) {
+  if (b <= 0 || n <= 0 || bad_c(c) || b > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int err = launch_pack(w, w_packed, c, st);
+  if (err != 0) return err;
   if (is_bf16)
-    return launch<__nv_bfloat16>(h, s, t, gamma, beta, w, bias, y, mean,
-                                 rstd, b, n, c, st);
-  return launch<float>(h, s, t, gamma, beta, w, bias, y, mean, rstd, b, n,
-                       c, st);
+    return launch_any<__nv_bfloat16>(h, s, t, gamma, beta, w_packed, bias, y,
+                                     mean, rstd, b, n, c, st);
+  return launch_any<float>(h, s, t, gamma, beta, w_packed, bias, y, mean,
+                           rstd, b, n, c, st);
 }
 
 extern "C" const char* pcfm_cuda_error_string(int code) {

@@ -17,6 +17,11 @@ kernels do not take.  For CPU tensors the two directions run
 ``film_block_reference_forward`` and ``film_block_reference_backward``,
 the plain-torch versions that the CPU tests and the on-card comparison use.
 
+The forward kernel reads W as bf16 in the byte order of its wgmma B
+operand; ``pack_w`` makes that copy (a small kernel that the forward's C
+entry point launches first, once per call) and ``pack_w_reference`` is its
+plain version.
+
 ``launches`` and ``bwd_launches`` count kernel launches of each direction
 (never plain-version calls), so a run can show that its path went through
 the kernels.
@@ -32,6 +37,8 @@ from pcfm_torch.ops.build import check_launch, load_library, use_kernel
 
 LN_EPS = 1e-5
 MAX_C = 1024          # the 64 x C bf16 A operand must fit in shared memory
+N_TILE = 128          # output rows of W in one packed tile (wgmma n)
+K_TILE = 64           # k of one packed tile: one 128-byte swizzle row
 MAX_C_BWD = 512       # the backward also keeps 64 x C fp32 dp on chip
 
 launches = 0
@@ -87,6 +94,56 @@ def film_block_reference_backward(dy, h, s, t, gamma, beta, w, mean, rstd):
             df.sum(dim=1).to(beta.dtype), dw, dy32.sum(dim=(0, 1)))
 
 
+def packed_index(c: int, n_tile: int = N_TILE) -> torch.Tensor:
+    """(c, c) int64: where W[n, k] lies in the packed buffer.  Tiles of
+    ``n_tile`` output rows x 64 k, stored one after the other with the
+    output tile outer (the order the kernel's product reads them); inside
+    a tile, row r takes 128 bytes and its 16-byte chunk j (k = 8j..8j+7)
+    goes to chunk j ^ (r % 8), the 128-byte swizzle of wgmma's K-major
+    layout (pcfm_torch/csrc/wgmma_common.cuh)."""
+    if c % n_tile or c % K_TILE:
+        raise ValueError(f"pack: C={c} must be a multiple of {n_tile} and "
+                         f"{K_TILE}")
+    n = torch.arange(c)[:, None]
+    k = torch.arange(c)[None, :]
+    r = n % n_tile
+    stage = (n // n_tile) * (c // K_TILE) + k // K_TILE
+    chunk = ((k % K_TILE) // 8) ^ (r % 8)
+    return (stage * n_tile + r) * K_TILE + chunk * 8 + k % 8
+
+
+def pack_w_reference(w: torch.Tensor, n_tile: int = N_TILE) -> torch.Tensor:
+    """Plain version of the pack kernel: w (C, C) fp32 -> (C * C,) bf16,
+    ``w.bfloat16()`` permuted as ``packed_index`` says."""
+    c = w.shape[0]
+    out = torch.empty(c * c, dtype=torch.bfloat16, device=w.device)
+    out[packed_index(c, n_tile).to(w.device).reshape(-1)] = \
+        w.to(torch.bfloat16).reshape(-1)
+    return out
+
+
+def pack_w(w: torch.Tensor) -> torch.Tensor:
+    """The forward kernel's bf16 copy of w (C, C) fp32: the pack kernel for
+    a CUDA tensor, ``pack_w_reference`` for a CPU tensor."""
+    if w.dim() != 2 or w.shape[0] != w.shape[1]:
+        raise ValueError(f"pack_w: w must be (C, C), got {tuple(w.shape)}")
+    if not use_kernel(w, "pack_w"):
+        return pack_w_reference(w)
+    c = w.shape[0]
+    if w.dtype != torch.float32 or not w.is_contiguous() or c > MAX_C \
+            or c % N_TILE or w.data_ptr() % 16:
+        raise ValueError(f"pack_w takes a contiguous, 16-byte aligned fp32 "
+                         f"(C, C), C % {N_TILE} == 0, C <= {MAX_C}; got "
+                         f"{w.dtype} {tuple(w.shape)}")
+    out = torch.empty(c * c, dtype=torch.bfloat16, device=w.device)
+    with torch.cuda.device(w.device):
+        stream = torch.cuda.current_stream(w.device).cuda_stream
+        err = _lib().pcfm_film_block_pack_w(w.data_ptr(), out.data_ptr(), c,
+                                            stream)
+    check_launch(err, "film_block pack_w")
+    return out
+
+
 def _check_shapes(h, s, t, gamma, beta, w, b):
     if h.dim() != 3:
         raise ValueError(f"film_block: h must be (B, N, C), got "
@@ -107,7 +164,9 @@ def _check_shapes(h, s, t, gamma, beta, w, b):
 def _lib():
     lib = load_library()
     ptr = ctypes.c_void_p
-    lib.pcfm_film_block_fwd.argtypes = [ptr] * 10 + [ctypes.c_int] * 4 + [ptr]
+    lib.pcfm_film_block_fwd.argtypes = [ptr] * 11 + [ctypes.c_int] * 4 + [ptr]
+    lib.pcfm_film_block_pack_w.argtypes = [ptr, ptr, ctypes.c_int, ptr]
+    lib.pcfm_film_block_pack_w.restype = ctypes.c_int
     lib.pcfm_film_block_fwd.restype = ctypes.c_int
     lib.pcfm_film_block_bwd.argtypes = [ptr] * 17 + [ctypes.c_int] * 4 + [ptr]
     lib.pcfm_film_block_bwd.restype = ctypes.c_int
@@ -150,12 +209,13 @@ def _launch(h, s, t, gamma, beta, w, b):
     y = torch.empty_like(h)
     mean = torch.empty((bsz, n, 1), dtype=torch.float32, device=h.device)
     rstd = torch.empty_like(mean)
+    packed = torch.empty(c * c, dtype=torch.bfloat16, device=h.device)
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream
         err = _lib().pcfm_film_block_fwd(
             h.data_ptr(), s.data_ptr(), t.data_ptr(), gamma.data_ptr(),
-            beta.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
-            mean.data_ptr(), rstd.data_ptr(), bsz, n, c,
+            beta.data_ptr(), w.data_ptr(), b.data_ptr(), packed.data_ptr(),
+            y.data_ptr(), mean.data_ptr(), rstd.data_ptr(), bsz, n, c,
             int(h.dtype == torch.bfloat16), stream)
     check_launch(err, "film_block")
     launches += 1

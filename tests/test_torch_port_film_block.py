@@ -107,6 +107,60 @@ def test_shape_checks(bad):
         fb.film_block(*args)
 
 
+@pytest.mark.parametrize("c", [128, 256, 512, 1024])
+def test_pack_w_reference_is_a_permutation(c):
+    # every W entry lands in one place of the packed buffer, and reading it
+    # back there gives w.bfloat16() bitwise
+    w = torch.from_numpy(np.random.RandomState(c).randn(c, c)
+                         .astype(np.float32))
+    packed = fb.pack_w_reference(w)
+    idx = fb.packed_index(c).reshape(-1)
+    assert packed.dtype == torch.bfloat16 and packed.shape == (c * c,)
+    assert torch.equal(torch.sort(idx).values, torch.arange(c * c))
+    assert torch.equal(packed[idx].view(c, c), w.bfloat16())
+    assert torch.equal(fb.pack_w(w), packed)          # CPU: plain version
+
+
+@pytest.mark.parametrize("n,k,want", [
+    (0, 0, 0), (0, 8, 8), (1, 0, 72), (1, 8, 64), (7, 63, 7 * 64 + 7),
+    (8, 0, 8 * 64),
+    # C = 256: k tile 1 of output tile 0 is stage 1
+    (9, 64, (1 * 128 + 9) * 64 + 1 * 8),
+    # output tile 1, k tile 1: stage 1 * 4 + 1; chunk 1 ^ (130 % 8)
+    (130, 72, (5 * 128 + 2) * 64 + 3 * 8),
+    (255, 255, (7 * 128 + 127) * 64 + (7 ^ 7) * 8 + 7)])
+def test_pack_w_matches_swizzle_formula(n, k, want):
+    # offset = (stage * 128 + n % 128) * 64 + ((k % 64) // 8 ^ n % 8) * 8
+    #          + k % 8, stage = (n // 128) * (C // 64) + k // 64; C = 256
+    assert int(fb.packed_index(256)[n, k]) == want
+    w = torch.zeros(256, 256)
+    w[n, k] = 1.5
+    packed = fb.pack_w_reference(w)
+    assert float(packed[want]) == 1.5 and int((packed != 0).sum()) == 1
+
+
+@pytest.mark.parametrize("bad", ["strided", "bf16", "shape"])
+def test_kernel_checks_refuse_bad_w(bad):
+    # what the forward kernel's wrapper checks before a launch: W (C, C),
+    # fp32, contiguous (the checks are the same on any device)
+    h, s, t, gamma, beta, w, b = _port_args(_inputs(13, n=16))
+    args = {"h": h, "s": s, "t": t, "gamma": gamma, "beta": beta, "w": w,
+            "b": b}
+    if bad == "strided":
+        args["w"] = w.T
+        with pytest.raises(ValueError, match="contiguous"):
+            fb._check_operands(h, args, fb.MAX_C)
+    elif bad == "bf16":
+        args["w"] = w.bfloat16()
+        with pytest.raises(TypeError, match="w must be"):
+            fb._check_operands(h, args, fb.MAX_C)
+    else:
+        with pytest.raises(ValueError, match="w must be"):
+            fb.film_block(h, s, t, gamma, beta, w[:, :64].contiguous(), b)
+        with pytest.raises(ValueError, match=r"\(C, C\)"):
+            fb.pack_w(w[:, :64])
+
+
 _NAMES = ("h", "s", "t", "gamma", "beta", "w", "b")
 
 
@@ -230,13 +284,17 @@ def cuda():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype,n,tol", [(torch.float32, 300, 3e-2),
-                                         (torch.bfloat16, 300, 6e-2),
-                                         (torch.bfloat16, 1000, 6e-2)])
-def test_kernel_matches_plain_version(cuda, dtype, n, tol):
+@pytest.mark.parametrize("b", [1, 2, 16])
+@pytest.mark.parametrize("c", [128, 256, 512, 1024])
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 127, 128, 129, 300, 1000])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 3e-2),
+                                       (torch.bfloat16, 6e-2)])
+def test_kernel_matches_plain_version(cuda, dtype, tol, n, c, b):
     # the kernel's product is bf16 x bf16 -> fp32 (the TPU kernel's DEFAULT
-    # precision); the plain version multiplies in fp32
-    args = _port_args(_inputs(5, n=n, c=256), cuda, dtype)
+    # precision); the plain version multiplies in fp32. N covers one row,
+    # the 64- and 128-row tiles' edges and a ragged last tile; C = 1024
+    # takes the one-warpgroup (64-row) variant
+    args = _port_args(_inputs(5, b=b, n=n, c=c), cuda, dtype)
     before = fb.launches
     y, mean, rstd = fb.film_block_forward(*args)
     torch.cuda.synchronize()
@@ -245,6 +303,26 @@ def test_kernel_matches_plain_version(cuda, dtype, n, tol):
     torch.testing.assert_close(y.float(), want.float(), atol=tol, rtol=tol)
     torch.testing.assert_close(mean, mean_r, atol=1e-5, rtol=1e-5)
     torch.testing.assert_close(rstd, rstd_r, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c", [128, 256, 512, 1024])
+def test_kernel_pack_w_matches_reference(cuda, c):
+    w = torch.randn(c, c, generator=torch.Generator().manual_seed(c))
+    got = fb.pack_w(w.to(cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), fb.pack_w_reference(w))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_two_launches_bitwise_equal(cuda, dtype):
+    args = _port_args(_inputs(14, b=3, n=1000, c=512), cuda, dtype)
+    first = fb.film_block_forward(*args)
+    second = fb.film_block_forward(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.gpu
