@@ -68,7 +68,6 @@ constexpr int N_TILE = 128;   // output columns per chunk (wgmma n)
 constexpr int K_TILE = 64;    // k per ring stage: one 128-byte swizzle row
 constexpr int STAGES = 4;     // W ring depth
 constexpr int STAGE_BYTES = N_TILE * K_TILE * 2;
-constexpr int ROW_BATCH = 4;  // rows a warp has in flight in the stats pass
 constexpr int MAX_C = 1024;
 constexpr int PACK_THREADS = 256;
 
@@ -79,16 +78,14 @@ struct Tile {
   static constexpr int THREADS = 128 * WG + 32;
   // 8-value groups of a row a lane holds: C / 8 <= 32 * GROUPS
   static constexpr int GROUPS = WG == 2 ? 2 : 4;
+  static size_t smem_bytes(int c) {
+    return 1024 +                                       // alignment slack
+           static_cast<size_t>(ROWS) * c * 2 +          // A, bf16
+           static_cast<size_t>(STAGES) * STAGE_BYTES +  // W ring
+           2 * ROWS * 4 +                               // mean, rstd
+           2 * STAGES * 8;                              // full, empty
+  }
 };
-
-size_t smem_bytes(int rows, int c) {
-  return 1024 +                                       // alignment slack
-         static_cast<size_t>(rows) * c * 2 +          // A, bf16
-         static_cast<size_t>(STAGES) * STAGE_BYTES +  // W ring
-         5 * static_cast<size_t>(c) * 4 +             // s, t, gamma, beta, b
-         2 * static_cast<size_t>(rows) * 4 +          // mean, rstd
-         2 * STAGES * 8;                              // full, empty barriers
-}
 
 // 8 consecutive values of a row, as loaded (16 bytes of bf16, 32 of fp32)
 template <typename T>
@@ -137,18 +134,42 @@ __device__ __forceinline__ uint4 pack_bf16x8(const float (&x)[8]) {
                     bf16x2_bits(x[4], x[5]), bf16x2_bits(x[6], x[7]));
 }
 
-__device__ __forceinline__ void load8(const float* p, float (&x)[8]) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
-  x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
+template <typename T>
+__device__ __forceinline__ void load8(const T* p, float (&x)[8]) {
+  Group<T> g;
+  g.load(p);
+  g.unpack(x);
 }
 
-__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-__device__ __forceinline__ float2 load2(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
+// two consecutive values, as loaded and as fp32
+template <typename T>
+struct Pair;
+
+template <>
+struct Pair<__nv_bfloat16> {
+  __nv_bfloat162 v;
+  __device__ __forceinline__ void load(const __nv_bfloat16* p) {
+    v = __ldg(reinterpret_cast<const __nv_bfloat162*>(p));
+  }
+  __device__ __forceinline__ float2 get() const {
+    return __bfloat1622float2(v);
+  }
+};
+
+template <>
+struct Pair<float> {
+  float2 v;
+  __device__ __forceinline__ void load(const float* p) {
+    v = __ldg(reinterpret_cast<const float2*>(p));
+  }
+  __device__ __forceinline__ float2 get() const { return v; }
+};
+
+template <typename T>
+__device__ __forceinline__ float2 load2(const T* p) {
+  Pair<T> v;
+  v.load(p);
+  return v.get();
 }
 __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
@@ -195,20 +216,17 @@ __global__ void __launch_bounds__(Tile<WG>::THREADS, 1)
                           float* __restrict__ rstd_out, int n_points,
                           int c) {
   constexpr int ROWS = Tile<WG>::ROWS;
-  constexpr int THREADS = Tile<WG>::THREADS;
   constexpr int GROUPS = Tile<WG>::GROUPS;
+  // rows a warp has in flight in the statistics pass: 32 bytes of h a
+  // lane, so that the loads of 8 warps cover the memory latency
+  constexpr int ROW_BATCH = 32 / (GROUPS * static_cast<int>(sizeof(T)));
 
   // A and the ring on 1024-byte boundaries (the swizzle repeats every
   // 1024 bytes of address); ROWS * C * 2 and STAGE_BYTES keep that
   extern __shared__ uint8_t smem_raw[];
   uint8_t* a_tile = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint8_t* ring = a_tile + static_cast<size_t>(ROWS) * c * 2;
-  float* p_s = reinterpret_cast<float*>(ring + STAGES * STAGE_BYTES);
-  float* p_t = p_s + c;
-  float* p_g = p_t + c;
-  float* p_be = p_g + c;
-  float* p_bias = p_be + c;
-  float* s_mean = p_bias + c;
+  float* s_mean = reinterpret_cast<float*>(ring + STAGES * STAGE_BYTES);
   float* s_rstd = s_mean + ROWS;
   uint64_t* full = reinterpret_cast<uint64_t*>(s_rstd + ROWS);
   uint64_t* empty = full + STAGES;
@@ -224,15 +242,10 @@ __global__ void __launch_bounds__(Tile<WG>::THREADS, 1)
     }
     mbar_fence_init();
   }
+  // s, t, gamma, beta and bias are read where they are used: a few KB
+  // that every block reads, so L1 / L2 hits
   const T* g_c = gamma + static_cast<size_t>(blockIdx.y) * c;
   const T* be_c = beta + static_cast<size_t>(blockIdx.y) * c;
-  for (int k = threadIdx.x; k < c; k += THREADS) {
-    p_s[k] = s[k];
-    p_t[k] = t[k];
-    p_g[k] = to_f32(g_c[k]);
-    p_be[k] = to_f32(be_c[k]);
-    p_bias[k] = bias[k];
-  }
   __syncthreads();
 
   const int k_tiles = c / K_TILE;
@@ -300,10 +313,10 @@ __global__ void __launch_bounds__(Tile<WG>::THREADS, 1)
       const int gidx = lane + 32 * gi;
       if (gidx >= groups) continue;
       float sv[8], tv[8], gv[8], bv[8];
-      load8(p_s + gidx * 8, sv);
-      load8(p_t + gidx * 8, tv);
-      load8(p_g + gidx * 8, gv);
-      load8(p_be + gidx * 8, bv);
+      load8(s + gidx * 8, sv);
+      load8(t + gidx * 8, tv);
+      load8(g_c + gidx * 8, gv);
+      load8(be_c + gidx * 8, bv);
       const int kb = gidx >> 3, j = gidx & 7;
 #pragma unroll
       for (int rr = 0; rr < ROW_BATCH; ++rr) {
@@ -316,7 +329,9 @@ __global__ void __launch_bounds__(Tile<WG>::THREADS, 1)
           for (int e = 0; e < 8; ++e) {
             const float f =
                 film_f(x[e], mean[rr], rstd[rr], sv[e], tv[e], gv[e], bv[e]);
-            x[e] = f / (1.0f + expf(-f));
+            // silu with the fast exp and divide: their few-ulp error is
+            // far below the bf16 rounding of A that follows
+            x[e] = __fdividef(f, 1.0f + __expf(-f));
           }
           out = pack_bf16x8(x);
         }
@@ -351,6 +366,17 @@ __global__ void __launch_bounds__(Tile<WG>::THREADS, 1)
   for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
   int it = 0;
   for (int n0 = 0; n0 < c; n0 += N_TILE) {
+    // the epilogue's h (an L2 hit: the stats pass just read it), loaded
+    // now so that the product hides the latency
+    Pair<T> hp[2][N_TILE / 8];
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int n = row0 + er + 8 * hr;
+      if (n >= n_points) continue;
+      const T* h_row = h + (cloud_row0 + n) * c + n0 + ec;
+#pragma unroll
+      for (int j = 0; j < N_TILE / 8; ++j) hp[hr][j].load(h_row + 8 * j);
+    }
     for (int kt = 0; kt < k_tiles; ++kt, ++it) {
       const int st = it % STAGES;
       mbar_wait(&full[st], (it / STAGES) & 1);
@@ -382,12 +408,10 @@ __global__ void __launch_bounds__(Tile<WG>::THREADS, 1)
 #pragma unroll
       for (int j = 0; j < N_TILE / 8; ++j) {
         const int k = n0 + 8 * j + ec;
-        const float2 x = load2(h + off + k);
-        const float2 sv = *reinterpret_cast<const float2*>(p_s + k);
-        const float2 tv = *reinterpret_cast<const float2*>(p_t + k);
-        const float2 gv = *reinterpret_cast<const float2*>(p_g + k);
-        const float2 bv = *reinterpret_cast<const float2*>(p_be + k);
-        const float2 bb = *reinterpret_cast<const float2*>(p_bias + k);
+        const float2 x = hp[hr][j].get();
+        const float2 sv = load2(s + k), tv = load2(t + k);
+        const float2 gv = load2(g_c + k), bv = load2(be_c + k);
+        const float2 bb = load2(bias + k);
         const float f0 = film_f(x.x, mu, rs, sv.x, tv.x, gv.x, bv.x);
         const float f1 = film_f(x.y, mu, rs, sv.y, tv.y, gv.y, bv.y);
         store2(y + off + k, f0 + acc[4 * j + 2 * hr] + bb.x,
@@ -411,7 +435,7 @@ int launch(const void* h, const void* s, const void* t, const void* gamma,
            void* mean, void* rstd, int b, int n, int c,
            cudaStream_t stream) {
   constexpr int ROWS = Tile<WG>::ROWS;
-  const size_t smem = smem_bytes(ROWS, c);
+  const size_t smem = Tile<WG>::smem_bytes(c);
   cudaError_t err = cudaFuncSetAttribute(
       film_block_fwd_kernel<T, WG>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
