@@ -225,7 +225,8 @@ def check_forward(fb, torch, args) -> float:
 def film_w_l2_bytes(bsz: int, n: int, c: int) -> tuple:
     """W bytes read from L2 per forward call: (this kernel: every block of
     128 rows (64 for C > 512) reads the packed bf16 W, plus the pack's
-    fp32 read; the PR 1 wmma kernel: every 64-row block read the fp32 W)."""
+    fp32 read; the earlier wmma kernel: every 64-row block read the fp32
+    W)."""
     rows = 128 if c <= 512 else 64
     new = -(-n // rows) * bsz * c * c * 2 + c * c * 4
     return new, -(-n // 64) * bsz * c * c * 4
@@ -261,8 +262,8 @@ def kernel_vs_plain(fb, torch):
               f"{t['kernel']:.4f} ms, plain fp32 {t['plain']:.4f} ms, "
               f"torch.matmul ({bsz * N}, {C}) x ({C}, {C}) bf16 alone "
               f"{t['gemm']:.4f} ms (medians of 6 x 10 calls in turns); W "
-              f"read from L2 per call {l2_new / 1e9:.3f} GB (PR 1's wmma "
-              f"kernel: {l2_old / 1e9:.3f} GB)")
+              f"read from L2 per call {l2_new / 1e9:.3f} GB (a 64-row fp32-W "
+              f"wmma kernel: {l2_old / 1e9:.3f} GB)")
         out[bsz] = (t["kernel"], t["plain"], t["gemm"])
         del args, a2d
         torch.cuda.empty_cache()
