@@ -19,9 +19,12 @@
 //     16 KB bulk copy completed on an mbarrier (no tensor map, no driver
 //     API);
 //   * a block owns ROWS = 128 rows of one cloud (64 for C > 512, so that
-//     the A operand fits): one or two consumer warpgroups of 64 rows and
-//     one producer warp that keeps a 4-stage ring of W tiles full from
-//     the block's start, so the first tiles arrive during the statistics;
+//     the A operand fits): one or two warpgroups of 64 rows. Thread 0 keeps
+//     a 4-stage ring of W tiles full: it asks for the first four at the
+//     block's start, so that they arrive during the statistics, and for
+//     each stage again once every warpgroup has released it. There is no
+//     producer warp: a block of 256 threads may use 255 registers a
+//     thread, where 288 threads are held to 168;
 //   * statistics with h read once from device memory: one warp per row,
 //     16-byte loads, 32 bytes of h in flight a lane (2 to 8 rows a warp),
 //     the two-pass mean and variance from registers; each warp writes
@@ -29,8 +32,8 @@
 //     K-major A operand (the whole ROWS x C tile stays in shared memory);
 //   * the product on wgmma m64n128k16 (bf16 x bf16 -> fp32, the TPU
 //     kernel's DEFAULT-precision dot), A and B from shared memory, over
-//     128-column output chunks and 64-deep k stages; a stage goes back to
-//     the producer after the wgmma.wait_group that covers it;
+//     128-column output chunks and 64-deep k stages; a warpgroup releases
+//     a stage after the wgmma.wait_group that covers it;
 //   * the epilogue works on the accumulator registers: f is recomputed in
 //     fp32 from h (the block's own rows, loaded before the chunk's product
 //     so that the product hides the latency; the statistics pass just read
@@ -55,10 +58,8 @@
 //     statistics and epilogue run while another's product does (two 64-row
 //     A buffers), with each W stage multicast to a cluster so that W's L2
 //     traffic (0.5 MB a block here) does not double;
-//   * registers: the 288-thread block is given at most 168 a thread and
-//     spills a few; without the producer warp (thread 0 refilling each
-//     released stage) a block gets 255;
-//   * full-line y stores (through shared memory) once registers allow.
+//   * full-line y stores: staging y through shared memory cost more
+//     registers than the block has, and spilled.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -76,11 +77,11 @@ constexpr int STAGE_BYTES = N_TILE * K_TILE * 2;
 constexpr int MAX_C = 1024;
 constexpr int PACK_THREADS = 256;
 
-// WG consumer warpgroups of 64 rows, plus one producer warp
+// WG warpgroups of 64 rows; thread 0 also keeps the W ring full
 template <int WG>
 struct Tile {
   static constexpr int ROWS = 64 * WG;
-  static constexpr int THREADS = 128 * WG + 32;
+  static constexpr int THREADS = 128 * WG;
   // 8-value groups of a row a lane holds: C / 8 <= 32 * GROUPS
   static constexpr int GROUPS = WG == 2 ? 2 : 4;
   static size_t smem_bytes(int c) {
@@ -253,24 +254,23 @@ __global__ void __launch_bounds__(Tile<WG>::THREADS, 1)
   const T* be_c = beta + static_cast<size_t>(blockIdx.y) * c;
   __syncthreads();
 
+  // thread 0 keeps the W ring full: stage i % STAGES takes packed tile i
+  // (the product's order); the first STAGES tiles are asked for now, so
+  // that they arrive during the statistics, and each stage again as soon
+  // as every warpgroup has released it
   const int k_tiles = c / K_TILE;
-  if (warp == 4 * WG) {
-    // producer: stage i holds packed tile i, in the consumers' order
-    if (lane == 0) {
-      const int total = (c / N_TILE) * k_tiles;
-      for (int i = 0; i < total; ++i) {
-        const int st = i % STAGES;
-        mbar_wait(&empty[st], ((i / STAGES) & 1) ^ 1);
-        mbar_arrive_expect_tx(&full[st], STAGE_BYTES);
-        bulk_copy_g2s(ring + st * STAGE_BYTES,
-                      w_packed + static_cast<size_t>(i) * N_TILE * K_TILE,
-                      STAGE_BYTES, &full[st]);
-      }
-    }
-    return;
-  }
+  const int total = (c / N_TILE) * k_tiles;
+  auto load_stage = [&](int i) {
+    const int st = i % STAGES;
+    mbar_arrive_expect_tx(&full[st], STAGE_BYTES);
+    bulk_copy_g2s(ring + st * STAGE_BYTES,
+                  w_packed + static_cast<size_t>(i) * N_TILE * K_TILE,
+                  STAGE_BYTES, &full[st]);
+  };
+  if (threadIdx.x == 0)
+    for (int i = 0; i < STAGES && i < total; ++i) load_stage(i);
 
-  // ---- consumers: statistics and silu(f) of this warp's 16 rows into A
+  // ---- statistics and silu(f) of this warp's 16 rows into A
   const int wg = warp >> 2;
   const int groups = c >> 3;
   for (int rb = warp * 16; rb < warp * 16 + 16; rb += ROW_BATCH) {
@@ -362,6 +362,14 @@ __global__ void __launch_bounds__(Tile<WG>::THREADS, 1)
 
   // ---- the product, chunk by chunk, and the epilogue from the registers
   const int tid = threadIdx.x & 127;
+  // this warpgroup's products of tile i are done: release its stage
+  auto release = [&](int i) {
+    if (tid == 0) mbar_arrive(&empty[i % STAGES]);
+    if (threadIdx.x == 0 && i + STAGES < total) {
+      mbar_wait(&empty[i % STAGES], (i / STAGES) & 1);
+      load_stage(i + STAGES);
+    }
+  };
   const uint32_t a_base = smem_u32(a_tile) + wg * 64 * 128;
   const uint32_t ring_base = smem_u32(ring);
   const int er = wg * 64 + (warp & 3) * 16 + (lane >> 2);  // rows er, er+8
@@ -396,13 +404,13 @@ __global__ void __launch_bounds__(Tile<WG>::THREADS, 1)
       wgmma_commit();
       if (kt > 0) {
         wgmma_wait<1>();  // the previous stage's products are done
-        if (tid == 0) mbar_arrive(&empty[(it - 1) % STAGES]);
+        release(it - 1);
       }
     }
     wgmma_wait<0>();
 #pragma unroll
     for (int i = 0; i < 64; ++i) fence_operand(acc[i]);
-    if (tid == 0) mbar_arrive(&empty[(it - 1) % STAGES]);
+    release(it - 1);
 
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) {
