@@ -26,8 +26,12 @@ failure:
    steps, each bf16 path against an fp32 plain run;
 6. backward kernel vs plain: all seven gradients of the FiLM-block
    backward kernel against its plain-torch version at (8 | 16, 20 000,
-   512) bf16, each within GRAD_REL_TOL of the gradient's max, bitwise equal
-   across two launches, CUDA-event times of both;
+   512) bf16 and the edges (N = 1, 129, 300; C = 128, 256, 384; fp32
+   inputs), each within GRAD_REL_TOL of the gradient's max, bitwise equal
+   across two launches; CUDA-event times of the kernel, the plain version
+   and one torch.matmul of each of its two products alone (yardsticks, not
+   used by the port), W's L2 bytes, and the rows and dW passes' device
+   times from one profiled run;
 7. the training path: the training CLI at the same full width
    (`--dataset_type synthetic`, 8 steps, validation, a checkpoint); the
    forward and backward kernels must run 5 times per step, the losses be
@@ -84,6 +88,7 @@ import io
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -270,62 +275,129 @@ def kernel_vs_plain(fb, torch):
     return out, worst
 
 
+def check_spills(log: str) -> None:
+    """Print ptxas's registers and spills for each kernel of the build log
+    and fail if a FiLM-block kernel spills."""
+    name, spilled = "?", []
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1] if "'" in line else line.strip()
+        elif "registers" in line or "spill" in line:
+            print(f"[build] {name[:70]}: {line.split(':', 1)[-1].strip()}")
+            if "film_block" in name and "spill" in line and any(
+                    int(x) for x in re.findall(r"(\d+) bytes spill", line)):
+                spilled.append(name)
+    if spilled:
+        raise RuntimeError(f"ptxas spills in {sorted(set(spilled))}")
+
+
+def backward_inputs(fb, torch, g, bsz: int, n: int, c: int, dtype) -> tuple:
+    """The backward's arguments at (bsz, n, c): dy, h, s, t, gamma, beta,
+    w, and the forward kernel's mean and rstd."""
+    h, s, t, gamma, beta, w, b = film_inputs(torch, g, bsz, n, c, dtype)
+    dy = (torch.randn(bsz, n, c, device=DEVICE, generator=g) * 1e-3).to(dtype)
+    _, mean, rstd = fb.film_block_forward(h, s, t, gamma, beta, w, b)
+    return dy, h, s, t, gamma, beta, w, mean, rstd
+
+
+def check_backward(fb, torch, args) -> tuple:
+    """The backward kernel against its plain version: each of the seven
+    gradients within GRAD_REL_TOL of its max |plain|, finite, of the plain
+    version's dtype and shape, and two launches bitwise equal. Returns
+    (max abs err, max err over the gradient's max)."""
+    names = ("dh", "ds", "dt", "dgamma", "dbeta", "dW", "db")
+    h = args[1]
+    tag = f"{tuple(h.shape)} {str(h.dtype).replace('torch.', '')}"
+    got = fb.film_block_backward(*args)
+    again = fb.film_block_backward(*args)
+    torch.cuda.synchronize()
+    want = fb.film_block_reference_backward(*args)
+    worst, worst_abs, errs = 0.0, 0.0, []
+    for name, k, k2, p in zip(names, got, again, want):
+        if k.shape != p.shape or k.dtype != p.dtype:
+            raise RuntimeError(f"backward {name} at {tag}: {k.shape} "
+                               f"{k.dtype}, plain {p.shape} {p.dtype}")
+        if not torch.equal(k, k2):
+            raise RuntimeError(f"backward {name} at {tag} differs between "
+                               f"two launches on the same inputs")
+        err = (k.float() - p.float()).abs().max().item()
+        rel = err / max(p.float().abs().max().item(), 1e-30)
+        if not torch.isfinite(k).all() or rel > GRAD_REL_TOL:
+            raise RuntimeError(f"backward kernel {name} disagrees with its "
+                               f"plain version at {tag}: {err:.4g}, "
+                               f"{rel:.4g} of its max")
+        worst, worst_abs = max(worst, rel), max(worst_abs, err)
+        errs.append(f"{name} {rel:.3g}")
+    print(f"[bwd] {tag}: err / max |plain| {', '.join(errs)} (bound "
+          f"{GRAD_REL_TOL}); two launches bitwise equal")
+    return worst_abs, worst
+
+
+def film_bwd_w_l2_bytes(bsz: int, n: int, c: int) -> int:
+    """W bytes read from L2 per backward call: every 64-row rows-pass
+    block reads the packed bf16 Wᵀ, and the pack reads the fp32 W."""
+    return -(-n // 64) * bsz * c * c * 2 + c * c * 4
+
+
 def backward_vs_plain(fb, torch):
     """Phase 6: the backward kernel against its plain version (fp32 math)
-    at the training path's shapes. Returns {B: (max abs err, max err over
-    the gradient's max, kernel ms, plain ms)}."""
-    names = ("dh", "ds", "dt", "dgamma", "dbeta", "dW", "db")
+    at the training path's shapes (8 | 16, 20 000, 512) bf16 and the edges
+    (N = 1, 129, 300; C = 128, 256, 384; fp32 inputs); then CUDA-event
+    times of the kernel, the plain version and one torch.matmul of each
+    product alone (dy @ W and dyᵀ @ p in bf16: yardsticks, not used by the
+    port), W's L2 bytes, and one profiled run for the rows pass's and the
+    dW pass's device times. Returns {B: row} and the worst errors."""
     g = torch.Generator(device=DEVICE).manual_seed(SEED + 2)
-    out = {}
+    worst, worst_abs = 0.0, 0.0
+    cases = [(B, n, C, torch.bfloat16) for n in (1, 129, 300)]
+    cases += [(B, 300, c, torch.bfloat16) for c in (128, 256, 384)]
+    cases += [(B, n, c, torch.float32) for n, c in ((129, 512), (300, 128),
+                                                    (N, C))]
+    cases += [(bsz, N, C, torch.bfloat16) for bsz in (B, 2 * B)]
+    for bsz, n, c, dtype in cases:
+        e_abs, e_rel = check_backward(
+            fb, torch, backward_inputs(fb, torch, g, bsz, n, c, dtype))
+        worst, worst_abs = max(worst, e_rel), max(worst_abs, e_abs)
+        torch.cuda.empty_cache()
+    out = {"max_abs_err": worst_abs, "max_err_over_grad_max": worst}
     for bsz in (B, 2 * B):
-        def rnd(*shape, scale=1.0):
-            return torch.randn(*shape, device=DEVICE, generator=g) * scale
-        h = rnd(bsz, N, C, scale=0.7).bfloat16()
-        s, t = 1.0 + rnd(C, scale=0.1), rnd(C, scale=0.1)
-        gamma = rnd(bsz, C, scale=0.2).bfloat16()
-        beta = rnd(bsz, C, scale=0.2).bfloat16()
-        w = rnd(C, C, scale=C ** -0.5)
-        dy = rnd(bsz, N, C, scale=1e-3).bfloat16()
-        _, mean, rstd = fb.film_block_forward(h, s, t, gamma, beta, w,
-                                              rnd(C))
-        args = (dy, h, s, t, gamma, beta, w, mean, rstd)
-
-        got = fb.film_block_backward(*args)
-        again = fb.film_block_backward(*args)
-        torch.cuda.synchronize()
-        want = fb.film_block_reference_backward(*args)
-        worst, worst_abs = 0.0, 0.0
-        for name, k, k2, p in zip(names, got, again, want):
-            if k.shape != p.shape or k.dtype != p.dtype:
-                raise RuntimeError(f"backward {name}: {k.shape} {k.dtype}, "
-                                   f"plain {p.shape} {p.dtype}")
-            if not torch.equal(k, k2):
-                raise RuntimeError(f"backward {name} differs between two "
-                                   f"launches on the same inputs")
-            err = (k.float() - p.float()).abs().max().item()
-            rel = err / max(p.float().abs().max().item(), 1e-30)
-            print(f"[bwd] ({bsz}, {N}, {C}) {name}: max abs err {err:.4g}, "
-                  f"/ max |plain| {rel:.4g} (bound {GRAD_REL_TOL})")
-            if not torch.isfinite(k).all() or rel > GRAD_REL_TOL:
-                raise RuntimeError(f"backward kernel {name} disagrees with "
-                                   f"its plain version at B={bsz}")
-            worst, worst_abs = max(worst, rel), max(worst_abs, err)
-        print(f"[bwd] ({bsz}, {N}, {C}): all seven gradients bitwise equal "
-              f"across two launches")
-
-        fns = {"kernel": lambda: fb.film_block_backward(*args),
-               "plain": lambda: fb.film_block_reference_backward(*args)}
-        times = {"kernel": [], "plain": []}
-        for name in ("plain", "kernel", "kernel", "plain") * 2:
-            fns[name]()
-            times[name].append(cuda_ms(fns[name], reps=5))
-        k_ms = statistics.median(times["kernel"])
-        p_ms = statistics.median(times["plain"])
+        args = backward_inputs(fb, torch, g, bsz, N, C, torch.bfloat16)
+        dy2d = args[0].reshape(-1, C)
+        w16 = args[6].bfloat16()
+        p2d = torch.nn.functional.silu(args[1].float()).bfloat16() \
+            .reshape(-1, C)
+        t = timed_turns({
+            "kernel": lambda: fb.film_block_backward(*args),
+            "plain": lambda: fb.film_block_reference_backward(*args),
+            "gemm_dp": lambda: torch.matmul(dy2d, w16),
+            "gemm_dw": lambda: torch.matmul(dy2d.T, p2d)},
+            rounds=2, reps={"kernel": 10, "plain": 3, "gemm_dp": 10,
+                            "gemm_dw": 10})
+        prof = profile_kernels(
+            torch, lambda: fb.film_block_backward(*args), 5,
+            {"rows": ("film_block_bwd_rows",),
+             "dw": ("film_block_bwd_dw",),
+             "pack": ("film_block_bwd_pack",),
+             "reduce": ("film_block_bwd_sum", "film_block_bwd_finalize")},
+            os.path.join(RUN_DIR, f"backward_b{bsz}_trace.json"))
+        l2 = film_bwd_w_l2_bytes(bsz, N, C)
         print(f"[bwd] film_block backward ({bsz}, {N}, {C}) bf16: kernel "
-              f"{k_ms:.4f} ms, plain fp32 {p_ms:.4f} ms (median of 4 x 5 "
-              f"launches)")
-        out[bsz] = (worst_abs, worst, k_ms, p_ms)
-        del h, dy, got, again, want, args, fns
+              f"{t['kernel']:.4f} ms, plain fp32 {t['plain']:.4f} ms; "
+              f"torch.matmul alone (bf16, cuBLAS): dy @ W ({bsz * N}, {C}) "
+              f"x ({C}, {C}) {t['gemm_dp']:.4f} ms, dyᵀ @ p ({C}, "
+              f"{bsz * N}) x ({bsz * N}, {C}) {t['gemm_dw']:.4f} ms "
+              f"(medians of 4 timings in turns); W read from L2 per call "
+              f"{l2 / 1e9:.3f} GB")
+        print(f"[bwd] profiled, 5 calls: rows pass {prof['rows'][0]:.4f} ms"
+              f", dW pass {prof['dw'][0]:.4f} ms, Wᵀ pack "
+              f"{prof['pack'][0]:.4f} ms, reductions {prof['reduce'][0]:.4f}"
+              f" ms a call (device busy {prof['busy_ms']:.4f} ms a call; "
+              f"read beside the CUDA-event time)")
+        out[bsz] = {"ms": t["kernel"], "plain_ms": t["plain"],
+                    "gemm_dp_ms": t["gemm_dp"], "gemm_dw_ms": t["gemm_dw"],
+                    "rows_ms": prof["rows"][0], "dw_ms": prof["dw"][0],
+                    "w_l2_gb": l2 / 1e9}
+        del args, dy2d, p2d, w16
         torch.cuda.empty_cache()
     return out
 
@@ -1202,9 +1274,7 @@ def main() -> int:
     info = build.build(force=True)
     print(f"[build] {len(build.sources())} source(s) -> "
           f"{os.path.relpath(info['path'], ROOT)} in {info['seconds']:.2f} s")
-    for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[build] {line.strip()}")
+    check_spills(info["log"])
 
     kv, kv_err = kernel_vs_plain(fb, torch)
     launches = main_path(fb, torch, np)
@@ -1265,12 +1335,22 @@ def main() -> int:
         "source": "pcfm_torch/csrc/film_block_bwd.cu",
         "replaces": "pcfm/ops/pallas/film_block.py:75",
         "launches": bwd_train, "train_steps": steps,
-        "max_abs_err": max(v[0] for v in bw.values()),
-        "max_err_over_grad_max": max(v[1] for v in bw.values()),
-        "ms": bw[B][2], "plain_ms": bw[B][3],
+        "max_abs_err": bw["max_abs_err"],
+        "max_err_over_grad_max": bw["max_err_over_grad_max"],
+        "ms": bw[B]["ms"], "plain_ms": bw[B]["plain_ms"],
         "bound_ms": film["bwd"][0], "bound_by": film["bwd"][1],
         "library_ms": None, "shape": [B, N, C],
-        "ms_2b": bw[2 * B][2], "plain_ms_2b": bw[2 * B][3],
+        "gemm_only_ms": bw[B]["gemm_dp_ms"] + bw[B]["gemm_dw_ms"],
+        "gemm_dp_ms": bw[B]["gemm_dp_ms"], "gemm_dw_ms": bw[B]["gemm_dw_ms"],
+        "rows_pass_profiled_ms": bw[B]["rows_ms"],
+        "dw_pass_profiled_ms": bw[B]["dw_ms"], "w_l2_gb": bw[B]["w_l2_gb"],
+        "ms_2b": bw[2 * B]["ms"], "plain_ms_2b": bw[2 * B]["plain_ms"],
+        "gemm_only_ms_2b": bw[2 * B]["gemm_dp_ms"]
+        + bw[2 * B]["gemm_dw_ms"],
+        "gemm_dp_ms_2b": bw[2 * B]["gemm_dp_ms"],
+        "gemm_dw_ms_2b": bw[2 * B]["gemm_dw_ms"],
+        "rows_pass_profiled_ms_2b": bw[2 * B]["rows_ms"],
+        "dw_pass_profiled_ms_2b": bw[2 * B]["dw_ms"],
         "train_ms_per_step": step["ms_on"],
         "train_plain_trunk_ms_per_step": step["ms_off"],
         "train_peak_gib": step["peak_gib_on"],

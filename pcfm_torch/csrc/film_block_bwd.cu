@@ -12,158 +12,272 @@
 //
 // and the parameter gradients, summed over rows: dW = dy^T @ p (out x in),
 // db = sum dy, ds = sum du * xhat, dt = sum du over all B * N rows;
-// dgamma = sum df * u, dbeta = sum df over each cloud's N rows.
+// dgamma = sum df * u, dbeta = sum df over each cloud's N rows. Both
+// products multiply bf16 values and add in fp32 (the TPU kernel's DEFAULT
+// precision).
 //
-// Design (simple, right and deterministic first; no float atomics):
-//   * rows pass: a block owns ROWS = 64 rows of ONE cloud (the forward's
-//     tile). dy goes to shared memory as the bf16 A operand of dp = dy @ W
-//     (wmma bf16 x bf16 -> fp32; W streamed in 32 x 128 tiles of a bf16
-//     copy made once per call), the whole 64 x C fp32 dp stays in shared
-//     memory (C <= 512: 204 KB), each warp turns its rows' dp into df,
-//     writes dh and p = silu(f) (bf16, the dW pass's operand), then each
-//     thread sums its columns over the tile's rows and writes the tile's
-//     five partial sums (db, dgamma, dbeta, ds, dt) to a workspace. Masked
-//     rows of the ragged last tile are never read and add nothing;
-//   * dW pass: a bf16 GEMM. A block owns a 128 x 128 tile of dW and one of
-//     SPLIT_K = 32 fixed slices of the B * N rows; it stages dy and p in
-//     64-row steps (16-byte loads) and accumulates dy^T p with wmma, then
-//     writes its slice's partial tile to the workspace. Blocks of one slice
-//     are neighbours in the grid, so they share that slice's rows in L2;
-//   * reductions: the SPLIT_K partial dW tiles, the per-tile partials of
-//     each cloud and then the per-cloud sums are added in a fixed order by
-//     small kernels. The result is bitwise reproducible.
+// Design:
+//   * a pack kernel turns the fp32 W into bf16 Wᵀ tiles once per call, in
+//     the byte order of the rows pass's wgmma B operand: tiles of 128 input
+//     columns x 64 output rows, K-major, 128-byte swizzled
+//     (wgmma_common.cuh), in the product's order, so that a tile is one
+//     16 KB bulk copy (packed_t_index / pack_wt_reference in
+//     ops/film_block.py are the formula and the plain version);
+//   * rows pass: a block owns ROWS = 64 rows of ONE cloud and two
+//     warpgroups; warpgroup g computes dp's 128-column chunks g and g + 2
+//     and keeps them in registers (128 fp32 a thread at C = 512), so that
+//     the whole row's dp stays on chip until its means are known (no
+//     spill: ptxas gives 255 registers). dy goes as bf16 into the swizzled
+//     K-major A operand by ordinary 16-byte stores (rows past N are
+//     zeros), each thread summing its 8 columns over 16 rows for db on the
+//     way; one bulk store copies the tile to device memory, where it is
+//     the dW pass's dy operand as it stands. Thread 0 keeps a 4-stage ring
+//     of Wᵀ tile pairs (32 KB a stage, one tile for each warpgroup) full:
+//     the first stages are asked for at the block's start, each again once
+//     both warpgroups have released it (no producer warp). Then the tile's
+//     h (prefetched into L2 at the start) comes into the freed ring, one
+//     bulk copy a row. The epilogues are straight-line code on the
+//     accumulators, with h, the params (one float4 a column) and dy from
+//     shared memory (dy from A: rounded to bf16 for fp32 inputs, as the
+//     product takes it, which keeps the fp32 variant in 255 registers; db
+//     sums the fp32 values): f, a fast sigmoid, df in place of dp, p = silu(f)
+//     into A in place of dy (then one bulk store, in the dW pass's byte
+//     order); the row sums of dxhat and dxhat * xhat meet across the two
+//     warpgroups in shared memory; dh goes into the h tile in place of h,
+//     then one bulk store a row. The column sums of df and df * xhat are
+//     halved across the 8 lanes that hold a column pair (7 shuffles for
+//     two column groups), then summed over the 4 warps in a fixed order;
+//     the tile's db, dgamma, dbeta, ds and dt follow from them;
+//   * dW pass: a block owns a 128 x 128 (or 128 x 256 when C % 256 == 0)
+//     tile of dW and one fixed slice of the row tiles. Each stage is one
+//     row tile: 16 KB of packed dy and 16 or 32 KB of packed p, two bulk
+//     copies on an mbarrier, 4 stages. Both operands are MN-major (the
+//     rows run along k), read with wgmma's transpose flags; warpgroup g
+//     takes dW's rows 64 g .. 64 g + 63 of the block;
+//   * reductions: the slices' dW tiles, the per-tile column sums of each
+//     cloud and then the per-cloud sums are added in a fixed order by small
+//     kernels. No float atomics: two launches are bitwise equal.
 //
-// Workspace (one fp32 buffer, sized by pcfm_film_block_bwd_workspace):
-// SPLIT_K * C * C for dW (32 MiB at C = 512), B * ceil(N / 64) * 5 * C for
-// the tile partials (24.5 MiB at (8, 20000, 512)), B * 5 * C per cloud and
-// p, B * N * C in bf16 (156 MiB at (8, 20000, 512)), and the bf16 W.
+// Workspace (one fp32 buffer, sized by pcfm_film_block_bwd_workspace,
+// regions listed by pcfm_film_block_bwd_offsets): the slices' dW tiles
+// (16 x C x C at C = 512), the tile sums B x ceil(N / 64) x 5 x C, the
+// cloud sums B x 5 x C, packed p and packed dy (each B x ceil(N / 64) x
+// 64 x C bf16: 164 MB at (8, 20000, 512)) and the packed Wᵀ.
 //
-// What bounds it at (B, N, C) = (8, 20000, 512): it reads dy and h and
-// writes dh and p in the rows pass, reads dy and p in the dW pass (~0.8 GB
-// in bf16, ~0.25 ms at 3.35 TB/s) and does two C x C products over 160k
-// rows, 168 GFLOP (~0.17 ms at 989 TFLOP/s dense bf16). What this design
-// leaves open: wmma instead of wgmma, no TMA or cp.async pipeline, one
-// rows block per SM (204 KB of shared memory), W re-read from L2 by every
-// rows block.
+// What bounds it at (B, N, C) = (8, 20000, 512) (chip_smoke.py's
+// film_bounds): the two C x C products over 160k rows, 168 GFLOP, take
+// 0.170 ms at 989 TFLOP/s dense bf16; its bytes (dy and h read, dh
+// written, ~0.5 GB in bf16) take ~0.15 ms at 3.35 TB/s. The design adds
+// bytes of its own beyond that bound: p and the packed dy, each written by
+// the rows pass and read by the dW pass (~0.66 GB, ~0.2 ms at 3.35 TB/s).
+// The rows pass runs one block an SM (A 64 KB + ring 128 KB + sums and
+// params 35 KB; 128 accumulators a thread), so a tile's dy load, product,
+// h copy and epilogues run in series, and every block reads the packed
+// Wᵀ (0.5 MB) from L2.
+//
+// What it leaves for later: overlap across tiles (a persistent block whose
+// warpgroups take turns at product and epilogue), W tiles multicast to a
+// cluster, a dW pass that reads dy through a tensor map instead of the
+// packed copy, C > 512 (dp would no longer fit in the registers).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
+#include <cstdint>
 #include <type_traits>
 
 #include "film_common.cuh"
-
-using namespace nvcuda;
+#include "wgmma_common.cuh"
 
 namespace {
 
-constexpr int ROWS = 64;            // rows (points) of one cloud per block
-constexpr int THREADS = 256;        // 8 warps
-constexpr int WARPS = THREADS / 32;
-constexpr int NCHUNK = 128;         // dp columns per GEMM pass
-constexpr int KCHUNK = 32;          // reduction depth of one staged W tile
-constexpr int A_PAD = 8;            // bf16 row padding of the A operand
-constexpr int B_LD = NCHUNK + 8;    // W tile, row-major [KCHUNK][B_LD]
-constexpr int D_PAD = 4;            // fp32 row padding of dp / df
-constexpr int MAX_C = 512;          // A operand + fp32 dp must fit
-constexpr int NQ = 5;               // tile partials: db, dgamma, dbeta, ds, dt
-constexpr int TILE = 128;           // dW output tile (out x in)
-constexpr int KT = 64;              // rows per dW step
-constexpr int T_LD = TILE + 8;      // bf16 staging of dy / p: [KT][T_LD]
-constexpr int SPLIT_K = 32;         // fixed row slices of the dW sum
+constexpr int ROWS = 64;            // rows of one cloud per rows-pass block
+constexpr int THREADS = 256;        // two warpgroups
+constexpr int N_TILE = 128;         // wgmma n: output columns of a chunk
+constexpr int K_TILE = 64;          // k of one packed tile: a 128-byte row
+constexpr int TILE_BYTES = N_TILE * K_TILE * 2;  // 16 KB
+constexpr int MAX_C = 512;          // 2 chunks of dp a warpgroup
+constexpr int NQ = 5;               // tile sums: db, dgamma, dbeta, ds, dt
+constexpr int NS = 3;               // column sums kept: dy, df, df * xhat
+constexpr int ROWS_STAGES = 4;      // Wᵀ ring, a tile pair a stage
+constexpr int DW_STAGES = 4;
+constexpr int DW_M = 128;           // dW rows (out) a block
+constexpr int DW_BLOCKS = 132;      // aim: one wave of dW blocks (H100 SXM)
 constexpr int RED_THREADS = 256;
 
 int cdiv(long long a, long long b) { return static_cast<int>((a + b - 1) / b); }
 
+constexpr int RING_BYTES = ROWS_STAGES * 2 * TILE_BYTES;  // 128 KB
+
 size_t rows_smem_bytes(int c) {
-  return static_cast<size_t>(ROWS) * (c + A_PAD) * sizeof(__nv_bfloat16) +
-         static_cast<size_t>(KCHUNK) * B_LD * sizeof(__nv_bfloat16) +
-         static_cast<size_t>(ROWS) * (c + D_PAD) * sizeof(float) +
-         2 * ROWS * sizeof(float);
+  return 1024 +                                           // alignment slack
+         static_cast<size_t>(ROWS) * c * 2 +              // A (dy), bf16
+         RING_BYTES +                                     // Wᵀ ring, then h
+         static_cast<size_t>(4) * NS * c * 4 +            // column sums
+         2 * ROWS * 2 * 4 +                               // row sums
+         2 * ROWS * 4 +                                   // mean, rstd
+         static_cast<size_t>(c) * 16 +                    // s, t, 1 + g, beta
+         (2 * ROWS_STAGES + 1) * 8;                       // full, empty, h
 }
 
-// 32 x 128 tile of the bf16 copy of W (rows k0.. = output features,
-// columns n0.. = input features) into registers: 512 16-byte words, two
-// per thread
-__device__ __forceinline__ void load_w_tile(
-    const __nv_bfloat16* __restrict__ w, int c, int k0, int n0,
-    uint4 (&pre)[2]) {
+// a dW stage: 64 rows of packed dy (128 columns) and of packed p (128 NB)
+template <int NB>
+size_t dw_smem_bytes() {
+  return 1024 + static_cast<size_t>(DW_STAGES) * TILE_BYTES * (1 + NB) +
+         2 * DW_STAGES * 8;
+}
+
+// offset (bf16 values) of row r < 64, column k of a 64-row tile packed for
+// the dW pass: 64-column regions of 64 rows x 128 bytes, each row's 16-byte
+// chunks swizzled (the rows pass's A operand, byte for byte)
+__device__ __forceinline__ int tile_offset(int r, int k) {
+  return (k >> 6) * (ROWS * 64) + r * 64 +
+         ((((k & 63) >> 3) ^ (r & 7)) << 3) + (k & 7);
+}
+
+// W (out, in) fp32 -> bf16 Wᵀ tiles: W[o, i] lands where packed_offset puts
+// row i, column o; one thread per 8 consecutive o of one column i
+__global__ void __launch_bounds__(RED_THREADS)
+    film_block_bwd_pack_wt_kernel(const float* __restrict__ w,
+                                  __nv_bfloat16* __restrict__ packed,
+                                  int c) {
+  const int idx = blockIdx.x * RED_THREADS + threadIdx.x;
+  if (idx >= c * (c / 8)) return;
+  const int i = idx % c, o = (idx / c) * 8;
+  float x[8];
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int idx = threadIdx.x + i * THREADS;
-    const int k = idx >> 4, n8 = idx & 15;
-    pre[i] = *reinterpret_cast<const uint4*>(
-        w + static_cast<size_t>(k0 + k) * c + n0 + n8 * 8);
-  }
+  for (int e = 0; e < 8; ++e) x[e] = w[static_cast<size_t>(o + e) * c + i];
+  *reinterpret_cast<uint4*>(packed + packed_offset(i, o, c)) =
+      pack_bf16x8(x);
 }
 
-__device__ __forceinline__ void store_w_tile(__nv_bfloat16* ws,
-                                             const uint4 (&pre)[2]) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int idx = threadIdx.x + i * THREADS;
-    const int k = idx >> 4, n8 = idx & 15;
-    *reinterpret_cast<uint4*>(ws + k * B_LD + n8 * 8) = pre[i];
-  }
+// loads are not moved across it: the first epilogue issues two column
+// groups' loads at a time, so that 128 accumulators and the loads in
+// flight fit in 255 registers without a spill
+__device__ __forceinline__ void hoist_barrier() {
+  asm volatile("" ::: "memory");
 }
 
-// 8 consecutive values as 8 bf16 in one 16-byte word
-__device__ __forceinline__ uint4 load8_bf16(const __nv_bfloat16* src) {
-  return *reinterpret_cast<const uint4*>(src);
+// two consecutive values by an ordinary load (shared or device memory)
+__device__ __forceinline__ float2 ld2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
-__device__ __forceinline__ uint4 load8_bf16(const float* src) {
-  const float4 a = *reinterpret_cast<const float4*>(src);
-  const float4 b = *reinterpret_cast<const float4*>(src + 4);
-  uint4 out;
-  __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(&out);
-  o[0] = __floats2bfloat162_rn(a.x, a.y);
-  o[1] = __floats2bfloat162_rn(a.z, a.w);
-  o[2] = __floats2bfloat162_rn(b.x, b.y);
-  o[3] = __floats2bfloat162_rn(b.z, b.w);
-  return out;
+__device__ __forceinline__ float2 ld2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
 }
 
-// Rows pass: dh and the per-tile partial sums. Grid (ceil(N / ROWS), B).
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
+// Rows pass: dh, packed p and dy, and the per-tile sums. Grid
+// (ceil(N / ROWS), B); kEven: C / 128 is even, so that each warpgroup has
+// a chunk in every pair.
+template <typename T, bool kEven>
+__global__ void __launch_bounds__(THREADS, 1)
     film_block_bwd_rows_kernel(const T* __restrict__ dy,
                                const T* __restrict__ h,
                                const float* __restrict__ s,
                                const float* __restrict__ t,
                                const T* __restrict__ gamma,
                                const T* __restrict__ beta,
-                               const __nv_bfloat16* __restrict__ w,
+                               const __nv_bfloat16* __restrict__ wt_packed,
                                const float* __restrict__ mean_in,
                                const float* __restrict__ rstd_in,
                                T* __restrict__ dh,
-                               __nv_bfloat16* __restrict__ p_out,
+                               __nv_bfloat16* __restrict__ p_packed,
+                               __nv_bfloat16* __restrict__ dy_packed,
                                float* __restrict__ part, int n_points,
                                int c) {
-  // every region starts on a 128-byte boundary for c % 128 == 0
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int a_ld = c + A_PAD, d_ld = c + D_PAD;
-  __nv_bfloat16* as = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* ws = as + ROWS * a_ld;
-  float* dps = reinterpret_cast<float*>(ws + KCHUNK * B_LD);
-  float* s_mean = dps + ROWS * d_ld;
+  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
+  // A and the ring on 1024-byte boundaries (the swizzle repeats every 1024
+  // bytes); ROWS * C * 2 and TILE_BYTES keep that
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* a_tile = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* ring = a_tile + static_cast<size_t>(ROWS) * c * 2;
+  // the tile's h in the ring after the product: rows of C + H_LD values,
+  // so that the 8 rows a warp reads at once fall in different banks
+  // (bf16); an fp32 tile fills the ring unpadded
+  constexpr int H_LD = kBf16 ? 8 : 0;
+  float* colred = reinterpret_cast<float*>(ring + RING_BYTES);
+  float* rowred = colred + 4 * NS * c;
+  float* s_mean = rowred + 2 * ROWS * 2;
   float* s_rstd = s_mean + ROWS;
+  float4* prm = reinterpret_cast<float4*>(s_rstd + ROWS);  // 16-byte aligned
+  uint64_t* full = reinterpret_cast<uint64_t*>(prm + c);
+  uint64_t* empty = full + ROWS_STAGES;
+  uint64_t* h_bar = empty + ROWS_STAGES;
 
   const int row0 = blockIdx.x * ROWS;
   const int n_valid = min(ROWS, n_points - row0);
   const size_t tile_row0 = static_cast<size_t>(blockIdx.y) * n_points + row0;
+  const size_t tile = static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x;
   const T* g_c = gamma + static_cast<size_t>(blockIdx.y) * c;
   const T* be_c = beta + static_cast<size_t>(blockIdx.y) * c;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  // for bf16 dy the A operand holds it exactly: the later passes read it
-  // there instead of from device memory
-  constexpr bool kDyInSmem = std::is_same<T, __nv_bfloat16>::value;
+  const int wg = warp >> 2, tid = threadIdx.x & 127;
+  const int nch = c / N_TILE, k_tiles = c / K_TILE;
+  const int npairs = (nch + 1) / 2;
+  const int total = npairs * k_tiles;
 
-  // 1. dy -> bf16 A operand, statistics -> shared memory; masked rows 0
-  for (int r = warp; r < ROWS; r += WARPS) {
-    for (int k8 = lane; k8 < c / 8; k8 += 32) {
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (r < n_valid) v = load8_bf16(dy + (tile_row0 + r) * c + k8 * 8);
-      *reinterpret_cast<uint4*>(as + r * a_ld + k8 * 8) = v;
+  // stage i holds the Wᵀ tiles of chunks 2p and 2p + 1 (p = i / k_tiles)
+  // at k tile i % k_tiles: the first for warpgroup 0, the second for 1
+  auto load_stage = [&](int i) {
+    const int st = i % ROWS_STAGES, p = i / k_tiles, kt = i % k_tiles;
+    const int tiles = 2 * p + 1 < nch ? 2 : 1;
+    mbar_arrive_expect_tx(&full[st], tiles * TILE_BYTES);
+    for (int q = 0; q < tiles; ++q)
+      bulk_copy_g2s(ring + (st * 2 + q) * TILE_BYTES,
+                    wt_packed + (static_cast<size_t>(2 * p + q) * k_tiles +
+                                 kt) * N_TILE * K_TILE,
+                    TILE_BYTES, &full[st]);
+  };
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < ROWS_STAGES; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 2);
+    }
+    mbar_init(h_bar, 1);
+    mbar_fence_init();
+    // the epilogue's h: in L2 by the time the product is done
+    prefetch_l2(h + tile_row0 * c,
+                static_cast<uint32_t>(n_valid * c * sizeof(T)));
+  }
+  __syncthreads();
+  if (threadIdx.x == 0)
+    for (int i = 0; i < ROWS_STAGES && i < total; ++i) load_stage(i);
+
+  // ---- dy -> the bf16 A operand (rows past N: zeros), and the tile's
+  // column sums of dy (db): thread t owns the 8 columns of group t % 64
+  // in rows t / 64, t / 64 + 4, ... (16 rows, in order); colred[w][0]
+  // takes the sums of rows = w (mod 4)
+  {
+    const int gi = threadIdx.x & 63, rq = threadIdx.x >> 6;
+    if (gi < c / 8) {
+      // all 16 rows' loads in flight at once for bf16, 8 for fp32
+      constexpr int U = kBf16 ? 16 : 8;
+      float db8[8] = {};
+#pragma unroll
+      for (int half = 0; half < 16 / U; ++half) {
+        Group<T> raw[U];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int r = rq + 4 * (U * half + u);
+          if (r < n_valid)
+            raw[u].load(dy + (tile_row0 + r) * c + gi * 8);
+          else
+            raw[u].clear();
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int r = rq + 4 * (U * half + u);
+          float x[8];
+          raw[u].unpack(x);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) db8[e] += x[e];
+          *reinterpret_cast<uint4*>(a_tile + (gi >> 3) * (ROWS * 128) +
+                                    r * 128 + (((gi & 7) ^ (r & 7)) << 4)) =
+              pack_bf16x8(x);
+        }
+      }
+      float4* dst = reinterpret_cast<float4*>(colred + rq * NS * c + gi * 8);
+      dst[0] = make_float4(db8[0], db8[1], db8[2], db8[3]);
+      dst[1] = make_float4(db8[4], db8[5], db8[6], db8[7]);
     }
   }
   if (threadIdx.x < ROWS) {
@@ -171,204 +285,357 @@ __global__ void __launch_bounds__(THREADS)
     s_mean[r] = r < n_valid ? mean_in[tile_row0 + r] : 0.0f;
     s_rstd[r] = r < n_valid ? rstd_in[tile_row0 + r] : 0.0f;
   }
+  for (int k = threadIdx.x; k < c; k += THREADS)
+    prm[k] = make_float4(s[k], t[k], 1.0f + to_f32(g_c[k]), to_f32(be_c[k]));
+  // the generic-proxy stores to A before wgmma and the bulk store read it
+  fence_proxy_async();
   __syncthreads();
+  if (threadIdx.x == 0)
+    bulk_copy_s2g(dy_packed + tile * ROWS * c, a_tile,
+                  static_cast<uint32_t>(ROWS * c * 2));
 
-  // 2. dp = dy @ W, 128 columns at a time; B(k, n) = W[k, n] is row-major
-  const int wr = warp >> 1;  // this warp's 16-row slice of the tile
-  const int wc = warp & 1;   // and its 64-column half of the chunk
-  for (int n0 = 0; n0 < c; n0 += NCHUNK) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4];
+  // ---- dp = dy @ W: warpgroup wg computes chunks wg and wg + 2
+  auto release = [&](int i) {
+    if (tid == 0) mbar_arrive(&empty[i % ROWS_STAGES]);
+    if (threadIdx.x == 0 && i + ROWS_STAGES < total) {
+      mbar_wait(&empty[i % ROWS_STAGES], (i / ROWS_STAGES) & 1);
+      load_stage(i + ROWS_STAGES);
+    }
+  };
+  const uint32_t a_base = smem_u32(a_tile);
+  const uint32_t b_base = smem_u32(ring) + wg * TILE_BYTES;
+  float acc[2][64];
+  int it = 0;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[j], 0.0f);
-    uint4 pre[2];
-    load_w_tile(w, c, 0, n0, pre);
-    for (int k0 = 0; k0 < c; k0 += KCHUNK) {
-      __syncthreads();  // the previous W tile is consumed
-      store_w_tile(ws, pre);
-      __syncthreads();
-      if (k0 + KCHUNK < c) load_w_tile(w, c, k0 + KCHUNK, n0, pre);
+  for (int p = 0; p < 2; ++p) {
+    if (p >= npairs) break;
+    if (kEven || 2 * p + wg < nch) {
+      for (int kt = 0; kt < k_tiles; ++kt, ++it) {
+        const int st = it % ROWS_STAGES;
+        mbar_wait(&full[st], (it / ROWS_STAGES) & 1);
 #pragma unroll
-      for (int kk = 0; kk < KCHUNK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major>
-            a;
-        wmma::load_matrix_sync(a, as + (wr * 16) * a_ld + k0 + kk, a_ld);
+        for (int i = 0; i < 64; ++i) fence_operand(acc[p][i]);
+        wgmma_fence();
+        const uint64_t da = desc_sw128(a_base + kt * ROWS * 128);
+        const uint64_t db = desc_sw128(b_base + st * 2 * TILE_BYTES);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                         wmma::row_major>
-              bf;
-          wmma::load_matrix_sync(bf, ws + kk * B_LD + wc * 64 + j * 16,
-                                 B_LD);
-          wmma::mma_sync(acc[j], a, bf, acc[j]);
+        for (int kk = 0; kk < K_TILE / 16; ++kk)
+          wgmma_m64n128k16(acc[p], da + 2 * kk, db + 2 * kk,
+                           (kt | kk) != 0);
+        wgmma_commit();
+        if (kt > 0) {
+          wgmma_wait<1>();  // the previous stage's products are done
+          release(it - 1);
         }
       }
-    }
+      wgmma_wait<0>();
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      wmma::store_matrix_sync(dps + (wr * 16) * d_ld + n0 + wc * 64 + j * 16,
-                              acc[j], d_ld, wmma::mem_row_major);
-  }
-  __syncthreads();
-
-  // 3. one warp per row: df (kept in place of dp), p, the row means, dh
-  for (int r = warp; r < n_valid; r += WARPS) {
-    const T* h_row = h + (tile_row0 + r) * c;
-    const T* dy_row = dy + (tile_row0 + r) * c;
-    const __nv_bfloat16* a_row = as + r * a_ld;
-    __nv_bfloat16* p_row = p_out + (tile_row0 + r) * c;
-    float* d_row = dps + r * d_ld;
-    const float mean = s_mean[r], rstd = s_rstd[r];
-    float m1 = 0.0f, m2 = 0.0f;
-    for (int k = lane; k < c; k += 32) {
-      const float xhat = (to_f32(h_row[k]) - mean) * rstd;
-      const float g1 = 1.0f + to_f32(g_c[k]);
-      const float f = (xhat * s[k] + t[k]) * g1 + to_f32(be_c[k]);
-      const float sig = 1.0f / (1.0f + expf(-f));
-      p_row[k] = __float2bfloat16(f * sig);
-      const float dyk =
-          kDyInSmem ? __bfloat162float(a_row[k]) : to_f32(dy_row[k]);
-      const float df = dyk + sig * (1.0f + f * (1.0f - sig)) * d_row[k];
-      d_row[k] = df;
-      const float dxhat = df * g1 * s[k];
-      m1 += dxhat;
-      m2 += dxhat * xhat;
-    }
-    m1 = warp_sum(m1) / c;
-    m2 = warp_sum(m2) / c;
-    T* dh_row = dh + (tile_row0 + r) * c;
-    for (int k = lane; k < c; k += 32) {
-      const float xhat = (to_f32(h_row[k]) - mean) * rstd;
-      const float dxhat = d_row[k] * (1.0f + to_f32(g_c[k])) * s[k];
-      dh_row[k] = from_f32<T>(rstd * (dxhat - m1 - xhat * m2));
-    }
-  }
-  __syncthreads();
-
-  // 4. one thread per column: this tile's sums over its valid rows
-  float* part_t =
-      part + (static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x) *
-                 NQ * c;
-  for (int k = threadIdx.x; k < c; k += THREADS) {
-    const float g1 = 1.0f + to_f32(g_c[k]), sk = s[k], tk = t[k];
-    float db = 0.0f, dg = 0.0f, dbe = 0.0f, dsk = 0.0f, dtk = 0.0f;
-    for (int r = 0; r < n_valid; ++r) {
-      const size_t off = (tile_row0 + r) * c + k;
-      const float xhat = (to_f32(h[off]) - s_mean[r]) * s_rstd[r];
-      const float df = dps[r * d_ld + k];
-      const float du = df * g1;
-      db += kDyInSmem ? __bfloat162float(as[r * a_ld + k])
-                      : to_f32(dy[off]);
-      dg += df * (xhat * sk + tk);
-      dbe += df;
-      dsk += du * xhat;
-      dtk += du;
-    }
-    part_t[k] = db;
-    part_t[c + k] = dg;
-    part_t[2 * c + k] = dbe;
-    part_t[3 * c + k] = dsk;
-    part_t[4 * c + k] = dtk;
-  }
-}
-
-// Rows r0.. (< r_end) of a (rows x c) matrix, columns col0..col0+127,
-// into a bf16 [KT][T_LD] tile; rows past r_end are zero
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src, int c,
-                                          int col0, int r0, int r_end) {
-  for (int idx = threadIdx.x; idx < KT * TILE / 8; idx += THREADS) {
-    const int rr = idx / (TILE / 8), v = idx % (TILE / 8);
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + rr < r_end)
-      val = *reinterpret_cast<const uint4*>(
-          src + static_cast<size_t>(r0 + rr) * c + col0 + v * 8);
-    *reinterpret_cast<uint4*>(dst + rr * T_LD + v * 8) = val;
-  }
-}
-
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const float* src, int c, int col0,
-                                          int r0, int r_end) {
-  for (int e = threadIdx.x; e < KT * TILE; e += THREADS) {
-    const int rr = e / TILE, col = e % TILE;
-    const float v = r0 + rr < r_end
-                        ? src[static_cast<size_t>(r0 + rr) * c + col0 + col]
-                        : 0.0f;
-    dst[rr * T_LD + col] = __float2bfloat16(v);
-  }
-}
-
-// dW pass: one 128 x 128 tile of dW = dy^T p (out x in) over one row
-// slice. Grid ((C / 128)^2, SPLIT_K); writes ws_dw[slice] (C x C).
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-    film_block_bwd_dw_kernel(const T* __restrict__ dy,
-                             const __nv_bfloat16* __restrict__ p,
-                             float* __restrict__ ws_dw, int rows, int c,
-                             int rows_per_slice) {
-  __shared__ __align__(128) __nv_bfloat16 dyt[KT * T_LD];  // A, col-major
-  __shared__ __align__(128) __nv_bfloat16 pt[KT * T_LD];   // B, row-major
-
-  const int tiles_in = c / TILE;
-  const int o0 = (blockIdx.x / tiles_in) * TILE;
-  const int i0 = (blockIdx.x % tiles_in) * TILE;
-  const int r_begin = blockIdx.y * rows_per_slice;
-  const int r_end = min(rows, r_begin + rows_per_slice);
-  const int warp = threadIdx.x >> 5;
-  const int wm = warp >> 1;  // 32 output rows (out features)
-  const int wn = warp & 1;   // 64 output columns (in features)
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  for (int r0 = r_begin; r0 < r_end; r0 += KT) {
-    __syncthreads();  // the previous step's tiles are consumed
-    load_tile(dyt, dy, c, o0, r0, r_end);
-    load_tile(pt, p, c, i0, r0, r_end);
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < KT; kk += 16) {
-      // A(m, k) = dy[row k, out m]: column-major with leading dim T_LD
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                     wmma::col_major>
-          a[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], dyt + kk * T_LD + wm * 32 + i * 16,
-                               T_LD);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major>
-            bf;
-        wmma::load_matrix_sync(bf, pt + kk * T_LD + wn * 64 + j * 16, T_LD);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) wmma::mma_sync(acc[i][j], a[i], bf,
-                                                   acc[i][j]);
+      for (int i = 0; i < 64; ++i) fence_operand(acc[p][i]);
+      release(it - 1);
+    } else {  // C / 128 is odd: this warpgroup has no chunk in pair p
+      for (int kt = 0; kt < k_tiles; ++kt, ++it) {
+        mbar_wait(&full[it % ROWS_STAGES], (it / ROWS_STAGES) & 1);
+        release(it);
       }
     }
   }
-  float* out = ws_dw + static_cast<size_t>(blockIdx.y) * c * c;
+
+  // ---- the tile's h into the ring, now free: one bulk copy a row (the
+  // row stride is padded), asked for by warp 0, from L2 (prefetched); the
+  // rows past N are zeros, so that the epilogues need no branch on them
+  if (threadIdx.x == 0) bulk_store_wait_read();  // the dy store has read A
+  __syncthreads();  // both warpgroups' products have read the ring
+  if (warp == 0) {
+    const uint32_t row_bytes = static_cast<uint32_t>(c * sizeof(T));
+    if (lane == 0) mbar_arrive_expect_tx(h_bar, n_valid * row_bytes);
+    __syncwarp();
+    for (int r = lane; r < n_valid; r += 32)
+      bulk_copy_g2s(ring + static_cast<size_t>(r) * (c + H_LD) * sizeof(T),
+                    h + (tile_row0 + r) * c, row_bytes, h_bar);
+  }
+  {
+    const int per_row = c * static_cast<int>(sizeof(T)) / 16;
+    for (int idx = threadIdx.x; idx < (ROWS - n_valid) * per_row;
+         idx += THREADS)
+      reinterpret_cast<uint4*>(
+          ring + static_cast<size_t>(n_valid + idx / per_row) * (c + H_LD) *
+                     sizeof(T))[idx % per_row] = make_uint4(0u, 0u, 0u, 0u);
+  }
+  __syncthreads();
+  mbar_wait(h_bar, 0);
+
+  // ---- epilogue 1: df in place of dp, p (into A, in place of dy), the
+  // row and column sums; straight-line code (the shuffles need a
+  // converged warp). Thread (warp, lane) holds rows er and er + 8,
+  // columns 8 j + ec, +1.
+  const int er = (warp & 3) * 16 + (lane >> 2);
+  const int ec = 2 * (lane & 3);
+  float mu[2], rs[2];
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int hr = 0; hr < 2; ++hr) {
+    mu[hr] = s_mean[er + 8 * hr];
+    rs[hr] = s_rstd[er + 8 * hr];
+  }
+  __nv_bfloat16* a16 = reinterpret_cast<__nv_bfloat16*>(a_tile);
+  T* hd = reinterpret_cast<T*>(ring);  // h, then dh in its place
+  float m1[2] = {0.0f, 0.0f}, m2[2] = {0.0f, 0.0f};
+  float* colred_w = colred + (warp & 3) * NS * c;
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      wmma::store_matrix_sync(
-          out + static_cast<size_t>(o0 + wm * 32 + i * 16) * c + i0 +
-              wn * 64 + j * 16,
-          acc[i][j], c, wmma::mem_row_major);
+  for (int p = 0; p < 2; ++p) {
+    if (p >= npairs) break;
+    const int ch = 2 * p + wg;
+    if (!kEven && ch >= nch) continue;
+#pragma unroll
+    for (int j0 = 0; j0 < N_TILE / 8; j0 += 2) {
+      hoist_barrier();
+      // the sums of df and df * xhat over this thread's two rows, for
+      // column groups j0 and j0 + 1: v[4 jj + 2 q + e], q 0 df, 1 df * xhat
+      float v[8] = {};
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        const int j = j0 + jj;
+        const int k = ch * N_TILE + 8 * j + ec;
+        const float4 p0 = prm[k], p1 = prm[k + 1];
+        const float sk[2] = {p0.x, p1.x}, tk[2] = {p0.y, p1.y};
+        const float g1[2] = {p0.z, p1.z}, bk[2] = {p0.w, p1.w};
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int r = er + 8 * hr;
+          const float2 xv = ld2(hd + r * (c + H_LD) + k);
+          // dy from A: exact for bf16 inputs, rounded to bf16 for fp32 ones
+          // (as the product takes it), so that fp32 fits in 255 registers
+          __nv_bfloat16* a_rk = a16 + tile_offset(r, k);
+          const float2 dv = ld2(a_rk);
+          const float x[2] = {xv.x, xv.y}, d[2] = {dv.x, dv.y};
+          float pv[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float xhat = (x[e] - mu[hr]) * rs[hr];
+            const float f = (xhat * sk[e] + tk[e]) * g1[e] + bk[e];
+            // fast exp and divide: their few-ulp error is far below the
+            // bf16 rounding of p and of the product
+            const float sig = __fdividef(1.0f, 1.0f + __expf(-f));
+            pv[e] = r < n_valid ? f * sig : 0.0f;  // rows past N add nothing
+            float& a = acc[p][4 * j + 2 * hr + e];
+            const float df = d[e] + sig * (1.0f + f * (1.0f - sig)) * a;
+            a = df;
+            const float dx = df * g1[e] * sk[e];
+            m1[hr] += dx;
+            m2[hr] += dx * xhat;
+            v[4 * jj + e] += df;
+            v[4 * jj + 2 + e] += df * xhat;
+          }
+          store2(a_rk, pv[0], pv[1]);
+        }
+      }
+      // sum over the 8 lanes that hold these columns (lane bits 4, 3, 2),
+      // halving the values at each step: lane bits (4, 3, 2) end with
+      // v[4 b4 + 2 b3 + b2] summed, in a fixed order
+      const bool b4 = lane & 16, b3 = lane & 8, b2 = lane & 4;
+      float w4[4], w2[2];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float keep = b4 ? v[4 + i] : v[i];
+        const float send = b4 ? v[i] : v[4 + i];
+        w4[i] = keep + __shfl_xor_sync(0xffffffffu, send, 16);
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float keep = b3 ? w4[2 + i] : w4[i];
+        const float send = b3 ? w4[i] : w4[2 + i];
+        w2[i] = keep + __shfl_xor_sync(0xffffffffu, send, 8);
+      }
+      const float keep = b2 ? w2[1] : w2[0];
+      const float send = b2 ? w2[0] : w2[1];
+      const float sum = keep + __shfl_xor_sync(0xffffffffu, send, 4);
+      colred_w[(1 + b3) * c + ch * N_TILE + 8 * (j0 + b4) + ec + b2] = sum;
+    }
+  }
+  // the row sums over this warpgroup's columns, then over both
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+#pragma unroll
+    for (int o = 1; o < 4; o <<= 1) {
+      m1[hr] += __shfl_xor_sync(0xffffffffu, m1[hr], o);
+      m2[hr] += __shfl_xor_sync(0xffffffffu, m2[hr], o);
+    }
+    if ((lane & 3) == 0)
+      *reinterpret_cast<float2*>(rowred + (wg * ROWS + er + 8 * hr) * 2) =
+          make_float2(m1[hr], m2[hr]);
+  }
+  fence_proxy_async();  // p in A: generic stores before the bulk store
+  __syncthreads();
+  if (threadIdx.x == 0)
+    bulk_copy_s2g(p_packed + tile * ROWS * c, a_tile,
+                  static_cast<uint32_t>(ROWS * c * 2));
+
+  // ---- the tile's sums: the 4 warps' column sums in order
+  float* part_t = part + tile * NQ * c;
+  for (int k = threadIdx.x; k < c; k += THREADS) {
+    float sq[NS];
+#pragma unroll
+    for (int q = 0; q < NS; ++q)
+      sq[q] = ((colred[q * c + k] + colred[(NS + q) * c + k]) +
+               colred[(2 * NS + q) * c + k]) +
+              colred[(3 * NS + q) * c + k];
+    const float4 pk = prm[k];
+    const float g1 = pk.z;
+    part_t[k] = sq[0];                            // db
+    part_t[c + k] = pk.x * sq[2] + pk.y * sq[1];  // dgamma: df * u
+    part_t[2 * c + k] = sq[1];                    // dbeta
+    part_t[3 * c + k] = g1 * sq[2];               // ds: du * xhat
+    part_t[4 * c + k] = g1 * sq[1];               // dt: du
+  }
+
+  // ---- epilogue 2: dh from the registers, in place of h in shared
+  // memory, then one bulk store a row
+  float rm1[2], rm2[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const float* a = rowred + (er + 8 * hr) * 2;
+    const float* b = rowred + (ROWS + er + 8 * hr) * 2;
+    rm1[hr] = (a[0] + b[0]) / c;
+    rm2[hr] = (a[1] + b[1]) / c;
+  }
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+    if (p >= npairs) break;
+    const int ch = 2 * p + wg;
+    if (!kEven && ch >= nch) continue;
+#pragma unroll
+    for (int j = 0; j < N_TILE / 8; ++j) {
+      const int k = ch * N_TILE + 8 * j + ec;
+      const float4 p0 = prm[k], p1 = prm[k + 1];
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int r = er + 8 * hr;
+        T* hp = hd + r * (c + H_LD) + k;
+        const float2 x = ld2(hp);
+        const float x0 = (x.x - mu[hr]) * rs[hr];
+        const float x1 = (x.y - mu[hr]) * rs[hr];
+        const float dx0 = acc[p][4 * j + 2 * hr] * p0.z * p0.x;
+        const float dx1 = acc[p][4 * j + 2 * hr + 1] * p1.z * p1.x;
+        store2(hp, rs[hr] * (dx0 - rm1[hr] - x0 * rm2[hr]),
+               rs[hr] * (dx1 - rm1[hr] - x1 * rm2[hr]));
+      }
+    }
+  }
+  fence_proxy_async();  // dh in shared memory before the bulk stores
+  __syncthreads();
+  if (warp == 0) {
+    for (int r = lane; r < n_valid; r += 32)
+      bulk_copy_s2g(dh + (tile_row0 + r) * c,
+                    ring + static_cast<size_t>(r) * (c + H_LD) * sizeof(T),
+                    static_cast<uint32_t>(c * sizeof(T)));
+    // the bulk stores (p, dh) have read shared memory before the block's
+    // memory is reused
+    bulk_store_wait_read();
+  }
 }
 
-// the bf16 copy of W that every rows block reads
-__global__ void __launch_bounds__(RED_THREADS)
-    film_block_bwd_w_bf16_kernel(const float* __restrict__ w,
-                                 __nv_bfloat16* __restrict__ out, int n) {
-  const int i = blockIdx.x * RED_THREADS + threadIdx.x;
-  if (i < n) out[i] = __float2bfloat16(w[i]);
+// dW pass: a DW_M x (128 NB) tile of dW = dy^T p (out x in) over one slice
+// of row tiles. Grid ((C / 128) * (C / (128 NB)), slices); writes
+// ws_dw[slice] (C x C).
+template <int NB>
+__global__ void __launch_bounds__(THREADS, 1)
+    film_block_bwd_dw_kernel(const __nv_bfloat16* __restrict__ dy_packed,
+                             const __nv_bfloat16* __restrict__ p_packed,
+                             float* __restrict__ ws_dw, int tiles, int c,
+                             int tiles_per_slice) {
+  constexpr int STAGE = TILE_BYTES * (1 + NB);
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + DW_STAGES * STAGE);
+  uint64_t* empty = full + DW_STAGES;
+
+  const int i_tiles = c / (N_TILE * NB);
+  const int o0 = (blockIdx.x / i_tiles) * DW_M;
+  const int i0 = (blockIdx.x % i_tiles) * N_TILE * NB;
+  const int t0 = blockIdx.y * tiles_per_slice;
+  const int count = min(tiles - t0, tiles_per_slice);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wg = warp >> 2, tid = threadIdx.x & 127;
+
+  // stage i: row tile t0 + i, dy's columns o0 .. o0 + 127 (two 64-column
+  // regions, adjacent) and p's columns i0 .. i0 + 128 NB - 1
+  auto load_stage = [&](int i) {
+    const int st = i % DW_STAGES;
+    const size_t base = static_cast<size_t>(t0 + i) * ROWS * c;
+    mbar_arrive_expect_tx(&full[st], STAGE);
+    bulk_copy_g2s(ring + st * STAGE, dy_packed + base + (o0 / 64) * ROWS * 64,
+                  TILE_BYTES, &full[st]);
+    bulk_copy_g2s(ring + st * STAGE + TILE_BYTES,
+                  p_packed + base + (i0 / 64) * ROWS * 64, NB * TILE_BYTES,
+                  &full[st]);
+  };
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < DW_STAGES; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 2);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0)
+    for (int i = 0; i < DW_STAGES && i < count; ++i) load_stage(i);
+
+  auto release = [&](int i) {
+    if (tid == 0) mbar_arrive(&empty[i % DW_STAGES]);
+    if (threadIdx.x == 0 && i + DW_STAGES < count) {
+      mbar_wait(&empty[i % DW_STAGES], (i / DW_STAGES) & 1);
+      load_stage(i + DW_STAGES);
+    }
+  };
+  float acc[NB][64];
+#pragma unroll
+  for (int q = 0; q < NB; ++q)
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[q][i] = 0.0f;
+  const uint32_t ring_base = smem_u32(ring);
+  for (int it = 0; it < count; ++it) {
+    const int st = it % DW_STAGES;
+    mbar_wait(&full[st], (it / DW_STAGES) & 1);
+#pragma unroll
+    for (int q = 0; q < NB; ++q)
+#pragma unroll
+      for (int i = 0; i < 64; ++i) fence_operand(acc[q][i]);
+    wgmma_fence();
+    const uint32_t sb = ring_base + st * STAGE;
+    // A: this warpgroup's 64 dW rows = 64 dy columns, MN-major; B: p's
+    // columns in 64-column regions 8 KB apart, MN-major
+    const uint64_t da = desc_sw128_mn(sb + wg * (ROWS * 128), 8192, 1024);
+#pragma unroll
+    for (int kk = 0; kk < ROWS / 16; ++kk)
+#pragma unroll
+      for (int q = 0; q < NB; ++q)
+        wgmma_m64n128k16<1, 1>(
+            acc[q], da + 128 * kk,
+            desc_sw128_mn(sb + TILE_BYTES * (1 + q), 8192, 1024) + 128 * kk,
+            1);
+    wgmma_commit();
+    if (it > 0) {
+      wgmma_wait<1>();
+      release(it - 1);
+    }
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int q = 0; q < NB; ++q)
+#pragma unroll
+    for (int i = 0; i < 64; ++i) fence_operand(acc[q][i]);
+  if (count > 0) release(count - 1);
+
+  float* out = ws_dw + static_cast<size_t>(blockIdx.y) * c * c;
+  const int orow = o0 + wg * 64 + (warp & 3) * 16 + (lane >> 2);
+#pragma unroll
+  for (int q = 0; q < NB; ++q)
+#pragma unroll
+    for (int j = 0; j < N_TILE / 8; ++j)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr)
+        store2(out + static_cast<size_t>(orow + 8 * hr) * c + i0 +
+                   q * N_TILE + 8 * j + 2 * (lane & 3),
+               acc[q][4 * j + 2 * hr], acc[q][4 * j + 2 * hr + 1]);
 }
 
 // out[y, j] = sum_{i < n} in[y * in_stride + i * m + j], i in order
@@ -409,35 +676,38 @@ __global__ void __launch_bounds__(RED_THREADS)
   dt[k] = a_dt;
 }
 
-struct Workspace {
-  float* dw_split;      // SPLIT_K x C x C
-  float* part;          // B x tiles x NQ x C
-  float* per_cloud;     // B x NQ x C
-  __nv_bfloat16* p;     // B x N x C
-  __nv_bfloat16* w;     // C x C
+// the dW pass's shape: row tiles a slice and slices, fixed by (b, n, c)
+struct DwSplit {
+  int nb, out_tiles, per_slice, slices;
 };
 
-long long workspace_floats(int b, int n, int c) {
-  const long long tiles = cdiv(n, ROWS);
-  return static_cast<long long>(SPLIT_K) * c * c +
-         static_cast<long long>(b) * tiles * NQ * c +
-         static_cast<long long>(b) * NQ * c +
-         static_cast<long long>(b) * n * c / 2 +  // c is even: exact
-         static_cast<long long>(c) * c / 2;
+DwSplit dw_split(int b, int n, int c) {
+  DwSplit d;
+  d.nb = c % (2 * N_TILE) == 0 ? 2 : 1;
+  d.out_tiles = (c / DW_M) * (c / (N_TILE * d.nb));
+  const int tiles = b * cdiv(n, ROWS);
+  const int want = DW_BLOCKS / d.out_tiles > 1 ? DW_BLOCKS / d.out_tiles : 1;
+  d.per_slice = cdiv(tiles, want < tiles ? want : tiles);
+  d.slices = cdiv(tiles, d.per_slice);
+  return d;
 }
 
-Workspace carve(void* ws, int b, int n, int c) {
-  float* base = static_cast<float*>(ws);
-  Workspace out;
-  out.dw_split = base;
-  out.part = out.dw_split + static_cast<size_t>(SPLIT_K) * c * c;
-  out.per_cloud =
-      out.part + static_cast<size_t>(b) * cdiv(n, ROWS) * NQ * c;
-  // 16-byte aligned: every region above is a multiple of 4 floats
-  out.p = reinterpret_cast<__nv_bfloat16*>(out.per_cloud +
-                                           static_cast<size_t>(b) * NQ * c);
-  out.w = out.p + static_cast<size_t>(b) * n * c;
-  return out;
+// region offsets in floats: the slices' dW, the tile sums, the cloud sums,
+// packed p, packed dy, packed Wᵀ, and the end. Every region is a multiple
+// of 4 floats, so each starts 16-byte aligned.
+enum { R_DW, R_PART, R_CLOUD, R_P, R_DY, R_WT, R_END };
+
+void regions(int b, int n, int c, long long (&off)[R_END + 1]) {
+  const long long tiles = static_cast<long long>(b) * cdiv(n, ROWS);
+  const long long packed = tiles * ROWS * c / 2;  // bf16 in floats
+  off[R_DW] = 0;
+  off[R_PART] = off[R_DW] + static_cast<long long>(dw_split(b, n, c).slices) *
+                                c * c;
+  off[R_CLOUD] = off[R_PART] + tiles * NQ * c;
+  off[R_P] = off[R_CLOUD] + static_cast<long long>(b) * NQ * c;
+  off[R_DY] = off[R_P] + packed;
+  off[R_WT] = off[R_DY] + packed;
+  off[R_END] = off[R_WT] + static_cast<long long>(c) * c / 2;
 }
 
 template <typename T>
@@ -446,64 +716,84 @@ int launch(const void* dy, const void* h, const void* s, const void* t,
            const void* mean, const void* rstd, void* dh, void* dw, void* dg,
            void* dbe, void* db, void* ds, void* dt, void* workspace, int b,
            int n, int c, cudaStream_t stream) {
-  const Workspace ws = carve(workspace, b, n, c);
+  long long off[R_END + 1];
+  regions(b, n, c, off);
+  float* base = static_cast<float*>(workspace);
+  float* ws_dw = base + off[R_DW];
+  float* part = base + off[R_PART];
+  float* per_cloud = base + off[R_CLOUD];
+  auto* p_packed = reinterpret_cast<__nv_bfloat16*>(base + off[R_P]);
+  auto* dy_packed = reinterpret_cast<__nv_bfloat16*>(base + off[R_DY]);
+  auto* wt_packed = reinterpret_cast<__nv_bfloat16*>(base + off[R_WT]);
   const int tiles = cdiv(n, ROWS);
-  const T* dy_t = static_cast<const T*>(dy);
-  const T* h_t = static_cast<const T*>(h);
-  const float* s_f = static_cast<const float*>(s);
-  const float* t_f = static_cast<const float*>(t);
-  const T* g_t = static_cast<const T*>(gamma);
-  const T* be_t = static_cast<const T*>(beta);
-  const float* mean_f = static_cast<const float*>(mean);
-  const float* rstd_f = static_cast<const float*>(rstd);
 
-  film_block_bwd_w_bf16_kernel<<<cdiv(static_cast<long long>(c) * c,
+  film_block_bwd_pack_wt_kernel<<<cdiv(static_cast<long long>(c) * (c / 8),
                                        RED_THREADS),
                                   RED_THREADS, 0, stream>>>(
-      static_cast<const float*>(w), ws.w, c * c);
+      static_cast<const float*>(w), wt_packed, c);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
+  auto* rows_kernel = (c / N_TILE) % 2 == 0
+                          ? film_block_bwd_rows_kernel<T, true>
+                          : film_block_bwd_rows_kernel<T, false>;
   const size_t smem = rows_smem_bytes(c);
-  err = cudaFuncSetAttribute(
-      film_block_bwd_rows_kernel<T>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  err = cudaFuncSetAttribute(rows_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  film_block_bwd_rows_kernel<T><<<dim3(tiles, b), THREADS, smem, stream>>>(
-      dy_t, h_t, s_f, t_f, g_t, be_t, ws.w, mean_f, rstd_f,
-      static_cast<T*>(dh), ws.p, ws.part, n, c);
+  rows_kernel<<<dim3(tiles, b), THREADS, smem, stream>>>(
+      static_cast<const T*>(dy), static_cast<const T*>(h),
+      static_cast<const float*>(s), static_cast<const float*>(t),
+      static_cast<const T*>(gamma), static_cast<const T*>(beta), wt_packed,
+      static_cast<const float*>(mean), static_cast<const float*>(rstd),
+      static_cast<T*>(dh), p_packed, dy_packed, part, n, c);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
 
-  const int rows = b * n;
-  const int rows_per_slice = cdiv(cdiv(rows, SPLIT_K), KT) * KT;
-  const int out_tiles = (c / TILE) * (c / TILE);
-  film_block_bwd_dw_kernel<T><<<dim3(out_tiles, SPLIT_K), THREADS, 0,
-                                stream>>>(dy_t, ws.p, ws.dw_split, rows, c,
-                                          rows_per_slice);
+  const DwSplit d = dw_split(b, n, c);
+  const dim3 dw_grid(d.out_tiles, d.slices);
+  if (d.nb == 2) {
+    err = cudaFuncSetAttribute(film_block_bwd_dw_kernel<2>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(dw_smem_bytes<2>()));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    film_block_bwd_dw_kernel<2><<<dw_grid, THREADS, dw_smem_bytes<2>(),
+                                  stream>>>(dy_packed, p_packed, ws_dw,
+                                            b * tiles, c, d.per_slice);
+  } else {
+    err = cudaFuncSetAttribute(film_block_bwd_dw_kernel<1>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(dw_smem_bytes<1>()));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    film_block_bwd_dw_kernel<1><<<dw_grid, THREADS, dw_smem_bytes<1>(),
+                                  stream>>>(dy_packed, p_packed, ws_dw,
+                                            b * tiles, c, d.per_slice);
+  }
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
 
   film_block_bwd_sum_kernel<<<
       dim3(cdiv(static_cast<long long>(c) * c, RED_THREADS), 1), RED_THREADS,
-      0, stream>>>(ws.dw_split, static_cast<float*>(dw), SPLIT_K, c * c, 0, 0);
+      0, stream>>>(ws_dw, static_cast<float*>(dw), d.slices, c * c, 0, 0);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
 
   film_block_bwd_sum_kernel<<<dim3(cdiv(NQ * c, RED_THREADS), b),
                               RED_THREADS, 0, stream>>>(
-      ws.part, ws.per_cloud, tiles, NQ * c,
-      static_cast<long long>(tiles) * NQ * c, static_cast<long long>(NQ) * c);
+      part, per_cloud, tiles, NQ * c, static_cast<long long>(tiles) * NQ * c,
+      static_cast<long long>(NQ) * c);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
 
   film_block_bwd_finalize_kernel<T>
       <<<cdiv(c, RED_THREADS), RED_THREADS, 0, stream>>>(
-          ws.per_cloud, static_cast<T*>(dg), static_cast<T*>(dbe),
+          per_cloud, static_cast<T*>(dg), static_cast<T*>(dbe),
           static_cast<float*>(db), static_cast<float*>(ds),
           static_cast<float*>(dt), b, c);
   return static_cast<int>(cudaGetLastError());
 }
 
 bool bad_shape(int b, int n, int c) {
-  return b <= 0 || n <= 0 || c <= 0 || c % TILE != 0 || c > MAX_C ||
-         b > 65535 || static_cast<long long>(b) * n > 0x7fffffffLL;
+  return b <= 0 || n <= 0 || c <= 0 || c % N_TILE != 0 || c > MAX_C ||
+         b > 65535 || static_cast<long long>(b) * cdiv(n, ROWS) * ROWS >
+                          0x7fffffffLL;
 }
 
 }  // namespace
@@ -512,15 +802,29 @@ bool bad_shape(int b, int n, int c) {
 // -1 for a shape the kernel does not take.
 extern "C" long long pcfm_film_block_bwd_workspace(int b, int n, int c) {
   if (bad_shape(b, n, c)) return -1;
-  return workspace_floats(b, n, c);
+  long long off[R_END + 1];
+  regions(b, n, c, off);
+  return off[R_END];
+}
+
+// Where the workspace's regions start, in floats: off[0..5] = the slices'
+// dW, the tile sums, the cloud sums, packed p, packed dy, packed Wᵀ, and
+// off[6] = the end; -1 for a shape the kernel does not take.
+extern "C" int pcfm_film_block_bwd_offsets(int b, int n, int c,
+                                           long long* off) {
+  if (bad_shape(b, n, c)) return -1;
+  long long o[R_END + 1];
+  regions(b, n, c, o);
+  for (int i = 0; i <= R_END; ++i) off[i] = o[i];
+  return 0;
 }
 
 // Plain C entry point (bound with ctypes). Device pointers of contiguous
 // tensors: dy, h, dh (b, n, c) and gamma, beta, dgamma, dbeta (b, c) in
 // bf16 when is_bf16 else fp32; s, t (c,), w (c, c) (out x in), mean, rstd
 // (b, n), dw (c, c), db, ds, dt (c,) and the workspace in fp32. Launches the
-// rows pass, the dW pass and three fixed-order reductions on `stream`, does
-// not synchronise, returns a cudaError_t code.
+// Wᵀ pack, the rows pass, the dW pass and three fixed-order reductions on
+// `stream`, does not synchronise, returns a cudaError_t code.
 extern "C" int pcfm_film_block_bwd(const void* dy, const void* h,
                                    const void* s, const void* t,
                                    const void* gamma, const void* beta,

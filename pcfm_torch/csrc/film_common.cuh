@@ -3,6 +3,8 @@
 
 #include <cuda_bf16.h>
 
+#include <cstdint>
+
 namespace {
 
 constexpr float LN_EPS = 1e-5f;
@@ -33,6 +35,98 @@ __device__ __forceinline__ float film_f(float x, float mean, float rstd,
                                         float be) {
   const float u = (x - mean) * rstd * s + t;
   return u * (1.0f + g) + be;
+}
+
+
+// 8 consecutive values of a row, as loaded (16 bytes of bf16, 32 of fp32)
+template <typename T>
+struct Group;
+
+template <>
+struct Group<__nv_bfloat16> {
+  uint4 v;
+  __device__ __forceinline__ void load(const __nv_bfloat16* p) {
+    v = __ldg(reinterpret_cast<const uint4*>(p));
+  }
+  __device__ __forceinline__ void clear() { v = make_uint4(0u, 0u, 0u, 0u); }
+  __device__ __forceinline__ void unpack(float (&x)[8]) const {
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      x[2 * i] = __uint_as_float(w[i] << 16);
+      x[2 * i + 1] = __uint_as_float(w[i] & 0xFFFF0000u);
+    }
+  }
+};
+
+template <>
+struct Group<float> {
+  float4 a, b;
+  __device__ __forceinline__ void load(const float* p) {
+    a = __ldg(reinterpret_cast<const float4*>(p));
+    b = __ldg(reinterpret_cast<const float4*>(p + 4));
+  }
+  __device__ __forceinline__ void clear() {
+    a = b = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  __device__ __forceinline__ void unpack(float (&x)[8]) const {
+    x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
+    x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
+  }
+};
+
+__device__ __forceinline__ uint32_t bf16x2_bits(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+__device__ __forceinline__ uint4 pack_bf16x8(const float (&x)[8]) {
+  return make_uint4(bf16x2_bits(x[0], x[1]), bf16x2_bits(x[2], x[3]),
+                    bf16x2_bits(x[4], x[5]), bf16x2_bits(x[6], x[7]));
+}
+
+template <typename T>
+__device__ __forceinline__ void load8(const T* p, float (&x)[8]) {
+  Group<T> g;
+  g.load(p);
+  g.unpack(x);
+}
+
+// two consecutive values, as loaded and as fp32
+template <typename T>
+struct Pair;
+
+template <>
+struct Pair<__nv_bfloat16> {
+  __nv_bfloat162 v;
+  __device__ __forceinline__ void load(const __nv_bfloat16* p) {
+    v = __ldg(reinterpret_cast<const __nv_bfloat162*>(p));
+  }
+  __device__ __forceinline__ float2 get() const {
+    return __bfloat1622float2(v);
+  }
+};
+
+template <>
+struct Pair<float> {
+  float2 v;
+  __device__ __forceinline__ void load(const float* p) {
+    v = __ldg(reinterpret_cast<const float2*>(p));
+  }
+  __device__ __forceinline__ float2 get() const { return v; }
+};
+
+template <typename T>
+__device__ __forceinline__ float2 load2(const T* p) {
+  Pair<T> v;
+  v.load(p);
+  return v.get();
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
 
 }  // namespace

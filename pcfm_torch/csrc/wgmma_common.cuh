@@ -76,6 +76,32 @@ __device__ __forceinline__ void bulk_copy_g2s(void* dst, const void* src,
       : "memory");
 }
 
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) from shared
+// memory to device memory, in the thread's bulk group; the source must
+// stay unchanged until bulk_store_wait_read
+__device__ __forceinline__ void bulk_copy_s2g(void* dst, const void* src,
+                                              uint32_t bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+      "cp.async.bulk.commit_group;\n" ::"l"(reinterpret_cast<uint64_t>(dst)),
+      "r"(smem_u32(src)), "r"(bytes)
+      : "memory");
+}
+
+// the thread's bulk stores have read their shared-memory sources
+__device__ __forceinline__ void bulk_store_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// asks L2 to fetch `bytes` (a multiple of 16) of device memory at `src`
+// (16-byte aligned); no completion to wait for
+__device__ __forceinline__ void prefetch_l2(const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(
+                   reinterpret_cast<uint64_t>(src)),
+               "r"(bytes)
+               : "memory");
+}
+
 // ordinary (generic-proxy) shared-memory stores become visible to wgmma
 // (the async proxy) after this fence and a barrier
 __device__ __forceinline__ void fence_proxy_async() {
@@ -101,6 +127,21 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t smem_addr) {
          (static_cast<uint64_t>(1) << 62);
 }
 
+// descriptor of an MN-major operand in the 128-byte swizzle: rows of
+// 128 bytes run along K (64 M or N values a row, chunk j of row r at
+// chunk j ^ (r % 8)), 8-row groups `sbo` bytes apart along K, and the
+// next 64 values of M or N `lbo` bytes on. One k16 step advances the
+// start by 16 rows (+ 2048 bytes, + 128 here). Read with the transpose
+// flag of wgmma set for that operand.
+__device__ __forceinline__ uint64_t desc_sw128_mn(uint32_t smem_addr,
+                                                  uint32_t lbo,
+                                                  uint32_t sbo) {
+  return static_cast<uint64_t>((smem_addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) |
+         (static_cast<uint64_t>(1) << 62);
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -121,9 +162,11 @@ __device__ __forceinline__ void fence_operand(float& r) {
 }
 
 // d (64 x 128 fp32, 64 registers a thread) = A (64 x 16 bf16) B (16 x 128
-// bf16) + (accumulate ? d : 0); A and B K-major, read through descriptors.
+// bf16) + (accumulate ? d : 0), read through descriptors; A and B K-major,
+// or MN-major where TRANS_A / TRANS_B is 1.
 // Thread t of the warpgroup holds, for j = 0..15, d[4j + 2h + e] at row
 // 16 (t / 32) + (t % 32) / 4 + 8 h and column 8 j + 2 (t % 4) + e.
+template <int TRANS_A = 0, int TRANS_B = 0>
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64],
                                                  uint64_t desc_a,
                                                  uint64_t desc_b,
@@ -141,7 +184,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64],
       "%40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, "
       "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n"
+      "%64, %65, p, 1, 1, %67, %68;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
@@ -156,7 +199,20 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64],
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TRANS_A),
+        "n"(TRANS_B));
+}
+
+
+// Offset (in bf16 values) of W[n, k] in the packed buffer: the stage of
+// output tile n / 128 and k tile k / 64, in the product's order (output
+// tile outer), then row n % 128 of that stage with its 16-byte chunks
+// swizzled. pack_w_reference (ops/film_block.py) is the same formula.
+__device__ __forceinline__ size_t packed_offset(int n, int k, int c) {
+  const int r = n % 128, j = (k % 64) / 8;
+  const size_t stage = static_cast<size_t>(n / 128) * (c / 64) +
+                       k / 64;
+  return (stage * 128 + r) * 64 + ((j ^ (r & 7)) * 8) + (k & 7);
 }
 
 }  // namespace

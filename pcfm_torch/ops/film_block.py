@@ -20,7 +20,10 @@ the plain-torch versions that the CPU tests and the on-card comparison use.
 The forward kernel reads W as bf16 in the byte order of its wgmma B
 operand; ``pack_w`` makes that copy (a small kernel that the forward's C
 entry point launches first, once per call) and ``pack_w_reference`` is its
-plain version.
+plain version.  The backward reads Wᵀ the same way (``packed_t_index``,
+``pack_wt_reference``), and its dW pass reads dy and silu(f) in 64-row
+tiles packed by its rows pass (``rows_packed_index``,
+``pack_rows_reference``).
 
 ``launches`` and ``bwd_launches`` count kernel launches of each direction
 (never plain-version calls), so a run can show that its path went through
@@ -39,7 +42,9 @@ LN_EPS = 1e-5
 MAX_C = 1024          # the 64 x C bf16 A operand must fit in shared memory
 N_TILE = 128          # output rows of W in one packed tile (wgmma n)
 K_TILE = 64           # k of one packed tile: one 128-byte swizzle row
-MAX_C_BWD = 512       # the backward also keeps 64 x C fp32 dp on chip
+MAX_C_BWD = 512       # the backward keeps a 64-row tile's fp32 dp in
+                      # two warpgroups' registers
+ROWS_BWD = 64         # rows of one cloud in a backward tile
 
 launches = 0
 bwd_launches = 0
@@ -122,6 +127,53 @@ def pack_w_reference(w: torch.Tensor, n_tile: int = N_TILE) -> torch.Tensor:
     return out
 
 
+def packed_t_index(c: int) -> torch.Tensor:
+    """(c, c) int64: where W[o, i] lies in the backward's packed Wᵀ, the B
+    operand of dp = dy @ W.  Its rows are W's input columns and its k runs
+    over W's output rows, so it is ``packed_index`` of Wᵀ: tiles of 128
+    input columns x 64 output rows, K-major, swizzled, in the product's
+    order."""
+    return packed_index(c).T
+
+
+def pack_wt_reference(w: torch.Tensor) -> torch.Tensor:
+    """Plain version of the backward's pack kernel: w (C, C) fp32 ->
+    (C * C,) bf16, ``w.bfloat16()`` permuted as ``packed_t_index`` says."""
+    return pack_w_reference(w.T)
+
+
+def rows_packed_index(bsz: int, n: int, c: int) -> torch.Tensor:
+    """(bsz, n, c) int64: where x[b, n, k] lies in the backward's packed
+    copies of dy and silu(f), the dW pass's operands.  Tile
+    b * ceil(N / 64) + n // 64 holds 64 rows of one cloud (rows past N are
+    zeros) as C / 64 regions of 64 columns; in a region, row r takes 128
+    bytes and its 16-byte chunk j goes to chunk j ^ (r % 8), the 128-byte
+    swizzle (the rows pass's A operand, byte for byte)."""
+    if c % K_TILE:
+        raise ValueError(f"rows_packed_index: C={c} must be a multiple of "
+                         f"{K_TILE}")
+    tiles = -(-n // ROWS_BWD)
+    b = torch.arange(bsz)[:, None, None]
+    row = torch.arange(n)[None, :, None]
+    k = torch.arange(c)[None, None, :]
+    r = row % ROWS_BWD
+    tile = b * tiles + row // ROWS_BWD
+    chunk = ((k % K_TILE) // 8) ^ (r % 8)
+    return (tile * ROWS_BWD * c + (k // K_TILE) * ROWS_BWD * K_TILE
+            + r * K_TILE + chunk * 8 + k % 8)
+
+
+def pack_rows_reference(x: torch.Tensor) -> torch.Tensor:
+    """x (B, N, C) -> (B * ceil(N / 64) * 64 * C,) bf16 laid out as
+    ``rows_packed_index`` says, zeros in the rows past N."""
+    bsz, n, c = x.shape
+    out = torch.zeros(bsz * -(-n // ROWS_BWD) * ROWS_BWD * c,
+                      dtype=torch.bfloat16, device=x.device)
+    out[rows_packed_index(bsz, n, c).to(x.device).reshape(-1)] = \
+        x.to(torch.bfloat16).reshape(-1)
+    return out
+
+
 def pack_w(w: torch.Tensor) -> torch.Tensor:
     """The forward kernel's bf16 copy of w (C, C) fp32: the pack kernel for
     a CUDA tensor, ``pack_w_reference`` for a CPU tensor."""
@@ -172,7 +224,22 @@ def _lib():
     lib.pcfm_film_block_bwd.restype = ctypes.c_int
     lib.pcfm_film_block_bwd_workspace.argtypes = [ctypes.c_int] * 3
     lib.pcfm_film_block_bwd_workspace.restype = ctypes.c_longlong
+    lib.pcfm_film_block_bwd_offsets.argtypes = [ctypes.c_int] * 3 + [ptr]
+    lib.pcfm_film_block_bwd_offsets.restype = ctypes.c_int
     return lib
+
+
+BWD_REGIONS = ("dw_slices", "tile_sums", "cloud_sums", "p", "dy", "wt")
+
+
+def bwd_workspace_offsets(bsz: int, n: int, c: int) -> dict:
+    """Where the backward kernel's workspace regions start, in floats
+    (``BWD_REGIONS`` and "end"), as its C entry point reckons them."""
+    off = (ctypes.c_longlong * (len(BWD_REGIONS) + 1))()
+    if _lib().pcfm_film_block_bwd_offsets(bsz, n, c, off) != 0:
+        raise ValueError(f"film_block backward kernel does not take "
+                         f"{(bsz, n, c)}")
+    return dict(zip(BWD_REGIONS + ("end",), off))
 
 
 def _check_operands(h, args: dict, max_c: int):
@@ -222,7 +289,9 @@ def _launch(h, s, t, gamma, beta, w, b):
     return y, mean, rstd
 
 
-def _launch_bwd(dy, h, s, t, gamma, beta, w, mean, rstd):
+def _launch_bwd(dy, h, s, t, gamma, beta, w, mean, rstd, work=None):
+    """The backward kernel; ``work`` (fp32, at least the workspace's size)
+    lets a caller read the packed operands afterwards."""
     global bwd_launches
     _check_operands(h, {"dy": dy, "h": h, "s": s, "t": t, "gamma": gamma,
                         "beta": beta, "w": w, "mean": mean, "rstd": rstd},
@@ -241,7 +310,12 @@ def _launch_bwd(dy, h, s, t, gamma, beta, w, mean, rstd):
     if floats < 0:
         raise ValueError(f"film_block backward kernel does not take "
                          f"{tuple(h.shape)}")
-    work = torch.empty(floats, **f32)
+    if work is None:
+        work = torch.empty(floats, **f32)
+    elif work.dtype != torch.float32 or work.numel() < floats \
+            or work.device != h.device or not work.is_contiguous():
+        raise ValueError(f"film_block backward: work must be a contiguous "
+                         f"fp32 tensor of >= {floats} on {h.device}")
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream
         err = _lib().pcfm_film_block_bwd(

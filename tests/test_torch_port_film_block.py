@@ -139,6 +139,72 @@ def test_pack_w_matches_swizzle_formula(n, k, want):
     assert float(packed[want]) == 1.5 and int((packed != 0).sum()) == 1
 
 
+@pytest.mark.parametrize("c", [128, 256, 512])
+def test_pack_wt_reference_is_a_permutation(c):
+    # the backward's Wᵀ tiles: every W entry lands once, and reading the
+    # packed buffer back through the formula gives w.bfloat16() bitwise
+    w = torch.from_numpy(np.random.RandomState(c + 1).randn(c, c)
+                         .astype(np.float32))
+    packed = fb.pack_wt_reference(w)
+    idx = fb.packed_t_index(c).reshape(-1)
+    assert packed.dtype == torch.bfloat16 and packed.shape == (c * c,)
+    assert torch.equal(torch.sort(idx).values, torch.arange(c * c))
+    assert torch.equal(packed[idx].view(c, c), w.bfloat16())
+
+
+@pytest.mark.parametrize("c,o,i,want", [
+    (128, 0, 0, 0), (128, 8, 0, 8), (128, 0, 1, 72), (128, 8, 1, 64),
+    # k (= o) tile 1 of input tile 0 is stage 1
+    (128, 64, 0, 1 * 128 * 64),
+    # C = 256: input tile 1, k tile 0: stage 1 * 4; chunk 1 ^ (130 % 8)
+    (256, 9, 130, (4 * 128 + 2) * 64 + 3 * 8 + 1),
+    (256, 255, 0, (3 * 128 + 0) * 64 + 7 * 8 + 7),
+    # C = 512: stage 2 * 8 + 1; chunk (36 // 8) ^ (44 % 8) = 0
+    (512, 100, 300, (17 * 128 + 44) * 64 + 0 + 4),
+    (512, 511, 511, (31 * 128 + 127) * 64 + (7 ^ 7) * 8 + 7)])
+def test_pack_wt_matches_swizzle_formula(c, o, i, want):
+    # W[o, i] is row i, column o of Wᵀ: offset = (stage * 128 + i % 128)
+    # * 64 + ((o % 64) // 8 ^ i % 8) * 8 + o % 8, stage = (i // 128) *
+    # (C // 64) + o // 64
+    assert int(fb.packed_t_index(c)[o, i]) == want
+    w = torch.zeros(c, c)
+    w[o, i] = 1.5
+    packed = fb.pack_wt_reference(w)
+    assert float(packed[want]) == 1.5 and int((packed != 0).sum()) == 1
+
+
+@pytest.mark.parametrize("c", [128, 256, 512])
+def test_pack_rows_reference_is_a_permutation_with_zero_rows(c):
+    # the dW pass's packed dy and p: (2, 65, C) takes 2 tiles a cloud; the
+    # 63 rows past N of each cloud's last tile are zeros
+    x = torch.from_numpy(np.random.RandomState(c + 2).randn(2, 65, c)
+                         .astype(np.float32)) + 10.0       # never zero
+    packed = fb.pack_rows_reference(x)
+    idx = fb.rows_packed_index(2, 65, c).reshape(-1)
+    assert packed.shape == (2 * 2 * 64 * c,)
+    assert int(idx.unique().numel()) == idx.numel() == 2 * 65 * c
+    assert torch.equal(packed[idx].view(2, 65, c), x.bfloat16())
+    assert int((packed != 0).sum()) == 2 * 65 * c
+
+
+@pytest.mark.parametrize("c,b,n,k,want", [
+    (c, *case) for c in (128, 256, 512) for case in [
+        (0, 0, 0, 0), (0, 0, 8, 8), (0, 1, 0, 72), (0, 1, 8, 64),
+        (0, 0, 64, 64 * 64),                       # column region 1
+        (1, 64, 9, 3 * 64 * c + 8 + 1),            # cloud 1, tile 1: tile 3
+        # last column of row 63: region C / 64 - 1, chunk 7 ^ 7
+        (0, 63, c - 1, (c // 64 - 1) * 64 * 64 + 63 * 64 + 7)]])
+def test_rows_packed_index_matches_swizzle_formula(c, b, n, k, want):
+    # offset = tile * 64 * C + (k // 64) * 64 * 64 + r * 64
+    #          + ((k % 64) // 8 ^ r % 8) * 8 + k % 8,
+    # tile = b * ceil(N / 64) + n // 64, r = n % 64; here N = 65
+    assert int(fb.rows_packed_index(2, 65, c)[b, n, k]) == want
+    x = torch.zeros(2, 65, c)
+    x[b, n, k] = 2.5
+    packed = fb.pack_rows_reference(x)
+    assert float(packed[want]) == 2.5 and int((packed != 0).sum()) == 1
+
+
 @pytest.mark.parametrize("bad", ["strided", "bf16", "shape"])
 def test_kernel_checks_refuse_bad_w(bad):
     # what the forward kernel's wrapper checks before a launch: W (C, C),
@@ -348,6 +414,67 @@ def test_kernel_backward_matches_plain_and_refuses_mixed_dtypes(cuda, dtype,
         _grad_close(g.float().cpu(), w.float().cpu(), 2e-2, name)
     with pytest.raises(TypeError):
         fb.film_block(*args[:3], args[3].detach().double(), *args[4:])
+
+
+def _bwd_case(cuda, dtype, b, n, c, seed):
+    """The backward's arguments on the card: dy, h, s, t, gamma, beta, w,
+    mean, rstd (the forward kernel's statistics)."""
+    h, s, t, gamma, beta, w, bias = _port_args(
+        _inputs(seed, b=b, n=n, c=c), cuda, dtype)
+    dy = torch.from_numpy(np.random.RandomState(seed + 1).randn(b, n, c)
+                          .astype(np.float32)).to(cuda, dtype)
+    _, mean, rstd = fb.film_block_forward(h, s, t, gamma, beta, w, bias)
+    return dy, h, s, t, gamma, beta, w, mean, rstd
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 2, 16])
+@pytest.mark.parametrize("c", [128, 256, 384, 512])
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 127, 128, 129, 300, 1000])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_backward_matches_plain_version(cuda, dtype, n, c, b):
+    # one launch; all seven gradients within 2e-2 of each one's max (bf16
+    # products, fp32 sums in another order); two launches bitwise equal.
+    # N covers one row, the 64-row tiles' edges and ragged last tiles; C
+    # odd multiples of 128 leave one warpgroup without a chunk
+    args = _bwd_case(cuda, dtype, b, n, c, 20)
+    before = fb.bwd_launches
+    got = fb.film_block_backward(*args)
+    again = fb.film_block_backward(*args)
+    torch.cuda.synchronize()
+    assert fb.bwd_launches == before + 2
+    want = fb.film_block_reference_backward(*args)
+    for name, g, g2, w in zip(_NAMES, got, again, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert torch.equal(g, g2), name
+        _grad_close(g.float().cpu(), w.float().cpu(), 2e-2, name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c", [128, 384, 512])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_backward_packs_operands(cuda, dtype, c):
+    # the workspace after a launch: the packed Wᵀ and dy bitwise equal to
+    # their plain versions, p = silu(f) within bf16 rounding of them
+    dy, h, s, t, gamma, beta, w, mean, rstd = _bwd_case(cuda, dtype, 2, 129,
+                                                        c, 21)
+    off = fb.bwd_workspace_offsets(2, 129, c)
+    work = torch.zeros(off["end"], dtype=torch.float32, device=cuda)
+    fb._launch_bwd(dy, h, s, t, gamma, beta, w, mean, rstd, work)
+    torch.cuda.synchronize()
+
+    def region(name, count):
+        return work[off[name]:off[name] + count // 2].view(
+            torch.bfloat16).cpu()
+    assert torch.equal(region("wt", c * c), fb.pack_wt_reference(w.cpu()))
+    rows = 2 * 3 * 64 * c
+    assert torch.equal(region("dy", rows), fb.pack_rows_reference(dy.cpu()))
+    xhat = (h.float() - mean) * rstd
+    f = (xhat * s + t) * (1 + gamma.float()[:, None]) \
+        + beta.float()[:, None]
+    want = fb.pack_rows_reference(torch.nn.functional.silu(f).cpu())
+    torch.testing.assert_close(region("p", rows).float(), want.float(),
+                               rtol=1e-2, atol=1e-2)
 
 
 @pytest.mark.gpu
