@@ -14,7 +14,7 @@ failure:
    channels) and the edges (1 and 129 points; bf16 and fp32; C = 1024);
    CUDA-event times of the kernel, the plain version and one torch.matmul
    of the same product alone (a yardstick, not used by the port), and the
-   W bytes the kernel reads from L2;
+   W bytes the kernel reads from L2 (reckoned from the grid, not measured);
 3. main path: a full-width reference-format checkpoint of the bench
    configuration (bench.py: 8 clouds x 20 000 RGB points, latent 128,
    cond_dim 1, mlp point flow 512/6/256, latent flow 512/6/256, bf16
@@ -28,10 +28,11 @@ failure:
    backward kernel against its plain-torch version at (8 | 16, 20 000,
    512) bf16 and the edges (N = 1, 129, 300; C = 128, 256, 384; fp32
    inputs), each within GRAD_REL_TOL of the gradient's max, bitwise equal
-   across two launches; CUDA-event times of the kernel, the plain version
-   and one torch.matmul of each of its two products alone (yardsticks, not
-   used by the port), W's L2 bytes, and the rows and dW passes' device
-   times from one profiled run;
+   across two launches; fp32 inputs with W = 0 (df = dy), every gradient
+   but dW within FP32_DY_TOL; CUDA-event times of the kernel, the plain
+   version and one torch.matmul of each of its two products alone
+   (yardsticks, not used by the port), W's L2 bytes (reckoned), and the
+   rows and dW passes' device times from one profiled run;
 7. the training path: the training CLI at the same full width
    (`--dataset_type synthetic`, 8 steps, validation, a checkpoint); the
    forward and backward kernels must run 5 times per step, the losses be
@@ -108,6 +109,9 @@ E2E_REL_TOL = 5e-2
 # kernel's products are bf16 x bf16 -> fp32 summed over up to 320k rows in
 # another order than the fp32 plain version
 GRAD_REL_TOL = 2e-2
+# fp32 inputs with W = 0, so that df = dy: the gradients other than dW
+# (a bf16 product) take dy in fp32; dy rounded to bf16 would miss by ~1e-3
+FP32_DY_TOL = 1e-4
 TRAIN_SAMPLE_STEPS = 4               # validation sampler of the CLI phase
 STEPS_PER_EPOCH = 293                # bench.py's epoch at batch 8
 TIMED_STEPS = 10
@@ -267,8 +271,9 @@ def kernel_vs_plain(fb, torch):
               f"{t['kernel']:.4f} ms, plain fp32 {t['plain']:.4f} ms, "
               f"torch.matmul ({bsz * N}, {C}) x ({C}, {C}) bf16 alone "
               f"{t['gemm']:.4f} ms (medians of 6 x 10 calls in turns); W "
-              f"read from L2 per call {l2_new / 1e9:.3f} GB (a 64-row fp32-W "
-              f"wmma kernel: {l2_old / 1e9:.3f} GB)")
+              f"read from L2 per call, reckoned from the grid (not "
+              f"measured): {l2_new / 1e9:.3f} GB (a 64-row fp32-W wmma "
+              f"kernel: {l2_old / 1e9:.3f} GB)")
         out[bsz] = (t["kernel"], t["plain"], t["gemm"])
         del args, a2d
         torch.cuda.empty_cache()
@@ -333,6 +338,34 @@ def check_backward(fb, torch, args) -> tuple:
     return worst_abs, worst
 
 
+def check_backward_fp32_dy(fb, torch, g) -> float:
+    """fp32 inputs with W = 0, so that df = dy: dh, ds, dt, dgamma, dbeta
+    and db within FP32_DY_TOL of each one's max |plain|. Returns the worst
+    of those errors over the max."""
+    worst = 0.0
+    for bsz, n, c in ((B, 1000, C), (2, 300, 384)):
+        args = list(backward_inputs(fb, torch, g, bsz, n, c, torch.float32))
+        args[6] = torch.zeros_like(args[6])
+        got = fb.film_block_backward(*args)
+        want = fb.film_block_reference_backward(*args)
+        errs = []
+        for name, k, p in zip(("dh", "ds", "dt", "dgamma", "dbeta", "dW",
+                               "db"), got, want):
+            if name == "dW":
+                continue
+            rel = (k - p).abs().max().item() / max(
+                p.abs().max().item(), 1e-30)
+            if not rel <= FP32_DY_TOL:
+                raise RuntimeError(f"backward kernel {name} at ({bsz}, {n}, "
+                                   f"{c}) fp32, W = 0: {rel:.4g} of its max "
+                                   f"(bound {FP32_DY_TOL}): dy not in fp32")
+            worst = max(worst, rel)
+            errs.append(f"{name} {rel:.3g}")
+        print(f"[bwd] ({bsz}, {n}, {c}) fp32, W = 0 (df = dy): err / max "
+              f"|plain| {', '.join(errs)} (bound {FP32_DY_TOL})")
+    return worst
+
+
 def film_bwd_w_l2_bytes(bsz: int, n: int, c: int) -> int:
     """W bytes read from L2 per backward call: every 64-row rows-pass
     block reads the packed bf16 Wᵀ, and the pack reads the fp32 W."""
@@ -359,7 +392,8 @@ def backward_vs_plain(fb, torch):
             fb, torch, backward_inputs(fb, torch, g, bsz, n, c, dtype))
         worst, worst_abs = max(worst, e_rel), max(worst_abs, e_abs)
         torch.cuda.empty_cache()
-    out = {"max_abs_err": worst_abs, "max_err_over_grad_max": worst}
+    out = {"max_abs_err": worst_abs, "max_err_over_grad_max": worst,
+           "fp32_dy_err_over_grad_max": check_backward_fp32_dy(fb, torch, g)}
     for bsz in (B, 2 * B):
         args = backward_inputs(fb, torch, g, bsz, N, C, torch.bfloat16)
         dy2d = args[0].reshape(-1, C)
@@ -386,8 +420,8 @@ def backward_vs_plain(fb, torch):
               f"torch.matmul alone (bf16, cuBLAS): dy @ W ({bsz * N}, {C}) "
               f"x ({C}, {C}) {t['gemm_dp']:.4f} ms, dyᵀ @ p ({C}, "
               f"{bsz * N}) x ({bsz * N}, {C}) {t['gemm_dw']:.4f} ms "
-              f"(medians of 4 timings in turns); W read from L2 per call "
-              f"{l2 / 1e9:.3f} GB")
+              f"(medians of 4 timings in turns); W read from L2 per call, "
+              f"reckoned from the grid (not measured): {l2 / 1e9:.3f} GB")
         print(f"[bwd] profiled, 5 calls: rows pass {prof['rows'][0]:.4f} ms"
               f", dW pass {prof['dw'][0]:.4f} ms, Wᵀ pack "
               f"{prof['pack'][0]:.4f} ms, reductions {prof['reduce'][0]:.4f}"
@@ -395,8 +429,7 @@ def backward_vs_plain(fb, torch):
               f"read beside the CUDA-event time)")
         out[bsz] = {"ms": t["kernel"], "plain_ms": t["plain"],
                     "gemm_dp_ms": t["gemm_dp"], "gemm_dw_ms": t["gemm_dw"],
-                    "rows_ms": prof["rows"][0], "dw_ms": prof["dw"][0],
-                    "w_l2_gb": l2 / 1e9}
+                    "rows_ms": prof["rows"][0], "dw_ms": prof["dw"][0]}
         del args, dy2d, p2d, w16
         torch.cuda.empty_cache()
     return out
@@ -1337,13 +1370,14 @@ def main() -> int:
         "launches": bwd_train, "train_steps": steps,
         "max_abs_err": bw["max_abs_err"],
         "max_err_over_grad_max": bw["max_err_over_grad_max"],
+        "fp32_dy_err_over_grad_max": bw["fp32_dy_err_over_grad_max"],
         "ms": bw[B]["ms"], "plain_ms": bw[B]["plain_ms"],
         "bound_ms": film["bwd"][0], "bound_by": film["bwd"][1],
         "library_ms": None, "shape": [B, N, C],
         "gemm_only_ms": bw[B]["gemm_dp_ms"] + bw[B]["gemm_dw_ms"],
         "gemm_dp_ms": bw[B]["gemm_dp_ms"], "gemm_dw_ms": bw[B]["gemm_dw_ms"],
         "rows_pass_profiled_ms": bw[B]["rows_ms"],
-        "dw_pass_profiled_ms": bw[B]["dw_ms"], "w_l2_gb": bw[B]["w_l2_gb"],
+        "dw_pass_profiled_ms": bw[B]["dw_ms"],
         "ms_2b": bw[2 * B]["ms"], "plain_ms_2b": bw[2 * B]["plain_ms"],
         "gemm_only_ms_2b": bw[2 * B]["gemm_dp_ms"]
         + bw[2 * B]["gemm_dw_ms"],

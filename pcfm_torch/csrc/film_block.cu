@@ -70,8 +70,6 @@
 
 namespace {
 
-constexpr int N_TILE = 128;   // output columns per chunk (wgmma n)
-constexpr int K_TILE = 64;    // k per ring stage: one 128-byte swizzle row
 constexpr int STAGES = 4;     // W ring depth
 constexpr int STAGE_BYTES = N_TILE * K_TILE * 2;
 constexpr int MAX_C = 1024;
@@ -92,6 +90,44 @@ struct Tile {
            2 * STAGES * 8;                              // full, empty
   }
 };
+
+template <typename T>
+__device__ __forceinline__ void load8(const T* p, float (&x)[8]) {
+  Group<T> g;
+  g.load(p);
+  g.unpack(x);
+}
+
+// two consecutive values, as loaded and as fp32
+template <typename T>
+struct Pair;
+
+template <>
+struct Pair<__nv_bfloat16> {
+  __nv_bfloat162 v;
+  __device__ __forceinline__ void load(const __nv_bfloat16* p) {
+    v = __ldg(reinterpret_cast<const __nv_bfloat162*>(p));
+  }
+  __device__ __forceinline__ float2 get() const {
+    return __bfloat1622float2(v);
+  }
+};
+
+template <>
+struct Pair<float> {
+  float2 v;
+  __device__ __forceinline__ void load(const float* p) {
+    v = __ldg(reinterpret_cast<const float2*>(p));
+  }
+  __device__ __forceinline__ float2 get() const { return v; }
+};
+
+template <typename T>
+__device__ __forceinline__ float2 load2(const T* p) {
+  Pair<T> v;
+  v.load(p);
+  return v.get();
+}
 
 // one thread per 8 consecutive k of one W row: two 16-byte loads, one
 // 16-byte store

@@ -38,9 +38,10 @@
 //     h (prefetched into L2 at the start) comes into the freed ring, one
 //     bulk copy a row. The epilogues are straight-line code on the
 //     accumulators, with h, the params (one float4 a column) and dy from
-//     shared memory (dy from A: rounded to bf16 for fp32 inputs, as the
-//     product takes it, which keeps the fp32 variant in 255 registers; db
-//     sums the fp32 values): f, a fast sigmoid, df in place of dp, p = silu(f)
+//     shared memory (dy from A, rounded to bf16 for fp32 inputs: then a
+//     second pass adds dy - bf16(dy), read from device memory, to df and
+//     its sums, as fp32 dy's loads in the first would spill): f, a fast
+//     sigmoid, df in place of dp, p = silu(f)
 //     into A in place of dy (then one bulk store, in the dW pass's byte
 //     order); the row sums of dxhat and dxhat * xhat meet across the two
 //     warpgroups in shared memory; dh goes into the h tile in place of h,
@@ -58,8 +59,8 @@
 //     cloud and then the per-cloud sums are added in a fixed order by small
 //     kernels. No float atomics: two launches are bitwise equal.
 //
-// Workspace (one fp32 buffer, sized by pcfm_film_block_bwd_workspace,
-// regions listed by pcfm_film_block_bwd_offsets): the slices' dW tiles
+// Workspace (one fp32 buffer, sized by pcfm_film_block_bwd_workspace):
+// the slices' dW tiles
 // (16 x C x C at C = 512), the tile sums B x ceil(N / 64) x 5 x C, the
 // cloud sums B x 5 x C, packed p and packed dy (each B x ceil(N / 64) x
 // 64 x C bf16: 164 MB at (8, 20000, 512)) and the packed Wᵀ.
@@ -92,8 +93,6 @@ namespace {
 
 constexpr int ROWS = 64;            // rows of one cloud per rows-pass block
 constexpr int THREADS = 256;        // two warpgroups
-constexpr int N_TILE = 128;         // wgmma n: output columns of a chunk
-constexpr int K_TILE = 64;          // k of one packed tile: a 128-byte row
 constexpr int TILE_BYTES = N_TILE * K_TILE * 2;  // 16 KB
 constexpr int MAX_C = 512;          // 2 chunks of dp a warpgroup
 constexpr int NQ = 5;               // tile sums: db, dgamma, dbeta, ds, dt
@@ -163,6 +162,36 @@ __device__ __forceinline__ float2 ld2(const __nv_bfloat16* p) {
 }
 __device__ __forceinline__ float2 ld2(const float* p) {
   return *reinterpret_cast<const float2*>(p);
+}
+
+// v[4 jj + 2 q + e]: a lane's sums over its two rows for column groups
+// j0 + jj, columns + e, of df (q 0) and df * xhat (q 1). Summed over the 8
+// lanes that hold these columns (lane bits 4, 3, 2), halving the values at
+// each step: lane bits (4, 3, 2) end with v[4 b4 + 2 b3 + b2] summed, in a
+// fixed order. col_sum_index says where that sum goes in a warp's colred.
+__device__ __forceinline__ float lane_col_sum(const float (&v)[8], int lane) {
+  const bool b4 = lane & 16, b3 = lane & 8, b2 = lane & 4;
+  float w4[4], w2[2];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float keep = b4 ? v[4 + i] : v[i];
+    const float send = b4 ? v[i] : v[4 + i];
+    w4[i] = keep + __shfl_xor_sync(0xffffffffu, send, 16);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float keep = b3 ? w4[2 + i] : w4[i];
+    const float send = b3 ? w4[i] : w4[2 + i];
+    w2[i] = keep + __shfl_xor_sync(0xffffffffu, send, 8);
+  }
+  const float keep = b2 ? w2[1] : w2[0];
+  const float send = b2 ? w2[0] : w2[1];
+  return keep + __shfl_xor_sync(0xffffffffu, send, 4);
+}
+__device__ __forceinline__ int col_sum_index(int lane, int c, int ch, int j0,
+                                             int ec) {
+  const int b4 = (lane >> 4) & 1, b3 = (lane >> 3) & 1, b2 = (lane >> 2) & 1;
+  return (1 + b3) * c + ch * N_TILE + 8 * (j0 + b4) + ec + b2;
 }
 
 // Rows pass: dh, packed p and dy, and the per-tile sums. Grid
@@ -402,8 +431,8 @@ __global__ void __launch_bounds__(THREADS, 1)
         for (int hr = 0; hr < 2; ++hr) {
           const int r = er + 8 * hr;
           const float2 xv = ld2(hd + r * (c + H_LD) + k);
-          // dy from A: exact for bf16 inputs, rounded to bf16 for fp32 ones
-          // (as the product takes it), so that fp32 fits in 255 registers
+          // dy from A: exact for bf16 inputs, rounded to bf16 for fp32
+          // ones (the fp32 pass below adds what the rounding took)
           __nv_bfloat16* a_rk = a16 + tile_offset(r, k);
           const float2 dv = ld2(a_rk);
           const float x[2] = {xv.x, xv.y}, d[2] = {dv.x, dv.y};
@@ -428,27 +457,53 @@ __global__ void __launch_bounds__(THREADS, 1)
           store2(a_rk, pv[0], pv[1]);
         }
       }
-      // sum over the 8 lanes that hold these columns (lane bits 4, 3, 2),
-      // halving the values at each step: lane bits (4, 3, 2) end with
-      // v[4 b4 + 2 b3 + b2] summed, in a fixed order
-      const bool b4 = lane & 16, b3 = lane & 8, b2 = lane & 4;
-      float w4[4], w2[2];
+      colred_w[col_sum_index(lane, c, ch, j0, ec)] = lane_col_sum(v, lane);
+    }
+  }
+  // fp32 inputs: epilogue 1 took dy rounded to bf16 (from A, where 255
+  // registers leave no room for fp32 dy's loads). Add the remainder
+  // dy - bf16(dy), from device memory (L2: the block read the tile at its
+  // start), to df and to its row and column sums, so that df takes the
+  // fp32 dy as the plain version does
+  if constexpr (!kBf16) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float keep = b4 ? v[4 + i] : v[i];
-        const float send = b4 ? v[i] : v[4 + i];
-        w4[i] = keep + __shfl_xor_sync(0xffffffffu, send, 16);
-      }
+    for (int p = 0; p < 2; ++p) {
+      if (p >= npairs) break;
+      const int ch = 2 * p + wg;
+      if (!kEven && ch >= nch) continue;
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const float keep = b3 ? w4[2 + i] : w4[i];
-        const float send = b3 ? w4[i] : w4[2 + i];
-        w2[i] = keep + __shfl_xor_sync(0xffffffffu, send, 8);
+      for (int j0 = 0; j0 < N_TILE / 8; j0 += 2) {
+        float v[8] = {};
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          const int j = j0 + jj;
+          const int k = ch * N_TILE + 8 * j + ec;
+          const float4 p0 = prm[k], p1 = prm[k + 1];
+          const float gs[2] = {p0.z * p0.x, p1.z * p1.x};
+#pragma unroll
+          for (int hr = 0; hr < 2; ++hr) {
+            const int r = er + 8 * hr;
+            const float2 xv = ld2(hd + r * (c + H_LD) + k);
+            const float2 dv = r < n_valid
+                                  ? ld2(dy + (tile_row0 + r) * c + k)
+                                  : make_float2(0.0f, 0.0f);
+            const float x[2] = {xv.x, xv.y}, d[2] = {dv.x, dv.y};
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float xhat = (x[e] - mu[hr]) * rs[hr];
+              const float rem =
+                  d[e] - __bfloat162float(__float2bfloat16_rn(d[e]));
+              acc[p][4 * j + 2 * hr + e] += rem;
+              const float dx = rem * gs[e];
+              m1[hr] += dx;
+              m2[hr] += dx * xhat;
+              v[4 * jj + e] += rem;
+              v[4 * jj + 2 + e] += rem * xhat;
+            }
+          }
+        }
+        colred_w[col_sum_index(lane, c, ch, j0, ec)] += lane_col_sum(v, lane);
       }
-      const float keep = b2 ? w2[1] : w2[0];
-      const float send = b2 ? w2[0] : w2[1];
-      const float sum = keep + __shfl_xor_sync(0xffffffffu, send, 4);
-      colred_w[(1 + b3) * c + ch * N_TILE + 8 * (j0 + b4) + ec + b2] = sum;
     }
   }
   // the row sums over this warpgroup's columns, then over both
@@ -805,18 +860,6 @@ extern "C" long long pcfm_film_block_bwd_workspace(int b, int n, int c) {
   long long off[R_END + 1];
   regions(b, n, c, off);
   return off[R_END];
-}
-
-// Where the workspace's regions start, in floats: off[0..5] = the slices'
-// dW, the tile sums, the cloud sums, packed p, packed dy, packed Wᵀ, and
-// off[6] = the end; -1 for a shape the kernel does not take.
-extern "C" int pcfm_film_block_bwd_offsets(int b, int n, int c,
-                                           long long* off) {
-  if (bad_shape(b, n, c)) return -1;
-  long long o[R_END + 1];
-  regions(b, n, c, o);
-  for (int i = 0; i <= R_END; ++i) off[i] = o[i];
-  return 0;
 }
 
 // Plain C entry point (bound with ctypes). Device pointers of contiguous

@@ -37,6 +37,21 @@ __device__ __forceinline__ float film_f(float x, float mean, float rstd,
   return u * (1.0f + g) + be;
 }
 
+// a packed W tile: N_TILE rows of W (wgmma n) x K_TILE k, one 128-byte
+// swizzle row each
+constexpr int N_TILE = 128;
+constexpr int K_TILE = 64;
+
+// Offset (in bf16 values) of W[n, k] in the packed buffer: the stage of
+// output tile n / N_TILE and k tile k / K_TILE, in the product's order
+// (output tile outer), then row n % N_TILE of that stage with its 16-byte
+// chunks swizzled. pack_w_reference (ops/film_block.py) is the same formula.
+__device__ __forceinline__ size_t packed_offset(int n, int k, int c) {
+  const int r = n % N_TILE, j = (k % K_TILE) / 8;
+  const size_t stage = static_cast<size_t>(n / N_TILE) * (c / K_TILE) +
+                       k / K_TILE;
+  return (stage * N_TILE + r) * K_TILE + ((j ^ (r & 7)) * 8) + (k & 7);
+}
 
 // 8 consecutive values of a row, as loaded (16 bytes of bf16, 32 of fp32)
 template <typename T>
@@ -85,43 +100,6 @@ __device__ __forceinline__ uint4 pack_bf16x8(const float (&x)[8]) {
                     bf16x2_bits(x[4], x[5]), bf16x2_bits(x[6], x[7]));
 }
 
-template <typename T>
-__device__ __forceinline__ void load8(const T* p, float (&x)[8]) {
-  Group<T> g;
-  g.load(p);
-  g.unpack(x);
-}
-
-// two consecutive values, as loaded and as fp32
-template <typename T>
-struct Pair;
-
-template <>
-struct Pair<__nv_bfloat16> {
-  __nv_bfloat162 v;
-  __device__ __forceinline__ void load(const __nv_bfloat16* p) {
-    v = __ldg(reinterpret_cast<const __nv_bfloat162*>(p));
-  }
-  __device__ __forceinline__ float2 get() const {
-    return __bfloat1622float2(v);
-  }
-};
-
-template <>
-struct Pair<float> {
-  float2 v;
-  __device__ __forceinline__ void load(const float* p) {
-    v = __ldg(reinterpret_cast<const float2*>(p));
-  }
-  __device__ __forceinline__ float2 get() const { return v; }
-};
-
-template <typename T>
-__device__ __forceinline__ float2 load2(const T* p) {
-  Pair<T> v;
-  v.load(p);
-  return v.get();
-}
 __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }

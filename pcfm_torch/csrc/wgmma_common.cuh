@@ -204,15 +204,4 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64],
 }
 
 
-// Offset (in bf16 values) of W[n, k] in the packed buffer: the stage of
-// output tile n / 128 and k tile k / 64, in the product's order (output
-// tile outer), then row n % 128 of that stage with its 16-byte chunks
-// swizzled. pack_w_reference (ops/film_block.py) is the same formula.
-__device__ __forceinline__ size_t packed_offset(int n, int k, int c) {
-  const int r = n % 128, j = (k % 64) / 8;
-  const size_t stage = static_cast<size_t>(n / 128) * (c / 64) +
-                       k / 64;
-  return (stage * 128 + r) * 64 + ((j ^ (r & 7)) * 8) + (k & 7);
-}
-
 }  // namespace

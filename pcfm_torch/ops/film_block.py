@@ -224,22 +224,7 @@ def _lib():
     lib.pcfm_film_block_bwd.restype = ctypes.c_int
     lib.pcfm_film_block_bwd_workspace.argtypes = [ctypes.c_int] * 3
     lib.pcfm_film_block_bwd_workspace.restype = ctypes.c_longlong
-    lib.pcfm_film_block_bwd_offsets.argtypes = [ctypes.c_int] * 3 + [ptr]
-    lib.pcfm_film_block_bwd_offsets.restype = ctypes.c_int
     return lib
-
-
-BWD_REGIONS = ("dw_slices", "tile_sums", "cloud_sums", "p", "dy", "wt")
-
-
-def bwd_workspace_offsets(bsz: int, n: int, c: int) -> dict:
-    """Where the backward kernel's workspace regions start, in floats
-    (``BWD_REGIONS`` and "end"), as its C entry point reckons them."""
-    off = (ctypes.c_longlong * (len(BWD_REGIONS) + 1))()
-    if _lib().pcfm_film_block_bwd_offsets(bsz, n, c, off) != 0:
-        raise ValueError(f"film_block backward kernel does not take "
-                         f"{(bsz, n, c)}")
-    return dict(zip(BWD_REGIONS + ("end",), off))
 
 
 def _check_operands(h, args: dict, max_c: int):
@@ -289,9 +274,7 @@ def _launch(h, s, t, gamma, beta, w, b):
     return y, mean, rstd
 
 
-def _launch_bwd(dy, h, s, t, gamma, beta, w, mean, rstd, work=None):
-    """The backward kernel; ``work`` (fp32, at least the workspace's size)
-    lets a caller read the packed operands afterwards."""
+def _launch_bwd(dy, h, s, t, gamma, beta, w, mean, rstd):
     global bwd_launches
     _check_operands(h, {"dy": dy, "h": h, "s": s, "t": t, "gamma": gamma,
                         "beta": beta, "w": w, "mean": mean, "rstd": rstd},
@@ -310,12 +293,7 @@ def _launch_bwd(dy, h, s, t, gamma, beta, w, mean, rstd, work=None):
     if floats < 0:
         raise ValueError(f"film_block backward kernel does not take "
                          f"{tuple(h.shape)}")
-    if work is None:
-        work = torch.empty(floats, **f32)
-    elif work.dtype != torch.float32 or work.numel() < floats \
-            or work.device != h.device or not work.is_contiguous():
-        raise ValueError(f"film_block backward: work must be a contiguous "
-                         f"fp32 tensor of >= {floats} on {h.device}")
+    work = torch.empty(floats, **f32)
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream
         err = _lib().pcfm_film_block_bwd(
