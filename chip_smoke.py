@@ -2,6 +2,7 @@
 """On-card smoke run of the PyTorch / CUDA port (pcfm_torch) on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --only voxel   # phases 1 and 10 alone
 
 Needs one CUDA device (an H100: the kernels are built for sm_90a) and the
 CUDA toolkit's nvcc; imports nothing of JAX.  Phases, each fatal on
@@ -45,10 +46,12 @@ failure:
 10. voxel kernels vs plain: the gather and the scatter against their
    plain-torch versions (fp32 math) at the hybrid's stage shapes
    ((R, C) = (32, 128), (16, 256), (8, 256); 8 and 16 clouds x 20 000
-   points; K = 1 and 8; bf16 and fp32 inputs), two launches bitwise equal,
-   CUDA-event times of the kernel, the plain version and the one PyTorch
-   call that computes the same function (``F.grid_sample`` for the K = 8
-   gather, ``scatter_reduce(mean)`` for the K = 1 scatter-mean);
+   points; K = 1 and 8; bf16 and fp32 inputs) and skewed (every point of
+   a cloud in one voxel: one run of K x N entries), two launches bitwise
+   equal, CUDA-event times of the kernel, the plain version and the one
+   PyTorch call that computes the same function (``F.grid_sample`` for the
+   K = 8 gather, ``scatter_reduce(mean)`` for the K = 1 scatter-mean), the
+   kernel's device time (profiler) and the output's write alone (a floor);
 11. the hybrid main path: a full-width hybrid checkpoint of the bench
    configuration with the Config's ContextNet (128/256/256 channels, 2/2/2
    blocks, resolutions 32/16/8, SE, GroupNorm 32, global branch, bf16
@@ -59,7 +62,8 @@ failure:
    clouds and PLYs, peak memory;
 12. hybrid Heun x 50 ms/shape (three runs after a warm-up) and one
    torch.profiler run: device time and launches of the gather, the
-   scatter, the FiLM block and the convolutions, and the idle share;
+   scatter, the FiLM block, the convolutions and the scatter plans' glue
+   (sort, searchsorted, cumsum), and the idle share;
 13. end to end: the full-width hybrid velocity on the same checkpoint and
    inputs at (2, 20 000), on the card (bf16, kernels) and on the CPU (fp32,
    plain versions), within HYB_E2E_REL_TOL of each other;
@@ -282,14 +286,15 @@ def kernel_vs_plain(fb, torch):
 
 def check_spills(log: str) -> None:
     """Print ptxas's registers and spills for each kernel of the build log
-    and fail if a FiLM-block kernel spills."""
+    and fail if a FiLM-block or voxel kernel spills."""
     name, spilled = "?", []
     for line in log.splitlines():
         if "Compiling entry function" in line:
             name = line.split("'")[1] if "'" in line else line.strip()
         elif "registers" in line or "spill" in line:
             print(f"[build] {name[:70]}: {line.split(':', 1)[-1].strip()}")
-            if "film_block" in name and "spill" in line and any(
+            if ("film_block" in name or "voxel" in name) \
+                    and "spill" in line and any(
                     int(x) for x in re.findall(r"(\d+) bytes spill", line)):
                 spilled.append(name)
     if spilled:
@@ -746,7 +751,8 @@ def timed_turns(fns: dict, rounds: int = 2, reps=10) -> dict:
 
 def voxel_vs_plain(tvs, torch):
     """Phase 10: both voxel kernels against their plain versions at the
-    hybrid's stage shapes.  Returns {(kernel, R, C, B, K, dtype): row}."""
+    hybrid's stage shapes, then the skewed cases.  Returns two dicts
+    {(kernel, R, C, B, K, dtype): row}: the stages and the skewed cases."""
     import torch.nn.functional as F
     from pcfm_torch.models.context import VOXEL_EPS
     out = {}
@@ -763,7 +769,7 @@ def voxel_vs_plain(tvs, torch):
             ids8, w8 = cache["corners"]
             cases = {1: (cache["plan"].ids, cache["inv_pt"][:, None, :],
                          cache["plan"]),
-                     8: (ids8, w8, tvs.scatter_plan(ids8, v))}
+                     8: (ids8, w8, tvs.corner_plan(cache))}
             for dtype in (torch.bfloat16, torch.float32):
                 grid = torch.randn(bsz, v, c, device=DEVICE,
                                    generator=g).to(dtype)
@@ -775,14 +781,37 @@ def voxel_vs_plain(tvs, torch):
                 del grid, upd
             del cache, cases
         torch.cuda.empty_cache()
+    return out, voxel_skewed(tvs, torch, F)
+
+
+def voxel_skewed(tvs, torch, F) -> dict:
+    """Phase 10's skewed cases: every point of each cloud in one voxel (the
+    centre voxel at R = 8), so the scatter has one run of N entries (K = 1,
+    weight 1 / N) or 8 N (K = 8, random weights), at B = 8 and C = 256."""
+    r, c = VOXEL_STAGES[-1]
+    v = r ** 3
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
+    centre = (r // 2) * (r * r + r + 1)
+    out = {}
+    for k in (1, 8):
+        ids = torch.full((B, k, N), centre, dtype=torch.int32, device=DEVICE)
+        w = (torch.full((B, 1, N), 1.0 / N, device=DEVICE) if k == 1 else
+             torch.rand((B, k, N), device=DEVICE, generator=g))
+        plan = tvs.scatter_plan(ids, v)
+        for dtype in (torch.bfloat16, torch.float32):
+            grid = torch.randn(B, v, c, device=DEVICE, generator=g).to(dtype)
+            upd = torch.randn(B, N, c, device=DEVICE, generator=g).to(dtype)
+            out.update(voxel_case(tvs, torch, F, None, r, c, B, k, dtype,
+                                  ids, w, plan, grid, upd, tag="skewed "))
     return out
 
 
 def voxel_case(tvs, torch, F, cache, r, c, bsz, k, dtype, ids, w, plan,
-               grid, upd) -> dict:
-    """One (R, C, B, K, dtype) case of phase 10, both kernels."""
+               grid, upd, tag="") -> dict:
+    """One (R, C, B, K, dtype) case of phase 10, both kernels; the one
+    PyTorch call is timed beside them where ``cache`` gives its inputs."""
     v = r ** 3
-    tag = f"R={r} C={c} B={bsz} K={k} {str(dtype)[6:]}"
+    tag = f"{tag}R={r} C={c} B={bsz} K={k} {str(dtype)[6:]}"
     fns = {"gather": (lambda: tvs.voxel_gather(grid, ids, w),
                       lambda: tvs.voxel_gather_reference(grid, ids, w)),
            "scatter": (lambda: tvs.voxel_scatter(upd, w, plan),
@@ -793,14 +822,14 @@ def voxel_case(tvs, torch, F, cache, r, c, bsz, k, dtype, ids, w, plan,
         "scatter": lambda: tvs.voxel_scatter_reference(upd.abs(), ids,
                                                        w.abs(), v)}
     library = {}
-    if k == 8:             # trilinear devoxelize: grid_sample on the 5-D grid
+    if cache is not None and k == 8:  # devoxelize: grid_sample, 5-D grid
         grid5 = grid.view(bsz, r, r, r, c).permute(0, 4, 1, 2, 3)
         loc = (cache["norm_coords"].flip(-1) * (2.0 / (r - 1)) - 1.0)
         loc = loc.view(bsz, 1, 1, N, 3).to(dtype)
         library["gather"] = lambda: F.grid_sample(
             grid5, loc, mode="bilinear", padding_mode="zeros",
             align_corners=True)
-    else:                  # weights 1 / count: the scatter-mean
+    elif cache is not None:           # weights 1 / count: the scatter-mean
         idx = ids[:, 0].long()[..., None].expand(-1, -1, c).contiguous()
         zeros = torch.zeros((bsz, v, c), dtype=dtype, device=DEVICE)
         library["scatter"] = lambda: zeros.scatter_reduce(
@@ -829,6 +858,17 @@ def voxel_case(tvs, torch, F, cache, r, c, bsz, k, dtype, ids, w, plan,
         t = timed_turns({"plain": plain, "kernel": kern,
                          **({"library": library[what]}
                             if what in library else {})})
+        # the kernels' own device time (the profiler's kernel durations),
+        # beside the CUDA-event time that includes the wrapper's host time
+        # (None where the trace caught no kernel: "not measured")
+        dev_ms = profile_kernels(torch, kern, 5, {},
+                                 os.path.join(RUN_DIR, "voxel_trace.json")
+                                 )["busy_ms"] or None
+        dev_note = "not measured" if dev_ms is None else f"{dev_ms:.4f}"
+        # the floor under both: the fp32 output written once (zero_)
+        sink = torch.empty_like(got)
+        write_ms = cuda_ms(sink.zero_)
+        del sink
         dense = grid if what == "gather" else upd
         bms, by = voxel_bounds(torch, ids, w, dense,
                                N if what == "gather" else v, what)
@@ -836,10 +876,13 @@ def voxel_case(tvs, torch, F, cache, r, c, bsz, k, dtype, ids, w, plan,
         print(f"[voxel] {what} {tag}: max abs err {err.max().item():.4g} "
               f"(max err/bound {worst.item():.3g}), bitwise equal across "
               f"two launches"
-              f"{lib_note}; kernel {t['kernel']:.4f} ms, plain "
-              f"{t['plain']:.4f} ms{lib_t}; bound {bms:.4f} ms ({by})")
+              f"{lib_note}; kernel {t['kernel']:.4f} ms (device "
+              f"{dev_note}), plain "
+              f"{t['plain']:.4f} ms{lib_t}; bound {bms:.4f} ms ({by}); "
+              f"the output's write alone {write_ms:.4f} ms")
         rows[(what, r, c, bsz, k, dtype)] = {
             "max_abs_err": err.max().item(), "ms": t["kernel"],
+            "device_ms": dev_ms, "write_ms": write_ms,
             "plain_ms": t["plain"], "library_ms": t.get("library"),
             "bound_ms": bms, "bound_by": by}
         del got, again, ref, err, worst
@@ -921,8 +964,9 @@ def hybrid_main_path(fb, tvs, torch, np):
 def profile_kernels(torch, fn, calls: int, groups: dict,
                     trace: str) -> dict:
     """One torch.profiler run of ``calls`` calls of ``fn``: device time
-    and launches by kernel group (a group matches kernel names containing
-    any of its words), device-busy time and the wall time."""
+    and launches by kernel group (a group takes the kernel names that
+    contain any of its words and no earlier group took), device-busy time
+    and the wall time."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -945,8 +989,11 @@ def profile_kernels(torch, fn, calls: int, groups: dict,
     out = {"wall_ms": wall_us / 1e3 / calls, "busy_ms": busy / 1e3 / calls,
            "top": [(k[:90], v / 1e3 / calls, count[k]) for k, v in
                    sorted(by_name.items(), key=lambda kv: -kv[1])[:12]]}
+    taken = set()
     for group, words in groups.items():
-        names = [k for k in by_name if any(w in k.lower() for w in words)]
+        names = [k for k in by_name if k not in taken
+                 and any(w in k.lower() for w in words)]
+        taken.update(names)
         out[group] = (sum(by_name[k] for k in names) / 1e3 / calls,
                       sum(count[k] for k in names) // calls)
         out[f"{group}_kernels"] = sorted({k[:60] for k in names})
@@ -976,10 +1023,17 @@ def hybrid_ms_per_shape(torch):
     print(f"[hybrid] Heun x50 at {B} x {N}: "
           f"{' '.join(f'{t:.2f}' for t in times)} ms/shape (first is "
           f"warm-up; median {ms:.2f})")
+    # the plans' glue (3 stage caches an
+    # evaluation: sort, searchsorted for the row pointer and the chunks'
+    # voxels, the chunk prefix) by kernel name, where the entry sort's
+    # argsort joins the sorts
     groups = {"voxel_gather": ("voxel_gather",),
               "voxel_scatter": ("voxel_scatter",),
               "film_block": ("film_block",),
-              "conv3d": ("fprop", "conv", "cudnn")}
+              "conv3d": ("fprop", "conv", "cudnn"),
+              "plan_searchsorted": ("searchsorted",),
+              "plan_sort": ("sort",),
+              "plan_cumsum": ("scan",)}
     prof = profile_kernels(torch, run, 1, groups,
                            os.path.join(HYB_DIR, "sample_trace.json"))
     idle = 1 - prof["busy_ms"] / prof["wall_ms"]
@@ -1309,6 +1363,10 @@ def main() -> int:
           f"{os.path.relpath(info['path'], ROOT)} in {info['seconds']:.2f} s")
     check_spills(info["log"])
 
+    if sys.argv[1:] == ["--only", "voxel"]:
+        # phases 1 and 10 alone, for work on the voxel kernels
+        voxel_vs_plain(tvs, torch)
+        return 0
     kv, kv_err = kernel_vs_plain(fb, torch)
     launches = main_path(fb, torch, np)
     ms = sample_ms_per_shape(torch)
@@ -1317,7 +1375,7 @@ def main() -> int:
     fwd_train, bwd_train, steps = train_cli(fb, torch)
     step = train_step_time(torch)
     determinism(torch)
-    vox = voxel_vs_plain(tvs, torch)
+    vox, vox_skewed = voxel_vs_plain(tvs, torch)
     hyb = hybrid_main_path(fb, tvs, torch, np)
     hyb_ms = hybrid_ms_per_shape(torch)
     hyb_rel = hybrid_end_to_end(tvs, torch)
@@ -1333,15 +1391,27 @@ def main() -> int:
     hyb_prof = hyb_ms["profile"]
 
     def voxel_entry(name, source, replaces, row, what, **extra):
+        def rows(cases, fields):
+            # B = 8 (the main path's batch), both K and dtypes
+            return [{"R": r, "C": c, "K": k, "dtype": str(dt)[6:],
+                     **{f: rw[f] for f in fields}}
+                    for (wh, r, c, bsz, k, dt), rw in cases.items()
+                    if wh == what and bsz == B]
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": hyb["heun50"][name],
-                "max_abs_err": max(r["max_abs_err"] for key, r in vox.items()
+                "max_abs_err": max(r["max_abs_err"] for key, r in
+                                   (*vox.items(), *vox_skewed.items())
                                    if key[0] == what),
                 "ms": row["ms"], "plain_ms": row["plain_ms"],
                 "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
                 "library_ms": row["library_ms"],
                 "shape": {"gather": [B, 32 ** 3, 128, 8],
                           "scatter": [B, N, 128, 1]}[what],
+                "stages": rows(vox, ("ms", "device_ms", "plain_ms",
+                                     "library_ms", "bound_ms", "bound_by",
+                                     "write_ms")),
+                "skewed": rows(vox_skewed, ("ms", "device_ms", "plain_ms",
+                                            "bound_ms")),
                 "profiled_ms_per_run": hyb_prof[name][0],
                 "launches_cfg": hyb["heun50_cfg0.25"][name], **extra}
 
@@ -1398,7 +1468,9 @@ def main() -> int:
                     hybrid_end_to_end_rel_err=hyb_rel),
         voxel_entry("voxel_scatter", "pcfm_torch/csrc/voxel_scatter.cu",
                     "pcfm/ops/pallas/voxel_sorted.py:182", scatter,
-                    "scatter"), {
+                    "scatter", plan_glue_profiled_ms_per_run={
+                        part: hyb_prof[f"plan_{part}"][0]
+                        for part in ("sort", "searchsorted", "cumsum")}), {
         "name": "chamfer_nn", "route": "cuda",
         "source": "pcfm_torch/csrc/chamfer_nn.cu",
         "replaces": "pcfm/ops/pallas/chamfer_v3.py:19",

@@ -8,7 +8,6 @@
 namespace {
 
 constexpr int VOX_THREADS = 256;                 // 8 warps a block
-constexpr int VOX_WARPS = VOX_THREADS / 32;
 
 // elements of T in one 16-byte load
 template <typename T>
@@ -16,19 +15,35 @@ struct Vec {
   static constexpr int N = 16 / sizeof(T);
 };
 
-// acc[0..N) += w * row[0..N), row 16-byte aligned
-__device__ __forceinline__ void fma_vec(float (&acc)[4], float w,
-                                        const float* row) {
-  const float4 v = __ldg(reinterpret_cast<const float4*>(row));
+// One 16-byte slice of a row of T, loaded raw so that several loads can be
+// in flight before they are summed
+template <typename T>
+struct Raw;
+template <>
+struct Raw<float> {
+  using type = float4;
+};
+template <>
+struct Raw<__nv_bfloat16> {
+  using type = uint4;
+};
+
+template <typename T>
+__device__ __forceinline__ typename Raw<T>::type load_raw(const T* p) {
+  return __ldg(reinterpret_cast<const typename Raw<T>::type*>(p));
+}
+
+// acc[0..N) += w * the slice, in fp32
+__device__ __forceinline__ void fma_raw(float (&acc)[4], float w,
+                                        const float4& v) {
   acc[0] = fmaf(w, v.x, acc[0]);
   acc[1] = fmaf(w, v.y, acc[1]);
   acc[2] = fmaf(w, v.z, acc[2]);
   acc[3] = fmaf(w, v.w, acc[3]);
 }
 
-__device__ __forceinline__ void fma_vec(float (&acc)[8], float w,
-                                        const __nv_bfloat16* row) {
-  const uint4 raw = __ldg(reinterpret_cast<const uint4*>(row));
+__device__ __forceinline__ void fma_raw(float (&acc)[8], float w,
+                                        const uint4& raw) {
   const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&raw);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {

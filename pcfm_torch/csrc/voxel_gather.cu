@@ -12,65 +12,108 @@
 //
 // The TPU kernel builds one-hot matrices over a window of grid rows and
 // multiplies them on the MXU, because the TPU has no vector gather. Hopper
-// has one, so this kernel simply loads the indexed rows:
-//   * a group of `lanes` threads (a power of two <= 32) owns one point; each
-//     thread loads 16 bytes of each of the point's K grid rows (8 bf16 or
-//     4 fp32 channels), accumulates w * row in fp32 registers in k order,
-//     and writes its 16-32 bytes of the output row; a warp serves
-//     32 / lanes points, a block of 8 warps 8x that;
-//   * the point's K ids and weights are read once into registers;
+// has one, so this kernel loads the indexed rows:
+//   * a block owns a tile of consecutive points of one cloud (64 at K = 8)
+//     and first stages the tile's K ids and weights in shared memory
+//     (16-byte loads, coalesced: each is a contiguous run of `ids` / `w`),
+//     in place of 2K strided words that every lane loaded for its point;
+//   * a group of `lanes` threads (a power of two <= 32) serves every
+//     (VOX_THREADS / lanes)-th point of the tile: each thread loads 16
+//     bytes of all K grid rows of a point (8 bf16 or 4 fp32 channels)
+//     before any multiply-add, then accumulates w * row in fp32 in k order
+//     and writes its slice of the output row;
 //   * ids outside [0, V) contribute nothing (never read out of bounds).
 // Sums are taken in a fixed order: two launches give bitwise-equal output.
 //
 // What bounds it, at the hybrid's R = 32 stage, (B, N, C) = (8, 20000, 128)
-// bf16 grid, K = 8: the least it must move is the grid (67 MB) read once,
-// ids and weights (10 MB) and the fp32 output (82 MB), ~0.16 GB or
-// ~0.047 ms at 3.35 TB/s; it does 2 * 8 * 160k * 128 = 0.33 GFLOP, nothing.
-// It actually reads 8 rows of 256 bytes per point (328 MB of row traffic),
-// most from L2, because the points arrive sorted by their R = 32 voxel and
-// neighbouring points share corners. Left for later: cooperative staging
-// of the shared corner rows in shared memory, bf16 output.
+// bf16 grid, K = 8: the least it must move is the distinct grid rows the
+// ids name read once, ids and weights (10 MB) and the fp32 output (82 MB),
+// ~0.032 ms at 3.35 TB/s; it does 2 * 8 * 160k * 128 = 0.33 GFLOP, nothing.
+// Loading 8 corner rows a point moves 0.33 GB (R = 32; 0.66 GB at C = 256)
+// between L2 and the SMs. The points arrive sorted by their R = 32 voxel,
+// so the points of one tile share most of their corners, and a tile served
+// at once by one block finds many of them in its SM's L1. Below that, the
+// fp32 output write alone is the floor (chip_smoke.py phase 10 times it).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <climits>
+#include <cstdint>
 
 #include "voxel_common.cuh"
 
 namespace {
 
+// Points a block, and blocks an SM at K = 8 (4 for fp32, <= 64 registers
+// a thread; 3 for bf16, whose 8 fp32 sums spill at 64): chosen on an H100
+// among tiles of 16 to 128 points and one, two or four points a group at a
+// time (PERF.md §6). Occupancy wins over more rows in flight a thread.
 template <typename T, int K>
-__global__ void __launch_bounds__(VOX_THREADS)
+struct Tile {
+  static constexpr int POINTS = K == 8 ? 64 : 32;
+  static constexpr int MIN_BLOCKS = K == 8 ? (sizeof(T) == 4 ? 4 : 3) : 1;
+};
+
+template <typename T, int K>
+__global__ void __launch_bounds__(VOX_THREADS, Tile<T, K>::MIN_BLOCKS)
     voxel_gather_kernel(const T* __restrict__ grid,
                         const int* __restrict__ ids,
                         const float* __restrict__ w, float* __restrict__ out,
-                        int n, int v, int c, int lanes) {
+                        int n, int v, int c, int lanes, int aligned) {
   constexpr int VEC = Vec<T>::N;
+  constexpr int TILE = Tile<T, K>::POINTS;
+  __shared__ __align__(16) int s_id[K * TILE];
+  __shared__ __align__(16) float s_w[K * TILE];
   const int b = blockIdx.y;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int per_warp = 32 / lanes;
-  const int point = (blockIdx.x * VOX_WARPS + warp) * per_warp + lane / lanes;
-  if (point >= n) return;
-  const int l = lane % lanes;
-  const int cvec = c / VEC;
-
+  const int p0 = blockIdx.x * TILE;
+  const int tp = min(TILE, n - p0);
   const size_t kn = static_cast<size_t>(K) * n;
-  int id[K];
-  float wt[K];
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    id[k] = ids[b * kn + static_cast<size_t>(k) * n + point];
-    wt[k] = w[b * kn + static_cast<size_t>(k) * n + point];
+  const int* ib = ids + b * kn + p0;
+  const float* wb = w + b * kn + p0;
+  if (aligned && tp == TILE) {
+    constexpr int Q = TILE / 4;
+    for (int i = threadIdx.x; i < K * Q; i += VOX_THREADS) {
+      const int k = i / Q, q = i % Q * 4;
+      const size_t src = static_cast<size_t>(k) * n + q;
+      *reinterpret_cast<int4*>(s_id + k * TILE + q) =
+          __ldg(reinterpret_cast<const int4*>(ib + src));
+      *reinterpret_cast<float4*>(s_w + k * TILE + q) =
+          __ldg(reinterpret_cast<const float4*>(wb + src));
+    }
+  } else {  // the ragged last tile, or ids / weights not 16-byte aligned
+    for (int i = threadIdx.x; i < K * TILE; i += VOX_THREADS) {
+      const int k = i / TILE, q = i % TILE;
+      const size_t src = static_cast<size_t>(k) * n + q;
+      s_id[i] = q < tp ? ib[src] : -1;
+      s_w[i] = q < tp ? wb[src] : 0.0f;
+    }
   }
+  __syncthreads();
+
+  const int l = threadIdx.x % lanes;
   const T* gb = grid + static_cast<size_t>(b) * v * c;
-  float* orow = out + (static_cast<size_t>(b) * n + point) * c;
-  for (int j = l; j < cvec; j += lanes) {
-    float acc[VEC];
+  float* ob = out + (static_cast<size_t>(b) * n + p0) * c;
+  const int cvec = c / VEC;
+  for (int q = threadIdx.x / lanes; q < tp; q += VOX_THREADS / lanes) {
+    for (int j = l; j < cvec; j += lanes) {
+      const T* gj = gb + j * VEC;  // this lane's channels; v * c < 2^31
+      typename Raw<T>::type row[K];
 #pragma unroll
-    for (int i = 0; i < VEC; ++i) acc[i] = 0.0f;
+      for (int k = 0; k < K; ++k) {
+        const int id = s_id[k * TILE + q];
+        if (static_cast<unsigned>(id) < static_cast<unsigned>(v))
+          row[k] = load_raw(gj + id * c);
+      }
+      float acc[VEC];
 #pragma unroll
-    for (int k = 0; k < K; ++k)
-      if (id[k] >= 0 && id[k] < v)
-        fma_vec(acc, wt[k], gb + static_cast<size_t>(id[k]) * c + j * VEC);
-    store_vec(orow + j * VEC, acc);
+      for (int e = 0; e < VEC; ++e) acc[e] = 0.0f;
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+        if (static_cast<unsigned>(s_id[k * TILE + q]) <
+            static_cast<unsigned>(v))
+          fma_raw(acc, s_w[k * TILE + q], row[k]);
+      store_vec(ob + static_cast<size_t>(q) * c + j * VEC, acc);
+    }
   }
 }
 
@@ -78,27 +121,29 @@ template <typename T, int K>
 int launch(const void* grid, const void* ids, const void* w, void* out,
            int b, int n, int v, int c, cudaStream_t stream) {
   const int lanes = lanes_for(c / Vec<T>::N);
-  const int per_block = VOX_WARPS * (32 / lanes);
-  const dim3 blocks((n + per_block - 1) / per_block, b);
+  const int aligned = n % 4 == 0 &&
+                      reinterpret_cast<uintptr_t>(ids) % 16 == 0 &&
+                      reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  const dim3 blocks((n + Tile<T, K>::POINTS - 1) / Tile<T, K>::POINTS, b);
   voxel_gather_kernel<T, K><<<blocks, VOX_THREADS, 0, stream>>>(
       static_cast<const T*>(grid), static_cast<const int*>(ids),
-      static_cast<const float*>(w), static_cast<float*>(out), n, v, c,
-      lanes);
+      static_cast<const float*>(w), static_cast<float*>(out), n, v, c, lanes,
+      aligned);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Plain C entry point (bound with ctypes). Device pointers of contiguous
-// tensors: grid (b, v, c) bf16 when is_bf16 else fp32, ids (b, k, n)
-// int32, w (b, k, n) fp32, out (b, n, c) fp32. Launches on `stream`, does
-// not synchronise, returns a cudaError_t code.
+// tensors: grid (b, v, c) bf16 when is_bf16 else fp32 with v * c < 2^31,
+// ids (b, k, n) int32, w (b, k, n) fp32, out (b, n, c) fp32. Launches on
+// `stream`, does not synchronise, returns a cudaError_t code.
 extern "C" int pcfm_voxel_gather(const void* grid, const void* ids,
                                  const void* w, void* out, int b, int n,
                                  int k, int v, int c, int is_bf16,
                                  void* stream) {
   if (b <= 0 || b > 65535 || n <= 0 || v <= 0 || c <= 0 || c % 8 != 0 ||
-      (k != 1 && k != 8))
+      (k != 1 && k != 8) || static_cast<long long>(v) * c > INT_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16)

@@ -9,10 +9,12 @@ header is newer than it.  A failed build raises with nvcc's output.
 
 ``use_kernel`` and ``check_launch`` are the wrappers' shared rules: a CUDA
 tensor launches the kernel (a CPU tensor runs its plain version), and a
-launch that returns an error raises with CUDA's message.
+launch that returns an error raises with CUDA's message; ``current_device``
+and ``stream_of`` give a launch its device and stream.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import glob
@@ -124,6 +126,23 @@ def use_kernel(x, what: str) -> bool:
     if x.device.type != "cpu":
         raise ValueError(f"{what}: no kernel for device {x.device}")
     return False
+
+
+def current_device(x):
+    """A context in which ``x``'s CUDA device is current, so that a kernel
+    launched through the C interface runs there; nothing to do (and no
+    cost) when it already is."""
+    import torch
+    if x.device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(x.device)
+
+
+def stream_of(x) -> int:
+    """The handle of the current stream of ``x``'s device (the raw getter:
+    ``torch.cuda.current_stream`` builds a Stream object on every call)."""
+    import torch
+    return torch._C._cuda_getCurrentRawStream(x.get_device())
 
 
 def check_launch(err: int, what: str) -> None:

@@ -14,21 +14,27 @@ grid (B, V, C) and upd (B, N, C) in bf16 or fp32, ids (B, K, N) int32 in
 [0, V), w (B, K, N) fp32; both return fp32.  The TPU's one-hot MXU windows
 (``pick_window``, ``ALIGN``, ``TR``, ``FUSE_TR``, ``GATHER_OUT_BF16``) are
 its way around having no vector gather; Hopper gathers with indexed loads
-(pcfm_torch/csrc/voxel_gather.cu).  The scatter is deterministic, with no
-float atomics (PARITY.md deviation 1): a ``ScatterPlan`` holds a stable
-sort of the (n, k) entries by voxel id and a CSR row pointer, and the
-kernel (pcfm_torch/csrc/voxel_scatter.cu) sums each voxel's entries in that
-fixed order and writes every grid row once, empty voxels 0.  The plan's
-row pointer also gives the per-voxel counts, hence the inverse counts of
-``avg_voxelize`` with no count kernel (the TPU's ``counts_sorted`` /
-``inv_counts_*``).  ``torch.argsort`` and ``searchsorted`` that build a
-plan are glue, as ``jnp.argsort`` is outside the TPU kernel.
+(pcfm_torch/csrc/voxel_gather.cu, one block per tile of points).  The
+scatter is deterministic, with no float atomics (PARITY.md deviation 1): a
+``ScatterPlan`` holds a stable sort of the (n, k) entries by voxel id, a
+CSR row pointer, and the runs longer than ``SCATTER_CHUNK`` entries cut
+into chunks (``scatter_chunks``), so that no work item of the kernel
+(pcfm_torch/csrc/voxel_scatter.cu) walks a long run alone.  In one
+launch, a chunk writes its fp32 partial row and the last chunk of a run to
+finish sums the run's partials in chunk order; a short run is summed in
+order by its voxel's owner; an empty voxel gets 0; every output row is
+written once (``voxel_scatter_chunked_reference`` is that two-level sum in
+plain torch).  The plan's row pointer also gives the
+per-voxel counts, hence the inverse counts of ``avg_voxelize`` with no
+count kernel (the TPU's ``counts_sorted`` / ``inv_counts_*``).
+``torch.sort``, ``searchsorted`` and ``cumsum`` that build a plan are
+glue, as ``jnp.argsort`` is outside the TPU kernel.
 
 CUDA tensors launch the kernels (and raise on what they do not take); CPU
 tensors run the plain versions ``voxel_gather_reference`` (take_along_axis)
 and ``voxel_scatter_reference`` (index_add_), which the CPU tests and the
-on-card comparison use.  ``launches`` counts kernel launches, never
-plain-version calls.
+on-card comparison use.  ``launches`` counts kernel launches (one a call
+of a wrapper), never plain-version calls.
 """
 from __future__ import annotations
 
@@ -38,7 +44,8 @@ import functools
 
 import torch
 
-from pcfm_torch.ops.build import check_launch, load_library, use_kernel
+from pcfm_torch.ops.build import (check_launch, current_device, load_library,
+                                  stream_of, use_kernel)
 from pcfm_torch.ops.voxel import (corner_ids_weights, flatten_voxel_ids,
                                   normalize_coords)
 
@@ -47,31 +54,101 @@ launches = {"voxel_gather": 0, "voxel_scatter": 0}
 KS = (1, 8)
 
 
+# entries a work item of the scatter kernel sums at most (the CUDA
+# source's SCATTER_CHUNK must be equal)
+SCATTER_CHUNK = 64
+
+
 @dataclasses.dataclass
 class ScatterPlan:
     """The entries of ``ids`` (B, K, N) in voxel order: ``order`` (B, K*N)
     int32 holds flat entry indices k * N + n sorted stably by voxel id,
-    ``rowptr`` (B, V + 1) int32 the CSR offsets of each voxel's run."""
+    ``rowptr`` (B, V + 1) int32 the CSR offsets of each voxel's run;
+    ``chunkptr`` (B, V + 1) and ``chunk_voxel`` (B, max_chunks) int32 cut
+    the runs longer than ``SCATTER_CHUNK`` entries into chunks of at most
+    that many (``scatter_chunks``); ``done`` (B, V) int32 are the kernel's
+    counters
+    of finished chunks, zero between launches (so a plan serves one launch
+    at a time: launches on one stream).
+    """
     ids: torch.Tensor
     order: torch.Tensor
     rowptr: torch.Tensor
     num_rows: int
+    chunkptr: torch.Tensor
+    chunk_voxel: torch.Tensor
+    done: torch.Tensor
 
     def counts(self) -> torch.Tensor:
         """(B, V) entries per voxel."""
         return self.rowptr[:, 1:] - self.rowptr[:, :-1]
 
 
+def max_chunks(entries: int) -> int:
+    """Most chunks ``entries`` entries can make: only runs of c > E =
+    SCATTER_CHUNK entries are cut, into ceil(c / E) < 2 c / E chunks, so
+    the total is below 2 * entries / E."""
+    return 2 * entries // SCATTER_CHUNK
+
+
+def scatter_chunks(rowptr: torch.Tensor, entries: int) -> tuple:
+    """The scatter's work split, from the (B, V + 1) row pointer.
+
+    A voxel's run of c = rowptr[v+1] - rowptr[v] entries is summed by one
+    work item when c <= E = SCATTER_CHUNK; a longer run is cut into
+    ceil(c / E) chunks, each summed alone into a partial row, and the
+    partials are then summed in chunk order.  ``chunkptr`` (B, V + 1) is
+    the exclusive prefix of the chunk counts (0 for a run of c <= E), so
+    chunk j belongs to the voxel v with chunkptr[v] <= j < chunkptr[v+1]
+    and covers the entries [rowptr[v] + (j - chunkptr[v]) * E, min(that +
+    E, rowptr[v+1])) of ``order``.  ``chunk_voxel`` (B, max_chunks(entries))
+    int32 is that v for every j (V past the cloud's last chunk).  Returns
+    (chunkptr, chunk_voxel)."""
+    e = SCATTER_CHUNK
+    counts = rowptr[:, 1:] - rowptr[:, :-1]
+    per_voxel = torch.where(
+        counts > e, torch.div(counts + (e - 1), e, rounding_mode="floor"), 0)
+    chunkptr = torch.cat([torch.zeros_like(rowptr[:, :1]),
+                          per_voxel.cumsum(1, dtype=rowptr.dtype)], dim=1)
+    j = torch.arange(max_chunks(entries), dtype=rowptr.dtype,
+                     device=rowptr.device)
+    chunk_voxel = torch.searchsorted(
+        chunkptr[:, 1:].contiguous(), j.expand(rowptr.shape[0], -1)
+        .contiguous(), right=True)
+    return chunkptr, chunk_voxel.to(torch.int32)
+
+
+def chunk_entries(plan: ScatterPlan) -> tuple:
+    """(start, end) (B, max_chunks) int64: the range of ``order`` each chunk
+    sums (empty past the cloud's last chunk), by ``scatter_chunks``'s
+    formula."""
+    v = plan.num_rows
+    cv = plan.chunk_voxel.long()
+    live = cv < v
+    cvc = cv.clamp(max=v - 1)
+    j = torch.arange(cv.shape[1], device=cv.device)
+    start = plan.rowptr.long().gather(1, cvc) \
+        + (j - plan.chunkptr.long().gather(1, cvc)) * SCATTER_CHUNK
+    end = torch.minimum(start + SCATTER_CHUNK,
+                        plan.rowptr.long().gather(1, cvc + 1))
+    return torch.where(live, start, 0), torch.where(live, end, 0)
+
+
 def scatter_plan(ids: torch.Tensor, num_rows: int) -> ScatterPlan:
     """Sort the (B, K, N) entries of ``ids`` by voxel id (stable, so each
-    voxel's entries keep their (k, n) order) and build the row pointer."""
+    voxel's entries keep their (k, n) order), build the row pointer and cut
+    the runs into chunks."""
     b = ids.shape[0]
     flat = ids.reshape(b, -1)
     keys, order = torch.sort(flat, dim=1, stable=True)
     bins = torch.arange(num_rows + 1, dtype=keys.dtype, device=keys.device)
-    rowptr = torch.searchsorted(keys, bins.expand(b, -1).contiguous())
-    return ScatterPlan(ids=ids, order=order.to(torch.int32),
-                       rowptr=rowptr.to(torch.int32), num_rows=num_rows)
+    rowptr = torch.searchsorted(keys, bins.expand(b, -1).contiguous()) \
+        .to(torch.int32)
+    chunkptr, chunk_voxel = scatter_chunks(rowptr, flat.shape[1])
+    return ScatterPlan(ids=ids, order=order.to(torch.int32), rowptr=rowptr,
+                       num_rows=num_rows, chunkptr=chunkptr,
+                       chunk_voxel=chunk_voxel,
+                       done=torch.zeros_like(rowptr[:, 1:]))
 
 
 # ------------------------------------------------------------ plain versions
@@ -105,6 +182,42 @@ def voxel_scatter_reference(upd: torch.Tensor, ids: torch.Tensor,
     return out.reshape(b, num_rows, c)
 
 
+def voxel_scatter_chunked_reference(upd: torch.Tensor, w: torch.Tensor,
+                                    plan: ScatterPlan) -> torch.Tensor:
+    """The kernel's sums in plain torch (fp32): a run of at most
+    ``SCATTER_CHUNK`` entries is summed in ``order``'s order; a longer run's
+    chunks are each summed so into a partial row, and the partials summed
+    in chunk order; empty voxels are 0."""
+    b, n, c = upd.shape
+    v, kn = plan.num_rows, plan.order.shape[1]
+    order = plan.order.long()
+    vals = torch.gather(w.reshape(b, kn), 1, order)[..., None] \
+        * torch.gather(upd.to(torch.float32), 1,
+                       (order % n)[..., None].expand(-1, -1, c))
+    # each position of ``order``: its voxel, and its chunk (-1 in a short
+    # run)
+    pos = torch.arange(kn, device=upd.device)
+    voxel = torch.searchsorted(plan.rowptr[:, 1:].contiguous(),
+                               pos.to(torch.int32).expand(b, -1)
+                               .contiguous(), right=True).long()
+    cp, rp = plan.chunkptr.long(), plan.rowptr.long()
+    long_run = (cp[:, 1:] > cp[:, :-1]).gather(1, voxel)
+    chunk_of = torch.where(long_run, cp.gather(1, voxel)
+                           + (pos - rp.gather(1, voxel)) // SCATTER_CHUNK,
+                           -1)
+    out = torch.zeros((b, v, c), dtype=torch.float32, device=upd.device)
+    for bb in range(b):
+        short = ~long_run[bb]
+        out[bb].index_add_(0, voxel[bb][short], vals[bb][short])
+        part = torch.zeros((plan.chunk_voxel.shape[1], c),
+                           dtype=torch.float32, device=upd.device)
+        part.index_add_(0, chunk_of[bb][~short], vals[bb][~short])
+        live = plan.chunk_voxel[bb] < v
+        out[bb].index_add_(0, plan.chunk_voxel[bb][live].long(),
+                           part[live])
+    return out
+
+
 # ------------------------------------------------------------ kernels
 
 @functools.lru_cache(maxsize=None)
@@ -113,7 +226,7 @@ def _lib():
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.pcfm_voxel_gather.argtypes = [ptr] * 4 + [i32] * 6 + [ptr]
     lib.pcfm_voxel_gather.restype = i32
-    lib.pcfm_voxel_scatter.argtypes = [ptr] * 5 + [i32] * 6 + [ptr]
+    lib.pcfm_voxel_scatter.argtypes = [ptr] * 9 + [i32] * 8 + [ptr]
     lib.pcfm_voxel_scatter.restype = i32
     return lib
 
@@ -169,11 +282,11 @@ def voxel_gather(grid: torch.Tensor, ids: torch.Tensor,
     out = torch.empty((b, n, c), dtype=torch.float32, device=grid.device)
     if n == 0:
         return out
-    with torch.cuda.device(grid.device):
-        stream = torch.cuda.current_stream(grid.device).cuda_stream
+    with current_device(grid):
         err = _lib().pcfm_voxel_gather(
             grid.data_ptr(), ids.data_ptr(), w.data_ptr(), out.data_ptr(),
-            b, n, k, v, c, int(grid.dtype == torch.bfloat16), stream)
+            b, n, k, v, c, int(grid.dtype == torch.bfloat16),
+            stream_of(grid))
     check_launch(err, "voxel_gather")
     launches["voxel_gather"] += 1
     return out
@@ -191,21 +304,33 @@ def voxel_scatter(upd: torch.Tensor, w: torch.Tensor,
     _check_shapes("voxel_scatter", ids, w, b, n)
     if not use_kernel(upd, "voxel_scatter"):
         return voxel_scatter_reference(upd, ids, w, v)
-    _check("voxel_scatter", upd, ids, w, {"order": plan.order,
-                                          "rowptr": plan.rowptr})
-    if plan.order.dtype != torch.int32 or plan.rowptr.dtype != torch.int32 \
+    _check("voxel_scatter", upd, ids, w, {
+        "order": plan.order, "rowptr": plan.rowptr,
+        "chunkptr": plan.chunkptr, "chunk_voxel": plan.chunk_voxel,
+        "done": plan.done})
+    kn = ids.shape[1] * n
+    mc = max_chunks(kn)
+    if plan.order.shape != (b, kn) \
             or plan.rowptr.shape != (b, v + 1) \
-            or plan.order.shape != (b, ids.shape[1] * n):
+            or plan.chunkptr.shape != (b, v + 1) \
+            or plan.chunk_voxel.shape != (b, mc) \
+            or plan.done.shape != (b, v) \
+            or any(x.dtype != torch.int32 for x in (
+                plan.order, plan.rowptr, plan.chunkptr, plan.chunk_voxel,
+                plan.done)):
         raise ValueError("voxel_scatter: plan does not fit the updates")
     if n == 0:
         return torch.zeros((b, v, c), dtype=torch.float32, device=upd.device)
     out = torch.empty((b, v, c), dtype=torch.float32, device=upd.device)
-    with torch.cuda.device(upd.device):
-        stream = torch.cuda.current_stream(upd.device).cuda_stream
+    # the long runs' partial rows, indexed by chunk
+    work = torch.empty((b, mc, c), dtype=torch.float32, device=upd.device)
+    with current_device(upd):
         err = _lib().pcfm_voxel_scatter(
             upd.data_ptr(), w.data_ptr(), plan.order.data_ptr(),
-            plan.rowptr.data_ptr(), out.data_ptr(), b, n, ids.shape[1], v,
-            c, int(upd.dtype == torch.bfloat16), stream)
+            plan.rowptr.data_ptr(), plan.chunkptr.data_ptr(),
+            plan.chunk_voxel.data_ptr(), out.data_ptr(), work.data_ptr(),
+            plan.done.data_ptr(), b, n, ids.shape[1], v, c, mc, SCATTER_CHUNK,
+            int(upd.dtype == torch.bfloat16), stream_of(upd))
     check_launch(err, "voxel_scatter")
     launches["voxel_scatter"] += 1
     return out
@@ -259,7 +384,8 @@ def build_stage_cache(coords: torch.Tensor, r: int, normalize: bool = True,
     """What every PVConv at resolution ``r`` shares in one forward (the
     coordinates do not change across the ContextNet): normalised coords,
     voxel ids, the scatter plan, inverse counts and the 8 corners.
-    Returns {'norm_coords', 'vox_ids', 'plan', 'inv_pt', 'corners'}."""
+    Returns {'norm_coords', 'vox_ids', 'plan', 'inv_pt', 'corners'};
+    ``corner_plan`` adds the K = 8 plan on demand."""
     norm_coords, vox_coords = normalize_coords(coords, r,
                                                normalize=normalize, eps=eps)
     ids = flatten_voxel_ids(vox_coords, r)
@@ -267,6 +393,16 @@ def build_stage_cache(coords: torch.Tensor, r: int, normalize: bool = True,
     return {"norm_coords": norm_coords, "vox_ids": ids, "plan": plan,
             "inv_pt": inv_counts(plan),
             "corners": corner_data(norm_coords, r)}
+
+
+def corner_plan(cache: dict) -> ScatterPlan:
+    """The K = 8 plan over a stage cache's corner ids: the scatter that is
+    devoxelize's transpose (the hybrid backward's), with its chunks; built
+    at first use and kept in the cache under 'plan8'."""
+    if "plan8" not in cache:
+        cache["plan8"] = scatter_plan(cache["corners"][0],
+                                      cache["plan"].num_rows)
+    return cache["plan8"]
 
 
 def sort_perm_by_voxel(coords: torch.Tensor, resolution: int,

@@ -175,6 +175,102 @@ def test_scatter_plan_rows_and_counts():
                                       np.argsort(flat, kind="stable"))
 
 
+# ------------------------------------------------------------ the scatter's
+# work split (the kernel's chunks) and its two-level sum
+
+def _rowptr(counts):
+    return torch.from_numpy(
+        np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)[None])
+
+
+def test_scatter_chunks_hand_worked():
+    """Runs of 0, 3, E, 10 E + 1 and E + 1 entries (E = SCATTER_CHUNK):
+    only runs longer than E are cut, into ceil(c / E) chunks."""
+    e = tvs.SCATTER_CHUNK
+    counts = [0, 3, e, 10 * e + 1, e + 1]
+    rowptr = _rowptr(counts)
+    entries = sum(counts)
+    chunkptr, chunk_voxel = tvs.scatter_chunks(rowptr, entries)
+    assert chunkptr.tolist() == [[0, 0, 0, 0, 11, 13]]
+    assert chunk_voxel.dtype == torch.int32
+    assert chunk_voxel.shape == (1, tvs.max_chunks(entries)) \
+        == (1, 2 * entries // e)
+    assert chunk_voxel[0, :13].tolist() == [3] * 11 + [4] * 2
+    assert (chunk_voxel[0, 13:] == len(counts)).all()
+    plan = tvs.ScatterPlan(ids=None, order=None, rowptr=rowptr,
+                           num_rows=len(counts), chunkptr=chunkptr,
+                           chunk_voxel=chunk_voxel, done=None)
+    start, end = tvs.chunk_entries(plan)
+    beg3 = 3 + e                               # the 10 E + 1 run's start
+    assert start[0, :11].tolist() == [beg3 + i * e for i in range(11)]
+    assert end[0, :11].tolist() == [beg3 + (i + 1) * e for i in range(10)] \
+        + [beg3 + 10 * e + 1]
+    assert start[0, 11:13].tolist() == [beg3 + 10 * e + 1,
+                                        beg3 + 11 * e + 1]
+    assert end[0, 12].item() == entries
+    assert (start[0, 13:] == 0).all() and (end[0, 13:] == 0).all()
+
+
+@pytest.mark.parametrize("k", [1, 8])
+def test_chunks_cover_every_entry_once_in_order(k):
+    """Short runs whole, long runs by their chunks in chunk order: every
+    position of ``order`` once, in order, no chunk longer than E, and no
+    more chunks than ``max_chunks``."""
+    e = tvs.SCATTER_CHUNK
+    rng = np.random.RandomState(17)
+    n, v = 400, 64
+    ids = rng.randint(0, v, (3, k, n)).astype(np.int32)
+    ids[1] = 7                                 # one run of K * N entries
+    ids[2, :, : n // 2] = 9                    # and a long run beside short
+    plan = tvs.scatter_plan(torch.from_numpy(ids), v)
+    start, end = tvs.chunk_entries(plan)
+    for bb in range(3):
+        rp, cp = plan.rowptr[bb].tolist(), plan.chunkptr[bb].tolist()
+        assert cp[-1] <= plan.chunk_voxel.shape[1]
+        covered = []
+        for vox in range(v):
+            if rp[vox + 1] - rp[vox] <= e:
+                assert cp[vox + 1] == cp[vox]
+                covered += range(rp[vox], rp[vox + 1])
+                continue
+            for j in range(cp[vox], cp[vox + 1]):
+                assert plan.chunk_voxel[bb, j] == vox
+                assert 0 < end[bb, j] - start[bb, j] <= e
+                covered += range(int(start[bb, j]), int(end[bb, j]))
+        assert covered == list(range(k * n))
+
+
+@pytest.mark.parametrize("k", [1, 8])
+def test_two_level_sum_matches_plain(k):
+    """The kernel's sums emulated on the CPU (each chunk in order, then the
+    partials in chunk order) against ``voxel_scatter_reference``, within
+    chip_smoke.py's VOXEL_TOL: 1e-5 x sum |w x| + 1e-6."""
+    rng = np.random.RandomState(18)
+    b, n, c, r = 3, 500, 16, 8
+    ids1, nc = _sorted_ids(_points(b, n, seed=19), r)
+    if k == 8:
+        ids, w = tvs.corner_data(nc, r)
+    else:
+        ids = ids1[:, None, :].contiguous()
+        w = _t(rng.rand(b, 1, n).astype(np.float32))
+    ids[2] = 100                               # a skewed cloud: one run
+    upd = _t(rng.randn(b, n, c).astype(np.float32))
+    plan = tvs.scatter_plan(ids, r ** 3)
+    assert plan.chunkptr[2, -1] > 0            # the skewed run is cut
+    got = tvs.voxel_scatter_chunked_reference(upd, w, plan)
+    want = tvs.voxel_scatter_reference(upd, ids, w, r ** 3)
+    mag = tvs.voxel_scatter_reference(upd.abs(), ids, w.abs(), r ** 3)
+    assert ((got - want).abs() <= 1e-5 * mag + 1e-6).all()
+
+
+def test_corner_plan_kept_in_stage_cache():
+    cache = tvs.build_stage_cache(_t(_points(n=300, seed=20)), 8)
+    plan8 = tvs.corner_plan(cache)
+    assert tvs.corner_plan(cache) is plan8 and cache["plan8"] is plan8
+    assert plan8.ids is cache["corners"][0] and plan8.num_rows == 512
+    assert plan8.chunk_voxel.shape == (2, tvs.max_chunks(8 * 300))
+
+
 # ------------------------------------------------------------ op level
 
 def _avg_case(jx, sort):
@@ -373,3 +469,31 @@ def test_hybrid_sample_cli_on_card_goes_through_voxel_kernels(cuda, tmp_path):
         for name in ("voxel_gather", "voxel_scatter"):
             assert tvs.launches[name] - before[1][name] == 8
         assert x.shape == (2, 300, 6) and np.isfinite(x).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [1, 8])
+def test_kernels_skewed_one_voxel(cuda, k, dtype):
+    """Every point of each cloud in one voxel: one run of K * N entries,
+    many chunks whose partial rows the last one to finish sums."""
+    n, c, v = 3000, 64, 512
+    g = torch.Generator().manual_seed(16)
+    ids = torch.full((2, k, n), 300, dtype=torch.int32, device=cuda)
+    w = torch.rand(2, k, n, generator=g).to(cuda)
+    upd = torch.randn(2, n, c, generator=g).to(cuda, dtype)
+    grid = torch.randn(2, v, c, generator=g).to(cuda, dtype)
+    plan = tvs.scatter_plan(ids, v)
+    assert int(plan.chunkptr[0, -1]) == -(-k * n // tvs.SCATTER_CHUNK)
+    sc, sc_again = (tvs.voxel_scatter(upd, w, plan) for _ in range(2))
+    got, again = (tvs.voxel_gather(grid, ids, w) for _ in range(2))
+    torch.cuda.synchronize()
+    ref = tvs.voxel_scatter_reference(upd, ids, w, v)
+    # VOXEL_TOL: 1e-5 x sum |w x| + 1e-6
+    mag = tvs.voxel_scatter_reference(upd.abs(), ids, w.abs(), v)
+    assert ((sc - ref).abs() <= 1e-5 * mag + 1e-6).all()
+    torch.testing.assert_close(got, tvs.voxel_gather_reference(grid, ids, w),
+                               atol=1e-5, rtol=1e-5)
+    assert torch.equal(sc, sc_again) and torch.equal(got, again)
+    # the plan's counters of finished chunks are left at zero
+    assert not plan.done.any()
