@@ -17,11 +17,11 @@
 //     and first stages the tile's K ids and weights in shared memory
 //     (16-byte loads, coalesced: each is a contiguous run of `ids` / `w`),
 //     in place of 2K strided words that every lane loaded for its point;
-//   * a group of `lanes` threads (a power of two <= 32) serves every
-//     (VOX_THREADS / lanes)-th point of the tile: each thread loads 16
-//     bytes of all K grid rows of a point (8 bf16 or 4 fp32 channels)
-//     before any multiply-add, then accumulates w * row in fp32 in k order
-//     and writes its slice of the output row;
+//   * a group of G = 16 or 32 threads serves every (VOX_THREADS / G)-th
+//     point of the tile: each thread loads 16 bytes of all K grid rows of
+//     a point (8 bf16 or 4 fp32 channels) before any multiply-add, then
+//     accumulates w * row in fp32 in k order and writes its slice of the
+//     output row;
 //   * ids outside [0, V) contribute nothing (never read out of bounds).
 // Sums are taken in a fixed order: two launches give bitwise-equal output.
 //
@@ -44,24 +44,24 @@
 
 namespace {
 
-// Points a block, and blocks an SM at K = 8 (4 for fp32, <= 64 registers
-// a thread; 3 for bf16, whose 8 fp32 sums spill at 64): chosen on an H100
-// among tiles of 16 to 128 points and one, two or four points a group at a
-// time (PERF.md §6). Occupancy wins over more rows in flight a thread.
-template <typename T, int K>
+// Points a block, and blocks an SM at K = 8 (4: <= 64 registers a
+// thread): chosen on an H100 among tiles of 16 to 128 points and one, two
+// or four points a group at a time (PERF.md §6). Occupancy wins over more
+// rows in flight a thread.
+template <int K>
 struct Tile {
   static constexpr int POINTS = K == 8 ? 64 : 32;
-  static constexpr int MIN_BLOCKS = K == 8 ? (sizeof(T) == 4 ? 4 : 3) : 1;
+  static constexpr int MIN_BLOCKS = K == 8 ? 4 : 1;
 };
 
-template <typename T, int K>
-__global__ void __launch_bounds__(VOX_THREADS, Tile<T, K>::MIN_BLOCKS)
+template <typename T, int K, int G>
+__global__ void __launch_bounds__(VOX_THREADS, Tile<K>::MIN_BLOCKS)
     voxel_gather_kernel(const T* __restrict__ grid,
                         const int* __restrict__ ids,
                         const float* __restrict__ w, float* __restrict__ out,
-                        int n, int v, int c, int lanes, int aligned) {
+                        int n, int v, int c, int aligned) {
   constexpr int VEC = Vec<T>::N;
-  constexpr int TILE = Tile<T, K>::POINTS;
+  constexpr int TILE = Tile<K>::POINTS;
   __shared__ __align__(16) int s_id[K * TILE];
   __shared__ __align__(16) float s_w[K * TILE];
   const int b = blockIdx.y;
@@ -90,12 +90,12 @@ __global__ void __launch_bounds__(VOX_THREADS, Tile<T, K>::MIN_BLOCKS)
   }
   __syncthreads();
 
-  const int l = threadIdx.x % lanes;
+  const int l = threadIdx.x % G;
   const T* gb = grid + static_cast<size_t>(b) * v * c;
   float* ob = out + (static_cast<size_t>(b) * n + p0) * c;
   const int cvec = c / VEC;
-  for (int q = threadIdx.x / lanes; q < tp; q += VOX_THREADS / lanes) {
-    for (int j = l; j < cvec; j += lanes) {
+  for (int q = threadIdx.x / G; q < tp; q += VOX_THREADS / G) {
+    for (int j = l; j < cvec; j += G) {
       const T* gj = gb + j * VEC;  // this lane's channels; v * c < 2^31
       typename Raw<T>::type row[K];
 #pragma unroll
@@ -117,19 +117,29 @@ __global__ void __launch_bounds__(VOX_THREADS, Tile<T, K>::MIN_BLOCKS)
   }
 }
 
-template <typename T, int K>
+template <typename T, int K, int G>
 int launch(const void* grid, const void* ids, const void* w, void* out,
            int b, int n, int v, int c, cudaStream_t stream) {
-  const int lanes = lanes_for(c / Vec<T>::N);
   const int aligned = n % 4 == 0 &&
                       reinterpret_cast<uintptr_t>(ids) % 16 == 0 &&
                       reinterpret_cast<uintptr_t>(w) % 16 == 0;
-  const dim3 blocks((n + Tile<T, K>::POINTS - 1) / Tile<T, K>::POINTS, b);
-  voxel_gather_kernel<T, K><<<blocks, VOX_THREADS, 0, stream>>>(
+  const dim3 blocks((n + Tile<K>::POINTS - 1) / Tile<K>::POINTS, b);
+  voxel_gather_kernel<T, K, G><<<blocks, VOX_THREADS, 0, stream>>>(
       static_cast<const T*>(grid), static_cast<const int*>(ids),
-      static_cast<const float*>(w), static_cast<float*>(out), n, v, c, lanes,
+      static_cast<const float*>(w), static_cast<float*>(out), n, v, c,
       aligned);
   return static_cast<int>(cudaGetLastError());
+}
+
+// G = the lanes that cover a row's 16-byte vectors (lanes_for), 16 or 32
+// (narrower rows leave lanes idle): as a constant it frees the registers
+// that let bf16 fit 64 at K = 8 without a spill
+template <typename T, int K>
+int launch_k(const void* grid, const void* ids, const void* w, void* out,
+             int b, int n, int v, int c, cudaStream_t stream) {
+  if (lanes_for(c / Vec<T>::N) >= 32)
+    return launch<T, K, 32>(grid, ids, w, out, b, n, v, c, stream);
+  return launch<T, K, 16>(grid, ids, w, out, b, n, v, c, stream);
 }
 
 }  // namespace
@@ -147,8 +157,9 @@ extern "C" int pcfm_voxel_gather(const void* grid, const void* ids,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return k == 8 ? launch<__nv_bfloat16, 8>(grid, ids, w, out, b, n, v, c, st)
-                  : launch<__nv_bfloat16, 1>(grid, ids, w, out, b, n, v, c, st);
-  return k == 8 ? launch<float, 8>(grid, ids, w, out, b, n, v, c, st)
-                : launch<float, 1>(grid, ids, w, out, b, n, v, c, st);
+    return k == 8
+               ? launch_k<__nv_bfloat16, 8>(grid, ids, w, out, b, n, v, c, st)
+               : launch_k<__nv_bfloat16, 1>(grid, ids, w, out, b, n, v, c, st);
+  return k == 8 ? launch_k<float, 8>(grid, ids, w, out, b, n, v, c, st)
+                : launch_k<float, 1>(grid, ids, w, out, b, n, v, c, st);
 }
