@@ -66,10 +66,10 @@ class ScatterPlan:
     ``rowptr`` (B, V + 1) int32 the CSR offsets of each voxel's run;
     ``chunkptr`` (B, V + 1) and ``chunk_voxel`` (B, max_chunks) int32 cut
     the runs longer than ``SCATTER_CHUNK`` entries into chunks of at most
-    that many (``scatter_chunks``); ``done`` (B, V) int32 are the kernel's
-    counters
-    of finished chunks, zero between launches (so a plan serves one launch
-    at a time: launches on one stream).
+    that many (``scatter_chunks``).  The kernel's scratch lives with the
+    plan, so a plan serves one launch at a time (launches on one stream):
+    ``done`` (B, V) int32 counts each long run's finished chunks and is
+    zero between launches; ``workspace`` holds the chunks' partial rows.
     """
     ids: torch.Tensor
     order: torch.Tensor
@@ -78,10 +78,22 @@ class ScatterPlan:
     chunkptr: torch.Tensor
     chunk_voxel: torch.Tensor
     done: torch.Tensor
+    _work: dict = dataclasses.field(default_factory=dict, repr=False)
 
     def counts(self) -> torch.Tensor:
         """(B, V) entries per voxel."""
         return self.rowptr[:, 1:] - self.rowptr[:, :-1]
+
+    def workspace(self, c: int) -> torch.Tensor:
+        """(B, max_chunks, c) fp32 scratch for the partial rows, made at
+        the first launch with ``c`` channels and kept (one allocation a
+        plan, not one a call: the allocation is host time the scatter's
+        short launches cannot hide)."""
+        if c not in self._work:
+            self._work[c] = torch.empty(
+                (*self.chunk_voxel.shape, c), dtype=torch.float32,
+                device=self.chunk_voxel.device)
+        return self._work[c]
 
 
 def max_chunks(entries: int) -> int:
@@ -245,9 +257,10 @@ def _check(what: str, dense: torch.Tensor, ids: torch.Tensor,
     c = dense.shape[-1]
     if c % 8 or c == 0:
         raise ValueError(f"{what} kernel takes C % 8 == 0, got C={c}")
+    dev = dense.get_device()
     for name, x in {"features": dense, "ids": ids, "weights": w,
                     **extra}.items():
-        if x.device != dense.device:
+        if x.get_device() != dev:
             raise ValueError(f"{what}: {name} is on {x.device}, features "
                              f"on {dense.device}")
         if not x.is_contiguous():
@@ -322,8 +335,7 @@ def voxel_scatter(upd: torch.Tensor, w: torch.Tensor,
     if n == 0:
         return torch.zeros((b, v, c), dtype=torch.float32, device=upd.device)
     out = torch.empty((b, v, c), dtype=torch.float32, device=upd.device)
-    # the long runs' partial rows, indexed by chunk
-    work = torch.empty((b, mc, c), dtype=torch.float32, device=upd.device)
+    work = plan.workspace(c)
     with current_device(upd):
         err = _lib().pcfm_voxel_scatter(
             upd.data_ptr(), w.data_ptr(), plan.order.data_ptr(),
