@@ -10,116 +10,692 @@
 //
 // query (Q, N, D) and target (T, M, D) fp32, D = 1..8, qi / ti (P,) int32,
 // dist (P, N) fp32, idx (P, N) int32.  chamfer_distance is the pairs
-// qi = ti = arange(B); cd_matrix is all pairs of two sets.
+// qi = ti = arange(B); cd_matrix is all pairs of two sets.  `dist` is the
+// difference form, t_d = a_d - b_d, s = fma(t_d, t_d, s), d in order, of
+// the chosen target; ties go to the lowest index.  No float atomics, each
+// output written once: two launches give bitwise-equal results.
 //
-// The TPU kernel scores |b|^2 - 2 a.b on the MXU (inexact on near ties,
-// pcfm/ops/pallas/__init__.py) and carries a running min / argmin in its
-// output block over a sequential grid of 256 x 2048 tiles.  Here:
-//   * a block owns THREADS queries of one pair, one query per thread, its
-//     D coordinates in registers;
-//   * the pair's targets pass through shared memory in chunks of TILE
-//     points, stored as structure of arrays (one row per coordinate), so
-//     a thread reads four targets' coordinate d with one 16-byte load that
-//     every thread of the warp shares (a broadcast);
-//   * the distance is taken in difference form, sum_d (a_d - b_d)^2 in
-//     fp32, d in order, with fused multiply-adds;
-//   * each thread scans the targets in increasing index and takes a new
-//     best only when strictly less: ties go to the lowest index; a chunk's
-//     padding is +inf and never wins;
-//   * each output is written once, by its query's thread: no atomics, two
-//     launches give bitwise-equal results.
+// What bounds it: operations.  The difference form costs D subtractions
+// and D multiply-adds a (query, target) pair (8 FLOP at D = 3, 0.76 ms at
+// (8, 20000, 3) both ways at 67 TFLOP/s fp32), and deciding the minimum
+// adds a comparison and selects: ~9 instructions a pair.  The TPU kernel
+// scores |b|^2 - 2 a.b on the MXU, which is inexact on near ties.  Here the
+// dot form is only a screen, and the difference form decides:
 //
-// What bounds it: operations.  Per (query, target) pair, D subtractions
-// and D multiply-adds (3 D - 1 = 8 FLOP at D = 3); at (8, 20000, 3) both
-// ways that is 6.4e9 pairs, 51 GFLOP, ~0.76 ms at 67 TFLOP/s fp32.  Its
-// bytes (the two clouds once, the outputs once) are ~2.5 MB, nothing.  The
-// bound counts a multiply-add as 2 FLOP, so it allows the time of ~4
-// instructions a pair; this design executes ~9 (D subtractions, D
-// multiply-adds, a comparison and two selects), so it needs at least
-// ~2.25x the bound.  Left for later: the dot-form score on the tensor
-// cores for a candidate set, followed by an exact difference-form check.
+// 1. Screen, on the tensor cores.  Coordinates are taken relative to the
+//    pair's centre c, its first target point, and rounded to TF32 (cvt.rna:
+//    ties away, 10 mantissa bits): a~ = tf32(a - c), b~ = tf32(b - c).  One
+//    mma.sync (m16n8k4 for D <= 4, m16n8k8 otherwise) scores 16 queries
+//    against 8 targets, s = |b~|^2 - 2 a~.b~: A holds -2 a~ (exact), B holds
+//    b~, and the accumulator starts at |b~|^2 in fp32, so K = D.  Products of
+//    TF32 values are exact in fp32.  A warp holds 4 m-tiles (64 queries) in
+//    registers for the whole scan; targets pass through shared memory in
+//    double-buffered tiles of 256, staged as (b~, |b~|^2).  A lane keeps, for
+//    each of its 8 queries, the min of s over its share of a group of 32
+//    targets (the accumulator's columns 2t, 2t + 1 of 4 n8 tiles): one fp32
+//    min a pair is the only CUDA-core work.
+// 2. Check.  U is a proven upper bound on the query's nearest distance (the
+//    difference form of 64 strided targets first, then bounds from screens
+//    and checks, shared by the quad's 4 lanes).  A lane's share of a group
+//    can hold the nearest target only if its min s <= T(U), the threshold
+//    derived below.  Such a share becomes the lane's pending candidate; the
+//    one it replaces is checked at once if it still passes T, and dropped
+//    otherwise; at the end the pending share is checked if it passes the
+//    final T.  A check takes every target of the share in the difference
+//    form, in index order, and keeps the least (distance, index).  The quad
+//    merges its 4 lanes' (distance, index) with shuffles, ties to the lower
+//    index.  Padding targets have |b~|^2 = +inf and are skipped by the check.
+//
+// The margin.  u = 2^-24.  For a target b with difference-form distance
+// dhat <= U (so also the nearest one, and every target tied with it):
+//   * the exact squared distance d <= dhat (1 + 2^-20): D + 2 roundings of
+//     non-negative terms, D <= 8;
+//   * |a~ - (a - c)| <= W |a~| coordinate-wise, W = 2^-11 + 2^-17 >= the
+//     fp32 subtraction (u) and the TF32 rounding (2^-11) together, and so
+//     for b; with r = |a~ - b~|: r <= sqrt(d) + W (|a~| + |b~|) and
+//     |b~| <= |a~| + r, so r <= R = (sqrt(U (1 + 2^-20)) + 2 W |a~|) / (1 - W);
+//   * the screen's error: |s - (|b~|^2 - 2 a~.b~)| <= KAPPA (|a~| + |b~|)^2.
+//     It holds |b~|^2's fp32 rounding (D u) and the tensor cores' fp32
+//     accumulation of the exact products and the accumulator, which is not
+//     promised to round like fp32 FMAs: a sum of D + 1 terms aligned to the
+//     largest and cut to fp32 errs by at most (D + 1) 2^-23 of their
+//     magnitudes, < 2^-19.8 for D <= 8; KAPPA = 2^-17 leaves 4x over both
+//     (chip_smoke.py measures the screen's error against it);
+//   * |b~|^2 - 2 a~.b~ = r^2 - |a~|^2, so s <= R^2 - |a~|^2 + KAPPA (2|a~| + R)^2
+//     =: T(U), evaluated with |a~|^2 from below, |a~| from above, and
+//     guards of 2^-20 / 2^-18 over its own fp32 roundings.
+// And from a screened s of any target b, an upper bound on its dhat:
+//   r^2 = s' + |a~|^2 with |s' - s| <= KAPPA (2|a~| + r)^2 <= KAPPA
+//   (8 |a~|^2 + 2 r^2), so r^2 <= (s + |a~|^2 (1 + 8 KAPPA)) / (1 - 2 KAPPA)
+//   and dhat <= (r (1 + W) + 2 W |a~|)^2 (1 + 2^-20) =: Ub(s).
+// T is monotone in U, so a share that fails T(U) for one valid U fails it
+// for the final one: the nearest target, and every target tied with it, is
+// always checked.  A generous margin costs only checks.  For clouds of
+// 20 000 N(0, 1) points it is ~1e-3 against a nearest distance of ~3e-3
+// (the error scales with the distance, not with |a||b|, because the screen
+// is exact for the rounded points).  pcfm_torch/ops/chamfer.py mirrors
+// T and Ub constant for constant; tests/test_torch_port_chamfer_screen.py
+// holds the margin on the CPU.
+//
+// What bounds it now: per 8 targets and 64 queries a warp issues 4 mma, 16
+// fp32 mins and two shared-memory loads; the mins (one a pair) set the
+// pace, about twice the screen's own bound (PERF.md).
 #include <cuda_runtime.h>
 #include <math_constants.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int THREADS = 128;   // queries a block
-constexpr int TILE = 1024;     // targets a shared-memory chunk
+constexpr int WARPS = 4;
+constexpr int THREADS = 32 * WARPS;
+constexpr int MT = 2;                    // m16 tiles (16 queries each) a warp
+constexpr int SLOTS = 2 * MT;            // queries a lane holds: rows g, g+8
+constexpr int ROWS = 16 * MT * WARPS;    // queries a block
+constexpr int GROUP = 4;                 // n8 tiles a group (32 targets)
+constexpr int SEEDS = 256;               // strided targets that seed U
+constexpr int LIST = 16;                 // candidate entries a lane holds
+constexpr int REFRESH = 4;               // tiles between margin refreshes
 constexpr int MAX_D = 8;
+constexpr unsigned FULL = 0xffffffffu;
 
+// k-steps of 8: the coordinates, |b~|^2 and |a~|^2 each split in two TF32
+// halves (hi + lo), so K = D + 4
 template <int D>
-__global__ void __launch_bounds__(THREADS)
+constexpr int k_steps = (D + 4 + 7) / 8;
+// targets a shared-memory tile: 256 (D <= 4) or 128, 8 KB a buffer
+template <int D, bool TC>
+constexpr int tile_of = TC ? 256 / k_steps<D> : 256;
+// floats a staged target row: the K-vector (TC), or (b', |b'|^2) padded
+template <int D, bool TC>
+constexpr int row_of_floats = TC ? 8 * k_steps<D> : (D + 4) / 4 * 4;
+
+
+// The margin's constants (see the note above; chamfer.py mirrors them).
+constexpr float P2_10 = 1.0f / 1024.0f;
+constexpr float P2_11 = P2_10 / 2.0f;
+constexpr float P2_14 = P2_10 / 16.0f;
+constexpr float P2_15 = P2_14 / 2.0f;
+constexpr float P2_16 = P2_15 / 2.0f;
+constexpr float P2_17 = P2_16 / 2.0f;
+constexpr float P2_18 = P2_17 / 2.0f;
+constexpr float P2_20 = P2_18 / 4.0f;
+constexpr float A_UP = 1.0f + P2_18;          // |a~|^2 <= ahat A_UP; rho, guards
+// per screen: TC, the tensor cores' TF32 one; else fp32 FMAs on the CUDA
+// cores (coordinates not rounded: W = 2^-22; KAPPA = 2^-19 over D + 2
+// roundings)
+template <bool TC> struct Err {
+  static constexpr float W_ERR = TC ? P2_11 + P2_17 : P2_20 / 4.0f;
+  static constexpr float KAPPA = TC ? P2_17 : P2_18 / 2.0f;
+  static constexpr float UB_A = 8.0f * KAPPA + P2_18;  // Ub: 8 K |a~|^2
+  static constexpr float UB_D = 1.0f + 4.0f * KAPPA;   // Ub: 1 / (1 - 2K)
+  static constexpr float R_W = 1.0f + 2.0f * W_ERR + P2_18;  // T: 1 / (1 - W)
+};
+
+__device__ __forceinline__ float tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return __uint_as_float(r);
+}
+
+template <bool TC>
+__device__ __forceinline__ float rnd(float x) {
+  return TC ? tf32_rna(x) : x;
+}
+
+// T(U): a share whose min screen exceeds it holds no target within U.
+template <bool TC>
+__device__ __forceinline__ float threshold(float u, float an) {
+  using E = Err<TC>;
+  const float r = (sqrtf(u * A_UP) + 2.0f * E::W_ERR * an) * E::R_W;
+  const float x = r * r * A_UP;
+  return x + E::KAPPA * A_UP * (2.0f * an + r) * (2.0f * an + r) + P2_20 * x;
+}
+
+// Ub(s): the difference-form distance of a target screened at s is <= Ub.
+template <bool TC>
+__device__ __forceinline__ float upper(float s, float ahat, float an) {
+  using E = Err<TC>;
+  const float r2 = (s + ahat * E::UB_A) * E::UB_D;
+  const float q =
+      sqrtf(fmaxf(r2, 0.0f)) * (1.0f + E::W_ERR) + 2.0f * E::W_ERR * an;
+  return q * q * A_UP;
+}
+
+// M such that smin' + M >= T(Ub(smin')) for every smin' <= smin: T(Ub(s))
+// - s grows with s.  The guard covers the roundings of M and of smin' + M.
+template <bool TC>
+__device__ __forceinline__ float margin_at(float smin, float ahat, float an) {
+  const float tf = threshold<TC>(upper<TC>(smin, ahat, an), an);
+  return (tf - smin) + P2_20 * (fabsf(smin) + tf);
+}
+
+// D[16x8] = A[16x8] B[8x8] + C in TF32 with fp32 accumulation.
+__device__ __forceinline__ void mma_k8(float (&d)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1, float c0,
+                                       float c1, float c2, float c3) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%11,%12,%13};"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+        "f"(c0), "f"(c1), "f"(c2), "f"(c3));
+}
+
+// min of three screens as signed integers: the least of non-negative floats,
+// and a negative one if any is negative (the screen is >= 0 up to its
+// error, and every threshold is >= 0, so a pass is never missed).  One DPX
+// instruction on Hopper.
+__device__ __forceinline__ float min3(float a, float b, float c) {
+  return __int_as_float(
+      __vimin3_s32(__float_as_int(a), __float_as_int(b), __float_as_int(c)));
+}
+
+// The exact difference form, as the plain version and PR 4's kernel.
+template <int D>
+__device__ __forceinline__ float exact(const float (&a)[D],
+                                       const float* __restrict__ b) {
+  float s = 0.0f;
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    const float t = a[d] - b[d];
+    s = fmaf(t, t, s);
+  }
+  return s;
+}
+
+// x = hi + lo in two TF32 values, to 2^-22 |x|.  The K-vector of a query
+// row is (A: -2 a~, 1, 1, ahat hi, ahat lo), of a target column (B: b~,
+// |b~|^2 hi, lo, 1, 1); a padding target has |b~|^2 hi = +inf, lo = 0.
+__device__ __forceinline__ void split(float x, float& hi, float& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - hi);
+}
+
+// A tile's raw coordinates, two targets a thread (one for D > 4), loaded
+// before the scan of the previous tile and staged after it.
+template <int D, bool TC>
+struct Raw {
+  float v[tile_of<D, TC> / THREADS][D];
+};
+
+template <int D, bool TC>
+__device__ __forceinline__ void load_raw(Raw<D, TC>& raw,
+                                         const float* __restrict__ tp, int m,
+                                         int base) {
+#pragma unroll
+  for (int i = 0; i < tile_of<D, TC> / THREADS; ++i) {
+    const int id = base + threadIdx.x + i * THREADS;
+#pragma unroll
+    for (int d = 0; d < D; ++d)
+      raw.v[i][d] = id < m ? tp[static_cast<size_t>(id) * D + d] : 0.0f;
+  }
+}
+
+// A staged target row holds its K-vector in B-fragment order: for each
+// k-step the pairs (B[8 ks + t], B[8 ks + t + 4]), t = 0..3.
+template <int D, bool TC>
+__device__ __forceinline__ void stage(const Raw<D, TC>& raw,
+                                      const float (&c)[D], int m, int base,
+                                      float* sb) {
+  constexpr int KS = k_steps<D>;
+#pragma unroll
+  for (int i = 0; i < tile_of<D, TC> / THREADS; ++i) {
+    const int j = threadIdx.x + i * THREADS;
+    if constexpr (!TC) {
+      constexpr int RW = row_of_floats<D, TC>;
+      float b[RW];
+#pragma unroll
+      for (int k = 0; k < RW; ++k) b[k] = 0.0f;
+      float nb = CUDART_INF_F;
+      if (base + j < m) {
+        nb = 0.0f;
+#pragma unroll
+        for (int d = 0; d < D; ++d) {
+          b[d] = raw.v[i][d] - c[d];
+          nb = fmaf(b[d], b[d], nb);
+        }
+      }
+      b[D] = nb;
+#pragma unroll
+      for (int k = 0; k < RW; k += 4)
+        *reinterpret_cast<float4*>(sb + j * RW + k) =
+            make_float4(b[k], b[k + 1], b[k + 2], b[k + 3]);
+      continue;
+    }
+    float b[8 * KS];
+#pragma unroll
+    for (int k = 0; k < 8 * KS; ++k) b[k] = 0.0f;
+    if (base + j < m) {
+      float nb = 0.0f;
+#pragma unroll
+      for (int d = 0; d < D; ++d) {
+        b[d] = tf32_rna(raw.v[i][d] - c[d]);
+        nb = fmaf(b[d], b[d], nb);
+      }
+      split(nb, b[D], b[D + 1]);
+    } else {
+      b[D] = CUDART_INF_F;
+    }
+    b[D + 2] = b[D + 3] = 1.0f;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      float* row = sb + j * 8 * KS + ks * 8;
+      *reinterpret_cast<float4*>(row) =
+          make_float4(b[8 * ks], b[8 * ks + 4], b[8 * ks + 1], b[8 * ks + 5]);
+      *reinterpret_cast<float4*>(row + 4) =
+          make_float4(b[8 * ks + 2], b[8 * ks + 6], b[8 * ks + 3],
+                      b[8 * ks + 7]);
+    }
+  }
+}
+
+template <int D, bool TC = true>
+__global__ void __launch_bounds__(THREADS, 4)
     chamfer_nn_kernel(const float* __restrict__ query,
                       const float* __restrict__ target,
                       const int* __restrict__ qi, const int* __restrict__ ti,
                       int n, int m, float* __restrict__ dist,
-                      int* __restrict__ idx) {
-  __shared__ __align__(16) float tile[D][TILE];
+                      int* __restrict__ idx, int* counts) {
+  constexpr int KS = k_steps<D>;
+  constexpr int TILE = tile_of<D, TC>;
+  constexpr int RW = row_of_floats<D, TC>;
+  __shared__ __align__(16) float s_b[2][TILE * RW];
+  __shared__ float s_q[ROWS * D];     // the block's raw query coordinates
+  __shared__ float s_a[ROWS];         // ahat = |a~|^2 in fp32
+  // candidates to check: a lane's shares (slot mask << 24 | group), checked
+  // by all lanes together when a list fills and at the end; each (row,
+  // lane)'s least (distance, index) so far
+  __shared__ uint32_t s_list[LIST * THREADS];
+  __shared__ float s_bd[ROWS * 4];
+  __shared__ int s_bi[ROWS * 4];
+
   const int p = blockIdx.y;
-  const int q = blockIdx.x * THREADS + threadIdx.x;
-  const bool live = q < n;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = blockIdx.x * ROWS;
   const float* qp = query + static_cast<size_t>(qi[p]) * n * D;
   const float* tp = target + static_cast<size_t>(ti[p]) * m * D;
 
-  float a[D];
+  float c[D];   // the centre: the pair's first target point
 #pragma unroll
-  for (int d = 0; d < D; ++d)
-    a[d] = live ? qp[static_cast<size_t>(q) * D + d] : 0.0f;
+  for (int d = 0; d < D; ++d) c[d] = tp[d];
 
-  float best = CUDART_INF_F;
-  int arg = 0;
-  for (int base = 0; base < m; base += TILE) {
-    const int cnt = min(TILE, m - base);
-    const int padded = (cnt + 3) & ~3;
-    __syncthreads();  // the previous chunk is no longer read
-    // coalesced read of the chunk's cnt * D floats, transposed to SoA
-    const float* src = tp + static_cast<size_t>(base) * D;
-    for (int j = threadIdx.x; j < cnt * D; j += THREADS) {
-      const int pt = j / D;
-      tile[j - pt * D][pt] = src[j];
-    }
-    for (int j = cnt + threadIdx.x; j < padded; j += THREADS) {
+  for (int r = threadIdx.x; r < ROWS; r += THREADS) {
+    const int q = row0 + r;
+    float ah = 0.0f;
 #pragma unroll
-      for (int d = 0; d < D; ++d) tile[d][j] = CUDART_INF_F;
+    for (int d = 0; d < D; ++d) {
+      const float a = q < n ? qp[static_cast<size_t>(q) * D + d] : 0.0f;
+      s_q[r * D + d] = a;
+      const float at = rnd<TC>(a - c[d]);
+      ah = fmaf(at, at, ah);
     }
-    __syncthreads();
-    if (!live) continue;
-    for (int j = 0; j < padded; j += 4) {
-      float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    s_a[r] = ah;
+  }
+  for (int j = threadIdx.x; j < ROWS * 4; j += THREADS) {
+    s_bd[j] = CUDART_INF_F;
+    s_bi[j] = 0x7fffffff;
+  }
+  float* s_seed = s_b[1];   // the seeds, until tile 1 is staged
+  const int ns = min(SEEDS, m);
+  for (int j = threadIdx.x; j < ns * D; j += THREADS) {
+    const int k = j / D;
+    const int id = static_cast<int>(static_cast<long long>(k) * m / ns);
+    s_seed[j] = tp[static_cast<size_t>(id) * D + (j - k * D)];
+  }
+  Raw<D, TC> raw;
+  load_raw<D, TC>(raw, tp, m, 0);
+  stage<D, TC>(raw, c, m, 0, s_b[0]);
+  __syncthreads();
+
+  // slot s holds row (s / 2) * 16 + g + (s % 2) * 8 of the warp's 16 MT
+  auto row_of = [&](int s) {
+    return warp * 16 * MT + (s >> 1) * 16 + g + (s & 1) * 8;
+  };
+  uint32_t af[MT][KS][4];
+  float alpha[SLOTS][D], ahs[SLOTS];   // the CUDA-core screen's queries
+  if constexpr (!TC) {
 #pragma unroll
-      for (int d = 0; d < D; ++d) {
-        const float4 b = *reinterpret_cast<const float4*>(&tile[d][j]);
-        const float t0 = a[d] - b.x, t1 = a[d] - b.y;
-        const float t2 = a[d] - b.z, t3 = a[d] - b.w;
-        s[0] = fmaf(t0, t0, s[0]);
-        s[1] = fmaf(t1, t1, s[1]);
-        s[2] = fmaf(t2, t2, s[2]);
-        s[3] = fmaf(t3, t3, s[3]);
+    for (int s = 0; s < SLOTS; ++s) {
+      const int row = row_of(s);
+      ahs[s] = s_a[row];
+#pragma unroll
+      for (int d = 0; d < D; ++d) alpha[s][d] = -2.0f * (s_q[row * D + d] - c[d]);
+    }
+  }
+#pragma unroll
+  for (int mt = 0; mt < (TC ? MT : 0); ++mt) {
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int row = row_of(2 * mt + (r & 1));
+        const int k = 8 * ks + t + 4 * (r >> 1);
+        float hi, lo;
+        split(s_a[row], hi, lo);
+        float v = 0.0f;
+        if (k < D) v = -2.0f * tf32_rna(s_q[row * D + k] - c[k]);
+        else if (k < D + 2) v = 1.0f;
+        else if (k == D + 2) v = hi;
+        else if (k == D + 3) v = lo;
+        af[mt][ks][r] = __float_as_uint(v);
+      }
+    }
+  }
+
+  // a lane's list, checked by all lanes together, each its own entries
+  int cnt = 0;
+  auto flush = [&]() {
+    for (int i = 0; i < cnt; ++i) {
+      const uint32_t e = s_list[i * THREADS + threadIdx.x];
+      const int gb = static_cast<int>(e & 0xffffffu) * (8 * GROUP);
+      for (uint32_t mask = e >> 24; mask; mask &= mask - 1) {
+        const int row = row_of(__ffs(mask) - 1);
+        float a[D];
+#pragma unroll
+        for (int d = 0; d < D; ++d) a[d] = s_q[row * D + d];
+        float best = s_bd[row * 4 + t];
+        int arg = s_bi[row * 4 + t];
+#pragma unroll
+        for (int k = 0; k < GROUP; ++k) {
+#pragma unroll
+          for (int e2 = 0; e2 < 2; ++e2) {
+            const int id = gb + 8 * k + 2 * t + e2;
+            if (id < m) {
+              const float s = exact<D>(a, tp + static_cast<size_t>(id) * D);
+              if (s < best || (s == best && id < arg)) {
+                best = s;
+                arg = id;
+              }
+            }
+          }
+        }
+        s_bd[row * 4 + t] = best;
+        s_bi[row * 4 + t] = arg;
+        if (counts) atomicAdd(&counts[1], 1);
+      }
+    }
+    cnt = 0;
+  };
+
+  // seeds: the difference form of every (M / 64)-th target bounds the
+  // nearest; smin starts at its threshold, a valid stand-in for a screen
+  float thr[SLOTS], smin[SLOTS], mg[SLOTS];
+  // the pending share of a slot: its group and min screen
+  float pg[SLOTS];
+  uint32_t pj[SLOTS];
+  unsigned live = 0;
+#pragma unroll
+  for (int s = 0; s < SLOTS; ++s) {
+    const int row = row_of(s);
+    float u = CUDART_INF_F;
+    if (row0 + row < n) {
+      live |= 1u << s;
+      float a[D];
+#pragma unroll
+      for (int d = 0; d < D; ++d) a[d] = s_q[row * D + d];
+      for (int k = t; k < ns; k += 4)
+        u = fminf(u, exact<D>(a, &s_seed[k * D]));
+    }
+    u = fminf(u, __shfl_xor_sync(FULL, u, 1));
+    u = fminf(u, __shfl_xor_sync(FULL, u, 2));
+    const float ah = s_a[row], an = sqrtf(ah * A_UP);
+    pg[s] = CUDART_INF_F;
+    pj[s] = 0u;
+    if (live >> s & 1) {
+      thr[s] = smin[s] = threshold<TC>(u, an);
+      mg[s] = margin_at<TC>(smin[s], ah, an);
+    } else {
+      thr[s] = smin[s] = -CUDART_INF_F;
+      mg[s] = 0.0f;
+    }
+  }
+  __syncthreads();   // the seeds are read; s_b[1] takes tile 1
+
+  const int tiles = (m + TILE - 1) / TILE;
+  for (int it = 0; it < tiles; ++it) {
+    const int base = it * TILE;
+    const float* sb = s_b[it & 1];
+    if (it + 1 < tiles) load_raw<D, TC>(raw, tp, m, base + TILE);
+    const int groups = (min(TILE, m - base) + 8 * GROUP - 1) / (8 * GROUP);
+    // two groups at a time, screened together for the latency; a group
+    // past the tile's live targets screens +inf (padding rows)
+    for (int gi = 0; gi < groups; gi += 2) {
+      float gm2[2][SLOTS];
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+  #pragma unroll
+        for (int k = 0; k < GROUP; ++k) {
+          const int c8 = ((gi + u) * GROUP + k) * 8;   // the n8 tile's first target
+          if constexpr (!TC) {
+            // targets c8 + 2t, c8 + 2t + 1: (b', |b'|^2) rows, one 16-byte
+            // load a 4 floats, each target feeding the lane's 4 queries
+            float b0[RW], b1[RW];
+  #pragma unroll
+            for (int kk = 0; kk < RW; kk += 4) {
+              const float4 x = *reinterpret_cast<const float4*>(
+                  &sb[(c8 + 2 * t) * RW + kk]);
+              const float4 y = *reinterpret_cast<const float4*>(
+                  &sb[(c8 + 2 * t + 1) * RW + kk]);
+              b0[kk] = x.x, b0[kk + 1] = x.y, b0[kk + 2] = x.z, b0[kk + 3] = x.w;
+              b1[kk] = y.x, b1[kk + 1] = y.y, b1[kk + 2] = y.z, b1[kk + 3] = y.w;
+            }
+  #pragma unroll
+            for (int s = 0; s < SLOTS; ++s) {
+              float s0 = b0[D], s1 = b1[D];
+  #pragma unroll
+              for (int d = 0; d < D; ++d) {
+                s0 = fmaf(alpha[s][d], b0[d], s0);
+                s1 = fmaf(alpha[s][d], b1[d], s1);
+              }
+              gm2[u][s] = k == 0 ? fminf(s0, s1) : fminf(gm2[u][s], fminf(s0, s1));
+            }
+            continue;
+          }
+          uint32_t b[KS][2];
+  #pragma unroll
+          for (int ks = 0; ks < KS; ++ks) {
+            const float2 bb = *reinterpret_cast<const float2*>(
+                &sb[(c8 + g) * 8 * KS + ks * 8 + 2 * t]);
+            b[ks][0] = __float_as_uint(bb.x);
+            b[ks][1] = __float_as_uint(bb.y);
+          }
+  #pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            float dv[4];
+            mma_k8(dv, af[mt][0], b[0][0], b[0][1], 0.0f, 0.0f, 0.0f, 0.0f);
+  #pragma unroll
+            for (int ks = 1; ks < KS; ++ks)
+              mma_k8(dv, af[mt][ks], b[ks][0], b[ks][1], dv[0], dv[1], dv[2],
+                     dv[3]);
+            if (k == 0) {
+              gm2[u][2 * mt] = fminf(dv[0], dv[1]);
+              gm2[u][2 * mt + 1] = fminf(dv[2], dv[3]);
+            } else {
+              gm2[u][2 * mt] = min3(gm2[u][2 * mt], dv[0], dv[1]);
+              gm2[u][2 * mt + 1] = min3(gm2[u][2 * mt + 1], dv[2], dv[3]);
+            }
+          }
+        }
       }
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        if (s[k] < best) {
-          best = s[k];
-          arg = base + j + k;
+      for (int u = 0; u < 2; ++u) {
+        float gm[SLOTS];
+#pragma unroll
+        for (int s = 0; s < SLOTS; ++s) gm[s] = gm2[u][s];
+        if constexpr (!TC) {
+  #pragma unroll
+          for (int s = 0; s < SLOTS; ++s) gm[s] += ahs[s];
+        }
+        bool pass = false;
+  #pragma unroll
+        for (int s = 0; s < SLOTS; ++s) pass |= gm[s] <= thr[s];
+        if (!__any_sync(FULL, pass)) continue;
+        // a pass: tighten the thresholds (smin only moves where gm <= thr,
+        // since thr >= smin); the share becomes its slot's pending one, and
+        // the one it displaces goes to the list if it still passes
+        const uint32_t group =
+            static_cast<uint32_t>(base / (8 * GROUP) + gi + u);
+  #pragma unroll
+        for (int s = 0; s < SLOTS; ++s) {
+          const bool ps = gm[s] <= thr[s];
+          smin[s] = fminf(smin[s], gm[s]);
+          thr[s] = smin[s] + mg[s];
+          if (ps) {
+            if (pg[s] <= thr[s]) {
+              s_list[cnt * THREADS + threadIdx.x] = (1u << (24 + s)) | pj[s];
+              ++cnt;
+            }
+            pj[s] = group;
+            pg[s] = gm[s];
+          }
+        }
+        if (counts && lane == 0) atomicAdd(&counts[0], 1);
+        if (__any_sync(FULL, cnt > LIST - SLOTS)) flush();
+      }
+    }
+    if (it + 1 < tiles) {
+      stage<D, TC>(raw, c, m, base + TILE, s_b[(it + 1) & 1]);
+      if ((it + 1) % REFRESH == 0) {   // share smin in the quad, new margins
+#pragma unroll
+        for (int s = 0; s < SLOTS; ++s) {
+          smin[s] = fminf(smin[s], __shfl_xor_sync(FULL, smin[s], 1));
+          smin[s] = fminf(smin[s], __shfl_xor_sync(FULL, smin[s], 2));
+          if (live >> s & 1) {
+            const float ah = s_a[row_of(s)];
+            mg[s] = margin_at<TC>(smin[s], ah, sqrtf(ah * A_UP));
+            thr[s] = smin[s] + mg[s];
+          }
         }
       }
     }
+    __syncthreads();
   }
-  if (live) {
-    dist[static_cast<size_t>(p) * n + q] = best;
-    idx[static_cast<size_t>(p) * n + q] = arg;
+
+  // the final thresholds, from the quad's least screen; the pending shares
+  // that pass them join the lists; check them all, merge the quad
+#pragma unroll
+  for (int s = 0; s < SLOTS; ++s) {
+    smin[s] = fminf(smin[s], __shfl_xor_sync(FULL, smin[s], 1));
+    smin[s] = fminf(smin[s], __shfl_xor_sync(FULL, smin[s], 2));
+    if (live >> s & 1) {
+      const float ah = s_a[row_of(s)];
+      if (pg[s] <= threshold<TC>(upper<TC>(smin[s], ah, sqrtf(ah * A_UP)),
+                                 sqrtf(ah * A_UP))) {
+        s_list[cnt * THREADS + threadIdx.x] = (1u << (24 + s)) | pj[s];
+        ++cnt;
+      }
+    }
+  }
+  flush();
+#pragma unroll
+  for (int s = 0; s < SLOTS; ++s) {
+    const int row = row_of(s);
+    float best = s_bd[row * 4 + t];
+    int arg = s_bi[row * 4 + t];
+#pragma unroll
+    for (int o = 1; o <= 2; o <<= 1) {
+      const float ob = __shfl_xor_sync(FULL, best, o);
+      const int oa = __shfl_xor_sync(FULL, arg, o);
+      if (ob < best || (ob == best && oa < arg)) {
+        best = ob;
+        arg = oa;
+      }
+    }
+    const int q = row0 + row;
+    if (t == 0 && q < n) {
+      dist[static_cast<size_t>(p) * n + q] = best;
+      idx[static_cast<size_t>(p) * n + q] = arg;
+    }
   }
 }
 
+// The screen alone, for one (16-query x 8-target) tile a warp: what the
+// kernel compares with its thresholds, written out so that a check on the
+// card can hold the tensor cores' error against KAPPA.  query (n, D) and
+// target (m, D) of one pair; out (n, m).
 template <int D>
+__global__ void __launch_bounds__(32)
+    chamfer_screen_kernel(const float* __restrict__ query,
+                          const float* __restrict__ target, int n, int m,
+                          float* __restrict__ out) {
+  constexpr int KS = k_steps<D>;
+  const int lane = threadIdx.x, g = lane >> 2, t = lane & 3;
+  const int r0 = blockIdx.x * 16, c0 = blockIdx.y * 8;
+  // the K-vectors of query row r and target j, as the kernel builds them
+  auto a_of = [&](int r, int k) -> uint32_t {
+    if (r >= n) return 0u;
+    float at[D], ah = 0.0f;
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      at[d] = tf32_rna(query[static_cast<size_t>(r) * D + d] - target[d]);
+      ah = fmaf(at[d], at[d], ah);
+    }
+    float hi, lo, v = 0.0f;
+    split(ah, hi, lo);
+#pragma unroll
+    for (int d = 0; d < D; ++d)
+      if (k == d) v = -2.0f * at[d];
+    if (k == D || k == D + 1) v = 1.0f;
+    if (k == D + 2) v = hi;
+    if (k == D + 3) v = lo;
+    return __float_as_uint(v);
+  };
+  auto b_of = [&](int j, int k) -> uint32_t {
+    float bt[D], nb = 0.0f;
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      bt[d] = j < m ? tf32_rna(target[static_cast<size_t>(j) * D + d] -
+                               target[d])
+                    : 0.0f;
+      nb = fmaf(bt[d], bt[d], nb);
+    }
+    float hi, lo, v = 0.0f;
+    split(nb, hi, lo);
+    if (j >= m) hi = CUDART_INF_F, lo = 0.0f;
+#pragma unroll
+    for (int d = 0; d < D; ++d)
+      if (k == d) v = bt[d];
+    if (k == D) v = hi;
+    if (k == D + 1) v = lo;
+    if (k == D + 2 || k == D + 3) v = 1.0f;
+    return __float_as_uint(v);
+  };
+  float dv[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+    const uint32_t a[4] = {a_of(r0 + g, 8 * ks + t), a_of(r0 + g + 8, 8 * ks + t),
+                           a_of(r0 + g, 8 * ks + t + 4),
+                           a_of(r0 + g + 8, 8 * ks + t + 4)};
+    mma_k8(dv, a, b_of(c0 + g, 8 * ks + t), b_of(c0 + g, 8 * ks + t + 4),
+           dv[0], dv[1], dv[2], dv[3]);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = r0 + g + (i >> 1) * 8, j = c0 + 2 * t + (i & 1);
+    if (r < n && j < m) out[static_cast<size_t>(r) * m + j] = dv[i];
+  }
+}
+
+template <int D, bool TC = true>
 int launch(const void* query, const void* target, const void* qi,
            const void* ti, int p, int n, int m, void* dist, void* idx,
-           cudaStream_t stream) {
-  const dim3 blocks((n + THREADS - 1) / THREADS, p);
-  chamfer_nn_kernel<D><<<blocks, THREADS, 0, stream>>>(
+           void* counts, cudaStream_t stream) {
+  const dim3 blocks((n + ROWS - 1) / ROWS, p);
+  chamfer_nn_kernel<D, TC><<<blocks, THREADS, 0, stream>>>(
       static_cast<const float*>(query), static_cast<const float*>(target),
       static_cast<const int*>(qi), static_cast<const int*>(ti), n, m,
-      static_cast<float*>(dist), static_cast<int*>(idx));
+      static_cast<float*>(dist), static_cast<int*>(idx),
+      static_cast<int*>(counts));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_screen(const void* query, const void* target, int n, int m,
+                  void* out, cudaStream_t stream) {
+  const dim3 blocks((n + 15) / 16, (m + 7) / 8);
+  chamfer_screen_kernel<D><<<blocks, 32, 0, stream>>>(
+      static_cast<const float*>(query), static_cast<const float*>(target), n,
+      m, static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -127,23 +703,54 @@ int launch(const void* query, const void* target, const void* qi,
 
 // Plain C entry point (bound with ctypes). Device pointers of contiguous
 // tensors: query (Q, n, d) and target (T, m, d) fp32, qi / ti (p,) int32
-// holding valid cloud indices, dist (p, n) fp32, idx (p, n) int32.
-// Launches on `stream`, does not synchronise, returns a cudaError_t code.
+// holding valid cloud indices, dist (p, n) fp32, idx (p, n) int32, and
+// counts: null, or two int32 that the launch adds its group passes and
+// share checks to (a diagnostic).  Launches on `stream`, does not
+// synchronise, returns a cudaError_t code.
 extern "C" int pcfm_chamfer_nn(const void* query, const void* target,
                                const void* qi, const void* ti, int p, int n,
                                int m, int d, void* dist, void* idx,
-                               void* stream) {
+                               void* counts, void* stream) {
   if (p <= 0 || p > 65535 || n <= 0 || m <= 0 || d < 1 || d > MAX_D)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 1: return launch<1>(query, target, qi, ti, p, n, m, dist, idx, st);
-    case 2: return launch<2>(query, target, qi, ti, p, n, m, dist, idx, st);
-    case 3: return launch<3>(query, target, qi, ti, p, n, m, dist, idx, st);
-    case 4: return launch<4>(query, target, qi, ti, p, n, m, dist, idx, st);
-    case 5: return launch<5>(query, target, qi, ti, p, n, m, dist, idx, st);
-    case 6: return launch<6>(query, target, qi, ti, p, n, m, dist, idx, st);
-    case 7: return launch<7>(query, target, qi, ti, p, n, m, dist, idx, st);
-    default: return launch<8>(query, target, qi, ti, p, n, m, dist, idx, st);
+#define PCFM_CASE(D) \
+  case D: return launch<D>(query, target, qi, ti, p, n, m, dist, idx, counts, st);
+    PCFM_CASE(1) PCFM_CASE(2) PCFM_CASE(3) PCFM_CASE(4)
+    PCFM_CASE(5) PCFM_CASE(6) PCFM_CASE(7)
+    default: return launch<8>(query, target, qi, ti, p, n, m, dist, idx,
+                              counts, st);
+#undef PCFM_CASE
   }
+}
+
+// The screen of one pair, (n, d) queries against (m, d) targets, into
+// out (n, m) fp32: the values the kernel above thresholds.
+extern "C" int pcfm_chamfer_screen(const void* query, const void* target,
+                                   int n, int m, int d, void* out,
+                                   void* stream) {
+  if (n <= 0 || m <= 0 || d < 1 || d > MAX_D)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (d) {
+#define PCFM_CASE(D) case D: return launch_screen<D>(query, target, n, m, out, st);
+    PCFM_CASE(1) PCFM_CASE(2) PCFM_CASE(3) PCFM_CASE(4)
+    PCFM_CASE(5) PCFM_CASE(6) PCFM_CASE(7)
+    default: return launch_screen<8>(query, target, n, m, out, st);
+#undef PCFM_CASE
+  }
+}
+
+// The same search with the screen on the CUDA cores (fp32 FMAs), D = 3:
+// the alternative the tensor-core screen was measured against.
+extern "C" int pcfm_chamfer_nn_fp32_screen(const void* query,
+                                           const void* target, const void* qi,
+                                           const void* ti, int p, int n, int m,
+                                           void* dist, void* idx,
+                                           void* counts, void* stream) {
+  if (p <= 0 || p > 65535 || n <= 0 || m <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch<3, false>(query, target, qi, ti, p, n, m, dist, idx, counts,
+                          static_cast<cudaStream_t>(stream));
 }

@@ -18,7 +18,12 @@ kernel launches, never plain-version calls.
 
 The JAX package picks the neighbour with the dot trick ``|a|^2 + |b|^2 -
 2 a.b`` and recomputes its distance in difference form; the port picks it
-in difference form too, so near ties are decided exactly.  As in JAX the
+in difference form too, so near ties are decided exactly.  The kernel
+scores ``|b|^2 - 2 a.b`` on the tensor cores (TF32, relative to the pair's
+first target point) only as a screen, and checks in difference form every
+target whose screen passes a threshold proven to admit the nearest one;
+``screen`` returns those scores for one pair, so that the card's error can
+be held against the margin the threshold allows.  As in JAX the
 argmin is constant under differentiation: when an input requires grad,
 ``chamfer_distance`` recomputes the returned distances in torch from the
 indices, so gradients flow to both clouds.
@@ -123,12 +128,14 @@ def chamfer_nn_reference(query: torch.Tensor, target: torch.Tensor, qi, ti,
 def _lib():
     lib = load_library()
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.pcfm_chamfer_nn.argtypes = [ptr] * 4 + [i32] * 4 + [ptr] * 3
+    lib.pcfm_chamfer_nn.argtypes = [ptr] * 4 + [i32] * 4 + [ptr] * 4
     lib.pcfm_chamfer_nn.restype = i32
+    lib.pcfm_chamfer_screen.argtypes = [ptr] * 2 + [i32] * 3 + [ptr] * 2
+    lib.pcfm_chamfer_screen.restype = i32
     return lib
 
 
-def _launch(query, target, qi, ti, dist, idx):
+def _launch(query, target, qi, ti, dist, idx, counts):
     global launches
     p, n, m, d = qi.numel(), query.shape[1], target.shape[1], query.shape[2]
     with torch.cuda.device(query.device):
@@ -136,23 +143,13 @@ def _launch(query, target, qi, ti, dist, idx):
         err = _lib().pcfm_chamfer_nn(
             query.data_ptr(), target.data_ptr(), qi.data_ptr(),
             ti.data_ptr(), p, n, m, d, dist.data_ptr(), idx.data_ptr(),
-            stream)
+            None if counts is None else counts.data_ptr(), stream)
     check_launch(err, "chamfer_nn")
     launches += 1
 
 
-def chamfer_nn(query: torch.Tensor, target: torch.Tensor, qi, ti,
-               chunk: int = 4096):
-    """Nearest target point of each query point, for the pairs
-    ``(qi[p], ti[p])``: ``(dist (P, N) fp32, idx (P, N) int32)``.
-
-    ``qi`` / ``ti`` are host integer vectors (sequences or CPU tensors) of
-    cloud indices.  On the card: one launch per 65 535 pairs; the stacks
-    must be contiguous fp32 on one device with D <= 8.  ``chunk`` is the
-    plain version's query chunk (CPU tensors)."""
-    if not use_kernel(query, "chamfer_nn"):
-        return chamfer_nn_reference(query, target, qi, ti, chunk)
-    qi, ti = _pairs(query, target, qi, ti)
+def _check_stacks(query: torch.Tensor, target: torch.Tensor) -> None:
+    """What the kernels take: contiguous fp32 on one device, D <= 8."""
     for name, x in {"query": query, "target": target}.items():
         if x.dtype != torch.float32:
             raise TypeError(f"chamfer_nn: {name} must be fp32, got "
@@ -160,9 +157,32 @@ def chamfer_nn(query: torch.Tensor, target: torch.Tensor, qi, ti,
         if x.device != query.device or not x.is_contiguous():
             raise ValueError(f"chamfer_nn: {name} must be contiguous on "
                              f"{query.device}")
-    if query.shape[2] > MAX_D:
+    if query.shape[-1] > MAX_D:
         raise ValueError(f"chamfer_nn kernel takes D <= {MAX_D}, got "
-                         f"D={query.shape[2]}")
+                         f"D={query.shape[-1]}")
+
+
+def chamfer_nn(query: torch.Tensor, target: torch.Tensor, qi, ti,
+               chunk: int = 4096, counts: torch.Tensor | None = None):
+    """Nearest target point of each query point, for the pairs
+    ``(qi[p], ti[p])``: ``(dist (P, N) fp32, idx (P, N) int32)``.
+
+    ``qi`` / ``ti`` are host integer vectors (sequences or CPU tensors) of
+    cloud indices.  On the card: one launch per 65 535 pairs; the stacks
+    must be contiguous fp32 on one device with D <= 8.  ``chunk`` is the
+    plain version's query chunk (CPU tensors).  ``counts``, a diagnostic:
+    an int32 (2,) tensor on the card to which the kernel adds the groups
+    whose screen passed (a warp's 64 queries x 32 targets) and the lane
+    shares (one query x 8 targets) it checked in difference form."""
+    if not use_kernel(query, "chamfer_nn"):
+        return chamfer_nn_reference(query, target, qi, ti, chunk)
+    qi, ti = _pairs(query, target, qi, ti)
+    _check_stacks(query, target)
+    if counts is not None and (counts.dtype != torch.int32
+                               or counts.device != query.device
+                               or counts.numel() != 2):
+        raise ValueError("chamfer_nn: counts must be an int32 (2,) tensor "
+                         f"on {query.device}")
     dev, p, n = query.device, qi.numel(), query.shape[1]
     dist = torch.empty((p, n), dtype=torch.float32, device=dev)
     idx = torch.empty((p, n), dtype=torch.int32, device=dev)
@@ -170,8 +190,29 @@ def chamfer_nn(query: torch.Tensor, target: torch.Tensor, qi, ti,
     for s in range(0, p, MAX_GRID_PAIRS):
         e = min(p, s + MAX_GRID_PAIRS)
         _launch(query, target, ids[0, s:e], ids[1, s:e], dist[s:e],
-                idx[s:e])
+                idx[s:e], counts)
     return dist, idx
+
+
+def screen(query: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """The kernel's screen for one pair on the card, (N, D) queries
+    against (M, D) targets: ``|b~|^2 - 2 a~.b~`` (N, M) fp32 from the
+    tensor cores, where ``x~`` is ``x - target[0]`` rounded to TF32.  Not
+    on any path: it lets a check hold the card's screen error against the
+    kernel's margin (chamfer_nn.cu's KAPPA)."""
+    if query.dim() != 2 or target.dim() != 2 or not query.is_cuda \
+            or query.shape[1] != target.shape[1]:
+        raise ValueError("screen: (N, D) and (M, D) CUDA tensors")
+    _check_stacks(query, target)
+    n, m = query.shape[0], target.shape[0]
+    out = torch.empty((n, m), dtype=torch.float32, device=query.device)
+    with torch.cuda.device(query.device):
+        stream = torch.cuda.current_stream(query.device).cuda_stream
+        err = _lib().pcfm_chamfer_screen(
+            query.data_ptr(), target.data_ptr(), n, m, query.shape[1],
+            out.data_ptr(), stream)
+    check_launch(err, "chamfer_screen")
+    return out
 
 
 # ------------------------------------------------------------ chamfer
