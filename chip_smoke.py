@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --only voxel   # phases 1 and 10 alone
+    python3 chip_smoke.py --only chamfer # phases 1 and 14 alone
 
 Needs one CUDA device (an H100: the kernels are built for sm_90a) and the
 CUDA toolkit's nvcc; imports nothing of JAX.  Phases, each fatal on
@@ -72,7 +73,13 @@ failure:
    the tile, duplicated targets (ties must go to the lowest index) and the
    suite's pairs form (32 clouds x 2048 points, all 32^2 pairs), within
    CHAMFER_REL_TOL, bitwise equal across two launches; CUDA-event times of
-   the kernel, the plain version and ``cdist`` + ``min``;
+   the kernel, the plain version and ``cdist`` + ``min``; then the cases
+   that test its screen's margin at (8, 20 000, 3): clouds shifted by 1e2
+   and 1e4, an integer lattice (exact ties: the indices must equal the
+   plain version's), clouds sorted along x, each held the same way and
+   timed, with the kernel's share checks a query; and the tensor cores'
+   screen against its plain version (D = 3 and 8, shifted), within the
+   SCREEN_KAPPA its margin assumes;
 15. the evaluation CLI at full width on phase 7's trained run (8 x 20 000,
    synthetic; recon and gen, 2 batches, Heun x 50): exact chamfer launches
    (2 a batch), 500 FiLM-block launches per Heun x 50 call, finite
@@ -150,6 +157,7 @@ CDIST_MAX_ENTRIES = 2 ** 31 - 1
 # and fp32 (non-tensor) FLOP/s
 HBM_BPS = 3.35e12
 BF16_FLOPS = 989e12
+TF32_FLOPS = 495e12
 FP32_FLOPS = 67e12
 
 
@@ -286,14 +294,14 @@ def kernel_vs_plain(fb, torch):
 
 def check_spills(log: str) -> None:
     """Print ptxas's registers and spills for each kernel of the build log
-    and fail if a FiLM-block or voxel kernel spills."""
+    and fail if a FiLM-block, voxel or chamfer kernel spills."""
     name, spilled = "?", []
     for line in log.splitlines():
         if "Compiling entry function" in line:
             name = line.split("'")[1] if "'" in line else line.strip()
         elif "registers" in line or "spill" in line:
             print(f"[build] {name[:70]}: {line.split(':', 1)[-1].strip()}")
-            if ("film_block" in name or "voxel" in name) \
+            if any(k in name for k in ("film_block", "voxel", "chamfer")) \
                     and "spill" in line and any(
                     int(x) for x in re.findall(r"(\d+) bytes spill", line)):
                 spilled.append(name)
@@ -1095,6 +1103,16 @@ def chamfer_bound(clouds: int, pairs: int, n: int, m: int,
     return bound_ms(nbytes, 2 * pairs * n * m * (3 * d - 1), FP32_FLOPS)
 
 
+def chamfer_screen_bound(pairs: int, n: int, m: int, d: int) -> tuple:
+    """Least time of the kernel's screen over both ways of ``pairs`` pairs:
+    2 K FLOP a (query, target) pair on the TF32 tensor cores (K = D + 4
+    padded to 8 or 16), or one fp32 min a pair, whichever is longer."""
+    k = 8 * ((d + 4 + 7) // 8)
+    both = 2 * pairs * n * m
+    tensor, mins = both * 2 * k / TF32_FLOPS * 1e3, both / FP32_FLOPS * 1e3
+    return (tensor, "tf32") if tensor >= mins else (mins, "fp32 min")
+
+
 def cdist_min(torch, q, t):
     """The yardstick: ``cdist`` (difference form) then ``min`` both ways,
     in as few calls as cdist's launch grid takes (CDIST_MAX_ENTRIES)."""
@@ -1225,8 +1243,63 @@ def chamfer_vs_plain(tc, torch):
         lambda: cdist_min(torch, pairs_q, pairs_t),
         chamfer_bound(SUITE_CLOUDS, SUITE_CLOUDS ** 2, SUITE_POINTS,
                       SUITE_POINTS, 3))
-    out["max_abs_err"] = worst
     del sets, pairs_q, pairs_t
+    torch.cuda.empty_cache()
+
+    # the screen's margin: clouds that shift its error, exact ties, and
+    # targets in spatial order (the bound falls slowly, more shares pass)
+    def by_x(x):
+        return torch.gather(x, 1, x[..., :1].argsort(dim=1).expand(-1, -1, 3)
+                            ).contiguous()
+
+    cnt = torch.zeros(2, dtype=torch.int32, device=DEVICE)
+    pairs = list(range(B))
+    a, b = rnd(B, N, 3), rnd(B, N, 3)
+    cases = {"random": (a, b), "shifted +1e2": (a + 1e2, b + 1e2),
+             "shifted +1e4": (a + 1e4, b + 1e4),
+             "integer lattice": tuple(
+                 torch.randint(0, 20, (B, N, 3), device=DEVICE,
+                               generator=g).float() for _ in range(2)),
+             "sorted along x": (by_x(a), by_x(b))}
+    out["cases"] = {}
+    for tag, (x, y) in cases.items():
+        if tag != "random":
+            got = both_ways(x, y, f"({B}, {N}, 3) {tag}")
+            if tag == "integer lattice":
+                for q, t, idx in ((x, y, got[2]), (y, x, got[3])):
+                    if not torch.equal(idx, tc.chamfer_nn_reference(
+                            q, t, pairs, pairs)[1]):
+                        raise RuntimeError("chamfer_nn lattice: an exact tie "
+                                           "did not go to the lowest index")
+                print("[chamfer] integer lattice: indices equal the plain "
+                      "version's (exact ties to the lowest index)")
+        cnt.zero_()
+        tc.chamfer_nn(x, y, pairs, pairs, counts=cnt)
+        tc.chamfer_nn(y, x, pairs, pairs, counts=cnt)
+        checks = int(cnt[1]) / (2 * B * N)
+        ms = cuda_ms(lambda: tc.chamfer_distance(x, y))
+        print(f"[chamfer] ({B}, {N}, 3) {tag}: kernel {ms:.4f} ms both ways, "
+              f"{checks:.2f} shares of 8 targets checked a query, "
+              f"{int(cnt[0])} warp groups passed")
+        out["cases"][tag] = {"ms": ms, "share_checks_a_query": checks}
+    del a, b, cases
+    torch.cuda.empty_cache()
+
+    # the tensor cores' screen against its plain version
+    ratio = 0.0
+    for d, shift in ((3, 0.0), (3, 1e4), (8, 0.0)):
+        q, t = rnd(4096, d) + shift, rnd(8192, d) + shift
+        exact, scale = tc.screen_reference(q, t)
+        r = ((tc.screen(q, t).double() - exact).abs() / scale).max().item()
+        print(f"[chamfer] screen (4096 x 8192, D = {d}, shifted {shift:g}): "
+              f"max |s - |a~ - b~|^2| / (|a~| + |b~|)^2 = {r:.3g} "
+              f"(SCREEN_KAPPA {tc.SCREEN_KAPPA:.3g})")
+        ratio = max(ratio, r / tc.SCREEN_KAPPA)
+        del q, t, exact, scale
+    if ratio > 1.0:
+        raise RuntimeError(f"chamfer screen error {ratio:.3g} x its bound")
+    out["screen_err_over_kappa"] = ratio
+    out["max_abs_err"] = worst
     torch.cuda.empty_cache()
     return out
 
@@ -1367,6 +1440,10 @@ def main() -> int:
         # phases 1 and 10 alone, for work on the voxel kernels
         voxel_vs_plain(tvs, torch)
         return 0
+    if sys.argv[1:] == ["--only", "chamfer"]:
+        # phases 1 and 14 alone, for work on the chamfer kernel
+        chamfer_vs_plain(tc, torch)
+        return 0
     kv, kv_err = kernel_vs_plain(fb, torch)
     launches = main_path(fb, torch, np)
     ms = sample_ms_per_shape(torch)
@@ -1384,6 +1461,7 @@ def main() -> int:
     su = suite_full_width(fb, tvs, tc, torch)
 
     film = film_bounds(B, N, C)
+    screen_bound = chamfer_screen_bound(B, N, N, 3)
     # the main path's shapes: R = 32 stage, 8 clouds, bf16 features;
     # devoxelize is the K = 8 gather, avg_voxelize the K = 1 scatter
     gather = vox[("gather", 32, 128, B, 8, torch.bfloat16)]
@@ -1474,13 +1552,20 @@ def main() -> int:
         "name": "chamfer_nn", "route": "cuda",
         "source": "pcfm_torch/csrc/chamfer_nn.cu",
         "replaces": "pcfm/ops/pallas/chamfer_v3.py:19",
+        "variant": "tensor-core TF32 screen (mma.sync m16n8k8) with a "
+                   "proven margin, then a difference-form check",
         "launches": ev["launches"]["chamfer_nn"],
         "max_abs_err": cham["max_abs_err"], **cham[B],
         "shape": [B, N, N, 3],
+        "screen_bound_ms": screen_bound[0], "screen_bound_by": screen_bound[1],
+        "screen_err_over_kappa": cham["screen_err_over_kappa"],
+        "cases": cham["cases"],
         **{f"{k}_2b": v for k, v in cham[2 * B].items()
            if k not in ("bound_by", "library_ms")},
         **{f"suite_{k}": v for k, v in cham["suite"].items()},
         "suite_shape": [SUITE_CLOUDS ** 2, SUITE_POINTS, SUITE_POINTS, 3],
+        "suite_screen_bound_ms": chamfer_screen_bound(
+            SUITE_CLOUDS ** 2, SUITE_POINTS, SUITE_POINTS, 3)[0],
         "launches_suite": su["launches"]["chamfer_nn"],
         "eval_cli_wall_s": ev["wall_s"], "suite_cli_wall_s": su["wall_s"],
         "streamed_emd_ms_per_batch": ev["emd_ms"],

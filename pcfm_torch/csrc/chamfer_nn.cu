@@ -18,68 +18,74 @@
 // What bounds it: operations.  The difference form costs D subtractions
 // and D multiply-adds a (query, target) pair (8 FLOP at D = 3, 0.76 ms at
 // (8, 20000, 3) both ways at 67 TFLOP/s fp32), and deciding the minimum
-// adds a comparison and selects: ~9 instructions a pair.  The TPU kernel
-// scores |b|^2 - 2 a.b on the MXU, which is inexact on near ties.  Here the
-// dot form is only a screen, and the difference form decides:
+// adds a comparison and selects: PR 4's kernel ran ~9 instructions a pair.
+// The TPU kernel scores |b|^2 - 2 a.b on the MXU, which is inexact on near
+// ties.  Here a dot form is only a screen, and the difference form decides.
 //
 // 1. Screen, on the tensor cores.  Coordinates are taken relative to the
 //    pair's centre c, its first target point, and rounded to TF32 (cvt.rna:
 //    ties away, 10 mantissa bits): a~ = tf32(a - c), b~ = tf32(b - c).  One
-//    mma.sync (m16n8k4 for D <= 4, m16n8k8 otherwise) scores 16 queries
-//    against 8 targets, s = |b~|^2 - 2 a~.b~: A holds -2 a~ (exact), B holds
-//    b~, and the accumulator starts at |b~|^2 in fp32, so K = D.  Products of
-//    TF32 values are exact in fp32.  A warp holds 4 m-tiles (64 queries) in
-//    registers for the whole scan; targets pass through shared memory in
-//    double-buffered tiles of 256, staged as (b~, |b~|^2).  A lane keeps, for
-//    each of its 8 queries, the min of s over its share of a group of 32
-//    targets (the accumulator's columns 2t, 2t + 1 of 4 n8 tiles): one fp32
-//    min a pair is the only CUDA-core work.
-// 2. Check.  U is a proven upper bound on the query's nearest distance (the
-//    difference form of 64 strided targets first, then bounds from screens
-//    and checks, shared by the quad's 4 lanes).  A lane's share of a group
-//    can hold the nearest target only if its min s <= T(U), the threshold
-//    derived below.  Such a share becomes the lane's pending candidate; the
-//    one it replaces is checked at once if it still passes T, and dropped
-//    otherwise; at the end the pending share is checked if it passes the
-//    final T.  A check takes every target of the share in the difference
-//    form, in index order, and keeps the least (distance, index).  The quad
-//    merges its 4 lanes' (distance, index) with shuffles, ties to the lower
-//    index.  Padding targets have |b~|^2 = +inf and are skipped by the check.
+//    mma.sync m16n8k8 (two for D >= 5) scores 16 queries against 8 targets,
+//    s = |a~|^2 + |b~|^2 - 2 a~.b~ = |a~ - b~|^2 up to its error, from the
+//    K-vectors A = (-2 a~, 1, 1, ahat hi, ahat lo) and B = (b~, nb hi,
+//    nb lo, 1, 1): ahat = |a~|^2 and nb = |b~|^2 in fp32, each split in two
+//    TF32 halves.  Every product is exact in fp32.  A warp holds 2 m-tiles
+//    (32 queries) in registers for the whole scan; targets pass through
+//    shared memory in double-buffered tiles of 256 (128 for D >= 5), staged
+//    as B rows in fragment order.  A lane keeps, for each of its 4 queries
+//    (rows g, g + 8 of each m-tile), the least s over its share of a group
+//    of 32 targets (columns 2t, 2t + 1 of 4 n8 tiles): one min a pair, taken
+//    three at a time by VIMNMX3 on the bits (the least of non-negative
+//    floats; a negative one if any is negative, and every threshold is
+//    >= 0, so no pass is missed).
+// 2. Check.  A share can hold the nearest target only if its least s is at
+//    most the threshold T.  T starts from the difference form of strided
+//    targets (1 in 64, at most 256), tightens with every passing screen (T = smin + M, the
+//    margin M refreshed every 4 tiles with smin shared in the quad).  A
+//    passing share becomes its slot's pending one; the one it displaces is
+//    dropped if it no longer passes T, else listed; at the end the pending
+//    share joins the list if it passes the final T.  All lanes check their
+//    lists together (when one fills, and at the end): every target of a
+//    share in the difference form, the least (distance, index) kept per
+//    (query, lane) in shared memory.  The quad merges its 4 lanes with
+//    shuffles, ties to the lower index.  Padding targets screen +inf and are
+//    skipped by the check.
 //
-// The margin.  u = 2^-24.  For a target b with difference-form distance
-// dhat <= U (so also the nearest one, and every target tied with it):
+// The margin.  u = 2^-24.  For a target b whose difference-form distance
+// dhat <= U (so the nearest one, and every target tied with it):
 //   * the exact squared distance d <= dhat (1 + 2^-20): D + 2 roundings of
 //     non-negative terms, D <= 8;
 //   * |a~ - (a - c)| <= W |a~| coordinate-wise, W = 2^-11 + 2^-17 >= the
 //     fp32 subtraction (u) and the TF32 rounding (2^-11) together, and so
 //     for b; with r = |a~ - b~|: r <= sqrt(d) + W (|a~| + |b~|) and
 //     |b~| <= |a~| + r, so r <= R = (sqrt(U (1 + 2^-20)) + 2 W |a~|) / (1 - W);
-//   * the screen's error: |s - (|b~|^2 - 2 a~.b~)| <= KAPPA (|a~| + |b~|)^2.
-//     It holds |b~|^2's fp32 rounding (D u) and the tensor cores' fp32
-//     accumulation of the exact products and the accumulator, which is not
-//     promised to round like fp32 FMAs: a sum of D + 1 terms aligned to the
-//     largest and cut to fp32 errs by at most (D + 1) 2^-23 of their
-//     magnitudes, < 2^-19.8 for D <= 8; KAPPA = 2^-17 leaves 4x over both
-//     (chip_smoke.py measures the screen's error against it);
-//   * |b~|^2 - 2 a~.b~ = r^2 - |a~|^2, so s <= R^2 - |a~|^2 + KAPPA (2|a~| + R)^2
-//     =: T(U), evaluated with |a~|^2 from below, |a~| from above, and
-//     guards of 2^-20 / 2^-18 over its own fp32 roundings.
+//   * the screen's error: |s - r^2| <= KAPPA (|a~| + |b~|)^2.  It holds the
+//     norms' fp32 sums and hi + lo splits (< 2^-21) and the tensor cores'
+//     fp32 accumulation, which is not promised to round like fp32 FMAs: n
+//     terms aligned to the largest and cut to 24 bits err by at most
+//     n 2^-23 of their magnitudes, and those sum to <= (1 + 2^-10)
+//     (|a~| + |b~|)^2; n <= 9 a k-step, so < 2^-18.6 for two.  KAPPA =
+//     2^-17 (chip_smoke.py measures the screen's error against it);
+//   * so s <= R^2 + KAPPA (2|a~| + R)^2 =: T(U), evaluated with |a~| from
+//     above and guards of 2^-20 / 2^-18 over its own fp32 roundings.
 // And from a screened s of any target b, an upper bound on its dhat:
-//   r^2 = s' + |a~|^2 with |s' - s| <= KAPPA (2|a~| + r)^2 <= KAPPA
-//   (8 |a~|^2 + 2 r^2), so r^2 <= (s + |a~|^2 (1 + 8 KAPPA)) / (1 - 2 KAPPA)
-//   and dhat <= (r (1 + W) + 2 W |a~|)^2 (1 + 2^-20) =: Ub(s).
-// T is monotone in U, so a share that fails T(U) for one valid U fails it
-// for the final one: the nearest target, and every target tied with it, is
-// always checked.  A generous margin costs only checks.  For clouds of
-// 20 000 N(0, 1) points it is ~1e-3 against a nearest distance of ~3e-3
-// (the error scales with the distance, not with |a||b|, because the screen
-// is exact for the rounded points).  pcfm_torch/ops/chamfer.py mirrors
-// T and Ub constant for constant; tests/test_torch_port_chamfer_screen.py
-// holds the margin on the CPU.
+//   r^2 <= s + KAPPA (2|a~| + r)^2 <= s + KAPPA (8 |a~|^2 + 2 r^2), so
+//   r^2 <= (s + 8 KAPPA |a~|^2) / (1 - 2 KAPPA) and dhat <= (r (1 + W) +
+//   2 W |a~|)^2 (1 + 2^-20) =: Ub(s).
+// T and Ub grow with their arguments and T(Ub(s)) - s grows with s, so
+// smin' + M(smin) >= T(Ub(smin')) for smin' <= smin: a share that fails
+// the threshold of one valid bound fails the final one too, and the nearest
+// target, and every target tied with it, is always checked.  A generous
+// margin costs only checks.  For clouds of 20 000 N(0, 1) points it is
+// ~1e-3 against a nearest distance of ~3e-3 (the error scales with the
+// distance, not with |a||b|, because the screen is exact for the rounded
+// points).  tests/test_torch_port_chamfer_screen.py mirrors T and Ub
+// constant for constant and holds the margin on the CPU.
 //
-// What bounds it now: per 8 targets and 64 queries a warp issues 4 mma, 16
-// fp32 mins and two shared-memory loads; the mins (one a pair) set the
-// pace, about twice the screen's own bound (PERF.md).
+// What bounds it now: latency.  A group of 32 targets x 32 queries is 4
+// shared-memory loads, 8 mma, 16 mins and a vote a warp, a chain of ~150
+// cycles; 5 warps a scheduler do not hide it, and the mma and min pipes
+// run at about a third of their rates (PERF.md).
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
@@ -92,7 +98,7 @@ constexpr int MT = 2;                    // m16 tiles (16 queries each) a warp
 constexpr int SLOTS = 2 * MT;            // queries a lane holds: rows g, g+8
 constexpr int ROWS = 16 * MT * WARPS;    // queries a block
 constexpr int GROUP = 4;                 // n8 tiles a group (32 targets)
-constexpr int SEEDS = 256;               // strided targets that seed U
+constexpr int SEEDS = 256;               // strided targets that seed T, at most
 constexpr int LIST = 16;                 // candidate entries a lane holds
 constexpr int REFRESH = 4;               // tiles between margin refreshes
 constexpr int MAX_D = 8;
@@ -103,33 +109,17 @@ constexpr unsigned FULL = 0xffffffffu;
 template <int D>
 constexpr int k_steps = (D + 4 + 7) / 8;
 // targets a shared-memory tile: 256 (D <= 4) or 128, 8 KB a buffer
-template <int D, bool TC>
-constexpr int tile_of = TC ? 256 / k_steps<D> : 256;
-// floats a staged target row: the K-vector (TC), or (b', |b'|^2) padded
-template <int D, bool TC>
-constexpr int row_of_floats = TC ? 8 * k_steps<D> : (D + 4) / 4 * 4;
+template <int D>
+constexpr int tile_of = 256 / k_steps<D>;
 
-
-// The margin's constants (see the note above; chamfer.py mirrors them).
-constexpr float P2_10 = 1.0f / 1024.0f;
-constexpr float P2_11 = P2_10 / 2.0f;
-constexpr float P2_14 = P2_10 / 16.0f;
-constexpr float P2_15 = P2_14 / 2.0f;
-constexpr float P2_16 = P2_15 / 2.0f;
-constexpr float P2_17 = P2_16 / 2.0f;
-constexpr float P2_18 = P2_17 / 2.0f;
-constexpr float P2_20 = P2_18 / 4.0f;
-constexpr float A_UP = 1.0f + P2_18;          // |a~|^2 <= ahat A_UP; rho, guards
-// per screen: TC, the tensor cores' TF32 one; else fp32 FMAs on the CUDA
-// cores (coordinates not rounded: W = 2^-22; KAPPA = 2^-19 over D + 2
-// roundings)
-template <bool TC> struct Err {
-  static constexpr float W_ERR = TC ? P2_11 + P2_17 : P2_20 / 4.0f;
-  static constexpr float KAPPA = TC ? P2_17 : P2_18 / 2.0f;
-  static constexpr float UB_A = 8.0f * KAPPA + P2_18;  // Ub: 8 K |a~|^2
-  static constexpr float UB_D = 1.0f + 4.0f * KAPPA;   // Ub: 1 / (1 - 2K)
-  static constexpr float R_W = 1.0f + 2.0f * W_ERR + P2_18;  // T: 1 / (1 - W)
-};
+// The margin's constants (see the note above).
+constexpr float GUARD = 0x1p-20f;                // a bound's own roundings
+constexpr float W_ERR = 0x1p-11f + 0x1p-17f;     // coordinate rounding
+constexpr float KAPPA = 0x1p-17f;                // screen error / (|a~|+|b~|)^2
+constexpr float A_UP = 1.0f + 0x1p-18f;          // 1 + 2^-20, and guards
+constexpr float UB_A = 8.0f * KAPPA + 0x1p-18f;  // Ub: 8 KAPPA |a~|^2
+constexpr float UB_D = 1.0f + 4.0f * KAPPA;      // Ub: >= 1 / (1 - 2 KAPPA)
+constexpr float R_W = 1.0f + 2.0f * W_ERR + 0x1p-18f;  // T: >= 1 / (1 - W)
 
 __device__ __forceinline__ float tf32_rna(float x) {
   uint32_t r;
@@ -137,36 +127,25 @@ __device__ __forceinline__ float tf32_rna(float x) {
   return __uint_as_float(r);
 }
 
-template <bool TC>
-__device__ __forceinline__ float rnd(float x) {
-  return TC ? tf32_rna(x) : x;
-}
-
 // T(U): a share whose min screen exceeds it holds no target within U.
-template <bool TC>
 __device__ __forceinline__ float threshold(float u, float an) {
-  using E = Err<TC>;
-  const float r = (sqrtf(u * A_UP) + 2.0f * E::W_ERR * an) * E::R_W;
+  const float r = (sqrtf(u * A_UP) + 2.0f * W_ERR * an) * R_W;
   const float x = r * r * A_UP;
-  return x + E::KAPPA * A_UP * (2.0f * an + r) * (2.0f * an + r) + P2_20 * x;
+  return x + KAPPA * A_UP * (2.0f * an + r) * (2.0f * an + r) + GUARD * x;
 }
 
 // Ub(s): the difference-form distance of a target screened at s is <= Ub.
-template <bool TC>
 __device__ __forceinline__ float upper(float s, float ahat, float an) {
-  using E = Err<TC>;
-  const float r2 = (s + ahat * E::UB_A) * E::UB_D;
-  const float q =
-      sqrtf(fmaxf(r2, 0.0f)) * (1.0f + E::W_ERR) + 2.0f * E::W_ERR * an;
+  const float r2 = (s + ahat * UB_A) * UB_D;
+  const float q = sqrtf(fmaxf(r2, 0.0f)) * (1.0f + W_ERR) + 2.0f * W_ERR * an;
   return q * q * A_UP;
 }
 
 // M such that smin' + M >= T(Ub(smin')) for every smin' <= smin: T(Ub(s))
 // - s grows with s.  The guard covers the roundings of M and of smin' + M.
-template <bool TC>
 __device__ __forceinline__ float margin_at(float smin, float ahat, float an) {
-  const float tf = threshold<TC>(upper<TC>(smin, ahat, an), an);
-  return (tf - smin) + P2_20 * (fabsf(smin) + tf);
+  const float tf = threshold(upper(smin, ahat, an), an);
+  return (tf - smin) + GUARD * (fabsf(smin) + tf);
 }
 
 // D[16x8] = A[16x8] B[8x8] + C in TF32 with fp32 accumulation.
@@ -212,17 +191,17 @@ __device__ __forceinline__ void split(float x, float& hi, float& lo) {
 
 // A tile's raw coordinates, two targets a thread (one for D > 4), loaded
 // before the scan of the previous tile and staged after it.
-template <int D, bool TC>
+template <int D>
 struct Raw {
-  float v[tile_of<D, TC> / THREADS][D];
+  float v[tile_of<D> / THREADS][D];
 };
 
-template <int D, bool TC>
-__device__ __forceinline__ void load_raw(Raw<D, TC>& raw,
+template <int D>
+__device__ __forceinline__ void load_raw(Raw<D>& raw,
                                          const float* __restrict__ tp, int m,
                                          int base) {
 #pragma unroll
-  for (int i = 0; i < tile_of<D, TC> / THREADS; ++i) {
+  for (int i = 0; i < tile_of<D> / THREADS; ++i) {
     const int id = base + threadIdx.x + i * THREADS;
 #pragma unroll
     for (int d = 0; d < D; ++d)
@@ -232,35 +211,13 @@ __device__ __forceinline__ void load_raw(Raw<D, TC>& raw,
 
 // A staged target row holds its K-vector in B-fragment order: for each
 // k-step the pairs (B[8 ks + t], B[8 ks + t + 4]), t = 0..3.
-template <int D, bool TC>
-__device__ __forceinline__ void stage(const Raw<D, TC>& raw,
-                                      const float (&c)[D], int m, int base,
-                                      float* sb) {
+template <int D>
+__device__ __forceinline__ void stage(const Raw<D>& raw, const float (&c)[D],
+                                      int m, int base, float* sb) {
   constexpr int KS = k_steps<D>;
 #pragma unroll
-  for (int i = 0; i < tile_of<D, TC> / THREADS; ++i) {
+  for (int i = 0; i < tile_of<D> / THREADS; ++i) {
     const int j = threadIdx.x + i * THREADS;
-    if constexpr (!TC) {
-      constexpr int RW = row_of_floats<D, TC>;
-      float b[RW];
-#pragma unroll
-      for (int k = 0; k < RW; ++k) b[k] = 0.0f;
-      float nb = CUDART_INF_F;
-      if (base + j < m) {
-        nb = 0.0f;
-#pragma unroll
-        for (int d = 0; d < D; ++d) {
-          b[d] = raw.v[i][d] - c[d];
-          nb = fmaf(b[d], b[d], nb);
-        }
-      }
-      b[D] = nb;
-#pragma unroll
-      for (int k = 0; k < RW; k += 4)
-        *reinterpret_cast<float4*>(sb + j * RW + k) =
-            make_float4(b[k], b[k + 1], b[k + 2], b[k + 3]);
-      continue;
-    }
     float b[8 * KS];
 #pragma unroll
     for (int k = 0; k < 8 * KS; ++k) b[k] = 0.0f;
@@ -288,17 +245,18 @@ __device__ __forceinline__ void stage(const Raw<D, TC>& raw,
   }
 }
 
-template <int D, bool TC = true>
-__global__ void __launch_bounds__(THREADS, 4)
+// 4 blocks an SM (<= 128 registers) for one k-step; two k-steps hold twice
+// the A fragments and take 2 (<= 255) rather than spill
+template <int D>
+__global__ void __launch_bounds__(THREADS, k_steps<D> == 1 ? 4 : 2)
     chamfer_nn_kernel(const float* __restrict__ query,
                       const float* __restrict__ target,
                       const int* __restrict__ qi, const int* __restrict__ ti,
                       int n, int m, float* __restrict__ dist,
                       int* __restrict__ idx, int* counts) {
   constexpr int KS = k_steps<D>;
-  constexpr int TILE = tile_of<D, TC>;
-  constexpr int RW = row_of_floats<D, TC>;
-  __shared__ __align__(16) float s_b[2][TILE * RW];
+  constexpr int TILE = tile_of<D>;
+  __shared__ __align__(16) float s_b[2][TILE * 8 * KS];
   __shared__ float s_q[ROWS * D];     // the block's raw query coordinates
   __shared__ float s_a[ROWS];         // ahat = |a~|^2 in fp32
   // candidates to check: a lane's shares (slot mask << 24 | group), checked
@@ -326,7 +284,7 @@ __global__ void __launch_bounds__(THREADS, 4)
     for (int d = 0; d < D; ++d) {
       const float a = q < n ? qp[static_cast<size_t>(q) * D + d] : 0.0f;
       s_q[r * D + d] = a;
-      const float at = rnd<TC>(a - c[d]);
+      const float at = tf32_rna(a - c[d]);
       ah = fmaf(at, at, ah);
     }
     s_a[r] = ah;
@@ -336,15 +294,15 @@ __global__ void __launch_bounds__(THREADS, 4)
     s_bi[j] = 0x7fffffff;
   }
   float* s_seed = s_b[1];   // the seeds, until tile 1 is staged
-  const int ns = min(SEEDS, m);
+  const int ns = max(1, min(SEEDS, m / 64));   // 256 at M >= 16 384
   for (int j = threadIdx.x; j < ns * D; j += THREADS) {
     const int k = j / D;
     const int id = static_cast<int>(static_cast<long long>(k) * m / ns);
     s_seed[j] = tp[static_cast<size_t>(id) * D + (j - k * D)];
   }
-  Raw<D, TC> raw;
-  load_raw<D, TC>(raw, tp, m, 0);
-  stage<D, TC>(raw, c, m, 0, s_b[0]);
+  Raw<D> raw;
+  load_raw<D>(raw, tp, m, 0);
+  stage<D>(raw, c, m, 0, s_b[0]);
   __syncthreads();
 
   // slot s holds row (s / 2) * 16 + g + (s % 2) * 8 of the warp's 16 MT
@@ -352,18 +310,8 @@ __global__ void __launch_bounds__(THREADS, 4)
     return warp * 16 * MT + (s >> 1) * 16 + g + (s & 1) * 8;
   };
   uint32_t af[MT][KS][4];
-  float alpha[SLOTS][D], ahs[SLOTS];   // the CUDA-core screen's queries
-  if constexpr (!TC) {
 #pragma unroll
-    for (int s = 0; s < SLOTS; ++s) {
-      const int row = row_of(s);
-      ahs[s] = s_a[row];
-#pragma unroll
-      for (int d = 0; d < D; ++d) alpha[s][d] = -2.0f * (s_q[row * D + d] - c[d]);
-    }
-  }
-#pragma unroll
-  for (int mt = 0; mt < (TC ? MT : 0); ++mt) {
+  for (int mt = 0; mt < MT; ++mt) {
 #pragma unroll
     for (int ks = 0; ks < KS; ++ks) {
 #pragma unroll
@@ -417,9 +365,10 @@ __global__ void __launch_bounds__(THREADS, 4)
     cnt = 0;
   };
 
-  // seeds: the difference form of every (M / 64)-th target bounds the
-  // nearest; smin starts at its threshold, a valid stand-in for a screen
-  float thr[SLOTS], smin[SLOTS], mg[SLOTS];
+  // seeds: the difference form of ns strided targets (1 in 64, at most
+  // 256) bounds the nearest; smin starts at its threshold, a valid
+  // stand-in for a screen
+  float gm[SLOTS], thr[SLOTS], smin[SLOTS], mg[SLOTS];
   // the pending share of a slot: its group and min screen
   float pg[SLOTS];
   uint32_t pj[SLOTS];
@@ -442,8 +391,8 @@ __global__ void __launch_bounds__(THREADS, 4)
     pg[s] = CUDART_INF_F;
     pj[s] = 0u;
     if (live >> s & 1) {
-      thr[s] = smin[s] = threshold<TC>(u, an);
-      mg[s] = margin_at<TC>(smin[s], ah, an);
+      thr[s] = smin[s] = threshold(u, an);
+      mg[s] = margin_at(smin[s], ah, an);
     } else {
       thr[s] = smin[s] = -CUDART_INF_F;
       mg[s] = 0.0f;
@@ -455,106 +404,64 @@ __global__ void __launch_bounds__(THREADS, 4)
   for (int it = 0; it < tiles; ++it) {
     const int base = it * TILE;
     const float* sb = s_b[it & 1];
-    if (it + 1 < tiles) load_raw<D, TC>(raw, tp, m, base + TILE);
+    if (it + 1 < tiles) load_raw<D>(raw, tp, m, base + TILE);
     const int groups = (min(TILE, m - base) + 8 * GROUP - 1) / (8 * GROUP);
-    // two groups at a time, screened together for the latency; a group
-    // past the tile's live targets screens +inf (padding rows)
-    for (int gi = 0; gi < groups; gi += 2) {
-      float gm2[2][SLOTS];
+    for (int gi = 0; gi < groups; ++gi) {
 #pragma unroll
-      for (int u = 0; u < 2; ++u) {
-  #pragma unroll
-        for (int k = 0; k < GROUP; ++k) {
-          const int c8 = ((gi + u) * GROUP + k) * 8;   // the n8 tile's first target
-          if constexpr (!TC) {
-            // targets c8 + 2t, c8 + 2t + 1: (b', |b'|^2) rows, one 16-byte
-            // load a 4 floats, each target feeding the lane's 4 queries
-            float b0[RW], b1[RW];
-  #pragma unroll
-            for (int kk = 0; kk < RW; kk += 4) {
-              const float4 x = *reinterpret_cast<const float4*>(
-                  &sb[(c8 + 2 * t) * RW + kk]);
-              const float4 y = *reinterpret_cast<const float4*>(
-                  &sb[(c8 + 2 * t + 1) * RW + kk]);
-              b0[kk] = x.x, b0[kk + 1] = x.y, b0[kk + 2] = x.z, b0[kk + 3] = x.w;
-              b1[kk] = y.x, b1[kk + 1] = y.y, b1[kk + 2] = y.z, b1[kk + 3] = y.w;
-            }
-  #pragma unroll
-            for (int s = 0; s < SLOTS; ++s) {
-              float s0 = b0[D], s1 = b1[D];
-  #pragma unroll
-              for (int d = 0; d < D; ++d) {
-                s0 = fmaf(alpha[s][d], b0[d], s0);
-                s1 = fmaf(alpha[s][d], b1[d], s1);
-              }
-              gm2[u][s] = k == 0 ? fminf(s0, s1) : fminf(gm2[u][s], fminf(s0, s1));
-            }
-            continue;
-          }
-          uint32_t b[KS][2];
-  #pragma unroll
-          for (int ks = 0; ks < KS; ++ks) {
-            const float2 bb = *reinterpret_cast<const float2*>(
-                &sb[(c8 + g) * 8 * KS + ks * 8 + 2 * t]);
-            b[ks][0] = __float_as_uint(bb.x);
-            b[ks][1] = __float_as_uint(bb.y);
-          }
-  #pragma unroll
-          for (int mt = 0; mt < MT; ++mt) {
-            float dv[4];
-            mma_k8(dv, af[mt][0], b[0][0], b[0][1], 0.0f, 0.0f, 0.0f, 0.0f);
-  #pragma unroll
-            for (int ks = 1; ks < KS; ++ks)
-              mma_k8(dv, af[mt][ks], b[ks][0], b[ks][1], dv[0], dv[1], dv[2],
-                     dv[3]);
-            if (k == 0) {
-              gm2[u][2 * mt] = fminf(dv[0], dv[1]);
-              gm2[u][2 * mt + 1] = fminf(dv[2], dv[3]);
-            } else {
-              gm2[u][2 * mt] = min3(gm2[u][2 * mt], dv[0], dv[1]);
-              gm2[u][2 * mt + 1] = min3(gm2[u][2 * mt + 1], dv[2], dv[3]);
-            }
+      for (int k = 0; k < GROUP; ++k) {
+        const int c8 = (gi * GROUP + k) * 8;   // the n8 tile's first target
+        uint32_t b[KS][2];
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks) {
+          const float2 bb = *reinterpret_cast<const float2*>(
+              &sb[(c8 + g) * 8 * KS + ks * 8 + 2 * t]);
+          b[ks][0] = __float_as_uint(bb.x);
+          b[ks][1] = __float_as_uint(bb.y);
+        }
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          float dv[4];
+          mma_k8(dv, af[mt][0], b[0][0], b[0][1], 0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+          for (int ks = 1; ks < KS; ++ks)
+            mma_k8(dv, af[mt][ks], b[ks][0], b[ks][1], dv[0], dv[1], dv[2],
+                   dv[3]);
+          if (k == 0) {
+            gm[2 * mt] = fminf(dv[0], dv[1]);
+            gm[2 * mt + 1] = fminf(dv[2], dv[3]);
+          } else {
+            gm[2 * mt] = min3(gm[2 * mt], dv[0], dv[1]);
+            gm[2 * mt + 1] = min3(gm[2 * mt + 1], dv[2], dv[3]);
           }
         }
       }
+      bool pass = false;
 #pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        float gm[SLOTS];
+      for (int s = 0; s < SLOTS; ++s) pass |= gm[s] <= thr[s];
+      if (!__any_sync(FULL, pass)) continue;
+      // a pass: tighten the thresholds (smin only moves where gm <= thr,
+      // since thr >= smin); the share becomes its slot's pending one, and
+      // the one it displaces goes to the list if it still passes
+      const uint32_t group = static_cast<uint32_t>(base / (8 * GROUP) + gi);
 #pragma unroll
-        for (int s = 0; s < SLOTS; ++s) gm[s] = gm2[u][s];
-        if constexpr (!TC) {
-  #pragma unroll
-          for (int s = 0; s < SLOTS; ++s) gm[s] += ahs[s];
-        }
-        bool pass = false;
-  #pragma unroll
-        for (int s = 0; s < SLOTS; ++s) pass |= gm[s] <= thr[s];
-        if (!__any_sync(FULL, pass)) continue;
-        // a pass: tighten the thresholds (smin only moves where gm <= thr,
-        // since thr >= smin); the share becomes its slot's pending one, and
-        // the one it displaces goes to the list if it still passes
-        const uint32_t group =
-            static_cast<uint32_t>(base / (8 * GROUP) + gi + u);
-  #pragma unroll
-        for (int s = 0; s < SLOTS; ++s) {
-          const bool ps = gm[s] <= thr[s];
-          smin[s] = fminf(smin[s], gm[s]);
-          thr[s] = smin[s] + mg[s];
-          if (ps) {
-            if (pg[s] <= thr[s]) {
-              s_list[cnt * THREADS + threadIdx.x] = (1u << (24 + s)) | pj[s];
-              ++cnt;
-            }
-            pj[s] = group;
-            pg[s] = gm[s];
+      for (int s = 0; s < SLOTS; ++s) {
+        const bool ps = gm[s] <= thr[s];
+        smin[s] = fminf(smin[s], gm[s]);
+        thr[s] = smin[s] + mg[s];
+        if (ps) {
+          if (pg[s] <= thr[s]) {
+            s_list[cnt * THREADS + threadIdx.x] = (1u << (24 + s)) | pj[s];
+            ++cnt;
           }
+          pj[s] = group;
+          pg[s] = gm[s];
         }
-        if (counts && lane == 0) atomicAdd(&counts[0], 1);
-        if (__any_sync(FULL, cnt > LIST - SLOTS)) flush();
       }
+      if (counts && lane == 0) atomicAdd(&counts[0], 1);
+      if (__any_sync(FULL, cnt > LIST - SLOTS)) flush();
     }
     if (it + 1 < tiles) {
-      stage<D, TC>(raw, c, m, base + TILE, s_b[(it + 1) & 1]);
+      stage<D>(raw, c, m, base + TILE, s_b[(it + 1) & 1]);
       if ((it + 1) % REFRESH == 0) {   // share smin in the quad, new margins
 #pragma unroll
         for (int s = 0; s < SLOTS; ++s) {
@@ -562,7 +469,7 @@ __global__ void __launch_bounds__(THREADS, 4)
           smin[s] = fminf(smin[s], __shfl_xor_sync(FULL, smin[s], 2));
           if (live >> s & 1) {
             const float ah = s_a[row_of(s)];
-            mg[s] = margin_at<TC>(smin[s], ah, sqrtf(ah * A_UP));
+            mg[s] = margin_at(smin[s], ah, sqrtf(ah * A_UP));
             thr[s] = smin[s] + mg[s];
           }
         }
@@ -579,8 +486,8 @@ __global__ void __launch_bounds__(THREADS, 4)
     smin[s] = fminf(smin[s], __shfl_xor_sync(FULL, smin[s], 2));
     if (live >> s & 1) {
       const float ah = s_a[row_of(s)];
-      if (pg[s] <= threshold<TC>(upper<TC>(smin[s], ah, sqrtf(ah * A_UP)),
-                                 sqrtf(ah * A_UP))) {
+      if (pg[s] <= threshold(upper(smin[s], ah, sqrtf(ah * A_UP)),
+                             sqrtf(ah * A_UP))) {
         s_list[cnt * THREADS + threadIdx.x] = (1u << (24 + s)) | pj[s];
         ++cnt;
       }
@@ -676,12 +583,12 @@ __global__ void __launch_bounds__(32)
   }
 }
 
-template <int D, bool TC = true>
+template <int D>
 int launch(const void* query, const void* target, const void* qi,
            const void* ti, int p, int n, int m, void* dist, void* idx,
            void* counts, cudaStream_t stream) {
   const dim3 blocks((n + ROWS - 1) / ROWS, p);
-  chamfer_nn_kernel<D, TC><<<blocks, THREADS, 0, stream>>>(
+  chamfer_nn_kernel<D><<<blocks, THREADS, 0, stream>>>(
       static_cast<const float*>(query), static_cast<const float*>(target),
       static_cast<const int*>(qi), static_cast<const int*>(ti), n, m,
       static_cast<float*>(dist), static_cast<int*>(idx),
@@ -740,17 +647,4 @@ extern "C" int pcfm_chamfer_screen(const void* query, const void* target,
     default: return launch_screen<8>(query, target, n, m, out, st);
 #undef PCFM_CASE
   }
-}
-
-// The same search with the screen on the CUDA cores (fp32 FMAs), D = 3:
-// the alternative the tensor-core screen was measured against.
-extern "C" int pcfm_chamfer_nn_fp32_screen(const void* query,
-                                           const void* target, const void* qi,
-                                           const void* ti, int p, int n, int m,
-                                           void* dist, void* idx,
-                                           void* counts, void* stream) {
-  if (p <= 0 || p > 65535 || n <= 0 || m <= 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  return launch<3, false>(query, target, qi, ti, p, n, m, dist, idx, counts,
-                          static_cast<cudaStream_t>(stream));
 }

@@ -41,6 +41,9 @@ from pcfm_torch.ops.build import check_launch, load_library, use_kernel
 MAX_D = 8                   # the kernel's point width, as the TPU kernel pads
 MAX_GRID_PAIRS = 65535      # pairs a launch (the grid's y extent)
 PLAIN_ELEMS = 1 << 26       # the plain version's (pairs, rows, M, D) chunk
+# the kernel's bound on its screen's error over (|a~| + |b~|)^2 (KAPPA in
+# chamfer_nn.cu), which its margin is derived from
+SCREEN_KAPPA = 2.0 ** -17
 
 launches = 0
 
@@ -186,7 +189,9 @@ def chamfer_nn(query: torch.Tensor, target: torch.Tensor, qi, ti,
     dev, p, n = query.device, qi.numel(), query.shape[1]
     dist = torch.empty((p, n), dtype=torch.float32, device=dev)
     idx = torch.empty((p, n), dtype=torch.int32, device=dev)
-    ids = torch.stack([qi, ti]).to(dev, torch.int32)
+    # pinned, so that the copy does not wait for the card
+    ids = torch.stack([qi, ti]).to(torch.int32).pin_memory().to(
+        dev, non_blocking=True)
     for s in range(0, p, MAX_GRID_PAIRS):
         e = min(p, s + MAX_GRID_PAIRS)
         _launch(query, target, ids[0, s:e], ids[1, s:e], dist[s:e],
@@ -194,12 +199,33 @@ def chamfer_nn(query: torch.Tensor, target: torch.Tensor, qi, ti,
     return dist, idx
 
 
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """fp32 rounded to TF32 as cvt.rna.tf32.f32 does: to nearest, ties
+    away from zero, 10 mantissa bits."""
+    bits = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    bits = (bits + 0x1000) & 0xFFFFE000
+    return torch.where(bits >= 2 ** 31, bits - 2 ** 32, bits).to(
+        torch.int32).view(torch.float32)
+
+
+def screen_reference(query: torch.Tensor, target: torch.Tensor):
+    """Plain version of ``screen``: ``|a~ - b~|^2`` (N, M) in float64 from
+    the kernel's TF32 coordinates, and ``(|a~| + |b~|)^2``, the scale that
+    the kernel's error bound ``SCREEN_KAPPA`` is relative to."""
+    at = _tf32(query - target[0]).double()
+    bt = _tf32(target - target[0]).double()
+    na, nb = (at * at).sum(-1), (bt * bt).sum(-1)
+    exact = na[:, None] + nb[None, :] - 2.0 * at @ bt.T
+    scale = (na.sqrt()[:, None] + nb.sqrt()[None, :]) ** 2
+    return exact, scale
+
+
 def screen(query: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     """The kernel's screen for one pair on the card, (N, D) queries
-    against (M, D) targets: ``|b~|^2 - 2 a~.b~`` (N, M) fp32 from the
-    tensor cores, where ``x~`` is ``x - target[0]`` rounded to TF32.  Not
-    on any path: it lets a check hold the card's screen error against the
-    kernel's margin (chamfer_nn.cu's KAPPA)."""
+    against (M, D) targets: ``|a~ - b~|^2`` (N, M) fp32 from the tensor
+    cores, where ``x~`` is ``x - target[0]`` rounded to TF32.  Not on any
+    path: it lets a check hold the card's screen error against the
+    kernel's margin (``SCREEN_KAPPA``)."""
     if query.dim() != 2 or target.dim() != 2 or not query.is_cuda \
             or query.shape[1] != target.shape[1]:
         raise ValueError("screen: (N, D) and (M, D) CUDA tensors")

@@ -569,6 +569,66 @@ def test_chamfer_kernel_ties_and_pairs_form(cuda):
     assert float(diag.abs().max()) == 0.0
 
 
+def _clouds_on(cuda, case: str):
+    """Adversarial (query, target) stacks for the kernel's screen: shifted
+    clouds, an integer lattice with exact ties, clouds sorted along x, D = 8,
+    and sizes off every tile (128 queries a block; 256 targets a tile, 32 a
+    group, 8 an mma; 256 seeds)."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+
+    def rnd(*shape):
+        return torch.randn(*shape, device=cuda, generator=g)
+
+    def by_x(x):
+        return torch.gather(x, 1, x[..., :1].argsort(dim=1).expand(
+            -1, -1, x.shape[-1])).contiguous()
+
+    if case.startswith("shift"):
+        shift = float(case.split("_")[1])
+        return rnd(2, 1500, 3) + shift, rnd(2, 1300, 3) + shift
+    if case == "lattice":
+        return tuple(torch.randint(0, 8, (2, n, 3), device=cuda,
+                                   generator=g).float() for n in (1500, 1300))
+    if case == "sorted":
+        return by_x(rnd(2, 1500, 3)), by_x(rnd(2, 1300, 3))
+    if case == "sorted_d8":
+        return by_x(rnd(2, 1000, 8)), by_x(rnd(2, 777, 8))
+    if case == "ragged":
+        return rnd(3, 129, 3), rnd(3, 263, 3)
+    return rnd(2, 301, 3), rnd(2, 5, 3)          # fewer targets than an mma
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["shift_1e2", "shift_1e4", "lattice",
+                                  "sorted", "sorted_d8", "ragged", "few"])
+def test_chamfer_kernel_on_adversarial_clouds(cuda, case):
+    a, b = _clouds_on(cuda, case)
+    got = chamfer.chamfer_distance(a, b)
+    again = chamfer.chamfer_distance(a, b)
+    torch.cuda.synchronize()
+    pairs = list(range(a.shape[0]))
+    _check_nn(a, b, pairs, pairs, got[0], got[2])
+    _check_nn(b, a, pairs, pairs, got[1], got[3])
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    if case == "lattice":       # exact ties: the lowest index, as argmin
+        for (q, t, idx) in ((a, b, got[2]), (b, a, got[3])):
+            ref_i = chamfer.chamfer_nn_reference(q, t, pairs, pairs)[1]
+            assert torch.equal(idx, ref_i)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,shift", [(3, 0.0), (3, 1e4), (8, 0.0)])
+def test_chamfer_screen_error_within_the_kernels_bound(cuda, d, shift):
+    """The tensor cores' screen against its plain version: within
+    SCREEN_KAPPA (|a~| + |b~|)^2, the bound the kernel's margin assumes."""
+    g = torch.Generator(device=cuda).manual_seed(d)
+    q = torch.randn(700, d, device=cuda, generator=g) + shift
+    t = torch.randn(900, d, device=cuda, generator=g) + shift
+    s = chamfer.screen(q, t).double()
+    exact, scale = chamfer.screen_reference(q, t)
+    assert float(((s - exact).abs() / scale).max()) <= chamfer.SCREEN_KAPPA
+
+
 @pytest.mark.gpu
 def test_chamfer_kernel_refuses_what_it_does_not_take(cuda):
     a = torch.randn(2, 10, 9, device=cuda)
