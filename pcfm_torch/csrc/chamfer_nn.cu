@@ -181,12 +181,46 @@ __device__ __forceinline__ float exact(const float (&a)[D],
   return s;
 }
 
-// x = hi + lo in two TF32 values, to 2^-22 |x|.  The K-vector of a query
-// row is (A: -2 a~, 1, 1, ahat hi, ahat lo), of a target column (B: b~,
-// |b~|^2 hi, lo, 1, 1); a padding target has |b~|^2 hi = +inf, lo = 0.
+// x = hi + lo in two TF32 values, to 2^-22 |x|.
 __device__ __forceinline__ void split(float x, float& hi, float& lo) {
   hi = tf32_rna(x);
   lo = tf32_rna(x - hi);
+}
+
+// Element k of a query row's K-vector A = (-2 a~, 1, 1, ahat hi, ahat lo,
+// 0...), from its TF32 coordinate at_k = a~_k (k < D) and ahat = |a~|^2.
+template <int D>
+__device__ __forceinline__ uint32_t a_entry(int k, float at_k, float ahat) {
+  float hi, lo;
+  split(ahat, hi, lo);
+  const float v = k < D       ? -2.0f * at_k
+                  : k < D + 2 ? 1.0f
+                  : k == D + 2 ? hi
+                  : k == D + 3 ? lo
+                               : 0.0f;
+  return __float_as_uint(v);
+}
+
+// A target's K-vector B = (b~, |b~|^2 hi, lo, 1, 1, 0...); a padding
+// target (not live) has |b~|^2 hi = +inf, lo = 0, and screens +inf.
+template <int D>
+__device__ __forceinline__ void b_vector(const float (&x)[D], bool live,
+                                         const float (&c)[D],
+                                         float (&b)[8 * k_steps<D>]) {
+#pragma unroll
+  for (int k = 0; k < 8 * k_steps<D>; ++k) b[k] = 0.0f;
+  if (live) {
+    float nb = 0.0f;
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      b[d] = tf32_rna(x[d] - c[d]);
+      nb = fmaf(b[d], b[d], nb);
+    }
+    split(nb, b[D], b[D + 1]);
+  } else {
+    b[D] = CUDART_INF_F;
+  }
+  b[D + 2] = b[D + 3] = 1.0f;
 }
 
 // A tile's raw coordinates, two targets a thread (one for D > 4), loaded
@@ -219,20 +253,7 @@ __device__ __forceinline__ void stage(const Raw<D>& raw, const float (&c)[D],
   for (int i = 0; i < tile_of<D> / THREADS; ++i) {
     const int j = threadIdx.x + i * THREADS;
     float b[8 * KS];
-#pragma unroll
-    for (int k = 0; k < 8 * KS; ++k) b[k] = 0.0f;
-    if (base + j < m) {
-      float nb = 0.0f;
-#pragma unroll
-      for (int d = 0; d < D; ++d) {
-        b[d] = tf32_rna(raw.v[i][d] - c[d]);
-        nb = fmaf(b[d], b[d], nb);
-      }
-      split(nb, b[D], b[D + 1]);
-    } else {
-      b[D] = CUDART_INF_F;
-    }
-    b[D + 2] = b[D + 3] = 1.0f;
+    b_vector<D>(raw.v[i], base + j < m, c, b);
 #pragma unroll
     for (int ks = 0; ks < KS; ++ks) {
       float* row = sb + j * 8 * KS + ks * 8;
@@ -318,14 +339,8 @@ __global__ void __launch_bounds__(THREADS, k_steps<D> == 1 ? 4 : 2)
       for (int r = 0; r < 4; ++r) {
         const int row = row_of(2 * mt + (r & 1));
         const int k = 8 * ks + t + 4 * (r >> 1);
-        float hi, lo;
-        split(s_a[row], hi, lo);
-        float v = 0.0f;
-        if (k < D) v = -2.0f * tf32_rna(s_q[row * D + k] - c[k]);
-        else if (k < D + 2) v = 1.0f;
-        else if (k == D + 2) v = hi;
-        else if (k == D + 3) v = lo;
-        af[mt][ks][r] = __float_as_uint(v);
+        const float at_k = k < D ? tf32_rna(s_q[row * D + k] - c[k]) : 0.0f;
+        af[mt][ks][r] = a_entry<D>(k, at_k, s_a[row]);
       }
     }
   }
@@ -529,50 +544,39 @@ __global__ void __launch_bounds__(32)
   const int lane = threadIdx.x, g = lane >> 2, t = lane & 3;
   const int r0 = blockIdx.x * 16, c0 = blockIdx.y * 8;
   // the K-vectors of query row r and target j, as the kernel builds them
+  float c[D];
+#pragma unroll
+  for (int d = 0; d < D; ++d) c[d] = target[d];
   auto a_of = [&](int r, int k) -> uint32_t {
     if (r >= n) return 0u;
-    float at[D], ah = 0.0f;
+    float ah = 0.0f, at_k = 0.0f;
 #pragma unroll
     for (int d = 0; d < D; ++d) {
-      at[d] = tf32_rna(query[static_cast<size_t>(r) * D + d] - target[d]);
-      ah = fmaf(at[d], at[d], ah);
+      const float at =
+          tf32_rna(query[static_cast<size_t>(r) * D + d] - c[d]);
+      ah = fmaf(at, at, ah);
+      if (d == k) at_k = at;
     }
-    float hi, lo, v = 0.0f;
-    split(ah, hi, lo);
-#pragma unroll
-    for (int d = 0; d < D; ++d)
-      if (k == d) v = -2.0f * at[d];
-    if (k == D || k == D + 1) v = 1.0f;
-    if (k == D + 2) v = hi;
-    if (k == D + 3) v = lo;
-    return __float_as_uint(v);
+    return a_entry<D>(k, at_k, ah);
   };
   auto b_of = [&](int j, int k) -> uint32_t {
-    float bt[D], nb = 0.0f;
-#pragma unroll
-    for (int d = 0; d < D; ++d) {
-      bt[d] = j < m ? tf32_rna(target[static_cast<size_t>(j) * D + d] -
-                               target[d])
-                    : 0.0f;
-      nb = fmaf(bt[d], bt[d], nb);
-    }
-    float hi, lo, v = 0.0f;
-    split(nb, hi, lo);
-    if (j >= m) hi = CUDART_INF_F, lo = 0.0f;
+    float x[D], b[8 * KS];
 #pragma unroll
     for (int d = 0; d < D; ++d)
-      if (k == d) v = bt[d];
-    if (k == D) v = hi;
-    if (k == D + 1) v = lo;
-    if (k == D + 2 || k == D + 3) v = 1.0f;
-    return __float_as_uint(v);
+      x[d] = j < m ? target[static_cast<size_t>(j) * D + d] : 0.0f;
+    b_vector<D>(x, j < m, c, b);
+    uint32_t v = 0u;
+#pragma unroll
+    for (int i = 0; i < 8 * KS; ++i)
+      if (i == k) v = __float_as_uint(b[i]);
+    return v;
   };
   float dv[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
   for (int ks = 0; ks < KS; ++ks) {
-    const uint32_t a[4] = {a_of(r0 + g, 8 * ks + t), a_of(r0 + g + 8, 8 * ks + t),
-                           a_of(r0 + g, 8 * ks + t + 4),
-                           a_of(r0 + g + 8, 8 * ks + t + 4)};
+    const uint32_t a[4] = {
+        a_of(r0 + g, 8 * ks + t), a_of(r0 + g + 8, 8 * ks + t),
+        a_of(r0 + g, 8 * ks + t + 4), a_of(r0 + g + 8, 8 * ks + t + 4)};
     mma_k8(dv, a, b_of(c0 + g, 8 * ks + t), b_of(c0 + g, 8 * ks + t + 4),
            dv[0], dv[1], dv[2], dv[3]);
   }

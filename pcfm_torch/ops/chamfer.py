@@ -19,11 +19,12 @@ kernel launches, never plain-version calls.
 The JAX package picks the neighbour with the dot trick ``|a|^2 + |b|^2 -
 2 a.b`` and recomputes its distance in difference form; the port picks it
 in difference form too, so near ties are decided exactly.  The kernel
-scores ``|b|^2 - 2 a.b`` on the tensor cores (TF32, relative to the pair's
-first target point) only as a screen, and checks in difference form every
-target whose screen passes a threshold proven to admit the nearest one;
-``screen`` returns those scores for one pair, so that the card's error can
-be held against the margin the threshold allows.  As in JAX the
+scores ``|a~ - b~|^2`` on the tensor cores (TF32 coordinates relative to
+the pair's first target point) only as a screen, and checks in difference
+form every target whose screen passes a threshold proven to admit the
+nearest one and its ties; ``screen`` returns those scores for one pair,
+so that the card's error can be held against the margin the threshold
+allows (``SCREEN_KAPPA``).  As in JAX the
 argmin is constant under differentiation: when an input requires grad,
 ``chamfer_distance`` recomputes the returned distances in torch from the
 indices, so gradients flow to both clouds.
@@ -175,7 +176,7 @@ def chamfer_nn(query: torch.Tensor, target: torch.Tensor, qi, ti,
     must be contiguous fp32 on one device with D <= 8.  ``chunk`` is the
     plain version's query chunk (CPU tensors).  ``counts``, a diagnostic:
     an int32 (2,) tensor on the card to which the kernel adds the groups
-    whose screen passed (a warp's 64 queries x 32 targets) and the lane
+    whose screen passed (a warp's 32 queries x 32 targets) and the lane
     shares (one query x 8 targets) it checked in difference form."""
     if not use_kernel(query, "chamfer_nn"):
         return chamfer_nn_reference(query, target, qi, ti, chunk)
