@@ -82,10 +82,9 @@
 // points).  tests/test_torch_port_chamfer_screen.py mirrors T and Ub
 // constant for constant and holds the margin on the CPU.
 //
-// What bounds it now: latency.  A group of 32 targets x 32 queries is 4
-// shared-memory loads, 8 mma, 16 mins and a vote a warp, a chain of ~150
-// cycles; 5 warps a scheduler do not hide it, and the mma and min pipes
-// run at about a third of their rates (PERF.md).
+// What bounds it now: the screen's instructions, for 32 queries x 32
+// targets a warp 8 mma.sync, 16 mins, 4 shared-memory loads and a vote; a
+// wgmma screen (A from registers) was no faster (PERF.md).
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
