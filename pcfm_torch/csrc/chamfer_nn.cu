@@ -18,7 +18,8 @@
 // What bounds it: operations.  The difference form costs D subtractions
 // and D multiply-adds a (query, target) pair (8 FLOP at D = 3, 0.76 ms at
 // (8, 20000, 3) both ways at 67 TFLOP/s fp32), and deciding the minimum
-// adds a comparison and selects: PR 4's kernel ran ~9 instructions a pair.
+// adds a comparison and selects: ~9 instructions a pair when each pair is
+// taken in that form.
 // The TPU kernel scores |b|^2 - 2 a.b on the MXU, which is inexact on near
 // ties.  Here a dot form is only a screen, and the difference form decides.
 //
@@ -167,7 +168,7 @@ __device__ __forceinline__ float min3(float a, float b, float c) {
       __vimin3_s32(__float_as_int(a), __float_as_int(b), __float_as_int(c)));
 }
 
-// The exact difference form, as the plain version and PR 4's kernel.
+// The exact difference form, as the plain version takes it.
 template <int D>
 __device__ __forceinline__ float exact(const float (&a)[D],
                                        const float* __restrict__ b) {
