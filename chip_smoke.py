@@ -77,9 +77,10 @@ failure:
    that test its screen's margin at (8, 20 000, 3): clouds shifted by 1e2
    and 1e4, an integer lattice (exact ties: the indices must equal the
    plain version's), clouds sorted along x, each held the same way and
-   timed, with the kernel's share checks a query; and the tensor cores'
-   screen against its plain version (D = 3 and 8, shifted), within the
-   SCREEN_KAPPA its margin assumes;
+   timed; the tensor cores' screen against its plain version (D = 3 and
+   8, shifted), within the SCREEN_KAPPA its margin assumes; and a query
+   with a NaN coordinate, which must get a valid index (and a gradient
+   through it) while the other queries stay right;
 15. the evaluation CLI at full width on phase 7's trained run (8 x 20 000,
    synthetic; recon and gen, 2 batches, Heun x 50): exact chamfer launches
    (2 a batch), 500 FiLM-block launches per Heun x 50 call, finite
@@ -1103,14 +1104,19 @@ def chamfer_bound(clouds: int, pairs: int, n: int, m: int,
     return bound_ms(nbytes, 2 * pairs * n * m * (3 * d - 1), FP32_FLOPS)
 
 
-def chamfer_screen_bound(pairs: int, n: int, m: int, d: int) -> tuple:
-    """Least time of the kernel's screen over both ways of ``pairs`` pairs:
-    2 K FLOP a (query, target) pair on the TF32 tensor cores (K = D + 4
-    padded to 8 or 16), or one fp32 min a pair, whichever is longer."""
+def chamfer_screen_bound(clouds: int, pairs: int, n: int, m: int,
+                         d: int) -> tuple:
+    """The kernel's bound: the least time of its screen, which every
+    (query, target) pair needs (the difference-form check takes only the
+    few targets that pass it), over both ways of ``pairs`` pairs.  The
+    bytes as in ``chamfer_bound``; the operations 2 K FLOP a pair on the
+    TF32 tensor cores (K = D + 4 padded to 8 or 16), or one fp32 min a
+    pair, whichever is longer."""
+    nbytes = clouds * (n + m) // 2 * d * 4 + pairs * (n + m) * 8
     k = 8 * ((d + 4 + 7) // 8)
     both = 2 * pairs * n * m
-    tensor, mins = both * 2 * k / TF32_FLOPS * 1e3, both / FP32_FLOPS * 1e3
-    return (tensor, "tf32") if tensor >= mins else (mins, "fp32 min")
+    return max(bound_ms(nbytes, both * 2 * k, TF32_FLOPS),
+               bound_ms(nbytes, both, FP32_FLOPS))
 
 
 def cdist_min(torch, q, t):
@@ -1147,18 +1153,25 @@ def check_nn(tc, torch, q, t, qi, ti, dist, idx, tag: str) -> tuple:
     return err, int(differ.sum()), tol
 
 
-def chamfer_timed(tag, kernel, plain, library, bound) -> dict:
-    """Kernel and plain CUDA-event ms in turns, beside the bound; the
-    yardstick (seconds a call) timed once, when given."""
+def chamfer_timed(tag, kernel, plain, library, shape) -> dict:
+    """Kernel and plain CUDA-event ms in turns, beside the bound (the
+    screen's, ``chamfer_screen_bound``) and the difference form's bound
+    (``chamfer_bound``, which earlier rows were held to); the yardstick
+    (seconds a call) timed once, when given.  ``shape``: (clouds, pairs,
+    n, m, d)."""
     t = timed_turns({"plain": plain, "kernel": kernel}, rounds=1,
                     reps={"plain": 1, "kernel": 10})
     lib = cuda_ms(library, reps=1) if library else None
     lib_note = f", cdist + min {lib:.1f} ms (one run)" if lib else ""
+    bound, diff = chamfer_screen_bound(*shape), chamfer_bound(*shape)
     print(f"[chamfer] {tag}: kernel {t['kernel']:.4f} ms, plain "
-          f"{t['plain']:.3f} ms{lib_note}; bound {bound[0]:.4f} ms "
-          f"({bound[1]})")
+          f"{t['plain']:.3f} ms{lib_note}; bound (the screen) "
+          f"{bound[0]:.4f} ms ({bound[1]}), "
+          f"{100 * bound[0] / t['kernel']:.1f} % of it; the difference "
+          f"form's {diff[0]:.4f} ms")
     return {"ms": t["kernel"], "plain_ms": t["plain"], "library_ms": lib,
-            "bound_ms": bound[0], "bound_by": bound[1]}
+            "bound_ms": bound[0], "bound_by": bound[1],
+            "difference_form_bound_ms": diff[0]}
 
 
 def chamfer_vs_plain(tc, torch):
@@ -1205,7 +1218,7 @@ def chamfer_vs_plain(tc, torch):
             lambda: (tc.chamfer_nn_reference(a, b, pairs, pairs),
                      tc.chamfer_nn_reference(b, a, pairs, pairs)),
             (lambda: cdist_min(torch, a, b)) if bsz == B else None,
-            chamfer_bound(2 * bsz, bsz, N, N, 3))
+            (2 * bsz, bsz, N, N, 3))
         del a, b, got
         torch.cuda.empty_cache()
     both_ways(rnd(B, 20011, 3), rnd(B, 17389, 3), f"({B}, 20011 vs 17389, 3)")
@@ -1241,8 +1254,7 @@ def chamfer_vs_plain(tc, torch):
         lambda: (tc.chamfer_nn_reference(sets, sets, qi, ti),
                  tc.chamfer_nn_reference(sets, sets, ti, qi)),
         lambda: cdist_min(torch, pairs_q, pairs_t),
-        chamfer_bound(SUITE_CLOUDS, SUITE_CLOUDS ** 2, SUITE_POINTS,
-                      SUITE_POINTS, 3))
+        (SUITE_CLOUDS, SUITE_CLOUDS ** 2, SUITE_POINTS, SUITE_POINTS, 3))
     del sets, pairs_q, pairs_t
     torch.cuda.empty_cache()
 
@@ -1252,7 +1264,6 @@ def chamfer_vs_plain(tc, torch):
         return torch.gather(x, 1, x[..., :1].argsort(dim=1).expand(-1, -1, 3)
                             ).contiguous()
 
-    cnt = torch.zeros(2, dtype=torch.int32, device=DEVICE)
     pairs = list(range(B))
     a, b = rnd(B, N, 3), rnd(B, N, 3)
     cases = {"random": (a, b), "shifted +1e2": (a + 1e2, b + 1e2),
@@ -1273,15 +1284,9 @@ def chamfer_vs_plain(tc, torch):
                                            "did not go to the lowest index")
                 print("[chamfer] integer lattice: indices equal the plain "
                       "version's (exact ties to the lowest index)")
-        cnt.zero_()
-        tc.chamfer_nn(x, y, pairs, pairs, counts=cnt)
-        tc.chamfer_nn(y, x, pairs, pairs, counts=cnt)
-        checks = int(cnt[1]) / (2 * B * N)
         ms = cuda_ms(lambda: tc.chamfer_distance(x, y))
-        print(f"[chamfer] ({B}, {N}, 3) {tag}: kernel {ms:.4f} ms both ways, "
-              f"{checks:.2f} shares of 8 targets checked a query, "
-              f"{int(cnt[0])} warp groups passed")
-        out["cases"][tag] = {"ms": ms, "share_checks_a_query": checks}
+        print(f"[chamfer] ({B}, {N}, 3) {tag}: kernel {ms:.4f} ms both ways")
+        out["cases"][tag] = {"ms": ms}
     del a, b, cases
     torch.cuda.empty_cache()
 
@@ -1298,6 +1303,30 @@ def chamfer_vs_plain(tc, torch):
         del q, t, exact, scale
     if ratio > 1.0:
         raise RuntimeError(f"chamfer screen error {ratio:.3g} x its bound")
+
+    # a query with a NaN coordinate: no share passes its threshold, so it
+    # keeps the index it starts with (0, with +inf); the other queries'
+    # results must not move, and the gradient path must gather in range
+    a, b = rnd(B, N, 3), rnd(B, N, 3)
+    clean = tc.chamfer_nn(a, b, pairs, pairs)
+    a[0, 5, 1] = float("nan")
+    d1, i1 = tc.chamfer_nn(a, b, pairs, pairs)
+    i2 = tc.chamfer_nn(b, a, pairs, pairs)[1]
+    rest = torch.ones_like(i1, dtype=torch.bool)
+    rest[0, 5] = False
+    a.requires_grad_(True)
+    g1, g2, _, _ = tc.chamfer_distance(a, b)
+    (g1.nan_to_num(0.0).sum() + g2.sum()).backward()
+    torch.cuda.synchronize()
+    if not (int(i1[0, 5]) == 0 and int(i1.min()) >= 0 and int(i1.max()) < N
+            and int(i2.min()) >= 0 and int(i2.max()) < N
+            and torch.equal(d1[rest], clean[0][rest])
+            and torch.equal(i1[rest], clean[1][rest])):
+        raise RuntimeError("chamfer_nn: a NaN query gave an index out of "
+                           "range or moved the other queries' results")
+    print("[chamfer] a NaN query: index 0, the other queries bitwise as "
+          "without it, the gradient path gathers in range")
+    del a, b, clean, d1, i1, i2, g1, g2
     out["screen_err_over_kappa"] = ratio
     out["max_abs_err"] = worst
     torch.cuda.empty_cache()
@@ -1461,7 +1490,6 @@ def main() -> int:
     su = suite_full_width(fb, tvs, tc, torch)
 
     film = film_bounds(B, N, C)
-    screen_bound = chamfer_screen_bound(B, N, N, 3)
     # the main path's shapes: R = 32 stage, 8 clouds, bf16 features;
     # devoxelize is the K = 8 gather, avg_voxelize the K = 1 scatter
     gather = vox[("gather", 32, 128, B, 8, torch.bfloat16)]
@@ -1557,15 +1585,12 @@ def main() -> int:
         "launches": ev["launches"]["chamfer_nn"],
         "max_abs_err": cham["max_abs_err"], **cham[B],
         "shape": [B, N, N, 3],
-        "screen_bound_ms": screen_bound[0], "screen_bound_by": screen_bound[1],
         "screen_err_over_kappa": cham["screen_err_over_kappa"],
         "cases": cham["cases"],
         **{f"{k}_2b": v for k, v in cham[2 * B].items()
            if k not in ("bound_by", "library_ms")},
         **{f"suite_{k}": v for k, v in cham["suite"].items()},
         "suite_shape": [SUITE_CLOUDS ** 2, SUITE_POINTS, SUITE_POINTS, 3],
-        "suite_screen_bound_ms": chamfer_screen_bound(
-            SUITE_CLOUDS ** 2, SUITE_POINTS, SUITE_POINTS, 3)[0],
         "launches_suite": su["launches"]["chamfer_nn"],
         "eval_cli_wall_s": ev["wall_s"], "suite_cli_wall_s": su["wall_s"],
         "streamed_emd_ms_per_batch": ev["emd_ms"],

@@ -15,7 +15,7 @@
 // the chosen target; ties go to the lowest index.  No float atomics, each
 // output written once: two launches give bitwise-equal results.
 //
-// What bounds it: operations.  The difference form costs D subtractions
+// What it costs taken plainly: the difference form costs D subtractions
 // and D multiply-adds a (query, target) pair (8 FLOP at D = 3, 0.76 ms at
 // (8, 20000, 3) both ways at 67 TFLOP/s fp32), and deciding the minimum
 // adds a comparison and selects: ~9 instructions a pair when each pair is
@@ -85,7 +85,11 @@
 //
 // What bounds it now: the screen's instructions, for 32 queries x 32
 // targets a warp 8 mma.sync, 16 mins, 4 shared-memory loads and a vote; a
-// wgmma screen (A from registers) was no faster (PERF.md).
+// wgmma screen (A from registers) was no faster (PERF.md).  The screen
+// needs every pair and the check only a few, so the screen's least time
+// is the kernel's bound: 2 K TF32 FLOP a pair (K = 8 for D <= 4) at 495
+// TFLOP/s, 0.207 ms at (8, 20000, 3) both ways (chamfer_screen_bound in
+// chip_smoke.py); the difference form for every pair would take 0.76.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
@@ -274,7 +278,7 @@ __global__ void __launch_bounds__(THREADS, k_steps<D> == 1 ? 4 : 2)
                       const float* __restrict__ target,
                       const int* __restrict__ qi, const int* __restrict__ ti,
                       int n, int m, float* __restrict__ dist,
-                      int* __restrict__ idx, int* counts) {
+                      int* __restrict__ idx) {
   constexpr int KS = k_steps<D>;
   constexpr int TILE = tile_of<D>;
   __shared__ __align__(16) float s_b[2][TILE * 8 * KS];
@@ -310,9 +314,11 @@ __global__ void __launch_bounds__(THREADS, k_steps<D> == 1 ? 4 : 2)
     }
     s_a[r] = ah;
   }
+  // index 0, so that a query no share passes (a NaN coordinate) still
+  // gets a valid index, with +inf
   for (int j = threadIdx.x; j < ROWS * 4; j += THREADS) {
     s_bd[j] = CUDART_INF_F;
-    s_bi[j] = 0x7fffffff;
+    s_bi[j] = 0;
   }
   float* s_seed = s_b[1];   // the seeds, until tile 1 is staged
   const int ns = max(1, min(SEEDS, m / 64));   // 256 at M >= 16 384
@@ -374,7 +380,6 @@ __global__ void __launch_bounds__(THREADS, k_steps<D> == 1 ? 4 : 2)
         }
         s_bd[row * 4 + t] = best;
         s_bi[row * 4 + t] = arg;
-        if (counts) atomicAdd(&counts[1], 1);
       }
     }
     cnt = 0;
@@ -472,7 +477,6 @@ __global__ void __launch_bounds__(THREADS, k_steps<D> == 1 ? 4 : 2)
           pg[s] = gm[s];
         }
       }
-      if (counts && lane == 0) atomicAdd(&counts[0], 1);
       if (__any_sync(FULL, cnt > LIST - SLOTS)) flush();
     }
     if (it + 1 < tiles) {
@@ -590,13 +594,12 @@ __global__ void __launch_bounds__(32)
 template <int D>
 int launch(const void* query, const void* target, const void* qi,
            const void* ti, int p, int n, int m, void* dist, void* idx,
-           void* counts, cudaStream_t stream) {
+           cudaStream_t stream) {
   const dim3 blocks((n + ROWS - 1) / ROWS, p);
   chamfer_nn_kernel<D><<<blocks, THREADS, 0, stream>>>(
       static_cast<const float*>(query), static_cast<const float*>(target),
       static_cast<const int*>(qi), static_cast<const int*>(ti), n, m,
-      static_cast<float*>(dist), static_cast<int*>(idx),
-      static_cast<int*>(counts));
+      static_cast<float*>(dist), static_cast<int*>(idx));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -614,24 +617,21 @@ int launch_screen(const void* query, const void* target, int n, int m,
 
 // Plain C entry point (bound with ctypes). Device pointers of contiguous
 // tensors: query (Q, n, d) and target (T, m, d) fp32, qi / ti (p,) int32
-// holding valid cloud indices, dist (p, n) fp32, idx (p, n) int32, and
-// counts: null, or two int32 that the launch adds its group passes and
-// share checks to (a diagnostic).  Launches on `stream`, does not
-// synchronise, returns a cudaError_t code.
+// holding valid cloud indices, dist (p, n) fp32, idx (p, n) int32.
+// Launches on `stream`, does not synchronise, returns a cudaError_t code.
 extern "C" int pcfm_chamfer_nn(const void* query, const void* target,
                                const void* qi, const void* ti, int p, int n,
                                int m, int d, void* dist, void* idx,
-                               void* counts, void* stream) {
+                               void* stream) {
   if (p <= 0 || p > 65535 || n <= 0 || m <= 0 || d < 1 || d > MAX_D)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (d) {
 #define PCFM_CASE(D) \
-  case D: return launch<D>(query, target, qi, ti, p, n, m, dist, idx, counts, st);
+  case D: return launch<D>(query, target, qi, ti, p, n, m, dist, idx, st);
     PCFM_CASE(1) PCFM_CASE(2) PCFM_CASE(3) PCFM_CASE(4)
     PCFM_CASE(5) PCFM_CASE(6) PCFM_CASE(7)
-    default: return launch<8>(query, target, qi, ti, p, n, m, dist, idx,
-                              counts, st);
+    default: return launch<8>(query, target, qi, ti, p, n, m, dist, idx, st);
 #undef PCFM_CASE
   }
 }

@@ -132,14 +132,14 @@ def chamfer_nn_reference(query: torch.Tensor, target: torch.Tensor, qi, ti,
 def _lib():
     lib = load_library()
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.pcfm_chamfer_nn.argtypes = [ptr] * 4 + [i32] * 4 + [ptr] * 4
+    lib.pcfm_chamfer_nn.argtypes = [ptr] * 4 + [i32] * 4 + [ptr] * 3
     lib.pcfm_chamfer_nn.restype = i32
     lib.pcfm_chamfer_screen.argtypes = [ptr] * 2 + [i32] * 3 + [ptr] * 2
     lib.pcfm_chamfer_screen.restype = i32
     return lib
 
 
-def _launch(query, target, qi, ti, dist, idx, counts):
+def _launch(query, target, qi, ti, dist, idx):
     global launches
     p, n, m, d = qi.numel(), query.shape[1], target.shape[1], query.shape[2]
     with torch.cuda.device(query.device):
@@ -147,7 +147,7 @@ def _launch(query, target, qi, ti, dist, idx, counts):
         err = _lib().pcfm_chamfer_nn(
             query.data_ptr(), target.data_ptr(), qi.data_ptr(),
             ti.data_ptr(), p, n, m, d, dist.data_ptr(), idx.data_ptr(),
-            None if counts is None else counts.data_ptr(), stream)
+            stream)
     check_launch(err, "chamfer_nn")
     launches += 1
 
@@ -167,26 +167,18 @@ def _check_stacks(query: torch.Tensor, target: torch.Tensor) -> None:
 
 
 def chamfer_nn(query: torch.Tensor, target: torch.Tensor, qi, ti,
-               chunk: int = 4096, counts: torch.Tensor | None = None):
+               chunk: int = 4096):
     """Nearest target point of each query point, for the pairs
     ``(qi[p], ti[p])``: ``(dist (P, N) fp32, idx (P, N) int32)``.
 
     ``qi`` / ``ti`` are host integer vectors (sequences or CPU tensors) of
     cloud indices.  On the card: one launch per 65 535 pairs; the stacks
     must be contiguous fp32 on one device with D <= 8.  ``chunk`` is the
-    plain version's query chunk (CPU tensors).  ``counts``, a diagnostic:
-    an int32 (2,) tensor on the card to which the kernel adds the groups
-    whose screen passed (a warp's 32 queries x 32 targets) and the lane
-    shares (one query x 8 targets) it checked in difference form."""
+    plain version's query chunk (CPU tensors)."""
     if not use_kernel(query, "chamfer_nn"):
         return chamfer_nn_reference(query, target, qi, ti, chunk)
     qi, ti = _pairs(query, target, qi, ti)
     _check_stacks(query, target)
-    if counts is not None and (counts.dtype != torch.int32
-                               or counts.device != query.device
-                               or counts.numel() != 2):
-        raise ValueError("chamfer_nn: counts must be an int32 (2,) tensor "
-                         f"on {query.device}")
     dev, p, n = query.device, qi.numel(), query.shape[1]
     dist = torch.empty((p, n), dtype=torch.float32, device=dev)
     idx = torch.empty((p, n), dtype=torch.int32, device=dev)
@@ -196,7 +188,7 @@ def chamfer_nn(query: torch.Tensor, target: torch.Tensor, qi, ti,
     for s in range(0, p, MAX_GRID_PAIRS):
         e = min(p, s + MAX_GRID_PAIRS)
         _launch(query, target, ids[0, s:e], ids[1, s:e], dist[s:e],
-                idx[s:e], counts)
+                idx[s:e])
     return dist, idx
 
 

@@ -630,6 +630,33 @@ def test_chamfer_screen_error_within_the_kernels_bound(cuda, d, shift):
 
 
 @pytest.mark.gpu
+def test_chamfer_kernel_gives_a_nan_query_a_valid_index(cuda):
+    """No share of a query with a NaN coordinate passes its threshold: it
+    keeps index 0 (with +inf), the other queries' results do not move, and
+    the gradient path gathers in range."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    a = torch.randn(2, 300, 3, device=cuda, generator=g)
+    b = torch.randn(2, 270, 3, device=cuda, generator=g)
+    clean = chamfer.chamfer_nn(a, b, [0, 1], [0, 1])
+    a[1, 7, 2] = float("nan")
+    dist, idx = chamfer.chamfer_nn(a, b, [0, 1], [0, 1])
+    back = chamfer.chamfer_nn(b, a, [0, 1], [0, 1])[1]
+    assert int(idx[1, 7]) == 0 and float(dist[1, 7]) == float("inf")
+    assert 0 <= int(idx.min()) and int(idx.max()) < 270
+    assert 0 <= int(back.min()) and int(back.max()) < 300
+    rest = torch.ones_like(idx, dtype=torch.bool)
+    rest[1, 7] = False
+    assert torch.equal(dist[rest], clean[0][rest])
+    assert torch.equal(idx[rest], clean[1][rest])
+    a.requires_grad_(True)
+    b.requires_grad_(True)
+    d1, d2, _, _ = chamfer.chamfer_distance(a, b)
+    (d1.nan_to_num(0.0).sum() + d2.sum()).backward()
+    torch.cuda.synchronize()
+    assert torch.isfinite(b.grad[0]).all()     # the pair without the NaN
+
+
+@pytest.mark.gpu
 def test_chamfer_kernel_refuses_what_it_does_not_take(cuda):
     a = torch.randn(2, 10, 9, device=cuda)
     with pytest.raises(ValueError, match="D <= 8"):
