@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --only voxel   # phases 1 and 10 alone
     python3 chip_smoke.py --only chamfer # phases 1 and 14 alone
+    python3 chip_smoke.py --only hybrid_train  # phases 1 and 17-20 alone
 
 Needs one CUDA device (an H100: the kernels are built for sm_90a) and the
 CUDA toolkit's nvcc; imports nothing of JAX.  Phases, each fatal on
@@ -89,7 +90,29 @@ failure:
 16. the suite: a full-width mlp checkpoint with random weights (the
    synthetic test split at 2048 points) through ``--mode suite
    --suite_size 32 --suite_emd --suite_seeds 0,1``: exact launches, finite
-   MMD / COV / 1-NNA bands in range.
+   MMD / COV / 1-NNA bands in range;
+17. hybrid training: the training CLI with ``--pf_backbone hybrid`` at the
+   bench configuration (phase 11's; synthetic, one epoch of 8 steps,
+   validation, a checkpoint, a rerun with nothing to do): exact launches
+   per step (FiLM block 5 forward and 5 backward; gather and scatter 12
+   each: a K = 1 scatter and a K = 8 gather forward a PVConv, a K = 1
+   gather and a K = 8 scatter backward), validation's counted apart,
+   finite losses, the BatchNorm updates, peak memory;
+18. the hybrid train step's ms/step (host clock, 3 x 10 steps after 3
+   warm-up steps; x 293 = s/epoch), peak memory, and one torch.profiler
+   run of 3 steps: device busy time, idle share, device time and launches
+   of the voxel kernels, the FiLM forward and backward, cuDNN's conv3d
+   forward / dgrad / wgrad, the plans' sort / searchsorted / cumsum and
+   the reductions (BatchNorm and GroupNorm statistics among them);
+19. determinism: two 3-step hybrid runs from one seed and batch give
+   bitwise-equal losses, parameters and running statistics;
+20. card against CPU: one hybrid step at (2, 20 000) from phase 11's
+   checkpoint and the same draws on the CPU (fp32, plain versions) and on
+   the card through the kernels, in bf16 (the main path: loss and grad
+   norm within HYB_GRAD_REL_TOL) and in fp32 (every gradient within
+   HYB_GRAD_REL_TOL of its max); printed beside them: the bf16 step's
+   gradients, the card's fp32 step with the plain trunk, and the CPU's
+   step with the prior moved by one ulp (the gradients' own spread).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -143,6 +166,11 @@ VOXEL_ATOL = 1e-6
 # one velocity evaluation: max abs error over max |v|
 HYB_E2E_REL_TOL = 5e-2
 HYB_E2E_POINTS = (2, 20000)
+# one hybrid train step at HYB_E2E_POINTS, card (kernels) against the CPU
+# (fp32, plain versions): the loss and grad norm of the main path's bf16
+# step, and every gradient of the fp32 step (the FiLM block's bf16 dW
+# product: up to GRAD_REL_TOL), each error over the CPU value's max
+HYB_GRAD_REL_TOL = 5e-2
 # chamfer kernel vs plain: the same fp32 difference form, the kernel's
 # fused multiply-adds aside: |d_kernel - d_plain| <= CHAMFER_REL_TOL *
 # max(d) + CHAMFER_ATOL; indices equal unless the kernel's neighbour is
@@ -771,7 +799,7 @@ def voxel_vs_plain(tvs, torch):
         # the ContextNet's entry sort by the R = 32 voxel id
         perm, inv = tvs.sort_perm_by_voxel(pts, VOXEL_STAGES[0][0],
                                            eps=VOXEL_EPS)
-        pts = tvs.permute_points(pts, perm)
+        pts = tvs.permute_points(pts, perm, inv)
         for r, c in VOXEL_STAGES:
             cache = tvs.build_stage_cache(pts, r, eps=VOXEL_EPS)
             v = r ** 3
@@ -912,19 +940,16 @@ def reset_counts(fb, tvs, tc=None):
         tc.launches = 0
 
 
-def hybrid_main_path(fb, tvs, torch, np):
-    """Phase 11: the sampling CLI on a full-width hybrid checkpoint.
-    Returns the launch counts of the plain (no CFG) run."""
-    from pcfm_torch.sample import cli
+def write_hybrid_checkpoint(torch):
+    """The full-width hybrid checkpoint of phases 11-13 and 20: random
+    weights from the seed, the zero-init head_out and FiLM1d affines drawn
+    N(0, 0.02) so that the PVConv pyramid reaches the velocity."""
     from pcfm_torch.train import checkpoint
     from pcfm_torch.train.state import ModelBundle
-
     shutil.rmtree(HYB_DIR, ignore_errors=True)
     gen = torch.Generator().manual_seed(SEED)
     bundle = ModelBundle(hybrid_cfg(), DEVICE, gen)
     with torch.no_grad():
-        # leave the zero-init start (head_out, the FiLM1d affines), so the
-        # PVConv pyramid reaches the velocity
         for name, p in bundle.pf.named_parameters():
             if name.endswith(("head_out.weight", "film.affine.weight")):
                 p.copy_(torch.randn(p.shape, generator=gen) * 0.02)
@@ -934,7 +959,15 @@ def hybrid_main_path(fb, tvs, torch, np):
     print(f"[hybrid] wrote {os.path.relpath(path, ROOT)} (point flow "
           f"{n_params / 1e6:.3f} M parameters)")
     del bundle
+    return path
 
+
+def hybrid_main_path(fb, tvs, torch, np):
+    """Phase 11: the sampling CLI on a full-width hybrid checkpoint.
+    Returns the launch counts of the plain (no CFG) run."""
+    from pcfm_torch.sample import cli
+
+    write_hybrid_checkpoint(torch)
     want = {"film_block": FILM_BLOCKS * NFE,
             "voxel_gather": PVCONVS * NFE, "voxel_scatter": PVCONVS * NFE}
     result = {}
@@ -1440,6 +1473,270 @@ def suite_full_width(fb, tvs, tc, torch):
     return {"launches": got, "wall_s": wall}
 
 
+def hybrid_train_cfg(**kw):
+    """The hybrid bench configuration for training (the synthetic set's
+    8 x 20 000 RGB points, latent 128, bf16, kernel trunk)."""
+    return hybrid_cfg(warmup_steps=0, **kw)
+
+
+def hybrid_train_cli(fb, tvs, torch):
+    """Phase 17: the training CLI with the hybrid point flow at full
+    width: one epoch of the synthetic set (8 steps), validation and a
+    checkpoint, then a rerun that must find nothing to do.  Returns the
+    launches per step and the peak memory."""
+    from pcfm_torch.train import cli
+    out_dir = os.path.join(RUN_DIR, "hybrid_train")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    argv = ["--pf_backbone", "hybrid", "--dataset_type", "synthetic",
+            "--batch_size", str(B), "--tr_max_sample_points", str(N),
+            "--te_max_sample_points", str(N), "--latent_dim", "128",
+            "--fused_trunk", "on", "--epochs", "1", "--save_every", "1",
+            "--warmup_steps", "0", "--sample_steps", str(TRAIN_SAMPLE_STEPS),
+            "--num_workers", "2", "--out_dir", out_dir]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(fb, tvs)
+    t0 = time.perf_counter()
+    cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = {"film_block": fb.launches, "film_block_bwd": fb.bwd_launches,
+           **tvs.launches}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ckpt_path = os.path.join(out_dir, "ckpts", "hybrid_ep0001.pt")
+    ck = torch.load(ckpt_path, map_location="cpu", weights_only=True)
+    steps = ck["global_step"]
+    with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    finite = all(math.isfinite(v) for r in rows for v in r.values())
+    # a step: each of the PVCONVS PVConvs one scatter (K = 1) and one
+    # gather (K = 8) forward, and their transposes backward (K = 1 gather,
+    # K = 8 scatter); the head's FILM_BLOCKS blocks forward and backward.
+    # Validation: recon and sample, Heun x TRAIN_SAMPLE_STEPS (2 NFE a
+    # step), forward only
+    val_nfe = 2 * 2 * TRAIN_SAMPLE_STEPS
+    per_step = {"film_block": FILM_BLOCKS, "film_block_bwd": FILM_BLOCKS,
+                "voxel_gather": 2 * PVCONVS, "voxel_scatter": 2 * PVCONVS}
+    val = {"film_block": FILM_BLOCKS * val_nfe, "film_block_bwd": 0,
+           "voxel_gather": PVCONVS * val_nfe,
+           "voxel_scatter": PVCONVS * val_nfe}
+    want = {k: per_step[k] * steps + val[k] for k in per_step}
+    bn = "ctx_net.stages.0.blocks.0.pvconv.voxel_layers.1"
+    tracked = int(ck["pf"][f"{bn}.num_batches_tracked"])
+    print(f"[hybrid-train] CLI 1 epoch at {B} x {N}: {steps} steps, "
+          f"launches {got} (expected {want}: per step {per_step}, "
+          f"validation {val}), BatchNorm updates {tracked}, losses "
+          f"{rows[-1]}, wall {wall:.2f} s incl. data, validation and "
+          f"checkpoint, peak device memory {peak:.3f} GiB")
+    if (steps != 8 or got != want or not finite or tracked != steps
+            or not os.path.isdir(os.path.join(out_dir, "samples_ep0001"))):
+        raise RuntimeError("hybrid training CLI: wrong step or launch "
+                           "count, non-finite loss or missing outputs")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        again = cli.main(argv)
+    print(f"[hybrid-train] rerun: "
+          f"{buf.getvalue().strip().splitlines()[-1]}")
+    if again != {"epochs_run": 0} or "Nothing to do" not in buf.getvalue():
+        raise RuntimeError("hybrid training CLI rerun did not resume as "
+                           "finished")
+    return {"per_step": per_step, "launches": got, "peak_gib": peak,
+            "wall_s": wall}
+
+
+def hybrid_train_state(torch):
+    from pcfm_torch.train.state import init_state
+    return init_state(hybrid_train_cfg(), DEVICE, STEPS_PER_EPOCH,
+                      torch.Generator().manual_seed(SEED))
+
+
+def hybrid_train_step_time(fb, tvs, torch):
+    """Phase 18: the hybrid train step at bench.py's workload: ms/step on
+    the host clock (3 x 10 steps after 3 warm-up steps), s/epoch, peak
+    memory, and one torch.profiler run of 3 steps: device busy time, idle
+    share, device time and launches by kernel group."""
+    from pcfm_torch.train.step import train_step
+    batch = train_batch(torch)
+    state = hybrid_train_state(torch)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(3):                                          # warm-up
+        train_step(state, batch, gen, 1.0, 0.1)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(TIMED_STEPS):
+            m = train_step(state, batch, gen, 1.0, 0.1)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3 / TIMED_STEPS)
+        if not math.isfinite(float(m["loss"])):
+            raise RuntimeError(f"hybrid train step: loss {m}")
+    ms = statistics.median(times)
+    print(f"[hybrid-train] train step at {B} x {N} bf16: "
+          f"{' '.join(f'{t:.3f}' for t in times)} ms/step (median {ms:.3f};"
+          f" x {STEPS_PER_EPOCH} = {ms * STEPS_PER_EPOCH / 1e3:.3f} "
+          f"s/epoch), peak device memory {peak:.3f} GiB")
+    groups = {"film_block_bwd": ("film_block_bwd",),
+              "film_block_fwd": ("film_block", "pack_w"),
+              "voxel_gather": ("voxel_gather",),
+              "voxel_scatter": ("voxel_scatter",),
+              "conv3d_fwd": ("fprop",), "conv3d_dgrad": ("dgrad",),
+              "conv3d_wgrad": ("wgrad",), "conv3d_other": ("conv", "cudnn"),
+              "gemm": ("gemm", "cutlass", "splitkreduce"),
+              "plan_searchsorted": ("searchsorted",), "plan_sort": ("sort",),
+              "plan_cumsum": ("scan",), "reductions": ("reduce",)}
+    reset_counts(fb, tvs)
+    prof = profile_kernels(torch, lambda: train_step(state, batch, gen, 1.0,
+                                                     0.1), 3, groups,
+                           os.path.join(RUN_DIR, "hybrid_train_trace.json"))
+    launched = {"film_block": fb.launches, "film_block_bwd":
+                fb.bwd_launches, **tvs.launches}
+    idle = 1 - prof["busy_ms"] / prof["wall_ms"]
+    print(f"[hybrid-train] profiler, 3 steps: {prof['wall_ms']:.3f} ms/step "
+          f"wall, {prof['busy_ms']:.3f} ms device busy (idle share "
+          f"{idle:.3f}); wrapper launches in the 3 steps {launched}")
+    for group in groups:
+        g_ms, g_n = prof[group]
+        print(f"[hybrid-train]   {group}: {g_ms:.3f} ms/step device time, "
+              f"{g_n} launches/step, {g_ms / prof['busy_ms']:.3f} of device "
+              f"time ({'; '.join(prof[group + '_kernels'])[:300]})")
+    for name, k_ms, k_n in prof["top"]:
+        print(f"[hybrid-train]   {k_ms:9.3f} ms/step  {k_n:5d} x  {name}")
+    del state
+    torch.cuda.empty_cache()
+    return {"ms_per_step": ms, "times": times, "peak_gib": peak,
+            "profile": prof, "idle_share": idle}
+
+
+def hybrid_determinism(torch):
+    """Phase 19: two 3-step hybrid runs from the same seed and batch give
+    bitwise-equal losses, parameters and running statistics (live and
+    EMA)."""
+    from pcfm_torch.train.step import train_step
+    batch = train_batch(torch)
+    results = []
+    for _ in range(2):
+        state = hybrid_train_state(torch)
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+        losses = [train_step(state, batch, gen, 1.0, 0.1)["loss"]
+                  for _ in range(3)]
+        tensors = {f"{k}/{n}": v.detach().clone()
+                   for k, m in state.bundle.modules().items()
+                   for n, v in (*m.named_parameters(), *m.named_buffers())}
+        results.append((torch.stack(losses), tensors))
+        del state
+    (l1, t1), (l2, t2) = results
+    differ = [k for k in t1 if not torch.equal(t1[k], t2[k])]
+    same = torch.equal(l1, l2) and not differ
+    n_stats = sum(k.endswith(("running_mean", "running_var")) for k in t1)
+    print(f"[hybrid-train] determinism, 2 x 3 steps: losses {l1.tolist()} / "
+          f"{l2.tolist()}; {len(t1)} tensors (parameters and buffers, live "
+          f"and EMA; {n_stats} running statistics) bitwise equal: {same}"
+          + (f"; differ: {differ[:8]}" if differ else ""))
+    if not same:
+        raise RuntimeError("hybrid train step is not bitwise reproducible")
+    torch.cuda.empty_cache()
+
+
+def hybrid_grads_card_vs_cpu(fb, tvs, torch):
+    """Phase 20: one hybrid step at HYB_E2E_POINTS from phase 11's
+    checkpoint and the same draws, on the CPU (fp32, plain versions) and
+    on the card through the kernels: in the main path's precision (bf16
+    island and head), whose loss and grad norm must agree with the CPU's,
+    and in fp32, whose every gradient must (HYB_GRAD_REL_TOL).  Printed
+    beside them, not bounded: the bf16 step's gradients, the card's fp32
+    step with the plain trunk (the voxel kernels the only kernels), and
+    the CPU's own step with the prior's xyz moved by one ulp, the spread
+    that voxel rounding of knife-edge points and the normalisations'
+    cancellation give the pyramid's gradients at these weights."""
+    from pcfm_torch.train import checkpoint
+    from pcfm_torch.train.state import clip_by_global_norm_, init_state
+    from pcfm_torch.train.step import compute_loss, make_draws
+    b, n = HYB_E2E_POINTS
+    path, _ = checkpoint.find_latest(HYB_DIR)
+    g = torch.Generator().manual_seed(SEED + 8)
+    batch = {"pts": torch.randn(b, n, 3, generator=g) * 0.5,
+             "rgb": torch.rand(b, n, 3, generator=g),
+             "cond": torch.rand(b, 1, generator=g)}
+    draws = make_draws(hybrid_train_cfg(), batch, g, 0.5)
+    x0 = draws["x0"].clone()
+    x0[..., :3] = torch.nextafter(x0[..., :3], torch.full_like(
+        x0[..., :3], math.inf))
+    fp32 = {"amp": False, "ctx_dtype": "fp32"}
+    voxels = {"voxel_gather": 2 * PVCONVS, "voxel_scatter": 2 * PVCONVS}
+    kernels = {"film_block": FILM_BLOCKS, "film_block_bwd": FILM_BLOCKS,
+               **voxels}
+    legs = {"cpu": ("cpu", fp32, draws, {}),
+            "cpu_ulp": ("cpu", fp32, dict(draws, x0=x0), {}),
+            "bf16": (DEVICE, {}, draws, kernels),
+            "fp32": (DEVICE, fp32, draws, kernels),
+            "fp32_plain_trunk": (DEVICE, dict(fp32, fused_trunk="off"),
+                                 draws, voxels)}
+    out = {}
+    for leg, (dev, over, dr, want) in legs.items():
+        state = init_state(hybrid_train_cfg(**over), dev, 1,
+                           torch.Generator().manual_seed(SEED))
+        with contextlib.redirect_stdout(io.StringIO()):
+            checkpoint.restore_tolerant(path, state)
+        before = {"film_block": fb.launches,
+                  "film_block_bwd": fb.bwd_launches, **tvs.launches}
+        loss, _ = compute_loss(state.bundle,
+                               {k: v.to(dev) for k, v in batch.items()},
+                               {k: v.to(dev) for k, v in dr.items()}, 1.0)
+        loss.backward()
+        params = [(f"{gname}/{name}", p) for gname in ("enc", "pf", "lf")
+                  for name, p in getattr(state.bundle, gname)
+                  .named_parameters() if p.grad is not None]
+        gnorm = clip_by_global_norm_([p.grad for _, p in params], 0.0)
+        launched = {k: v - before[k] for k, v in (
+            ("film_block", fb.launches), ("film_block_bwd", fb.bwd_launches),
+            *tvs.launches.items())}
+        if launched != dict(dict.fromkeys(launched, 0), **want):
+            raise RuntimeError(f"hybrid step, {leg}: launches {launched}, "
+                               f"expected {want}")
+        out[leg] = (float(loss.detach()), float(gnorm),
+                    {k: p.grad.float().cpu() for k, p in params})
+        del state, params, loss
+    torch.cuda.empty_cache()
+    l_cpu, n_cpu, g_cpu = out["cpu"]
+    res = {}
+    for leg in ("bf16", "fp32", "fp32_plain_trunk", "cpu_ulp"):
+        l_dev, n_dev, g_dev = out[leg]
+        rel = {k: ((g_dev[k] - v).abs().max()
+                   / v.abs().max().clamp_min(1e-30)).item()
+               for k, v in g_cpu.items()}
+        worst = sorted(rel.items(), key=lambda kv: -kv[1])
+        res[leg] = {"loss_rel": abs(l_dev - l_cpu) / abs(l_cpu),
+                    "norm_rel": abs(n_dev - n_cpu) / n_cpu,
+                    "worst_rel": worst[0][1],
+                    "median_rel": statistics.median(rel.values()),
+                    "finite": all(torch.isfinite(v).all()
+                                  for v in g_dev.values())
+                    and set(g_dev) == set(g_cpu)}
+        what = ("the CPU, prior xyz + 1 ulp," if leg == "cpu_ulp" else
+                f"card {leg} kernels")
+        print(f"[hybrid-train] {what} vs CPU fp32 plain, one step at ({b}, "
+              f"{n}): loss {l_dev:.6g} / {l_cpu:.6g} (rel "
+              f"{res[leg]['loss_rel']:.3g}), grad norm {n_dev:.6g} / "
+              f"{n_cpu:.6g} (rel {res[leg]['norm_rel']:.3g}); {len(rel)} "
+              f"gradients, max abs err / max |grad|: worst "
+              f"{worst[0][1]:.4g}, median {res[leg]['median_rel']:.3g}"
+              + (f" (bound {HYB_GRAD_REL_TOL})" if leg == "fp32" else
+                 " (printed, not bounded)")
+              + "; worst: " + ", ".join(f"{k} {v:.3g}"
+                                        for k, v in worst[:4]))
+    bf, f32 = res["bf16"], res["fp32"]
+    if not all(r["finite"] for r in res.values()) \
+            or max(bf["loss_rel"], bf["norm_rel"], f32["loss_rel"],
+                   f32["norm_rel"], f32["worst_rel"]) > HYB_GRAD_REL_TOL:
+        raise RuntimeError("hybrid step: card and CPU disagree")
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1473,6 +1770,15 @@ def main() -> int:
         # phases 1 and 14 alone, for work on the chamfer kernel
         chamfer_vs_plain(tc, torch)
         return 0
+    if sys.argv[1:] == ["--only", "hybrid_train"]:
+        # phase 1, phase 11's checkpoint and phases 17-20 alone, for work
+        # on hybrid training
+        write_hybrid_checkpoint(torch)
+        hybrid_train_cli(fb, tvs, torch)
+        hybrid_train_step_time(fb, tvs, torch)
+        hybrid_determinism(torch)
+        hybrid_grads_card_vs_cpu(fb, tvs, torch)
+        return 0
     kv, kv_err = kernel_vs_plain(fb, torch)
     launches = main_path(fb, torch, np)
     ms = sample_ms_per_shape(torch)
@@ -1488,6 +1794,10 @@ def main() -> int:
     cham = chamfer_vs_plain(tc, torch)
     ev = eval_cli_full_width(fb, tvs, tc, torch)
     su = suite_full_width(fb, tvs, tc, torch)
+    htc = hybrid_train_cli(fb, tvs, torch)
+    hts = hybrid_train_step_time(fb, tvs, torch)
+    hybrid_determinism(torch)
+    htg = hybrid_grads_card_vs_cpu(fb, tvs, torch)
 
     film = film_bounds(B, N, C)
     # the main path's shapes: R = 32 stage, 8 clouds, bf16 features;
@@ -1495,6 +1805,7 @@ def main() -> int:
     gather = vox[("gather", 32, 128, B, 8, torch.bfloat16)]
     scatter = vox[("scatter", 32, 128, B, 1, torch.bfloat16)]
     hyb_prof = hyb_ms["profile"]
+    hts_prof = hts["profile"]
 
     def voxel_entry(name, source, replaces, row, what, **extra):
         def rows(cases, fields):
@@ -1519,7 +1830,21 @@ def main() -> int:
                 "skewed": rows(vox_skewed, ("ms", "device_ms", "plain_ms",
                                             "bound_ms")),
                 "profiled_ms_per_run": hyb_prof[name][0],
-                "launches_cfg": hyb["heun50_cfg0.25"][name], **extra}
+                "launches_cfg": hyb["heun50_cfg0.25"][name],
+                "launches_hybrid_train": htc["per_step"][name],
+                # the hybrid backward's case: fp32 cotangents, K = 1 gather
+                # (avg-voxelize's transpose), K = 8 scatter (devoxelize's)
+                "train_backward_stages": [
+                    {"R": r, "C": c, "K": k, **{f: rw[f] for f in (
+                        "ms", "device_ms", "plain_ms", "bound_ms",
+                        "bound_by")}}
+                    for (wh, r, c, bsz, k, dt), rw in vox.items()
+                    if wh == what and bsz == B and dt == torch.float32
+                    and k == {"gather": 1, "scatter": 8}[what]],
+                "hybrid_train_ms_per_step": hts["ms_per_step"],
+                "hybrid_train_peak_gib": hts["peak_gib"],
+                "hybrid_train_profiled_ms_per_step": hts_prof[name][0],
+                **extra}
 
     # the card again, beside the numbers (the first line may scroll away)
     print(sh("nvidia-smi", "--query-gpu=name,power.limit",
@@ -1539,7 +1864,8 @@ def main() -> int:
         "gemm_only_ms_2b": kv[2 * B][2],
         "sample_heun50_ms_per_shape": ms["on"],
         "sample_heun50_plain_trunk_ms_per_shape": ms["off"],
-        "launches_train_cli": fwd_train}, {
+        "launches_train_cli": fwd_train,
+        "launches_hybrid_train": htc["per_step"]["film_block"]}, {
         "name": "film_block_bwd", "route": "cuda",
         "source": "pcfm_torch/csrc/film_block_bwd.cu",
         "replaces": "pcfm/ops/pallas/film_block.py:75",
@@ -1564,18 +1890,31 @@ def main() -> int:
         "train_ms_per_step": step["ms_on"],
         "train_plain_trunk_ms_per_step": step["ms_off"],
         "train_peak_gib": step["peak_gib_on"],
-        "train_film_block_share": step["share"]["film_block_share"]},
+        "train_film_block_share": step["share"]["film_block_share"],
+        "launches_hybrid_train": htc["per_step"]["film_block_bwd"]},
         voxel_entry("voxel_gather", "pcfm_torch/csrc/voxel_gather.cu",
                     "pcfm/ops/pallas/voxel_sorted.py:150", gather, "gather",
                     hybrid_heun50_ms_per_shape=hyb_ms["ms_per_shape"],
                     hybrid_idle_share=hyb_ms["idle_share"],
                     hybrid_peak_gib=hyb["heun50"]["peak_gib"],
                     hybrid_peak_gib_cfg=hyb["heun50_cfg0.25"]["peak_gib"],
-                    hybrid_end_to_end_rel_err=hyb_rel),
+                    hybrid_end_to_end_rel_err=hyb_rel,
+                    hybrid_train_idle_share=hts["idle_share"],
+                    hybrid_train_grad_rel_err_fp32=htg["fp32"]["worst_rel"],
+                    hybrid_train_grad_rel_err_fp32_plain_trunk=htg[
+                        "fp32_plain_trunk"]["worst_rel"],
+                    hybrid_train_grad_rel_spread_cpu_1ulp=htg["cpu_ulp"][
+                        "worst_rel"],
+                    hybrid_train_grad_rel_err_bf16=htg["bf16"]["worst_rel"],
+                    hybrid_train_loss_rel_err_bf16=htg["bf16"]["loss_rel"],
+                    hybrid_train_cli_peak_gib=htc["peak_gib"]),
         voxel_entry("voxel_scatter", "pcfm_torch/csrc/voxel_scatter.cu",
                     "pcfm/ops/pallas/voxel_sorted.py:182", scatter,
                     "scatter", plan_glue_profiled_ms_per_run={
                         part: hyb_prof[f"plan_{part}"][0]
+                        for part in ("sort", "searchsorted", "cumsum")},
+                    plan_glue_hybrid_train_profiled_ms_per_step={
+                        part: hts_prof[f"plan_{part}"][0]
                         for part in ("sort", "searchsorted", "cumsum")}), {
         "name": "chamfer_nn", "route": "cuda",
         "source": "pcfm_torch/csrc/chamfer_nn.cu",

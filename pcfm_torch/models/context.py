@@ -15,6 +15,12 @@ _PVStage, ContextNet):
   * t-gate: alpha = sigmoid(k (t - tau)) blends the PV context with an
     emb-only global context (models.py:534-539)
 
+Training mode differentiates as the JAX package's ``jax.grad`` does: the
+BatchNorms normalise with batch statistics, the voxel ops and the entry
+sort's permutations run through their autograd Functions
+(pcfm_torch/ops/voxel_sorted.py), and the global branch's ``amax`` splits
+its gradient evenly over ties, as ``jnp.max``'s does.
+
 Precision island (``island_dtype``, Config ``ctx_dtype``): the Dense / conv
 layers of the pyramid compute in it; coordinates, norm statistics, the
 embedding, the global branch and the head stay fp32, as in the JAX package.
@@ -163,7 +169,7 @@ class ContextNet(nn.Module):
         perm, inv = sort_perm_by_voxel(x[..., :3], self.stage_res[0],
                                        normalize=self.voxel_normalize,
                                        eps=VOXEL_EPS)
-        x = permute_points(x, perm)
+        x = permute_points(x, perm, inv)
         coords = x[..., :3]
         t = t.reshape(b).to(torch.float32)
 
@@ -207,4 +213,4 @@ class ContextNet(nn.Module):
             alpha = torch.sigmoid(
                 self.t_gate_k * (t[:, None, None] - self.t_gate_tau))
             ctx = alpha * ctx + (1.0 - alpha) * ctx_glb
-        return unpermute_points(ctx, inv).to(out_dtype)
+        return unpermute_points(ctx, perm, inv).to(out_dtype)

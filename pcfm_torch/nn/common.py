@@ -15,6 +15,9 @@ from torch import nn
 # flax variance_scaling(..., "truncated_normal") divides the std by the std
 # of a unit normal truncated at +-2 so the result has the asked variance
 _TRUNC_STD = 0.87962566103423978
+# flax BatchNorm's momentum (pcfm/nn/pvconv.py:176,181, shared_mlp.py:39):
+# ra <- BN_MOMENTUM * ra + (1 - BN_MOMENTUM) * batch
+BN_MOMENTUM = 0.9
 
 
 @torch.no_grad()
@@ -122,18 +125,28 @@ class BatchNorm(nn.Module):
     (``weight``, ``bias``, ``running_mean``, ``running_var``,
     ``num_batches_tracked``), so reference checkpoints load as they are.
 
-    Eval arithmetic of flax BatchNorm / pcfm's FlatBatchNorm
+    The arithmetic of flax BatchNorm / pcfm's FlatBatchNorm
     (pcfm/nn/common.py:78-119): ``(x - mean) * (scale * rsqrt(var + eps))
-    + bias`` from the running statistics, the multiplier computed in fp32
-    and everything cast to ``dtype`` (the normalize dtype; fp32 unless the
-    caller asks for the island's bf16).  ``shift`` is the bias of the
-    layer before it (a reference Conv1d / Conv3d bias), folded into the
-    mean as the JAX package folds it (``running_mean - bias``).  Training
-    statistics (flax momentum 0.9, biased variance) are not ported yet."""
+    + bias``, the multiplier computed in fp32 and everything cast to
+    ``dtype`` (the normalize dtype; fp32 unless the caller asks for the
+    island's bf16).  In eval mode (mean, var) are the running statistics.
+    In training mode they are the batch's, over every non-channel row in
+    fp32 with the fast biased variance ``mean(x^2) - mean^2`` (clipped at
+    0 as flax's BatchNorm does when ``clamp_var``; FlatBatchNorm does not
+    clip), and gradients flow through both; the running statistics then
+    move by flax's momentum, ``ra <- 0.9 ra + 0.1 batch``, with the biased
+    variance (not torch's 0.1 and unbiased variance: PARITY.md deviation
+    2), and ``num_batches_tracked`` counts the update.  ``shift`` is the
+    bias of the layer before it (a reference Conv1d / Conv3d bias), kept
+    out of the arithmetic: the JAX package has no such bias and folds a
+    reference checkpoint's into the running mean, so eval subtracts it
+    (``running_mean - shift``), and training normalises the bias-free
+    product and adds ``shift`` to the batch mean of the running update."""
 
-    def __init__(self, channels: int, eps: float, device=None):
+    def __init__(self, channels: int, eps: float, clamp_var: bool = True,
+                 device=None):
         super().__init__()
-        self.eps = eps
+        self.eps, self.clamp_var = eps, clamp_var
         self.weight = nn.Parameter(torch.ones(channels, device=device))
         self.bias = nn.Parameter(torch.zeros(channels, device=device))
         self.register_buffer("running_mean",
@@ -153,14 +166,27 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor, shift: torch.Tensor | None = None,
                 dtype: torch.dtype = torch.float32) -> torch.Tensor:
         if self.training:
-            raise NotImplementedError(
-                "BatchNorm training statistics (hybrid training) are not "
-                "yet ported to pcfm_torch: run the module in eval mode")
-        mean = self.running_mean if shift is None \
-            else self.running_mean - shift
-        mul = (self.weight * torch.rsqrt(self.running_var + self.eps)
-               ).to(dtype)
+            mean, var = self._batch_stats(x)
+            with torch.no_grad():
+                self.running_mean.mul_(BN_MOMENTUM).add_(
+                    mean if shift is None else mean + shift,
+                    alpha=1.0 - BN_MOMENTUM)
+                self.running_var.mul_(BN_MOMENTUM).add_(
+                    var, alpha=1.0 - BN_MOMENTUM)
+                self.num_batches_tracked.add_(1)
+        else:
+            mean = self.running_mean if shift is None \
+                else self.running_mean - shift
+            var = self.running_var
+        mul = (self.weight * torch.rsqrt(var + self.eps)).to(dtype)
         return (x.to(dtype) - mean.to(dtype)) * mul + self.bias.to(dtype)
+
+    def _batch_stats(self, x: torch.Tensor) -> tuple:
+        """fp32 (mean, biased fast variance) over every non-channel row."""
+        x2 = x.reshape(-1, x.shape[-1]).to(torch.float32)
+        mean = x2.mean(dim=0)
+        var = (x2 * x2).mean(dim=0) - mean * mean
+        return mean, (var.clamp_min(0.0) if self.clamp_var else var)
 
 
 class Identity(nn.Module):
@@ -171,8 +197,8 @@ class Identity(nn.Module):
 def make_norm(norm_type: str, channels: int, gn_groups: int = 32,
               device=None) -> nn.Module:
     """pcfm/nn/common.py:make_norm for (B, N, C): GroupNorm (eps 1e-5),
-    BatchNorm1d semantics (eps 1e-5) for "batch" / "syncbn", else
-    identity."""
+    BatchNorm1d semantics (flax BatchNorm, eps 1e-5, momentum 0.9) for
+    "batch" / "syncbn", else identity."""
     if norm_type == "group":
         return GroupNorm(choose_gn_groups(channels, gn_groups), channels,
                          device=device)

@@ -24,11 +24,19 @@ the grid BatchNorm (``grid_bn`` "auto" / "flat_bf16"; fp32 for "flat" /
 features, the SharedMLP's BatchNorm output and the block's output are fp32;
 coordinates are always fp32.
 
+In training mode the BatchNorms normalise with the batch statistics
+(pcfm_torch/nn/common.py), the scatter and the gather differentiate
+through each other's kernel, and the grid BatchNorm's variance is clipped
+at 0 only under ``grid_bn`` "flax" (flax's BatchNorm; FlatBatchNorm does
+not clip).
+
 Parameter names are the reference's: ``voxel_layers.{0,3}`` Conv3d (out,
 in, 3, 3, 3) with a bias, ``voxel_layers.{1,4}`` BatchNorm,
 ``voxel_layers.6.fc`` SE, ``point_features.layers``.  The JAX package's
 convs have no bias and fold a reference checkpoint's into the running mean;
-the port keeps the bias (initialised to 0) and folds it the same way.
+the port keeps the bias (initialised to 0) out of the arithmetic and folds
+it the same way (``dead_conv_biases``: training leaves it out of the
+optimizer and folds it into the running mean once, ``fold_conv_biases_``).
 """
 from __future__ import annotations
 
@@ -102,7 +110,8 @@ class PVConv(nn.Module):
                                      generator)
                 conv.bias.zero_()
             layers += [conv.to(device),
-                       BatchNorm(out_channels, eps=1e-4, device=device),
+                       BatchNorm(out_channels, eps=1e-4,
+                                 clamp_var=grid_bn == "flax", device=device),
                        nn.LeakyReLU(0.1)]
         if with_se:
             layers.append(SE3d(out_channels, dtype=dtype,
@@ -138,6 +147,32 @@ class PVConv(nn.Module):
             grid = vl[6](grid)
         b, c = grid.shape[0], grid.shape[-1]
         voxel_features = trilinear_devoxelize_sorted(
-            grid.reshape(b, r ** 3, c), norm_coords, r,
-            corners=cache["corners"])
+            grid.reshape(b, r ** 3, c), norm_coords, r, cache=cache)
         return voxel_features + self.point_features(features), coords
+
+
+def dead_conv_biases(module: nn.Module) -> list:
+    """(bias, BatchNorm) of every reference conv bias in ``module`` that
+    feeds a BatchNorm: the Conv3d biases of each PVConv and the Conv1x1
+    bias of each SharedMLP.  The JAX package has no such parameter (a
+    BatchNorm's batch mean absorbs it), so training leaves them out of the
+    optimizer, the clip and the weight decay."""
+    pairs = []
+    for m in module.modules():
+        if isinstance(m, PVConv):
+            vl = m.voxel_layers
+            pairs += [(vl[0].bias, vl[1]), (vl[3].bias, vl[4])]
+        elif isinstance(m, SharedMLP):
+            pairs.append((m.layers[0].bias, m.layers[1]))
+    return pairs
+
+
+@torch.no_grad()
+def fold_conv_biases_(module: nn.Module) -> None:
+    """Fold each dead conv bias into its BatchNorm's running mean and zero
+    it (as pcfm/interop/torch_ckpt.py folds a reference checkpoint's): the
+    same eval output, and the running statistics then follow the JAX
+    package's recurrence exactly."""
+    for bias, bn in dead_conv_biases(module):
+        bn.running_mean.sub_(bias)
+        bias.zero_()

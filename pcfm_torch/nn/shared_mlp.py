@@ -7,7 +7,8 @@ Parameter names are the reference's: ``layers.0`` is the Conv1d (weight
 JAX package's Dense has no bias (it is dead through the BatchNorm) and folds
 a reference checkpoint's conv bias into the running mean; the port keeps
 the bias parameter, initialised to 0, so that reference checkpoints load,
-and folds it the same way (``BatchNorm(shift=bias)``).
+and folds it the same way (``BatchNorm(shift=bias)``).  In training mode
+the BatchNorm normalises the bias-free product with its batch statistics.
 """
 from __future__ import annotations
 

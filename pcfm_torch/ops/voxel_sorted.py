@@ -30,9 +30,14 @@ count kernel (the TPU's ``counts_sorted`` / ``inv_counts_*``).
 ``torch.sort``, ``searchsorted`` and ``cumsum`` that build a plan are
 glue, as ``jnp.argsort`` is outside the TPU kernel.
 
-CUDA tensors launch the kernels (and raise on what they do not take); CPU
-tensors run the plain versions ``voxel_gather_reference`` (take_along_axis)
-and ``voxel_scatter_reference`` (index_add_), which the CPU tests and the
+The ops differentiate as the JAX package's custom VJPs do, each through
+the other kernel (``torch.autograd.Function``s): avg-voxelize's backward is
+the K = 1 gather, devoxelize's the K = 8 scatter, and the entry sort's
+permutation's a gather by the inverse permutation; ids, weights and plans
+get no gradient.  CUDA tensors launch the kernels (and raise on what they
+do not take), forward and backward; CPU tensors run the plain versions
+``voxel_gather_reference`` (take_along_axis) and
+``voxel_scatter_reference`` (index_add_), which the CPU tests and the
 on-card comparison use.  ``launches`` counts kernel launches (one a call
 of a wrapper), never plain-version calls.
 """
@@ -165,17 +170,22 @@ def scatter_plan(ids: torch.Tensor, num_rows: int) -> ScatterPlan:
 
 # ------------------------------------------------------------ plain versions
 
+def _acc(x: torch.Tensor) -> torch.dtype:
+    """The plain versions' arithmetic: fp32 (fp64 for fp64 inputs, so that
+    gradcheck can run on them)."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
 def voxel_gather_reference(grid: torch.Tensor, ids: torch.Tensor,
                            w: torch.Tensor) -> torch.Tensor:
     """Plain version of the gather (fp32 math, corners summed in k order)."""
     b, _, c = grid.shape
-    g32 = grid.to(torch.float32)
-    out = torch.zeros((b, ids.shape[2], c), dtype=torch.float32,
-                      device=grid.device)
+    acc = _acc(grid)
+    g32 = grid.to(acc)
+    out = torch.zeros((b, ids.shape[2], c), dtype=acc, device=grid.device)
     for k in range(ids.shape[1]):
         idx = ids[:, k].long()[..., None].expand(-1, -1, c)
-        out = out + w[:, k, :, None].to(torch.float32) \
-            * torch.gather(g32, 1, idx)
+        out = out + w[:, k, :, None].to(acc) * torch.gather(g32, 1, idx)
     return out
 
 
@@ -184,12 +194,11 @@ def voxel_scatter_reference(upd: torch.Tensor, ids: torch.Tensor,
     """Plain version of the scatter (fp32 math, ``index_add_``)."""
     b, n, c = upd.shape
     k = ids.shape[1]
+    acc = _acc(upd)
     rows = ids.long() + torch.arange(b, device=ids.device)[:, None, None] \
         * num_rows
-    vals = w[..., None].to(torch.float32) \
-        * upd.to(torch.float32)[:, None, :, :]                   # (B, K, N, C)
-    out = torch.zeros((b * num_rows, c), dtype=torch.float32,
-                      device=upd.device)
+    vals = w[..., None].to(acc) * upd.to(acc)[:, None, :, :]   # (B, K, N, C)
+    out = torch.zeros((b * num_rows, c), dtype=acc, device=upd.device)
     out.index_add_(0, rows.reshape(-1), vals.reshape(b * k * n, c))
     return out.reshape(b, num_rows, c)
 
@@ -357,18 +366,84 @@ def inv_counts(plan: ScatterPlan) -> torch.Tensor:
     return 1.0 / cnt.to(torch.float32)
 
 
+class _AvgVoxelize(torch.autograd.Function):
+    """Scatter-mean and its transpose (pcfm/ops/voxel_sorted.py:
+    _avg_vox_fwd / _avg_vox_bwd): forward the K = 1 scatter with weight
+    1 / count, backward the K = 1 gather of the fp32 grid's cotangent with
+    the same weights, cast to the features' dtype.  Only the plan and the
+    weights are kept for the backward; they get no gradient."""
+
+    @staticmethod
+    def forward(ctx, features, w, plan):
+        ctx.save_for_backward(w)
+        ctx.plan, ctx.dtype = plan, features.dtype
+        return voxel_scatter(features.contiguous(), w, plan)
+
+    @staticmethod
+    def backward(ctx, g):
+        (w,) = ctx.saved_tensors
+        # g is the fp32 grid's cotangent (the kernels take it as it is)
+        df = voxel_gather(g.contiguous(), ctx.plan.ids, w)
+        return df.to(ctx.dtype), None, None
+
+
+class _Devoxelize(torch.autograd.Function):
+    """Trilinear gather and its transpose (pcfm/ops/voxel_sorted.py:
+    _devox_fwd / _devox_bwd): forward the K = 8 gather, backward the K = 8
+    scatter of the fp32 cotangent with the corner weights over the stage's
+    ``corner_plan`` (built at the first backward of a stage and kept in its
+    cache, so one plan serves the stage's PVConvs), cast to the grid's
+    dtype.  Nothing but the stage cache is kept for the backward."""
+
+    @staticmethod
+    def forward(ctx, grid_flat, cache):
+        ctx.cache, ctx.dtype = cache, grid_flat.dtype
+        ctx.rows = grid_flat.shape[1]
+        ids8, w8 = cache["corners"]
+        return voxel_gather(grid_flat.contiguous(), ids8, w8)
+
+    @staticmethod
+    def backward(ctx, g):
+        plan = corner_plan(ctx.cache, ctx.rows)
+        # g is the fp32 output's cotangent
+        dg = voxel_scatter(g.contiguous(), ctx.cache["corners"][1], plan)
+        return dg.to(ctx.dtype), None
+
+
+class _Permute(torch.autograd.Function):
+    """Rows of (B, N, C) in ``perm`` order; the backward gathers by the
+    inverse permutation (pcfm/ops/voxel_sorted.py:285-301), never a
+    scatter (``torch.gather``'s own backward is a zero fill and an atomic
+    ``scatter_add_``)."""
+
+    @staticmethod
+    def forward(ctx, x, perm, inv):
+        ctx.save_for_backward(inv)
+        return _take_rows(x, perm)
+
+    @staticmethod
+    def backward(ctx, g):
+        (inv,) = ctx.saved_tensors
+        return _take_rows(g, inv), None, None
+
+
+def _take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    return torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[-1]))
+
+
 def avg_voxelize_sorted(features: torch.Tensor, ids: torch.Tensor,
                         resolution: int, plan: ScatterPlan | None = None,
                         inv_pt: torch.Tensor | None = None) -> torch.Tensor:
     """Scatter-mean of (B, N, C) features into a flat (B, R^3, C) fp32 grid
     (pcfm/ops/voxel_sorted.py:avg_voxelize_sorted): one scatter with
-    weight 1 / count.  ``ids`` (B, N) need not be sorted; ``plan`` /
-    ``inv_pt`` come from the stage cache when there is one."""
+    weight 1 / count, differentiable in ``features`` (``_AvgVoxelize``).
+    ``ids`` (B, N) need not be sorted; ``plan`` / ``inv_pt`` come from the
+    stage cache when there is one."""
     if plan is None:
         plan = scatter_plan(ids[:, None, :].contiguous(), resolution ** 3)
     if inv_pt is None:
         inv_pt = inv_counts(plan)
-    return voxel_scatter(features.contiguous(), inv_pt[:, None, :], plan)
+    return _AvgVoxelize.apply(features, inv_pt[:, None, :], plan)
 
 
 def corner_data(norm_coords: torch.Tensor, r: int):
@@ -380,15 +455,15 @@ def corner_data(norm_coords: torch.Tensor, r: int):
 
 def trilinear_devoxelize_sorted(grid_flat: torch.Tensor,
                                 norm_coords: torch.Tensor, resolution: int,
-                                corners: tuple | None = None
-                                ) -> torch.Tensor:
+                                cache: dict | None = None) -> torch.Tensor:
     """Trilinear interpolation of a flat (B, R^3, C) grid at (B, N, 3)
     coords in [0, R-1] -> (B, N, C) fp32: one K = 8 gather
-    (pcfm/ops/voxel_sorted.py:trilinear_devoxelize_sorted)."""
-    if corners is None:
-        corners = corner_data(norm_coords, resolution)
-    ids8, w8 = corners
-    return voxel_gather(grid_flat.contiguous(), ids8, w8)
+    (pcfm/ops/voxel_sorted.py:trilinear_devoxelize_sorted), differentiable
+    in the grid (``_Devoxelize``).  ``cache``: the stage cache, whose
+    corners (and K = 8 plan, for the backward) it uses."""
+    if cache is None:
+        cache = {"corners": corner_data(norm_coords, resolution)}
+    return _Devoxelize.apply(grid_flat, cache)
 
 
 def build_stage_cache(coords: torch.Tensor, r: int, normalize: bool = True,
@@ -397,7 +472,7 @@ def build_stage_cache(coords: torch.Tensor, r: int, normalize: bool = True,
     coordinates do not change across the ContextNet): normalised coords,
     voxel ids, the scatter plan, inverse counts and the 8 corners.
     Returns {'norm_coords', 'vox_ids', 'plan', 'inv_pt', 'corners'};
-    ``corner_plan`` adds the K = 8 plan on demand."""
+    ``corner_plan`` adds the K = 8 plan on demand (the first backward)."""
     norm_coords, vox_coords = normalize_coords(coords, r,
                                                normalize=normalize, eps=eps)
     ids = flatten_voxel_ids(vox_coords, r)
@@ -407,13 +482,15 @@ def build_stage_cache(coords: torch.Tensor, r: int, normalize: bool = True,
             "corners": corner_data(norm_coords, r)}
 
 
-def corner_plan(cache: dict) -> ScatterPlan:
-    """The K = 8 plan over a stage cache's corner ids: the scatter that is
+def corner_plan(cache: dict, num_rows: int | None = None) -> ScatterPlan:
+    """The K = 8 plan over a stage cache's corner ids into ``num_rows``
+    voxels (R^3; by default the cache's K = 1 plan's): the scatter that is
     devoxelize's transpose (the hybrid backward's), with its chunks; built
     at first use and kept in the cache under 'plan8'."""
     if "plan8" not in cache:
-        cache["plan8"] = scatter_plan(cache["corners"][0],
-                                      cache["plan"].num_rows)
+        cache["plan8"] = scatter_plan(
+            cache["corners"][0],
+            cache["plan"].num_rows if num_rows is None else num_rows)
     return cache["plan8"]
 
 
@@ -429,12 +506,15 @@ def sort_perm_by_voxel(coords: torch.Tensor, resolution: int,
     return perm, torch.argsort(perm, dim=1)
 
 
-def permute_points(x: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
-    """Rows of (B, N, C) in ``perm`` order (take_along_axis)."""
-    return torch.gather(x, 1, perm[..., None].expand(-1, -1, x.shape[-1]))
+def permute_points(x: torch.Tensor, perm: torch.Tensor,
+                   inv: torch.Tensor) -> torch.Tensor:
+    """Rows of (B, N, C) in ``perm`` order (take_along_axis); the gradient
+    is a gather by ``inv``, the inverse permutation."""
+    return _Permute.apply(x, perm, inv)
 
 
-def unpermute_points(x: torch.Tensor, inv: torch.Tensor) -> torch.Tensor:
-    """Inverse of ``permute_points``: rows back in the original order,
-    from the inverse permutation ``inv``."""
-    return permute_points(x, inv)
+def unpermute_points(x: torch.Tensor, perm: torch.Tensor,
+                     inv: torch.Tensor) -> torch.Tensor:
+    """Inverse of ``permute_points``: rows back in the original order (a
+    gather by ``inv``; the gradient a gather by ``perm``)."""
+    return permute_points(x, inv, perm)

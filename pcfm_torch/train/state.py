@@ -9,10 +9,17 @@ update rule of pcfm/train/flat_opt.py.
 hybrid's ``voxel_backend`` flag selects nothing in the port: on CUDA
 tensors the voxel kernels run at every stage, on CPU tensors their plain
 versions (pcfm_torch/ops/voxel_sorted.py); the flag stays in the Config,
-and so in the checkpoint, as it was given.
+and so in the checkpoint, as it was given.  The live modules train in
+training mode (the hybrid's BatchNorms on batch statistics); the EMA
+shadows average every float parameter and buffer, the running statistics
+too, as the JAX package's EMA averages ``batch_stats``.
 
 The optimizer is torch's AdamW (fused on CUDA) with the reference's three
-parameter groups (enc / pf / lf, train.py:249-253), b1 0.9, b2 0.999,
+parameter groups (enc / pf / lf, train.py:249-253) over the parameters the
+JAX package has: the hybrid's reference conv biases that feed a BatchNorm
+(``dead_conv_biases``) are left out, and a train state folds them into the
+running means once (``fold_conv_biases_``), so no weight decay moves them
+and the clip's norm does not count them.  b1 0.9, b2 0.999,
 eps 1e-8 and decoupled weight decay: the same update as optax.adamw and the
 JAX package's flat AdamW, with each group's warmup + cosine LR evaluated at
 the pre-increment step and held at ``min_lr`` past the end.  The joint
@@ -35,6 +42,7 @@ from pcfm_torch.models.encoder import ShapeEncoder
 from pcfm_torch.models.hybrid import HybridMLP
 from pcfm_torch.models.latent import ConditionalLatentVelocityNet
 from pcfm_torch.models.velocity import VelocityNet
+from pcfm_torch.nn.pvconv import dead_conv_biases, fold_conv_biases_
 
 
 class ModelBundle:
@@ -118,11 +126,19 @@ def count_parameters(module: nn.Module) -> int:
     return sum(p.numel() for p in module.parameters())
 
 
+def trainable_parameters(module: nn.Module) -> List[torch.Tensor]:
+    """The parameters of ``module`` that the JAX package has: all but the
+    dead conv biases."""
+    dead = {id(bias) for bias, _ in dead_conv_biases(module)}
+    return [p for p in module.parameters() if id(p) not in dead]
+
+
 def make_optimizer(bundle: ModelBundle) -> torch.optim.AdamW:
-    """AdamW over the live enc / pf / lf parameters, one group each; each
-    group keeps its name and base LR, ``lr`` is set before every step."""
+    """AdamW over the live enc / pf / lf trainable parameters, one group
+    each; each group keeps its name and base LR, ``lr`` is set before every
+    step."""
     cfg = bundle.cfg
-    groups = [{"params": list(getattr(bundle, name).parameters()),
+    groups = [{"params": trainable_parameters(getattr(bundle, name)),
                "name": name, "base_lr": getattr(cfg, attr),
                "lr": getattr(cfg, attr)} for name, attr in GROUP_LR.items()]
     cuda = bundle.device.type == "cuda"
@@ -192,20 +208,26 @@ def check_ported(cfg: Config) -> None:
     missing = [name for name, on in (
         ("lambda_emd > 0 (endpoint EMD loss)", cfg.lambda_emd > 0),
         ("lambda_adv > 0 (CondAdversary)", cfg.lambda_adv > 0),
-        ("fm_coupling='sliced_ot'", cfg.fm_coupling == "sliced_ot"),
-        ("pf_backbone='hybrid' training (BatchNorm statistics, the voxel "
-         "kernels' backward)", cfg.pf_backbone == "hybrid"))
+        ("fm_coupling='sliced_ot'", cfg.fm_coupling == "sliced_ot"))
         if on]
     if missing:
         raise NotImplementedError(f"{', '.join(missing)}: not yet ported "
                                   "to pcfm_torch")
 
 
+def fold_bundle_biases_(bundle: ModelBundle) -> None:
+    """``fold_conv_biases_`` on every module of the bundle (the live and EMA
+    hybrids; a no-op elsewhere)."""
+    for module in bundle.modules().values():
+        fold_conv_biases_(module)
+
+
 def init_state(cfg: Config, device, total_steps: int,
                generator: torch.Generator) -> TrainState:
-    """Fresh modules (drawn from ``generator``), EMA = init, a zero-step
-    optimizer."""
+    """Fresh modules (drawn from ``generator``; in training mode, as built),
+    EMA = init, a zero-step optimizer."""
     check_ported(cfg)
     bundle = ModelBundle(cfg, device, generator)
+    fold_bundle_biases_(bundle)
     return TrainState(bundle=bundle, opt=make_optimizer(bundle),
                       total_steps=total_steps)

@@ -8,6 +8,11 @@ train.py:553-673).
   * optional zreg / var / cov / pair penalties on z
   * joint grad clip, per-group AdamW, EMA of the point and latent flows
 
+The point flow runs once a step, in training mode: the hybrid's
+BatchNorms normalise with the batch's statistics and move their running
+ones once (pcfm/train/step.py:118-125); its voxel ops' backward is the
+other kernel's (pcfm_torch/ops/voxel_sorted.py).
+
 The random draws (t, priors, CFG drop mask, latent t and noise, pair
 indices) come from an explicit ``torch.Generator`` on the batch's device,
 or are handed in as ``draws``, so a test can give both frameworks the same

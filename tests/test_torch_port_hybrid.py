@@ -34,6 +34,7 @@ from pcfm.train.state import init_state as jax_init_state  # noqa: E402
 from pcfm_torch import interop  # noqa: E402
 from pcfm_torch.config import Config  # noqa: E402
 from pcfm_torch.models import ContextNet, HybridMLP  # noqa: E402
+from pcfm_torch.nn.common import BatchNorm  # noqa: E402
 from pcfm_torch.nn.pvconv import PVConv  # noqa: E402
 from pcfm_torch.ops import film_block as fb  # noqa: E402
 from pcfm_torch.ops import voxel_sorted as tvs  # noqa: E402
@@ -212,11 +213,34 @@ def test_guided_hybrid_uses_zero_cond():
     assert (v_c - v_u).abs().max() > 1e-3
 
 
-def test_batchnorm_needs_eval_mode():
-    net = HybridMLP(cond_dim=5, point_dim=6, **SMALL, **GEN)
+def test_batchnorm_train_mode_uses_batch_statistics():
+    """Train mode normalises with each batch's statistics (so a cloud's
+    context depends on the other clouds of its batch) and moves the
+    running statistics; eval mode normalises with the running ones (each
+    cloud alone) and moves nothing."""
+    net = HybridMLP(cond_dim=5, point_dim=6, **SMALL, **GEN).ctx_net
     x, t, c = (_t(a) for a in _inputs(9))
-    with pytest.raises(NotImplementedError, match="eval mode"):
-        net(x, t, c)
+    x[1] = 3.0 * x[1] + 1.0              # a second cloud unlike the first
+    t = torch.ones(2)                    # the t-gate passes the pyramid
+    with torch.no_grad():
+        for p in net.parameters():           # leave the zero-init start
+            p.add_(0.05 * torch.randn(p.shape, **GEN))
+    bns = [m for m in net.modules() if isinstance(m, BatchNorm)]
+    stats = [(m.running_mean.clone(), m.running_var.clone()) for m in bns]
+    with torch.no_grad():
+        v_eval = net.eval()(x, t, c)
+        v_eval0 = net(x[:1], t[:1], c[:1])
+        assert all(torch.equal(m.running_mean, s[0]) for m, s in
+                   zip(bns, stats))
+        v_train = net.train()(x, t, c)
+        v_train0 = net(x[:1], t[:1], c[:1])
+    torch.testing.assert_close(v_eval0, v_eval[:1], atol=1e-5, rtol=1e-5)
+    assert (v_train0 - v_train[:1]).abs().max() > 1e-3
+    assert (v_train - v_eval).abs().max() > 1e-3
+    for m, (mean, var) in zip(bns, stats):
+        assert int(m.num_batches_tracked) == 2
+        assert not torch.equal(m.running_mean, mean)
+        assert not torch.equal(m.running_var, var)
 
 
 # ------------------------------------------------------------ the slice
@@ -380,8 +404,11 @@ def test_model_bundle_builds_hybrid():
         assert all(p.dtype == torch.float32 for p in m.parameters())
     torch.testing.assert_close(bundle.ema_pf.state_dict(),
                                bundle.pf.state_dict())
-    with pytest.raises(NotImplementedError, match="hybrid"):
-        init_state(cfg, "cpu", 10, torch.Generator().manual_seed(0))
+    # the hybrid trains: its optimizer leaves out the dead conv biases
+    # (2 a PVConv, 1 a SharedMLP), which the JAX package does not have
+    st = init_state(cfg, "cpu", 10, torch.Generator().manual_seed(0))
+    pf_group = next(g for g in st.opt.param_groups if g["name"] == "pf")
+    assert len(pf_group["params"]) == len(list(pf.parameters())) - 10
 
 
 def test_sample_cli_hybrid_on_cpu(tmp_path):

@@ -242,12 +242,16 @@ def test_model_bundle_dtype_policy(amp):
 
 
 def test_model_bundle_rejects_hybrid():
-    # the hybrid serves (tests/test_torch_port_hybrid.py); its training is
-    # not ported yet, and an unknown backbone is refused
+    # the hybrid serves and trains (tests/test_torch_port_hybrid.py,
+    # tests/test_torch_port_hybrid_train.py): a train state builds; an
+    # unknown backbone is refused
+    from pcfm_torch.models import HybridMLP
     from pcfm_torch.train.state import init_state
-    with pytest.raises(NotImplementedError, match="hybrid"):
-        init_state(Config(pf_backbone="hybrid"), "cpu", 10,
-                   torch.Generator().manual_seed(0))
+    st = init_state(Config(pf_backbone="hybrid", ctx_stage_channels=[16],
+                           ctx_stage_blocks=[1], ctx_stage_res=[8],
+                           ctx_gn_groups=4), "cpu", 10,
+                    torch.Generator().manual_seed(0))
+    assert isinstance(st.bundle.pf, HybridMLP) and st.bundle.pf.training
     with pytest.raises(ValueError, match="pf_backbone"):
         ModelBundle(Config(pf_backbone="pointnet"), "cpu",
                     torch.Generator().manual_seed(0))

@@ -350,11 +350,11 @@ def test_sort_perm_and_permute_roundtrip(jx):
     perm_j, _ = jx.vs.sort_perm_by_voxel(jx.jnp.asarray(pts), 8, eps=1e-6)
     perm, inv = tvs.sort_perm_by_voxel(_t(pts), 8, eps=1e-6)
     np.testing.assert_array_equal(perm.numpy(), np.asarray(perm_j))
-    y = tvs.permute_points(_t(x), perm)
+    y = tvs.permute_points(_t(x), perm, inv)
     np.testing.assert_array_equal(
         y.numpy(), np.take_along_axis(x, perm.numpy()[..., None], 1))
     np.testing.assert_array_equal(
-        tvs.unpermute_points(y, inv).numpy(), x)
+        tvs.unpermute_points(y, perm, inv).numpy(), x)
 
 
 def test_wrappers_refuse_bad_operands():
@@ -497,3 +497,47 @@ def test_kernels_skewed_one_voxel(cuda, k, dtype):
     assert torch.equal(sc, sc_again) and torch.equal(got, again)
     # the plan's counters of finished chunks are left at zero
     assert not plan.done.any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_voxel_backward_runs_the_kernels(cuda, dtype):
+    """On the card the voxel ops' backward is a kernel: avg-voxelize's the
+    K = 1 gather, devoxelize's the K = 8 scatter over the stage cache's
+    corner plan (kept there), each one launch, the gradients within the
+    plain versions' (CPU) of the same inputs (fp32 sums in another order;
+    bf16: both cast the fp32 gradient to bf16)."""
+    r, n, c = 8, 300, 64
+    g = torch.Generator().manual_seed(17)
+    pts = torch.randn(2, n, 3, generator=g)
+    feats = torch.randn(2, n, c, generator=g)
+    grid = torch.randn(2, r ** 3, c, generator=g)
+    ct1 = torch.randn(2, r ** 3, c, generator=g)
+    ct8 = torch.randn(2, n, c, generator=g)
+    cpu_cache = tvs.build_stage_cache(pts, r)
+    grads = {}
+    for dev in ("cpu", cuda):
+        # the same ids and weights on both (a knife-edge point may round
+        # into another voxel on the card)
+        cache = {k: cpu_cache[k].to(dev) for k in ("norm_coords", "vox_ids",
+                                                    "inv_pt")}
+        cache["corners"] = tuple(x.to(dev) for x in cpu_cache["corners"])
+        cache["plan"] = tvs.scatter_plan(cpu_cache["plan"].ids.to(dev),
+                                         r ** 3)
+        f = feats.to(dev, dtype).detach().requires_grad_(True)
+        gr = grid.to(dev, dtype).detach().requires_grad_(True)
+        a = tvs.avg_voxelize_sorted(f, cache["vox_ids"], r,
+                                    plan=cache["plan"],
+                                    inv_pt=cache["inv_pt"])
+        d = tvs.trilinear_devoxelize_sorted(gr, cache["norm_coords"], r,
+                                            cache=cache)
+        before = dict(tvs.launches)
+        ((a * ct1.to(dev)).sum() + (d * ct8.to(dev)).sum()).backward()
+        launched = {k: tvs.launches[k] - before[k] for k in before}
+        assert launched == ({"voxel_gather": 1, "voxel_scatter": 1}
+                            if dev != "cpu" else dict.fromkeys(before, 0))
+        assert "plan8" in cache and f.grad.dtype == dtype
+        grads[dev != "cpu"] = (f.grad.float().cpu(), gr.grad.float().cpu())
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    for got, want in zip(grads[True], grads[False]):
+        torch.testing.assert_close(got, want, atol=tol, rtol=tol)
