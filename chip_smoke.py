@@ -94,25 +94,35 @@ failure:
 17. hybrid training: the training CLI with ``--pf_backbone hybrid`` at the
    bench configuration (phase 11's; synthetic, one epoch of 8 steps,
    validation, a checkpoint, a rerun with nothing to do): exact launches
-   per step (FiLM block 5 forward and 5 backward; gather and scatter 12
-   each: a K = 1 scatter and a K = 8 gather forward a PVConv, a K = 1
-   gather and a K = 8 scatter backward), validation's counted apart,
-   finite losses, the BatchNorm updates, peak memory;
+   (HYB_STEP_LAUNCHES a step: FiLM block 5 forward and 5 backward; gather
+   and scatter 12 each: a K = 1 scatter and a K = 8 gather forward a
+   PVConv, a K = 1 gather and a K = 8 scatter backward), validation's
+   counted apart, finite losses, the BatchNorm updates, peak memory;
 18. the hybrid train step's ms/step (host clock, 3 x 10 steps after 3
    warm-up steps; x 293 = s/epoch), peak memory, and one torch.profiler
-   run of 3 steps: device busy time, idle share, device time and launches
-   of the voxel kernels, the FiLM forward and backward, cuDNN's conv3d
+   run of 3 steps: the wrapper launches per step (HYB_STEP_LAUNCHES;
+   the kernels line's ``launches_hybrid_train``), device busy time, idle
+   share, device time and launches of the voxel kernels, the FiLM
+   forward and backward, cuDNN's conv3d
    forward / dgrad / wgrad, the plans' sort / searchsorted / cumsum and
    the reductions (BatchNorm and GroupNorm statistics among them);
 19. determinism: two 3-step hybrid runs from one seed and batch give
    bitwise-equal losses, parameters and running statistics;
 20. card against CPU: one hybrid step at (2, 20 000) from phase 11's
-   checkpoint and the same draws on the CPU (fp32, plain versions) and on
-   the card through the kernels, in bf16 (the main path: loss and grad
-   norm within HYB_GRAD_REL_TOL) and in fp32 (every gradient within
-   HYB_GRAD_REL_TOL of its max); printed beside them: the bf16 step's
-   gradients, the card's fp32 step with the plain trunk, and the CPU's
-   step with the prior moved by one ulp (the gradients' own spread).
+   checkpoint and the same draws on the CPU (plain versions) and on the
+   card through the kernels.  The CPU's fp32 step records its choices at
+   the kinks (ReLU masks, amax elements, voxel coordinates:
+   pcfm_torch/kinks.py) and the pinned steps replay them: the card's bf16
+   step (the main path) within HYB_GRAD_REL_TOL_BF16 of the CPU's bf16
+   step and HYB_GRAD_REL_TOL of its fp32 step, and the card's
+   fp32 step with the plain trunk (the voxel kernels its only kernels)
+   within HYB_GRAD_REL_TOL_FP32 of the CPU's fp32 step, every gradient's
+   error over its max; each bound's control (the bf16 step against the
+   CPU's fp32; the unpinned bf16 step; the fp32 step with TF32) must
+   exceed it; every card step's loss and grad norm within
+   HYB_LOSS_REL_TOL.  Printed: the unpinned card steps' flips against
+   the CPU's choices, and the CPU's bf16 step with the prior moved by one
+   bf16 ulp.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -167,10 +177,35 @@ VOXEL_ATOL = 1e-6
 HYB_E2E_REL_TOL = 5e-2
 HYB_E2E_POINTS = (2, 20000)
 # one hybrid train step at HYB_E2E_POINTS, card (kernels) against the CPU
-# (fp32, plain versions): the loss and grad norm of the main path's bf16
-# step, and every gradient of the fp32 step (the FiLM block's bf16 dW
-# product: up to GRAD_REL_TOL), each error over the CPU value's max
-HYB_GRAD_REL_TOL = 5e-2
+# (plain versions): the loss and grad norm of every card step, pinned or not
+HYB_LOSS_REL_TOL = 5e-2
+# and each gradient's error over the CPU value's max, both steps taking the
+# CPU fp32 step's choices at the kinks (ReLU masks, amax elements, voxel
+# coordinates: pcfm_torch.kinks).  Unpinned, a ReLU input within rounding
+# distance of 0 takes another side on the card and moves whole channels of
+# the pyramid's gradients.  Each bound lies between the sound run's reading
+# and its control's, which must exceed it (PERF.md, the hybrid train
+# step's findings; on an H100):
+# the main path's bf16 step against the CPU's bf16 step: the same roundings
+# in other orders of summation (7.05e-2); control: the same card step
+# against the CPU's fp32 step (0.221)
+HYB_GRAD_REL_TOL_BF16 = 0.12
+# the bf16 step against the CPU's fp32 step: bf16 rounding of the
+# pyramid's activations and cotangents (0.221); control: the unpinned bf16
+# step, whose choices differ at 1.5 % of the ReLU inputs (1.53)
+HYB_GRAD_REL_TOL = 0.4
+# the fp32 step with the plain trunk (the voxel kernels its only kernels)
+# against the CPU's fp32 step (7.41e-5); control: the same card step with
+# TF32 convolutions and GEMMs, 2^-11 rounding of the products' operands
+# (1.87e-2)
+HYB_GRAD_REL_TOL_FP32 = 1e-3
+# a hybrid train step's launches: each of the PVCONVS PVConvs one scatter
+# (K = 1) and one gather (K = 8) forward, and their transposes backward
+# (K = 1 gather, K = 8 scatter); the head's FILM_BLOCKS blocks forward and
+# backward
+HYB_STEP_LAUNCHES = {"film_block": FILM_BLOCKS, "film_block_bwd": FILM_BLOCKS,
+                     "voxel_gather": 2 * PVCONVS,
+                     "voxel_scatter": 2 * PVCONVS}
 # chamfer kernel vs plain: the same fp32 difference form, the kernel's
 # fused multiply-adds aside: |d_kernel - d_plain| <= CHAMFER_REL_TOL *
 # max(d) + CHAMFER_ATOL; indices equal unless the kernel's neighbour is
@@ -1509,14 +1544,10 @@ def hybrid_train_cli(fb, tvs, torch):
     with open(os.path.join(out_dir, "metrics.jsonl")) as f:
         rows = [json.loads(line) for line in f]
     finite = all(math.isfinite(v) for r in rows for v in r.values())
-    # a step: each of the PVCONVS PVConvs one scatter (K = 1) and one
-    # gather (K = 8) forward, and their transposes backward (K = 1 gather,
-    # K = 8 scatter); the head's FILM_BLOCKS blocks forward and backward.
-    # Validation: recon and sample, Heun x TRAIN_SAMPLE_STEPS (2 NFE a
-    # step), forward only
+    # a step: HYB_STEP_LAUNCHES.  Validation: recon and sample, Heun x
+    # TRAIN_SAMPLE_STEPS (2 NFE a step), forward only
     val_nfe = 2 * 2 * TRAIN_SAMPLE_STEPS
-    per_step = {"film_block": FILM_BLOCKS, "film_block_bwd": FILM_BLOCKS,
-                "voxel_gather": 2 * PVCONVS, "voxel_scatter": 2 * PVCONVS}
+    per_step = HYB_STEP_LAUNCHES
     val = {"film_block": FILM_BLOCKS * val_nfe, "film_block_bwd": 0,
            "voxel_gather": PVCONVS * val_nfe,
            "voxel_scatter": PVCONVS * val_nfe}
@@ -1540,8 +1571,7 @@ def hybrid_train_cli(fb, tvs, torch):
     if again != {"epochs_run": 0} or "Nothing to do" not in buf.getvalue():
         raise RuntimeError("hybrid training CLI rerun did not resume as "
                            "finished")
-    return {"per_step": per_step, "launches": got, "peak_gib": peak,
-            "wall_s": wall}
+    return {"launches": got, "peak_gib": peak, "wall_s": wall}
 
 
 def hybrid_train_state(torch):
@@ -1593,12 +1623,16 @@ def hybrid_train_step_time(fb, tvs, torch):
     prof = profile_kernels(torch, lambda: train_step(state, batch, gen, 1.0,
                                                      0.1), 3, groups,
                            os.path.join(RUN_DIR, "hybrid_train_trace.json"))
-    launched = {"film_block": fb.launches, "film_block_bwd":
-                fb.bwd_launches, **tvs.launches}
+    per_step = {k: v / 3 for k, v in (("film_block", fb.launches),
+                                      ("film_block_bwd", fb.bwd_launches),
+                                      *tvs.launches.items())}
     idle = 1 - prof["busy_ms"] / prof["wall_ms"]
     print(f"[hybrid-train] profiler, 3 steps: {prof['wall_ms']:.3f} ms/step "
           f"wall, {prof['busy_ms']:.3f} ms device busy (idle share "
-          f"{idle:.3f}); wrapper launches in the 3 steps {launched}")
+          f"{idle:.3f}); wrapper launches per step {per_step} (expected "
+          f"{HYB_STEP_LAUNCHES})")
+    if per_step != HYB_STEP_LAUNCHES:
+        raise RuntimeError("hybrid train step: wrong launch count")
     for group in groups:
         g_ms, g_n = prof[group]
         print(f"[hybrid-train]   {group}: {g_ms:.3f} ms/step device time, "
@@ -1609,7 +1643,8 @@ def hybrid_train_step_time(fb, tvs, torch):
     del state
     torch.cuda.empty_cache()
     return {"ms_per_step": ms, "times": times, "peak_gib": peak,
-            "profile": prof, "idle_share": idle}
+            "profile": prof, "idle_share": idle,
+            "launches_per_step": per_step}
 
 
 def hybrid_determinism(torch):
@@ -1642,17 +1677,37 @@ def hybrid_determinism(torch):
     torch.cuda.empty_cache()
 
 
+def grad_errors(got: dict, ref: dict) -> dict:
+    """Loss, grad norm and every gradient of one step against another's:
+    each error over the reference value's max."""
+    (l_got, n_got, g_got), (l_ref, n_ref, g_ref) = got, ref
+    rel = {k: ((g_got[k] - v).abs().max()
+               / v.abs().max().clamp_min(1e-30)).item()
+           for k, v in g_ref.items()}
+    worst = sorted(rel.items(), key=lambda kv: -kv[1])
+    return {"loss_rel": abs(l_got - l_ref) / abs(l_ref),
+            "norm_rel": abs(n_got - n_ref) / n_ref,
+            "worst_rel": worst[0][1], "worst": worst[:4],
+            "median_rel": statistics.median(rel.values()),
+            "finite": set(g_got) == set(g_ref)
+            and all(bool(v.isfinite().all()) for v in g_got.values())}
+
+
 def hybrid_grads_card_vs_cpu(fb, tvs, torch):
     """Phase 20: one hybrid step at HYB_E2E_POINTS from phase 11's
-    checkpoint and the same draws, on the CPU (fp32, plain versions) and
-    on the card through the kernels: in the main path's precision (bf16
-    island and head), whose loss and grad norm must agree with the CPU's,
-    and in fp32, whose every gradient must (HYB_GRAD_REL_TOL).  Printed
-    beside them, not bounded: the bf16 step's gradients, the card's fp32
-    step with the plain trunk (the voxel kernels the only kernels), and
-    the CPU's own step with the prior's xyz moved by one ulp, the spread
-    that voxel rounding of knife-edge points and the normalisations'
-    cancellation give the pyramid's gradients at these weights."""
+    checkpoint and the same draws, on the CPU (plain versions) and on the
+    card through the kernels.  The CPU's fp32 step records its choices at
+    the kinks (pcfm_torch.kinks); the pinned steps replay them, so that
+    only rounding separates them: the card's bf16 step (the main path)
+    against the CPU's bf16 step (HYB_GRAD_REL_TOL_BF16) and fp32 step
+    (HYB_GRAD_REL_TOL), and the card's fp32 step with the plain trunk (the
+    voxel kernels its only kernels) against the CPU's fp32 step
+    (HYB_GRAD_REL_TOL_FP32); each bound's control must exceed it.  Every
+    card step's loss and grad norm within HYB_LOSS_REL_TOL.  Printed: the
+    CPU's bf16 step with the prior's xyz moved by one bf16 ulp against its
+    own (what a bf16 change of the input does), and the unpinned card
+    steps with their flips against the CPU's choices."""
+    from pcfm_torch import kinks
     from pcfm_torch.train import checkpoint
     from pcfm_torch.train.state import clip_by_global_norm_, init_state
     from pcfm_torch.train.step import compute_loss, make_draws
@@ -1663,31 +1718,49 @@ def hybrid_grads_card_vs_cpu(fb, tvs, torch):
              "rgb": torch.rand(b, n, 3, generator=g),
              "cond": torch.rand(b, 1, generator=g)}
     draws = make_draws(hybrid_train_cfg(), batch, g, 0.5)
+    # the prior's xyz moved by one bf16 ulp (at the top of a binade)
     x0 = draws["x0"].clone()
-    x0[..., :3] = torch.nextafter(x0[..., :3], torch.full_like(
-        x0[..., :3], math.inf))
+    x0[..., :3] *= 1.0 + 2.0 ** -8
+    moved = dict(draws, x0=x0)
     fp32 = {"amp": False, "ctx_dtype": "fp32"}
-    voxels = {"voxel_gather": 2 * PVCONVS, "voxel_scatter": 2 * PVCONVS}
-    kernels = {"film_block": FILM_BLOCKS, "film_block_bwd": FILM_BLOCKS,
-               **voxels}
-    legs = {"cpu": ("cpu", fp32, draws, {}),
-            "cpu_ulp": ("cpu", fp32, dict(draws, x0=x0), {}),
-            "bf16": (DEVICE, {}, draws, kernels),
-            "fp32": (DEVICE, fp32, draws, kernels),
-            "fp32_plain_trunk": (DEVICE, dict(fp32, fused_trunk="off"),
-                                 draws, voxels)}
-    out = {}
-    for leg, (dev, over, dr, want) in legs.items():
+    plain_trunk = dict(fp32, fused_trunk="off")
+    voxels = {k: HYB_STEP_LAUNCHES[k] for k in ("voxel_gather",
+                                                "voxel_scatter")}
+    # leg: (device, config, pinned, TF32, draws, launches)
+    legs = {"cpu_fp32": ("cpu", fp32, False, False, draws, {}),
+            "cpu_bf16": ("cpu", {}, True, False, draws, {}),
+            "cpu_bf16_moved": ("cpu", {}, True, False, moved, {}),
+            "bf16": (DEVICE, {}, False, False, draws, HYB_STEP_LAUNCHES),
+            "bf16_pinned": (DEVICE, {}, True, False, draws,
+                            HYB_STEP_LAUNCHES),
+            "fp32_plain_trunk": (DEVICE, plain_trunk, False, False, draws,
+                                 voxels),
+            "fp32_plain_trunk_pinned": (DEVICE, plain_trunk, True, False,
+                                        draws, voxels),
+            "fp32_plain_trunk_pinned_tf32": (DEVICE, plain_trunk, True,
+                                             True, draws, voxels)}
+    out, rec = {}, {}
+    for leg, (dev, over, pinned, tf32, dr, want) in legs.items():
+        t0 = time.perf_counter()
         state = init_state(hybrid_train_cfg(**over), dev, 1,
                            torch.Generator().manual_seed(SEED))
         with contextlib.redirect_stdout(io.StringIO()):
             checkpoint.restore_tolerant(path, state)
         before = {"film_block": fb.launches,
                   "film_block_bwd": fb.bwd_launches, **tvs.launches}
-        loss, _ = compute_loss(state.bundle,
-                               {k: v.to(dev) for k, v in batch.items()},
-                               {k: v.to(dev) for k, v in dr.items()}, 1.0)
-        loss.backward()
+        rec[leg] = kinks.Kinks()
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        torch.backends.cudnn.allow_tf32 = tf32
+        try:
+            with (kinks.replay(rec["cpu_fp32"]) if pinned
+                  else kinks.record(rec[leg])):
+                loss, _ = compute_loss(
+                    state.bundle, {k: v.to(dev) for k, v in batch.items()},
+                    {k: v.to(dev) for k, v in dr.items()}, 1.0)
+            loss.backward()
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
         params = [(f"{gname}/{name}", p) for gname in ("enc", "pf", "lf")
                   for name, p in getattr(state.bundle, gname)
                   .named_parameters() if p.grad is not None]
@@ -1701,39 +1774,49 @@ def hybrid_grads_card_vs_cpu(fb, tvs, torch):
         out[leg] = (float(loss.detach()), float(gnorm),
                     {k: p.grad.float().cpu() for k, p in params})
         del state, params, loss
+        print(f"[hybrid-train] step {leg} at ({b}, {n}): "
+              f"{time.perf_counter() - t0:.1f} s"
+              + ("" if pinned else f", kinks {rec[leg].counts()}"))
     torch.cuda.empty_cache()
-    l_cpu, n_cpu, g_cpu = out["cpu"]
-    res = {}
-    for leg in ("bf16", "fp32", "fp32_plain_trunk", "cpu_ulp"):
-        l_dev, n_dev, g_dev = out[leg]
-        rel = {k: ((g_dev[k] - v).abs().max()
-                   / v.abs().max().clamp_min(1e-30)).item()
-               for k, v in g_cpu.items()}
-        worst = sorted(rel.items(), key=lambda kv: -kv[1])
-        res[leg] = {"loss_rel": abs(l_dev - l_cpu) / abs(l_cpu),
-                    "norm_rel": abs(n_dev - n_cpu) / n_cpu,
-                    "worst_rel": worst[0][1],
-                    "median_rel": statistics.median(rel.values()),
-                    "finite": all(torch.isfinite(v).all()
-                                  for v in g_dev.values())
-                    and set(g_dev) == set(g_cpu)}
-        what = ("the CPU, prior xyz + 1 ulp," if leg == "cpu_ulp" else
-                f"card {leg} kernels")
-        print(f"[hybrid-train] {what} vs CPU fp32 plain, one step at ({b}, "
-              f"{n}): loss {l_dev:.6g} / {l_cpu:.6g} (rel "
-              f"{res[leg]['loss_rel']:.3g}), grad norm {n_dev:.6g} / "
-              f"{n_cpu:.6g} (rel {res[leg]['norm_rel']:.3g}); {len(rel)} "
-              f"gradients, max abs err / max |grad|: worst "
-              f"{worst[0][1]:.4g}, median {res[leg]['median_rel']:.3g}"
-              + (f" (bound {HYB_GRAD_REL_TOL})" if leg == "fp32" else
-                 " (printed, not bounded)")
-              + "; worst: " + ", ".join(f"{k} {v:.3g}"
-                                        for k, v in worst[:4]))
-    bf, f32 = res["bf16"], res["fp32"]
-    if not all(r["finite"] for r in res.values()) \
-            or max(bf["loss_rel"], bf["norm_rel"], f32["loss_rel"],
-                   f32["norm_rel"], f32["worst_rel"]) > HYB_GRAD_REL_TOL:
-        raise RuntimeError("hybrid step: card and CPU disagree")
+    # (leg, reference leg, bound, control: (leg, reference leg))
+    checks = (("bf16_pinned", "cpu_bf16", HYB_GRAD_REL_TOL_BF16,
+               ("bf16_pinned", "cpu_fp32")),
+              ("bf16_pinned", "cpu_fp32", HYB_GRAD_REL_TOL,
+               ("bf16", "cpu_fp32")),
+              ("fp32_plain_trunk_pinned", "cpu_fp32", HYB_GRAD_REL_TOL_FP32,
+               ("fp32_plain_trunk_pinned_tf32", "cpu_fp32")),
+              ("cpu_bf16_moved", "cpu_bf16", None, None),
+              ("bf16", "cpu_fp32", None, None),
+              ("fp32_plain_trunk", "cpu_fp32", None, None))
+    res, ok = {}, all(grad_errors(out[leg], out["cpu_fp32"])["finite"]
+                      for leg in out)
+    for leg, ref, tol, control in checks:
+        e = res[f"{leg}_vs_{ref}"] = grad_errors(out[leg], out[ref])
+        card = legs[leg][0] != "cpu"
+        flips = ("; flips against the CPU's choices (elements, of) "
+                 + str(kinks.flips(rec["cpu_fp32"], rec[leg]))
+                 if rec[leg].sites else "")
+        line = (f"[hybrid-train] {'card ' * card}{leg} vs {ref}, one step "
+                f"at ({b}, {n}): loss rel {e['loss_rel']:.3g}, grad norm rel "
+                f"{e['norm_rel']:.3g}; {len(out[ref][2])} gradients, max "
+                f"abs err / max |grad|: worst {e['worst_rel']:.4g}, median "
+                f"{e['median_rel']:.3g}")
+        if card:
+            ok = ok and max(e["loss_rel"], e["norm_rel"]) <= HYB_LOSS_REL_TOL
+        line += " (printed)" if tol is None else f" (bound {tol})"
+        ok = ok and (tol is None or e["worst_rel"] <= tol)
+        if control is not None:
+            c = res[f"{control[0]}_vs_{control[1]}"] = grad_errors(
+                out[control[0]], out[control[1]])
+            line += (f"; control {control[0]} vs {control[1]}: worst "
+                     f"{c['worst_rel']:.4g}, median {c['median_rel']:.3g} "
+                     f"(must exceed {tol})")
+            ok = ok and c["worst_rel"] > tol
+        print(line + "; worst: " + ", ".join(f"{k} {v:.3g}"
+                                             for k, v in e["worst"]) + flips)
+    if not ok:
+        raise RuntimeError("hybrid step: card and CPU disagree, or a "
+                           "control is within its bound")
     return res
 
 
@@ -1831,7 +1914,7 @@ def main() -> int:
                                             "bound_ms")),
                 "profiled_ms_per_run": hyb_prof[name][0],
                 "launches_cfg": hyb["heun50_cfg0.25"][name],
-                "launches_hybrid_train": htc["per_step"][name],
+                "launches_hybrid_train": hts["launches_per_step"][name],
                 # the hybrid backward's case: fp32 cotangents, K = 1 gather
                 # (avg-voxelize's transpose), K = 8 scatter (devoxelize's)
                 "train_backward_stages": [
@@ -1865,7 +1948,7 @@ def main() -> int:
         "sample_heun50_ms_per_shape": ms["on"],
         "sample_heun50_plain_trunk_ms_per_shape": ms["off"],
         "launches_train_cli": fwd_train,
-        "launches_hybrid_train": htc["per_step"]["film_block"]}, {
+        "launches_hybrid_train": hts["launches_per_step"]["film_block"]}, {
         "name": "film_block_bwd", "route": "cuda",
         "source": "pcfm_torch/csrc/film_block_bwd.cu",
         "replaces": "pcfm/ops/pallas/film_block.py:75",
@@ -1891,7 +1974,8 @@ def main() -> int:
         "train_plain_trunk_ms_per_step": step["ms_off"],
         "train_peak_gib": step["peak_gib_on"],
         "train_film_block_share": step["share"]["film_block_share"],
-        "launches_hybrid_train": htc["per_step"]["film_block_bwd"]},
+        "launches_hybrid_train":
+            hts["launches_per_step"]["film_block_bwd"]},
         voxel_entry("voxel_gather", "pcfm_torch/csrc/voxel_gather.cu",
                     "pcfm/ops/pallas/voxel_sorted.py:150", gather, "gather",
                     hybrid_heun50_ms_per_shape=hyb_ms["ms_per_shape"],
@@ -1900,13 +1984,9 @@ def main() -> int:
                     hybrid_peak_gib_cfg=hyb["heun50_cfg0.25"]["peak_gib"],
                     hybrid_end_to_end_rel_err=hyb_rel,
                     hybrid_train_idle_share=hts["idle_share"],
-                    hybrid_train_grad_rel_err_fp32=htg["fp32"]["worst_rel"],
-                    hybrid_train_grad_rel_err_fp32_plain_trunk=htg[
-                        "fp32_plain_trunk"]["worst_rel"],
-                    hybrid_train_grad_rel_spread_cpu_1ulp=htg["cpu_ulp"][
-                        "worst_rel"],
-                    hybrid_train_grad_rel_err_bf16=htg["bf16"]["worst_rel"],
-                    hybrid_train_loss_rel_err_bf16=htg["bf16"]["loss_rel"],
+                    hybrid_train_grad_rel_err={
+                        k: {"worst": e["worst_rel"], "median": e["median_rel"]}
+                        for k, e in htg.items()},
                     hybrid_train_cli_peak_gib=htc["peak_gib"]),
         voxel_entry("voxel_scatter", "pcfm_torch/csrc/voxel_scatter.cu",
                     "pcfm/ops/pallas/voxel_sorted.py:182", scatter,

@@ -35,8 +35,8 @@ in, 3, 3, 3) with a bias, ``voxel_layers.{1,4}`` BatchNorm,
 ``voxel_layers.6.fc`` SE, ``point_features.layers``.  The JAX package's
 convs have no bias and fold a reference checkpoint's into the running mean;
 the port keeps the bias (initialised to 0) out of the arithmetic and folds
-it the same way (``dead_conv_biases``: training leaves it out of the
-optimizer and folds it into the running mean once, ``fold_conv_biases_``).
+it the same way, as its BatchNorm's ``shift`` (``dead_conv_biases``:
+training leaves it out of the optimizer).
 """
 from __future__ import annotations
 
@@ -165,14 +165,3 @@ def dead_conv_biases(module: nn.Module) -> list:
         elif isinstance(m, SharedMLP):
             pairs.append((m.layers[0].bias, m.layers[1]))
     return pairs
-
-
-@torch.no_grad()
-def fold_conv_biases_(module: nn.Module) -> None:
-    """Fold each dead conv bias into its BatchNorm's running mean and zero
-    it (as pcfm/interop/torch_ckpt.py folds a reference checkpoint's): the
-    same eval output, and the running statistics then follow the JAX
-    package's recurrence exactly."""
-    for bias, bn in dead_conv_biases(module):
-        bn.running_mean.sub_(bias)
-        bias.zero_()

@@ -11,11 +11,10 @@ so a port checkpoint loads into the JAX package.
 ``auto_resume`` restores with the reference's tolerance (train.py:459-516,
 as pcfm/train/checkpoint.py:restore_tolerant): entries whose name and shape
 match are loaded and the rest keeps its fresh value (non-strict model load;
-for the EMA shadows, the key union with the current shadow), with a
-reference checkpoint's dead conv biases folded into the running means; the
-optimizer state is restored all or nothing, with a warning when it does not
-fit; the reference's legacy top-level keys ``model`` and ``opt_main`` are
-read as ``pf`` and ``opt``.
+for the EMA shadows, the key union with the current shadow); the optimizer
+state is restored all or nothing, with a warning when it does not fit; the
+reference's legacy top-level keys ``model`` and ``opt_main`` are read as
+``pf`` and ``opt``.
 Old checkpoints are deleted down to the newest ``keep_last_ckpts``.
 """
 from __future__ import annotations
@@ -28,8 +27,7 @@ from typing import Optional, Tuple
 import torch
 
 from pcfm_torch.config import Config
-from pcfm_torch.train.state import (ModelBundle, TrainState,
-                                    fold_bundle_biases_)
+from pcfm_torch.train.state import ModelBundle, TrainState
 
 _CKPT_RE = re.compile(r"hybrid_ep(\d+)\.pt$")
 # reference train.py:487,504
@@ -152,8 +150,6 @@ def restore_tolerant(path: str, state: TrainState,
         n, k = _load_matching(module, sd)
         n_loaded += n
         kept += [f"{key}/{name}" for name in k]
-    # a reference checkpoint's conv biases: into the running means
-    fold_bundle_biases_(state.bundle)
     opt_sd = ckpt.get("opt")
     why = "absent" if opt_sd is None else ""
     if opt_sd is not None and not _opt_fits(state.opt, opt_sd):

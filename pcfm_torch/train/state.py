@@ -17,8 +17,8 @@ too, as the JAX package's EMA averages ``batch_stats``.
 The optimizer is torch's AdamW (fused on CUDA) with the reference's three
 parameter groups (enc / pf / lf, train.py:249-253) over the parameters the
 JAX package has: the hybrid's reference conv biases that feed a BatchNorm
-(``dead_conv_biases``) are left out, and a train state folds them into the
-running means once (``fold_conv_biases_``), so no weight decay moves them
+(``dead_conv_biases``; each BatchNorm keeps its bias in the running mean,
+the reference's convention) are left out, so no weight decay moves them
 and the clip's norm does not count them.  b1 0.9, b2 0.999,
 eps 1e-8 and decoupled weight decay: the same update as optax.adamw and the
 JAX package's flat AdamW, with each group's warmup + cosine LR evaluated at
@@ -42,7 +42,7 @@ from pcfm_torch.models.encoder import ShapeEncoder
 from pcfm_torch.models.hybrid import HybridMLP
 from pcfm_torch.models.latent import ConditionalLatentVelocityNet
 from pcfm_torch.models.velocity import VelocityNet
-from pcfm_torch.nn.pvconv import dead_conv_biases, fold_conv_biases_
+from pcfm_torch.nn.pvconv import dead_conv_biases
 
 
 class ModelBundle:
@@ -215,19 +215,11 @@ def check_ported(cfg: Config) -> None:
                                   "to pcfm_torch")
 
 
-def fold_bundle_biases_(bundle: ModelBundle) -> None:
-    """``fold_conv_biases_`` on every module of the bundle (the live and EMA
-    hybrids; a no-op elsewhere)."""
-    for module in bundle.modules().values():
-        fold_conv_biases_(module)
-
-
 def init_state(cfg: Config, device, total_steps: int,
                generator: torch.Generator) -> TrainState:
     """Fresh modules (drawn from ``generator``; in training mode, as built),
     EMA = init, a zero-step optimizer."""
     check_ported(cfg)
     bundle = ModelBundle(cfg, device, generator)
-    fold_bundle_biases_(bundle)
     return TrainState(bundle=bundle, opt=make_optimizer(bundle),
                       total_steps=total_steps)
