@@ -5,6 +5,8 @@
     python3 chip_smoke.py --only voxel   # phases 1 and 10 alone
     python3 chip_smoke.py --only chamfer # phases 1 and 14 alone
     python3 chip_smoke.py --only hybrid_train  # phases 1 and 17-20 alone
+    python3 chip_smoke.py --only distill # phases 1 and 21-23 alone
+    python3 chip_smoke.py --only distill --seed 1  # other weights and data
 
 Needs one CUDA device (an H100: the kernels are built for sm_90a) and the
 CUDA toolkit's nvcc; imports nothing of JAX.  Phases, each fatal on
@@ -122,13 +124,37 @@ failure:
    exceed it; every card step's loss and grad norm within
    HYB_LOSS_REL_TOL.  Printed: the unpinned card steps' flips against
    the CPU's choices, and the CPU's bf16 step with the prior moved by one
-   bf16 ulp.
+   bf16 ulp;
+21. mlp distillation: phase 3's checkpoint on the synthetic set with
+   guidance 0.25 (random weights from the seed) through the distill CLI
+   (``--device cuda``, 2 phases x 4 steps: Heun x 50 -> Euler x 12),
+   guided and with ``--guidance_scale 0``: exact launches a step
+   (``distill_step_launches``: FiLM 5 x (4 teacher + 1 student) forward,
+   5 backward), finite losses, the saved config (euler x 12, guidance 0
+   when baked in); the sampling CLI on the distilled run (5 x 12 FiLM
+   launches, 8 finite clouds), its Euler x 12 ms/shape beside phase 4's
+   Heun x 50; the distill step's ms/step, peak memory, idle share and the
+   kernels' share of device time from one torch.profiler run;
+22. the same for the hybrid (phase 11's checkpoint, its running
+   statistics moved; gather and scatter 6 x 5 forward + 6 backward a
+   step), and the distilled checkpoint's live and EMA statistics equal to
+   the input's EMA statistics;
+23. one distill step at (2, 20 000) from phases 21 and 22's inputs on the
+   CPU (plain versions, fp32 and bf16) and on the card (kernels), the
+   hybrid's legs pinned at the CPU's kinks as phase 20's: each gradient's
+   error over its max within its bound, each bound's control beyond it;
+   full-width mlp train steps with ``fm_coupling sliced_ot``, with
+   ``lambda_adv 0.1`` and, at the largest point count the dense EMD fits,
+   ``lambda_emd 0.1`` (exact FiLM launches, finite losses, peak memory);
+   and ``pf_width 1024`` with the kernel trunk stopped by the backward
+   kernel's C <= 512 error.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import argparse
 import contextlib
 import io
 import json
@@ -206,6 +232,34 @@ HYB_GRAD_REL_TOL_FP32 = 1e-3
 HYB_STEP_LAUNCHES = {"film_block": FILM_BLOCKS, "film_block_bwd": FILM_BLOCKS,
                      "voxel_gather": 2 * PVCONVS,
                      "voxel_scatter": 2 * PVCONVS}
+# distillation (phases 21-23): the distill CLI's phases and steps a phase;
+# the teacher's Heun rollout evaluates the field 4 times a step (one 2B
+# call each under CFG), the student once forward and once backward; Heun x
+# 50 halves twice to Euler x 12
+DISTILL_PHASES, DISTILL_STEPS_PER_PHASE = 2, 4
+DISTILL_TEACHER_EVALS = 4
+DISTILL_EULER_STEPS = 12
+DISTILL_GUIDANCE = 0.25
+# one distill step at HYB_E2E_POINTS, card (bf16, kernels) against the CPU
+# (plain versions), each gradient's error over the CPU value's max; the
+# hybrid's legs take the CPU fp32 step's choices at the kinks, as phase
+# 20's.  The loss within DISTILL_LOSS_REL_TOL in every card leg.  Each
+# bound lies between the sound run's readings and its control's, read at
+# --seed 0, 1 and 2 (PERF.md, the distillation findings; on an H100):
+DISTILL_LOSS_REL_TOL = 5e-2
+# the mlp's bf16 step against the CPU's bf16 step: the same roundings in
+# other orders of summation, the kernels' bf16 products (8.26e-3 to
+# 1.47e-2); control: the same card step against the CPU's fp32 step
+# (2.37e-2 to 3.07e-2)
+MLP_DISTILL_GRAD_REL_TOL_BF16 = 1.85e-2
+# the mlp's fp32 step (fp32 inputs; the kernels' products in bf16) against
+# the CPU's fp32 step (4.21e-3 to 7.70e-3); control: the bf16 step against
+# it
+MLP_DISTILL_GRAD_REL_TOL_FP32 = 1.5e-2
+# the dense EMD's step peaks at ~6.2 (B, N, N) fp32 matrices (approxmatch's
+# distances, match, weights and products, the distances' temporaries;
+# 43.418 GiB at 8 x 15 360 on an H100): the point count is sized for 6.5
+EMD_DENSE_MATRICES = 6.5
 # chamfer kernel vs plain: the same fp32 difference form, the kernel's
 # fused multiply-adds aside: |d_kernel - d_plain| <= CHAMFER_REL_TOL *
 # max(d) + CHAMFER_ATOL; indices equal unless the kernel's neighbour is
@@ -975,21 +1029,31 @@ def reset_counts(fb, tvs, tc=None):
         tc.launches = 0
 
 
-def write_hybrid_checkpoint(torch):
-    """The full-width hybrid checkpoint of phases 11-13 and 20: random
-    weights from the seed, the zero-init head_out and FiLM1d affines drawn
-    N(0, 0.02) so that the PVConv pyramid reaches the velocity."""
+def write_hybrid_checkpoint(torch, out_dir: str = HYB_DIR,
+                            moved_stats: bool = False, **kw):
+    """The full-width hybrid checkpoint of phases 11-13 and 20 (``kw``:
+    Config changes): random weights from the seed, the zero-init head_out
+    and FiLM1d affines drawn N(0, 0.02) so that the PVConv pyramid reaches
+    the velocity.  ``moved_stats``: the EMA's running means drawn N(0, 0.1)
+    and variances U(0.75, 1.25), the live ones apart from them, so that a
+    check of which statistics a consumer took is not vacuous."""
     from pcfm_torch.train import checkpoint
     from pcfm_torch.train.state import ModelBundle
-    shutil.rmtree(HYB_DIR, ignore_errors=True)
+    shutil.rmtree(out_dir, ignore_errors=True)
     gen = torch.Generator().manual_seed(SEED)
-    bundle = ModelBundle(hybrid_cfg(), DEVICE, gen)
+    bundle = ModelBundle(hybrid_cfg(**kw), DEVICE, gen)
     with torch.no_grad():
         for name, p in bundle.pf.named_parameters():
             if name.endswith(("head_out.weight", "film.affine.weight")):
                 p.copy_(torch.randn(p.shape, generator=gen) * 0.02)
         bundle.ema_pf.load_state_dict(bundle.pf.state_dict())
-    path = checkpoint.save(HYB_DIR, 1, bundle)
+        for module in ((bundle.ema_pf, bundle.pf) if moved_stats else ()):
+            for name, v in module.named_buffers():
+                if name.endswith("running_mean"):
+                    v.copy_(torch.randn(v.shape, generator=gen) * 0.1)
+                elif name.endswith("running_var"):
+                    v.copy_(torch.rand(v.shape, generator=gen) * 0.5 + 0.75)
+    path = checkpoint.save(out_dir, 1, bundle)
     n_params = sum(p.numel() for p in bundle.pf.parameters())
     print(f"[hybrid] wrote {os.path.relpath(path, ROOT)} (point flow "
           f"{n_params / 1e6:.3f} M parameters)")
@@ -1820,7 +1884,465 @@ def hybrid_grads_card_vs_cpu(fb, tvs, torch):
     return res
 
 
+def distill_step_launches(kind: str) -> dict:
+    """Wrapper launches of one distill step: the teacher's evaluations
+    and the student's forward, each FILM_BLOCKS forward blocks (and, for
+    the hybrid, one scatter and one gather a PVConv), and the student's
+    backward (FILM_BLOCKS backward blocks; a gather and a scatter a
+    PVConv)."""
+    evals = DISTILL_TEACHER_EVALS + 1
+    voxel = PVCONVS * (evals + 1) if kind == "hybrid" else 0
+    return {"film_block": FILM_BLOCKS * evals, "film_block_bwd": FILM_BLOCKS,
+            "voxel_gather": voxel, "voxel_scatter": voxel}
+
+
+def counts(fb, tvs) -> dict:
+    return {"film_block": fb.launches, "film_block_bwd": fb.bwd_launches,
+            **tvs.launches}
+
+
+def write_distill_input(torch, kind: str) -> str:
+    """The input of phase 21 (mlp, phase 3's checkpoint) or 22 (hybrid,
+    phase 11's, its running statistics moved): the bench configuration at
+    full width with random weights from the seed, on the synthetic set
+    (where the CLI finds its batches) and with the run's guidance 0.25."""
+    from pcfm_torch.train import checkpoint
+    from pcfm_torch.train.state import ModelBundle
+    out_dir = os.path.join(RUN_DIR, f"distill_{kind}")
+    kw = dict(dataset_type="synthetic", guidance_scale=DISTILL_GUIDANCE)
+    if kind == "hybrid":
+        write_hybrid_checkpoint(torch, out_dir, moved_stats=True, **kw)
+        return out_dir
+    shutil.rmtree(out_dir, ignore_errors=True)
+    bundle = ModelBundle(bench_cfg(**kw), DEVICE,
+                         torch.Generator().manual_seed(SEED))
+    path = checkpoint.save(out_dir, 1, bundle)
+    print(f"[distill-mlp] wrote {os.path.relpath(path, ROOT)}")
+    return out_dir
+
+
+def running_stats(sd: dict) -> dict:
+    return {k: v for k, v in sd.items()
+            if k.endswith(("running_mean", "running_var"))}
+
+
+def distill_cli_full_width(fb, tvs, torch, np, kind: str, heun_ms=None):
+    """Phase 21 (mlp) / 22 (hybrid): the distill CLI at full width, guided
+    (the run's 0.25: 2B teacher calls) and with --guidance_scale 0 (cond
+    dropout), exact launches, finite losses, the saved config, the hybrid's
+    frozen statistics; then the sampling CLI on the distilled run (Euler x
+    12) and its ms/shape; then the distill step's ms/step, peak memory,
+    idle share and the kernels' share from one profile."""
+    from pcfm_torch.distill import cli as dcli
+    from pcfm_torch.sample import cli as scli
+    from pcfm_torch.train import checkpoint
+    t_phase = time.perf_counter()
+    tag = f"[distill-{kind}]"
+    src = write_distill_input(torch, kind)
+    src_ck = torch.load(checkpoint.find_latest(src)[0], map_location="cpu",
+                        weights_only=True)
+    per_step = distill_step_launches(kind)
+    n_steps = DISTILL_PHASES * DISTILL_STEPS_PER_PHASE
+    want = {k: v * n_steps for k, v in per_step.items()}
+    out = {}
+    for name, extra, want_g in (
+            ("guided", [], 0.0),
+            ("unguided", ["--guidance_scale", "0"], DISTILL_GUIDANCE)):
+        save = f"{src}_{name}"
+        shutil.rmtree(save, ignore_errors=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(fb, tvs)
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            _, steps = dcli.main(
+                ["--out_dir", src, "--save_dir", save, "--phases",
+                 str(DISTILL_PHASES), "--steps_per_phase",
+                 str(DISTILL_STEPS_PER_PHASE), "--device", DEVICE, *extra])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = counts(fb, tvs)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log = buf.getvalue()
+        losses = [float(x) for x in re.findall(r"final loss (\S+)", log)]
+        ck = torch.load(checkpoint.find_latest(save)[0], map_location="cpu",
+                        weights_only=True)
+        args = ck["args"]
+        stats_ok = all(
+            torch.equal(ck[key][k], v)
+            for key in ("pf", "ema_pf")
+            for k, v in running_stats(src_ck["ema_pf"]).items())
+        moved = kind == "mlp" or any(
+            not torch.equal(src_ck["pf"][k], v)
+            for k, v in running_stats(src_ck["ema_pf"]).items())
+        print(f"{tag} CLI {name} at {B} x {N}, {DISTILL_PHASES} phases x "
+              f"{DISTILL_STEPS_PER_PHASE} steps: launches {got} (expected "
+              f"{want}: {per_step} a step), losses {losses}, saved "
+              f"{args['sampler']} x {args['sample_steps']} guidance "
+              f"{args['guidance_scale']}, running statistics of the "
+              f"distilled pf and EMA = the input's EMA's: {stats_ok} "
+              f"({len(running_stats(src_ck['ema_pf']))} tensors), wall "
+              f"{wall:.2f} s incl. load, data and save, peak device memory "
+              f"{peak:.3f} GiB")
+        for line in log.strip().splitlines():
+            print(f"{tag}   {line}")
+        if (got != want or len(losses) != DISTILL_PHASES
+                or not all(math.isfinite(v) for v in losses)
+                or steps != DISTILL_EULER_STEPS
+                or args["sampler"] != "euler"
+                or args["sample_steps"] != DISTILL_EULER_STEPS
+                or args["guidance_scale"] != want_g
+                or not stats_ok or not moved):
+            raise RuntimeError(f"distill CLI ({kind}, {name}): launches, "
+                               "losses, saved config or statistics wrong")
+        out[name] = {"launches": got, "losses": losses, "wall_s": wall,
+                     "peak_gib": peak}
+
+    # the sampling CLI on the distilled run
+    save = f"{src}_guided"
+    want = {"film_block": FILM_BLOCKS * DISTILL_EULER_STEPS,
+            "film_block_bwd": 0,
+            **dict.fromkeys(tvs.launches, PVCONVS * DISTILL_EULER_STEPS
+                            if kind == "hybrid" else 0)}
+    reset_counts(fb, tvs)
+    with contextlib.redirect_stdout(io.StringIO()):
+        x = scli.main(["--out_dir", save, "--save_dir",
+                       os.path.join(save, "generated"), "--num_samples",
+                       str(B), "--n_points", str(N), "--seed", str(SEED),
+                       "--device", DEVICE])
+    got = counts(fb, tvs)
+    print(f"{tag} sampling CLI on the distilled run: launches {got} "
+          f"(expected {want}), clouds {x.shape}, finite "
+          f"{bool(np.isfinite(x).all())}")
+    if got != want or x.shape != (B, N, 6) or not np.isfinite(x).all():
+        raise RuntimeError(f"sampling the distilled {kind} run: launches "
+                           "or output wrong")
+    out["euler_ms_per_shape"] = euler_ms_per_shape(torch, save, tag, heun_ms)
+    out["step"] = distill_step_time(fb, tvs, torch, kind, src)
+    print(f"{tag} phase {21 if kind == 'mlp' else 22}: "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def euler_ms_per_shape(torch, run_dir: str, tag: str, heun_ms) -> float:
+    """The distilled run's sampler (Euler x 12) ms/shape: 3 runs after a
+    warm-up, beside the teacher's Heun x 50 (phases 4 / 12)."""
+    from pcfm_torch.sample.cli import load_run
+    from pcfm_torch.train.evaluate import make_sample_fn
+    _, bundle, _ = load_run(run_dir, None, DEVICE)
+    sample = make_sample_fn(bundle)
+    times = []
+    for _ in range(4):
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sample(None, gen, B, N)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3 / B)
+    ms = statistics.median(times[1:])
+    print(f"{tag} Euler x{DISTILL_EULER_STEPS} at {B} x {N}: "
+          f"{' '.join(f'{t:.2f}' for t in times)} ms/shape (first is "
+          f"warm-up; median {ms:.2f}); the teacher's Heun x50: "
+          + (f"{heun_ms:.2f} ms/shape" if heun_ms else "not run here"))
+    del bundle
+    torch.cuda.empty_cache()
+    return ms
+
+
+def distill_step_time(fb, tvs, torch, kind: str, src: str) -> dict:
+    """The distill step of phase 0 (guided, N_p = 25) at bench.py's
+    workload: ms/step on the host clock (3 x 5 steps after 2 warm-up
+    steps), peak memory, and one torch.profiler run of 3 steps: launches
+    per step, device busy time, idle share, the kernels' share."""
+    import copy
+
+    from pcfm_torch.distill.progressive import (init_distill_state,
+                                                make_distill_step)
+    from pcfm_torch.sample.cli import load_run
+    tag = f"[distill-{kind}]"
+    cfg, bundle, _ = load_run(src, None, DEVICE)
+    batch = train_batch(torch)
+    dstate = init_distill_state(copy.deepcopy(bundle.ema_pf), 1e-4)
+    dstep = make_distill_step(bundle, cfg.sample_steps // 2,
+                              guidance_scale=cfg.guidance_scale)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+
+    def run():
+        return dstep(bundle.ema_pf, dstate, batch, gen)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        run()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            m = run()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3 / 5)
+        if not math.isfinite(float(m["loss_distill"])):
+            raise RuntimeError(f"{kind} distill step: loss {m}")
+    ms = statistics.median(times)
+    groups = {"film_block_bwd": ("film_block_bwd",),
+              "film_block_fwd": ("film_block", "pack_w"),
+              "voxel_gather": ("voxel_gather",),
+              "voxel_scatter": ("voxel_scatter",)}
+    reset_counts(fb, tvs)
+    prof = profile_kernels(torch, run, 3, groups,
+                           os.path.join(RUN_DIR, f"distill_{kind}_trace.json"))
+    per_step = {k: v / 3 for k, v in counts(fb, tvs).items()}
+    idle = 1 - prof["busy_ms"] / prof["wall_ms"]
+    ours = sum(prof[g][0] for g in groups)
+    print(f"{tag} distill step (phase 0, N_p {cfg.sample_steps // 2}, "
+          f"guidance {cfg.guidance_scale}) at {B} x {N} bf16: "
+          f"{' '.join(f'{t:.3f}' for t in times)} ms/step (median "
+          f"{ms:.3f}), peak device memory {peak:.3f} GiB; profiler, 3 "
+          f"steps: {prof['wall_ms']:.3f} ms/step wall, {prof['busy_ms']:.3f}"
+          f" ms device busy (idle share {idle:.3f}); the kernels "
+          f"{ours:.3f} ms = {ours / prof['busy_ms']:.3f} of device time; "
+          f"wrapper launches per step {per_step} (expected "
+          f"{distill_step_launches(kind)})")
+    for group in groups:
+        g_ms, g_n = prof[group]
+        print(f"{tag}   {group}: {g_ms:.3f} ms/step device time, {g_n} "
+              f"launches/step, {g_ms / prof['busy_ms']:.3f} of device time")
+    for name, k_ms, k_n in prof["top"]:
+        print(f"{tag}   {k_ms:9.3f} ms/step  {k_n:5d} x  {name}")
+    if per_step != distill_step_launches(kind):
+        raise RuntimeError(f"{kind} distill step: wrong launch count")
+    del dstate, bundle
+    torch.cuda.empty_cache()
+    return {"ms_per_step": ms, "times": times, "peak_gib": peak,
+            "busy_ms": prof["busy_ms"], "idle_share": idle,
+            "kernel_share": ours / prof["busy_ms"],
+            "launches_per_step": per_step,
+            "profiled_ms": {g: prof[g][0] for g in groups}}
+
+
+def distill_card_vs_cpu(fb, tvs, torch, kind: str):
+    """Phase 23, first part: one distill step (phase 0: guided, N_p 25)
+    at HYB_E2E_POINTS from phase 21's or 22's input and the same draws, on
+    the CPU (plain versions) and on the card (kernels); each gradient's
+    error over the CPU value's max.  mlp: the card's bf16 step against
+    the CPU's bf16 step and the card's fp32 step (fp32 inputs to the
+    kernels) against the CPU's fp32 step, each bound's control the card's
+    bf16 step against the CPU's fp32 step.  hybrid: as phase 20, the pinned
+    legs replaying the CPU fp32 step's choices at the kinks."""
+    import copy
+
+    from pcfm_torch import kinks
+    from pcfm_torch.distill.progressive import (init_distill_state,
+                                                make_distill_draws,
+                                                make_distill_step)
+    from pcfm_torch.sample.cli import load_run
+    tag = f"[distill-{kind}]"
+    b, n = HYB_E2E_POINTS
+    src = os.path.join(RUN_DIR, f"distill_{kind}")
+    g = torch.Generator().manual_seed(SEED + 9)
+    batch = {"pts": torch.randn(b, n, 3, generator=g) * 0.5,
+             "rgb": torch.rand(b, n, 3, generator=g),
+             "cond": torch.rand(b, 1, generator=g)}
+    n_p = bench_cfg().sample_steps // 2
+    draws = make_distill_draws(bench_cfg(), batch, g, n_p, 0.0)
+    fp32 = {"amp": False, "ctx_dtype": "fp32"}
+    full = distill_step_launches(kind)
+    voxels = dict(full, film_block=0, film_block_bwd=0)
+    none = dict.fromkeys(full, 0)
+    if kind == "mlp":
+        # leg: (device, overrides, pinned, TF32, launches)
+        legs = {"cpu_fp32": ("cpu", fp32, False, False, none),
+                "cpu_bf16": ("cpu", {}, False, False, none),
+                "bf16": (DEVICE, {}, False, False, full),
+                "fp32": (DEVICE, fp32, False, False, full)}
+        checks = (("bf16", "cpu_bf16", MLP_DISTILL_GRAD_REL_TOL_BF16,
+                   ("bf16", "cpu_fp32")),
+                  ("fp32", "cpu_fp32", MLP_DISTILL_GRAD_REL_TOL_FP32,
+                   ("bf16", "cpu_fp32")))
+    else:
+        plain = dict(fp32, fused_trunk="off")
+        legs = {"cpu_fp32": ("cpu", fp32, False, False, none),
+                "cpu_bf16": ("cpu", {}, True, False, none),
+                "bf16": (DEVICE, {}, False, False, full),
+                "bf16_pinned": (DEVICE, {}, True, False, full),
+                "fp32_plain_trunk_pinned": (DEVICE, plain, True, False,
+                                            voxels),
+                "fp32_plain_trunk_pinned_tf32": (DEVICE, plain, True, True,
+                                                 voxels)}
+        # the hybrid's legs reuse phase 20's bounds, each with phase 20's
+        # control
+        checks = (("bf16_pinned", "cpu_bf16", HYB_GRAD_REL_TOL_BF16,
+                   ("bf16_pinned", "cpu_fp32")),
+                  ("bf16_pinned", "cpu_fp32", HYB_GRAD_REL_TOL,
+                   ("bf16", "cpu_fp32")),
+                  ("fp32_plain_trunk_pinned", "cpu_fp32",
+                   HYB_GRAD_REL_TOL_FP32,
+                   ("fp32_plain_trunk_pinned_tf32", "cpu_fp32")))
+    out, rec = {}, {}
+    for leg, (dev, over, pinned, tf32, want) in legs.items():
+        t0 = time.perf_counter()
+        _, bundle, _ = load_run(src, over, dev)
+        dstate = init_distill_state(copy.deepcopy(bundle.ema_pf), 1e-4)
+        dstep = make_distill_step(bundle, n_p,
+                                  guidance_scale=DISTILL_GUIDANCE)
+        before = counts(fb, tvs)
+        rec[leg] = kinks.Kinks()
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        torch.backends.cudnn.allow_tf32 = tf32
+        try:
+            with (kinks.replay(rec["cpu_fp32"]) if pinned
+                  else kinks.record(rec[leg])):
+                m = dstep(bundle.ema_pf, dstate,
+                          {k: v.to(dev) for k, v in batch.items()},
+                          draws={k: v.to(dev) for k, v in draws.items()})
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        launched = {k: v - before[k] for k, v in counts(fb, tvs).items()}
+        if launched != want:
+            raise RuntimeError(f"{kind} distill step, {leg}: launches "
+                               f"{launched}, expected {want}")
+        grads = {name: p.grad.float().cpu()
+                 for name, p in dstate.params.named_parameters()
+                 if p.grad is not None}
+        gnorm = torch.linalg.vector_norm(torch.stack(
+            [torch.linalg.vector_norm(v) for v in grads.values()]))
+        out[leg] = (float(m["loss_distill"]), float(gnorm), grads)
+        del bundle, dstate
+        print(f"{tag} step {leg} at ({b}, {n}): "
+              f"{time.perf_counter() - t0:.1f} s"
+              + ("" if pinned else f", kinks {rec[leg].counts()}"))
+    torch.cuda.empty_cache()
+    res, ok = {}, all(grad_errors(out[leg], out["cpu_fp32"])["finite"]
+                      for leg in out)
+    for leg, ref, tol, control in checks:
+        e = res[f"{leg}_vs_{ref}"] = grad_errors(out[leg], out[ref])
+        c = res[f"{control[0]}_vs_{control[1]}"] = grad_errors(
+            out[control[0]], out[control[1]])
+        ok = (ok and e["worst_rel"] <= tol and c["worst_rel"] > tol
+              and max(e["loss_rel"], c["loss_rel"]) <= DISTILL_LOSS_REL_TOL)
+        print(f"{tag} card {leg} vs {ref}, one distill step at ({b}, {n}): "
+              f"loss rel {e['loss_rel']:.3g}, grad norm rel "
+              f"{e['norm_rel']:.3g}; {len(out[ref][2])} gradients, max abs "
+              f"err / max |grad|: worst {e['worst_rel']:.4g}, median "
+              f"{e['median_rel']:.3g} (bound {tol}); control {control[0]} "
+              f"vs {control[1]}: worst {c['worst_rel']:.4g}, median "
+              f"{c['median_rel']:.3g} (must exceed {tol}); worst: "
+              + ", ".join(f"{k} {v:.3g}" for k, v in e["worst"]))
+    if kind == "hybrid" and rec["bf16"].sites:
+        print(f"{tag} unpinned card bf16 step: flips against the CPU's "
+              f"choices (elements, of) "
+              f"{kinks.flips(rec['cpu_fp32'], rec['bf16'])}")
+    if not ok:
+        raise RuntimeError(f"{kind} distill step: card and CPU disagree, "
+                           "or a control is within its bound")
+    return res
+
+
+def train_knobs_full_width(fb, tvs, torch):
+    """Phase 23, second part: one full-width mlp train step (8 x 20 000,
+    bf16, kernel trunk) with each opt-in option: sliced-OT coupling and
+    the adversary (lambda_adv 0.1, cond_dim 1) at bench.py's workload, the
+    endpoint EMD (lambda_emd 0.1) at the largest multiple of 1024 points a
+    cloud at which its EMD_DENSE_MATRICES (B, N, N) fp32 matrices fit in
+    80 % of the free memory; exact FiLM launches, finite losses, ms/step
+    after a warm-up step, peak memory.  Then a width the backward kernel
+    does not take (pf_width 1024, fused_trunk on) must stop a distill step
+    with the wrapper's error."""
+    import copy
+
+    from pcfm_torch.distill.progressive import (init_distill_state,
+                                                make_distill_step)
+    from pcfm_torch.train.state import ModelBundle, init_state
+    from pcfm_torch.train.step import train_step
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info()[0]
+    n_emd = min(N, int(math.sqrt(0.8 * free / (EMD_DENSE_MATRICES * B * 4)))
+                // 1024 * 1024)
+    if n_emd < 1:
+        raise RuntimeError(f"the dense EMD does not fit: {free} bytes free")
+    out = {}
+    for name, kw, n in (("sliced_ot", {"fm_coupling": "sliced_ot"}, N),
+                        ("adv", {"lambda_adv": 0.1}, N),
+                        ("emd", {"lambda_emd": 0.1}, n_emd)):
+        state = init_state(bench_cfg(tr_max_sample_points=n, **kw), DEVICE,
+                           STEPS_PER_EPOCH,
+                           torch.Generator().manual_seed(SEED))
+        batch = {k: v[:, :n] if v.dim() == 3 else v
+                 for k, v in train_batch(torch).items()}
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+        train_step(state, batch, gen, 1.0, 0.1)                 # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(fb, tvs)
+        t0 = time.perf_counter()
+        m = train_step(state, batch, gen, 1.0, 0.1)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        got = counts(fb, tvs)
+        want = dict(HYB_STEP_LAUNCHES, voxel_gather=0, voxel_scatter=0)
+        losses = {k: float(v) for k, v in m.items()}
+        print(f"[knobs] mlp train step with {name} at ({B}, {n}) bf16: "
+              f"{ms:.3f} ms (one step after a warm-up), peak device memory "
+              f"{peak:.3f} GiB, launches {got}, losses {losses}")
+        key = {"emd": "loss_emd", "adv": "loss_adv"}.get(name, "loss")
+        if got != want or not all(math.isfinite(v) for v in losses.values()) \
+                or key not in losses:
+            raise RuntimeError(f"train step with {name}: launches or loss")
+        out[name] = {"ms": ms, "peak_gib": peak, "points": n}
+        del state
+        torch.cuda.empty_cache()
+    print(f"[knobs] the endpoint EMD's step ran at {n_emd} points a cloud "
+          f"(free memory {free / 2**30:.1f} GiB before the steps)")
+    bundle = ModelBundle(bench_cfg(pf_width=1024), DEVICE,
+                         torch.Generator().manual_seed(SEED))
+    g = torch.Generator(device=DEVICE).manual_seed(SEED)
+    small = {k: v[:2, :256] if v.dim() == 3 else v[:2]
+             for k, v in train_batch(torch).items()}
+    dstate = init_distill_state(copy.deepcopy(bundle.ema_pf), 1e-4)
+    try:
+        make_distill_step(bundle, 2)(bundle.ema_pf, dstate, small, g)
+    except ValueError as e:
+        said = str(e)
+    else:
+        said = ""
+    print(f"[knobs] distill step at pf_width 1024, fused_trunk on: "
+          f"{said or 'no error'}")
+    if "C <= 512" not in said:
+        raise RuntimeError("pf_width 1024: the backward kernel's limit "
+                           "did not stop the step")
+    del bundle, dstate
+    torch.cuda.empty_cache()
+    return out
+
+
+def distill_phases(fb, tvs, torch, np, heun_ms=None, hyb_heun_ms=None):
+    """Phases 21-23."""
+    dm = distill_cli_full_width(fb, tvs, torch, np, "mlp", heun_ms)
+    dh = distill_cli_full_width(fb, tvs, torch, np, "hybrid", hyb_heun_ms)
+    t0 = time.perf_counter()
+    cv = {kind: distill_card_vs_cpu(fb, tvs, torch, kind)
+          for kind in ("mlp", "hybrid")}
+    kn = train_knobs_full_width(fb, tvs, torch)
+    print(f"[distill] phase 23: {time.perf_counter() - t0:.1f} s")
+    return {"mlp": dm, "hybrid": dh, "card_vs_cpu": cv, "knobs": kn}
+
+
 def main() -> int:
+    global SEED
+    p = argparse.ArgumentParser(description="on-card smoke run of pcfm_torch")
+    p.add_argument("--only", choices=("voxel", "chamfer", "hybrid_train",
+                                      "distill"),
+                   help="phase 1 and one group of phases alone")
+    p.add_argument("--seed", type=int, default=SEED,
+                   help="seed of every random weight, cloud and draw")
+    args = p.parse_args()
+    SEED = args.seed
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -1845,15 +2367,20 @@ def main() -> int:
           f"{os.path.relpath(info['path'], ROOT)} in {info['seconds']:.2f} s")
     check_spills(info["log"])
 
-    if sys.argv[1:] == ["--only", "voxel"]:
+    if args.only == "voxel":
         # phases 1 and 10 alone, for work on the voxel kernels
         voxel_vs_plain(tvs, torch)
         return 0
-    if sys.argv[1:] == ["--only", "chamfer"]:
+    if args.only == "chamfer":
         # phases 1 and 14 alone, for work on the chamfer kernel
         chamfer_vs_plain(tc, torch)
         return 0
-    if sys.argv[1:] == ["--only", "hybrid_train"]:
+    if args.only == "distill":
+        # phase 1 and phases 21-23 (which write their own inputs), for
+        # work on distillation and the train step's options
+        distill_phases(fb, tvs, torch, np)
+        return 0
+    if args.only == "hybrid_train":
         # phase 1, phase 11's checkpoint and phases 17-20 alone, for work
         # on hybrid training
         write_hybrid_checkpoint(torch)
@@ -1881,6 +2408,9 @@ def main() -> int:
     hts = hybrid_train_step_time(fb, tvs, torch)
     hybrid_determinism(torch)
     htg = hybrid_grads_card_vs_cpu(fb, tvs, torch)
+    dist = distill_phases(fb, tvs, torch, np, ms["on"],
+                          hyb_ms["ms_per_shape"])
+    dm, dh = dist["mlp"]["step"], dist["hybrid"]["step"]
 
     film = film_bounds(B, N, C)
     # the main path's shapes: R = 32 stage, 8 clouds, bf16 features;
@@ -1927,6 +2457,9 @@ def main() -> int:
                 "hybrid_train_ms_per_step": hts["ms_per_step"],
                 "hybrid_train_peak_gib": hts["peak_gib"],
                 "hybrid_train_profiled_ms_per_step": hts_prof[name][0],
+                "launches_distill_mlp": dm["launches_per_step"][name],
+                "launches_distill_hybrid": dh["launches_per_step"][name],
+                "distill_hybrid_profiled_ms_per_step": dh["profiled_ms"][name],
                 **extra}
 
     # the card again, beside the numbers (the first line may scroll away)
@@ -1948,7 +2481,15 @@ def main() -> int:
         "sample_heun50_ms_per_shape": ms["on"],
         "sample_heun50_plain_trunk_ms_per_shape": ms["off"],
         "launches_train_cli": fwd_train,
-        "launches_hybrid_train": hts["launches_per_step"]["film_block"]}, {
+        "launches_hybrid_train": hts["launches_per_step"]["film_block"],
+        "launches_distill_mlp": dm["launches_per_step"]["film_block"],
+        "launches_distill_hybrid": dh["launches_per_step"]["film_block"],
+        "distill_mlp_ms_per_step": dm["ms_per_step"],
+        "distill_mlp_idle_share": dm["idle_share"],
+        "distill_mlp_peak_gib": dm["peak_gib"],
+        "distill_mlp_kernel_share": dm["kernel_share"],
+        "distilled_mlp_euler12_ms_per_shape":
+            dist["mlp"]["euler_ms_per_shape"]}, {
         "name": "film_block_bwd", "route": "cuda",
         "source": "pcfm_torch/csrc/film_block_bwd.cu",
         "replaces": "pcfm/ops/pallas/film_block.py:75",
@@ -1975,7 +2516,14 @@ def main() -> int:
         "train_peak_gib": step["peak_gib_on"],
         "train_film_block_share": step["share"]["film_block_share"],
         "launches_hybrid_train":
-            hts["launches_per_step"]["film_block_bwd"]},
+            hts["launches_per_step"]["film_block_bwd"],
+        "launches_distill_mlp": dm["launches_per_step"]["film_block_bwd"],
+        "launches_distill_hybrid":
+            dh["launches_per_step"]["film_block_bwd"],
+        "distill_mlp_grad_rel_err": {
+            k: {"worst": e["worst_rel"], "median": e["median_rel"]}
+            for k, e in dist["card_vs_cpu"]["mlp"].items()},
+        "train_knobs": dist["knobs"]},
         voxel_entry("voxel_gather", "pcfm_torch/csrc/voxel_gather.cu",
                     "pcfm/ops/pallas/voxel_sorted.py:150", gather, "gather",
                     hybrid_heun50_ms_per_shape=hyb_ms["ms_per_shape"],
@@ -1987,7 +2535,17 @@ def main() -> int:
                     hybrid_train_grad_rel_err={
                         k: {"worst": e["worst_rel"], "median": e["median_rel"]}
                         for k, e in htg.items()},
-                    hybrid_train_cli_peak_gib=htc["peak_gib"]),
+                    hybrid_train_cli_peak_gib=htc["peak_gib"],
+                    distill_hybrid_ms_per_step=dh["ms_per_step"],
+                    distill_hybrid_idle_share=dh["idle_share"],
+                    distill_hybrid_peak_gib=dh["peak_gib"],
+                    distill_hybrid_kernel_share=dh["kernel_share"],
+                    distilled_hybrid_euler12_ms_per_shape=dist["hybrid"][
+                        "euler_ms_per_shape"],
+                    distill_hybrid_grad_rel_err={
+                        k: {"worst": e["worst_rel"],
+                            "median": e["median_rel"]}
+                        for k, e in dist["card_vs_cpu"]["hybrid"].items()}),
         voxel_entry("voxel_scatter", "pcfm_torch/csrc/voxel_scatter.cu",
                     "pcfm/ops/pallas/voxel_sorted.py:182", scatter,
                     "scatter", plan_glue_profiled_ms_per_run={

@@ -8,19 +8,21 @@ copied here (``pcfm_torch.config``, ``pcfm_torch.data``,
 ``pcfm_torch.utils``).  Entry points run on the card unless the caller
 asks for the CPU (``pcfm_torch.device``).
 
-Layout (ported so far: the ``mlp`` sampling and training paths and the
-``hybrid`` sampling path):
+Layout (ported so far: the ``mlp`` and ``hybrid`` sampling, training
+and distillation paths, with every train-step option, and evaluation):
   pcfm_torch.nn       inits, FiLMBlock, FiLM1d, GroupNorm / BatchNorm,
                       SharedMLP, SE3d, PVConv
   pcfm_torch.models   timestep embedding, VelocityNet(WithContext),
                       ConditionalLatentVelocityNet, ShapeEncoder,
-                      ContextNet, HybridMLP
+                      ContextNet, HybridMLP, CondAdversary
   pcfm_torch.ops      the CUDA kernels (fused FiLM block forward and
                       backward, voxel gather and scatter) and their
                       builder; voxel coordinate math; plain-torch chamfer
   pcfm_torch.train    ModelBundle, optimizer and train state, train step,
                       loop, sample/recon functions, checkpoints, train CLI
   pcfm_torch.sample   priors, fixed-grid ODE integrators, sampling CLI
+  pcfm_torch.distill  progressive few-NFE distillation, distill CLI
+  pcfm_torch.eval     CD / EMD / F-score, the generative suite, eval CLI
   pcfm_torch.data     datasets, host loader, PLY IO
   pcfm_torch.interop  JAX param trees -> port state_dicts
 """

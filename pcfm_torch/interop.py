@@ -220,3 +220,12 @@ def hybrid_to_sd(p: Tree, s: Tree) -> Dict[str, torch.Tensor]:
     sd.update({f"head.{k}": v
                for k, v in velocity_net_to_sd(p["head"]).items()})
     return sd
+
+
+def adversary_to_sd(p: Tree) -> Dict[str, torch.Tensor]:
+    """JAX ``CondAdversary`` params -> port ``CondAdversary`` state_dict
+    (the same names: ``dense_{i}``, ``out``)."""
+    sd = {}
+    for name in p:
+        sd.update(_dense(p[name], name, name))
+    return sd

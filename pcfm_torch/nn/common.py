@@ -175,8 +175,10 @@ class BatchNorm(nn.Module):
                     var, alpha=1.0 - BN_MOMENTUM)
                 self.num_batches_tracked.add_(1)
         else:
+            # the folded bias is a statistic, as in the JAX package: no
+            # gradient reaches it (frozen-statistics training, distillation)
             mean = self.running_mean if shift is None \
-                else self.running_mean - shift
+                else self.running_mean - shift.detach()
             var = self.running_var
         mul = (self.weight * torch.rsqrt(var + self.eps)).to(dtype)
         return (x.to(dtype) - mean.to(dtype)) * mul + self.bias.to(dtype)

@@ -22,7 +22,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import re
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -49,14 +49,18 @@ def _to_cpu(x):
 
 
 def save(out_dir: str, epoch: int, bundle: ModelBundle,
-         global_step: int = 0, opt: Optional[torch.optim.Optimizer] = None,
+         global_step: int = 0,
+         opt: Union[torch.optim.Optimizer, dict, None] = None,
          keep_last: int = 0) -> str:
+    """Write the bundle's modules, ``opt`` (an optimizer, or the state
+    dict of one, as a checkpoint carries it) and the run's counters."""
     d = ckpt_dir(out_dir)
     os.makedirs(d, exist_ok=True)
     path = os.path.join(d, f"hybrid_ep{epoch:04d}.pt")
     ckpt = {k: _to_cpu(m.state_dict()) for k, m in bundle.modules().items()}
     if opt is not None:
-        ckpt["opt"] = _to_cpu(opt.state_dict())
+        ckpt["opt"] = _to_cpu(opt if isinstance(opt, dict)
+                              else opt.state_dict())
     ckpt.update(args=dataclasses.asdict(bundle.cfg),
                 cond_dim=int(bundle.cfg.cond_dim), epoch=int(epoch),
                 global_step=int(global_step))

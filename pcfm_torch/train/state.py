@@ -14,9 +14,13 @@ training mode (the hybrid's BatchNorms on batch statistics); the EMA
 shadows average every float parameter and buffer, the running statistics
 too, as the JAX package's EMA averages ``batch_stats``.
 
+With ``lambda_adv > 0`` and a condition the bundle also holds the
+``CondAdversary`` (``adv``; trained, not averaged).
+
 The optimizer is torch's AdamW (fused on CUDA) with the reference's three
-parameter groups (enc / pf / lf, train.py:249-253) over the parameters the
-JAX package has: the hybrid's reference conv biases that feed a BatchNorm
+parameter groups (enc / pf / lf, train.py:249-253), plus ``adv`` at
+``lr_enc`` as the JAX package's fourth, over the parameters the JAX
+package has: the hybrid's reference conv biases that feed a BatchNorm
 (``dead_conv_biases``; each BatchNorm keeps its bias in the running mean,
 the reference's convention) are left out, so no weight decay moves them
 and the clip's norm does not count them.  b1 0.9, b2 0.999,
@@ -38,6 +42,7 @@ import torch
 from torch import nn
 
 from pcfm_torch.config import Config
+from pcfm_torch.models.adversary import CondAdversary
 from pcfm_torch.models.encoder import ShapeEncoder
 from pcfm_torch.models.hybrid import HybridMLP
 from pcfm_torch.models.latent import ConditionalLatentVelocityNet
@@ -91,12 +96,18 @@ class ModelBundle:
         self.lf = ConditionalLatentVelocityNet(
             latent_dim=cfg.latent_dim, cond_dim=0, width=cfg.lf_width,
             depth=cfg.lf_depth, emb_dim=cfg.lf_emb_dim, dtype=dtype, **kw)
+        # fp32 whatever the compute dtype, as the JAX bundle builds it
+        self.adv = (CondAdversary(cfg.latent_dim, cfg.cond_dim, **kw)
+                    if cfg.lambda_adv > 0 and cfg.cond_dim > 0 else None)
         self.ema_pf = copy.deepcopy(self.pf)
         self.ema_lf = copy.deepcopy(self.lf)
 
     def modules(self) -> dict:
-        return {"encoder": self.enc, "pf": self.pf, "lf": self.lf,
+        mods = {"encoder": self.enc, "pf": self.pf, "lf": self.lf,
                 "ema_pf": self.ema_pf, "ema_lf": self.ema_lf}
+        if self.adv is not None:
+            mods["adv"] = self.adv
+        return mods
 
     def pf_velocity_fn(self, use_ema: bool) -> Callable:
         """v(x, t, cond) for the samplers: the EMA or the live point flow
@@ -109,7 +120,7 @@ class ModelBundle:
         return self.ema_lf if use_ema else self.lf
 
 
-GROUP_LR = {"enc": "lr_enc", "pf": "lr_pf", "lf": "lr_lf"}
+GROUP_LR = {"enc": "lr_enc", "pf": "lr_pf", "lf": "lr_lf", "adv": "lr_enc"}
 
 
 def cosine_lr(step: int, total: int, base_lr: float, min_lr: float = 1e-6,
@@ -134,13 +145,14 @@ def trainable_parameters(module: nn.Module) -> List[torch.Tensor]:
 
 
 def make_optimizer(bundle: ModelBundle) -> torch.optim.AdamW:
-    """AdamW over the live enc / pf / lf trainable parameters, one group
-    each; each group keeps its name and base LR, ``lr`` is set before every
-    step."""
+    """AdamW over the live enc / pf / lf (and, with ``lambda_adv``, adv)
+    trainable parameters, one group each; each group keeps its name and
+    base LR, ``lr`` is set before every step."""
     cfg = bundle.cfg
     groups = [{"params": trainable_parameters(getattr(bundle, name)),
                "name": name, "base_lr": getattr(cfg, attr),
-               "lr": getattr(cfg, attr)} for name, attr in GROUP_LR.items()]
+               "lr": getattr(cfg, attr)} for name, attr in GROUP_LR.items()
+              if getattr(bundle, name) is not None]
     cuda = bundle.device.type == "cuda"
     return torch.optim.AdamW(groups, betas=(0.9, 0.999), eps=1e-8,
                              weight_decay=cfg.weight_decay, fused=cuda,
@@ -160,13 +172,15 @@ def clip_by_global_norm_(grads: List[torch.Tensor], clip: float
 @torch.no_grad()
 def ema_update(shadow: nn.Module, live: nn.Module, decay: float) -> None:
     """shadow <- shadow * d + live * (1 - d) on every float parameter and
-    buffer (pcfm/train/state.py:ema_update)."""
+    buffer (pcfm/train/state.py:ema_update), in the form
+    shadow + (1 - d) * (live - shadow): a value that live and shadow share
+    stays as it is (the running statistics that distillation freezes),
+    where shadow * d + live * (1 - d) moves ~15 % of them by an fp32 ulp
+    a step."""
     def floats(m):
         return [x for x in (*m.parameters(), *m.buffers())
                 if x.is_floating_point()]
-    s = floats(shadow)
-    torch._foreach_mul_(s, decay)
-    torch._foreach_add_(s, floats(live), alpha=1.0 - decay)
+    torch._foreach_lerp_(floats(shadow), floats(live), 1.0 - decay)
 
 
 @dataclasses.dataclass
@@ -203,23 +217,10 @@ class TrainState:
         return gnorm
 
 
-def check_ported(cfg: Config) -> None:
-    """Raise before a run starts for training options the port lacks."""
-    missing = [name for name, on in (
-        ("lambda_emd > 0 (endpoint EMD loss)", cfg.lambda_emd > 0),
-        ("lambda_adv > 0 (CondAdversary)", cfg.lambda_adv > 0),
-        ("fm_coupling='sliced_ot'", cfg.fm_coupling == "sliced_ot"))
-        if on]
-    if missing:
-        raise NotImplementedError(f"{', '.join(missing)}: not yet ported "
-                                  "to pcfm_torch")
-
-
 def init_state(cfg: Config, device, total_steps: int,
                generator: torch.Generator) -> TrainState:
     """Fresh modules (drawn from ``generator``; in training mode, as built),
     EMA = init, a zero-step optimizer."""
-    check_ported(cfg)
     bundle = ModelBundle(cfg, device, generator)
     return TrainState(bundle=bundle, opt=make_optimizer(bundle),
                       total_steps=total_steps)

@@ -5,7 +5,8 @@ train.py:553-673).
   * point-flow FM: t ~ Beta(a, 1), x_t = (1 - t) x0 + t x1, target
     v = x1 - x0, MSE split pos / colour with lambda_color * color_on
   * latent-flow FM on detached z (unconditional)
-  * optional zreg / var / cov / pair penalties on z
+  * optional endpoint EMD, zreg / var / cov / pair penalties on z and the
+    gradient-reversal adversary; optional sliced-OT prior coupling
   * joint grad clip, per-group AdamW, EMA of the point and latent flows
 
 The point flow runs once a step, in training mode: the hybrid's
@@ -14,10 +15,11 @@ ones once (pcfm/train/step.py:118-125); its voxel ops' backward is the
 other kernel's (pcfm_torch/ops/voxel_sorted.py).
 
 The random draws (t, priors, CFG drop mask, latent t and noise, pair
-indices) come from an explicit ``torch.Generator`` on the batch's device,
-or are handed in as ``draws``, so a test can give both frameworks the same
-numbers.  Beta(a, 1) is drawn as ``u ** (1 / a)`` with u ~ U(0, 1) (its CDF
-is x^a): ``torch.distributions.Beta`` takes no generator.
+indices, the sliced-OT direction) come from an explicit
+``torch.Generator`` on the batch's device, or are handed in as ``draws``,
+so a test can give both frameworks the same numbers.  Beta(a, 1) is
+drawn as ``u ** (1 / a)`` with u ~ U(0, 1) (its CDF is x^a):
+``torch.distributions.Beta`` takes no generator.
 """
 from __future__ import annotations
 
@@ -25,6 +27,8 @@ from typing import Dict, Optional
 
 import torch
 
+from pcfm_torch.models.adversary import grad_reverse
+from pcfm_torch.ops.emd import earth_mover_distance
 from pcfm_torch.sample.priors import make_pf_prior
 from pcfm_torch.train.state import TrainState
 
@@ -37,6 +41,23 @@ def beta_a1(generator: torch.Generator, a: float, n: int) -> torch.Tensor:
     """n draws of Beta(a, 1), skewed toward 1 for a > 1."""
     u = torch.rand(n, generator=generator, device=generator.device)
     return u ** (1.0 / a)
+
+
+def sliced_ot_permutation(u: torch.Tensor, data_xyz: torch.Tensor,
+                          prior_xyz: torch.Tensor) -> torch.Tensor:
+    """(B, N) permutation pairing prior to data points by rank along the
+    direction ``u`` (3,) — the exact 1-D OT (monotone rearrangement) in the
+    projected space; a fresh direction per step makes it sliced OT in
+    expectation (pcfm/train/step.py:sliced_ot_permutation).  new_prior[i]
+    = prior[perm[i]] is paired to data[i]: the prior's marginal is
+    unchanged, only the coupling tightens.  Stable sorts, as jnp.argsort."""
+    u = u / torch.clamp_min(torch.linalg.vector_norm(u), 1e-6)
+    rank_d = torch.argsort(data_xyz @ u, dim=1, stable=True)
+    rank_p = torch.argsort(prior_xyz @ u, dim=1, stable=True)
+    # the k-th ranked prior point lands at the k-th ranked data slot:
+    # perm[i] = rank_p[inv_d[i]]
+    inv_d = torch.argsort(rank_d, dim=1, stable=True)
+    return torch.gather(rank_p, 1, inv_d)
 
 
 def fm_interpolate(t: torch.Tensor, x1: torch.Tensor, z0: torch.Tensor):
@@ -55,7 +76,8 @@ def make_draws(cfg, batch: Dict[str, torch.Tensor],
     """Every random number of one step, from ``generator``:
     ``t`` (B,), ``x0`` the point prior (B, N, D) before ``color_on``,
     ``drop`` the CFG drop mask (B,) (1 = dropped), ``t_z`` (B,), ``eps_z``
-    (B, latent) and, with ``lambda_pair > 0``, ``idx2`` (B, N)."""
+    (B, latent), with ``lambda_pair > 0`` ``idx2`` (B, N), and with
+    ``fm_coupling='sliced_ot'`` the direction ``u`` (3,) (normal)."""
     bsz, n, _ = batch["pts"].shape
     dev = generator.device
     d = 6 if _rgb_path(cfg, batch) else 3
@@ -71,6 +93,8 @@ def make_draws(cfg, batch: Dict[str, torch.Tensor],
     if cfg.lambda_pair > 0:
         draws["idx2"] = torch.randint(0, n, (bsz, n), generator=generator,
                                       device=dev)
+    if cfg.fm_coupling == "sliced_ot":
+        draws["u"] = torch.randn(3, generator=generator, device=dev)
     return draws
 
 
@@ -94,6 +118,9 @@ def compute_loss(bundle, batch: Dict[str, torch.Tensor],
         x0 = torch.cat([x0[..., :3], x0[..., 3:] * color_on], dim=-1)
     else:
         data_pf = pts
+    if cfg.fm_coupling == "sliced_ot":
+        perm = sliced_ot_permutation(draws["u"], pts, x0[..., :3])
+        x0 = torch.gather(x0, 1, perm[..., None].expand_as(x0))
     x_t, target_v = fm_interpolate(draws["t"], data_pf, x0)
 
     if cfg.enc_in_channels == 6:
@@ -123,6 +150,15 @@ def compute_loss(bundle, batch: Dict[str, torch.Tensor],
     loss = cfg.lambda_point * loss_point + cfg.lambda_latent * loss_latent
     metrics = {"loss_point": loss_point, "loss_latent": loss_latent,
                "loss_pos": loss_pos, "loss_col": loss_col}
+    if cfg.lambda_emd > 0:
+        # endpoint EMD: the one-step extrapolation to t = 1 under the
+        # predicted field against the data cloud as a measure (dense
+        # approxmatch, analytic VJP); xyz only, fp32
+        tb = draws["t"].reshape(bsz, 1, 1).to(torch.float32)
+        x1_hat = (x_t[..., :3].to(torch.float32)
+                  + (1.0 - tb) * pred_v[..., :3].to(torch.float32))
+        metrics["loss_emd"] = torch.mean(earth_mover_distance(x1_hat, pts))
+        loss = loss + cfg.lambda_emd * metrics["loss_emd"]
     if cfg.lambda_zreg > 0:
         metrics["loss_zreg"] = torch.mean(z ** 2)
         loss = loss + cfg.lambda_zreg * metrics["loss_zreg"]
@@ -142,6 +178,11 @@ def compute_loss(bundle, batch: Dict[str, torch.Tensor],
         z2, _ = bundle.enc(torch.gather(enc_in, 1, idx2))
         metrics["loss_pair"] = mse(z, z2)
         loss = loss + cfg.lambda_pair * metrics["loss_pair"]
+    if bundle.adv is not None and cond is not None:
+        # the adversary learns cond from z; z gets the reversed gradient
+        metrics["loss_adv"] = mse(bundle.adv(grad_reverse(z, cfg.lambda_adv)),
+                                  cond)
+        loss = loss + metrics["loss_adv"]
     metrics["loss"] = loss
     return loss, metrics
 

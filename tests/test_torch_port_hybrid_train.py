@@ -61,6 +61,7 @@ from pcfm.train.state import init_state as jax_init_state  # noqa: E402
 from pcfm.train.step import train_step as jax_train_step  # noqa: E402
 from pcfm_torch import interop, kinks  # noqa: E402
 from pcfm_torch.models import ContextNet, HybridMLP  # noqa: E402
+from pcfm_torch.models.context import VOXEL_EPS  # noqa: E402
 from pcfm_torch.nn.common import BatchNorm  # noqa: E402
 from pcfm_torch.nn.pvconv import PVConv, dead_conv_biases  # noqa: E402
 from pcfm_torch.ops import film_block as fb  # noqa: E402
@@ -646,16 +647,23 @@ def _jax_state_numpy(jcfg, seed):
             "ema_pf_stats": ema_s, "lf": lf}
 
 
-@pytest.mark.parametrize("backend,conv_bias", [("sorted", False),
-                                               ("xla", True)],
-                         indirect=["backend"])
-def test_hybrid_train_step_matches_jax(backend, conv_bias, tmp_path):
+@pytest.mark.parametrize("backend,conv_bias,n,pinned", [
+    pytest.param("sorted", False, 300, False, id="sorted-False"),
+    pytest.param("xla", True, 300, False, id="xla-True"),
+    pytest.param("xla", True, 200, True, id="xla-True-200-pinned")],
+    indirect=["backend"])
+def test_hybrid_train_step_matches_jax(backend, conv_bias, n, pinned,
+                                       tmp_path, monkeypatch):
     """One hybrid train step against pcfm.train.step.train_step with the
     same draws, both states from one reference checkpoint (the JAX one
     through its importer, the port's through ``restore_tolerant``):
     losses, grad norm, every gradient, the updated params, the new BN
     statistics and the EMA with its statistics.  ``conv_bias``: the
-    checkpoint's dead conv biases are non-zero (the conv-bias trap)."""
+    checkpoint's dead conv biases are non-zero (the conv-bias trap).
+    ``pinned``: JAX takes the port's choices at the kinks (``_jax_takes``,
+    the encoder's max pool aside), so that the check holds at any size: at
+    200 points a ReLU input within rounding distance of 0 takes another
+    side in jitted JAX than in the port."""
     total = 20
     cfg, jcfg = _small_cfg(voxel_backend=backend, warmup_steps=0,
                            grad_clip_norm=1.0, epochs=total, cfg_drop_p=0.5,
@@ -676,18 +684,32 @@ def test_hybrid_train_step_matches_jax(backend, conv_bias, tmp_path):
                                    for b in biases)
     assert not {id(b) for b, _ in dead} & {id(p) for p in st.trainable()}
 
-    bsz, n, drop_p, color_on = 2, 300, 0.5, 1.0
+    bsz, drop_p, color_on = 2, 0.5, 1.0
     batch = {"pts": rng.randn(bsz, n, 3).astype(np.float32) * 0.5,
              "rgb": rng.rand(bsz, n, 3).astype(np.float32),
              "cond": rng.rand(bsz, 1).astype(np.float32)}
     key = jax.random.PRNGKey(16)
+    draws = _jax_draws(cfg, key, bsz, n, drop_p)
+    assert 0 < float(draws["drop"].sum()) < bsz     # both CFG branches
+    rec = kinks.Kinks()
+    with kinks.record(rec) if pinned else contextlib.nullcontext():
+        m = step.train_step(st, {k: _t(v) for k, v in batch.items()}, None,
+                            color_on, drop_p, draws=draws)
+    if pinned:
+        assert rec.sites[0][0] == "amax"            # the encoder's pool
+        rec.sites = rec.sites[1:]
+        # JAX's xla route keeps the points in input order: the port's
+        # entry sort of x_t maps its masks back
+        x_t, _ = step.fm_interpolate(draws["t"], _t(np.concatenate(
+            [batch["pts"], batch["rgb"]], -1)), draws["x0"])
+        _, inv = tvs.sort_perm_by_voxel(x_t[..., :3], cfg.ctx_stage_res[0],
+                                        eps=VOXEL_EPS)
+        left = _jax_takes(monkeypatch, rec, inv)
     new_j, m_j = jax.jit(lambda s_, b_, k_: jax_train_step(
         jb, cap, s_, b_, k_, jnp.float32(color_on), jnp.float32(drop_p)))(
         jst, {k: jnp.asarray(v) for k, v in batch.items()}, key)
-    draws = _jax_draws(cfg, key, bsz, n, drop_p)
-    assert 0 < float(draws["drop"].sum()) < bsz     # both CFG branches
-    m = step.train_step(st, {k: _t(v) for k, v in batch.items()}, None,
-                        color_on, drop_p, draws=draws)
+    if pinned:
+        assert not any(left.values())
     for k in ("loss", "loss_point", "loss_latent", "loss_pos", "loss_col",
               "loss_zreg"):
         np.testing.assert_allclose(float(m[k]), float(m_j[k]), rtol=RTOL,
@@ -768,7 +790,7 @@ def test_hybrid_optimizer_has_the_jax_parameters():
     for group in st.opt.param_groups:
         n_jax = len(jax.tree_util.tree_leaves(jst.params[group["name"]]))
         assert len(group["params"]) == n_jax, group["name"]
-    assert st.bundle.pf.training and not state.check_ported(cfg)
+    assert st.bundle.pf.training
 
 
 # ------------------------------------------------------------ eval mode

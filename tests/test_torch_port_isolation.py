@@ -17,6 +17,7 @@ from pcfm.config import Config as JaxConfig  # noqa: E402
 from pcfm.train.cli import build_parser as jax_parser  # noqa: E402
 from pcfm_torch import device as tdevice  # noqa: E402
 from pcfm_torch.config import Config  # noqa: E402
+from pcfm_torch.distill import cli as distill_cli  # noqa: E402
 from pcfm_torch.eval import cli as eval_cli  # noqa: E402
 from pcfm_torch.sample import cli as sample_cli  # noqa: E402
 from pcfm_torch.train import cli as train_cli  # noqa: E402
@@ -32,7 +33,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "assert {'pcfm_torch.data.loader', 'pcfm_torch.utils.tb', "
         "'pcfm_torch.models.context', 'pcfm_torch.ops.voxel_sorted', "
         "'pcfm_torch.eval.cli', 'pcfm_torch.eval.metrics', "
-        "'pcfm_torch.ops.emd', 'pcfm_torch.ops.sampling'} "
+        "'pcfm_torch.ops.emd', 'pcfm_torch.ops.sampling', "
+        "'pcfm_torch.distill', 'pcfm_torch.distill.progressive', "
+        "'pcfm_torch.distill.cli', 'pcfm_torch.models.adversary'} "
         "<= set(names), names\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'flax', "
         "'optax', 'orbax') or m == 'pcfm' or m.startswith('pcfm.') "
@@ -88,6 +91,30 @@ def test_eval_cli_options_are_the_jax_options_and_device():
     assert device[1] == "cuda" and tuple(device[3]) == ("cuda", "cpu")
 
 
+def test_distill_parser_is_the_jax_parser_and_device(monkeypatch):
+    """pcfm/distill/cli.py builds its parser inside main: take it there."""
+    from pcfm.distill.cli import main as jax_distill_main
+
+    class Parsed(Exception):
+        pass
+
+    seen = {}
+
+    def grab(self, *args, **kwargs):
+        seen["parser"] = self
+        raise Parsed
+
+    with monkeypatch.context() as m:
+        m.setattr(argparse.ArgumentParser, "parse_args", grab)
+        with pytest.raises(Parsed):
+            jax_distill_main(["--out_dir", "x"])
+    port = _options(distill_cli.build_parser())
+    device = port.pop(("--device",))
+    assert device[1] == "cuda" and tuple(device[3]) == ("cuda", "cpu")
+    assert ("--steps_per_phase",) in port
+    assert port == _options(seen["parser"])
+
+
 @pytest.fixture
 def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -103,11 +130,15 @@ def test_entry_points_need_cuda_or_an_explicit_cpu(no_cuda, tmp_path):
         sample_cli.load_run(str(tmp_path))
     with pytest.raises(RuntimeError, match="--device cpu"):
         eval_cli.main(["--out_dir", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        distill_cli.main(["--out_dir", str(tmp_path)])
     # asked for, the CPU is taken (here: no checkpoint to load)
     with pytest.raises(FileNotFoundError):
         sample_cli.main(["--out_dir", str(tmp_path), "--device", "cpu"])
     with pytest.raises(FileNotFoundError):
         eval_cli.main(["--out_dir", str(tmp_path), "--device", "cpu"])
+    with pytest.raises(FileNotFoundError):
+        distill_cli.main(["--out_dir", str(tmp_path), "--device", "cpu"])
 
 
 def test_resolve_device(no_cuda):

@@ -284,15 +284,6 @@ def test_draws_shapes_and_beta():
     np.testing.assert_allclose(float(d["drop"].mean()), 0.25, atol=0.03)
 
 
-@pytest.mark.parametrize("knob", [dict(lambda_emd=0.1),
-                                  dict(lambda_adv=0.1),
-                                  dict(fm_coupling="sliced_ot")])
-def test_unported_knobs_raise_at_init(knob):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        state.init_state(Config(**TINY, **knob), "cpu", 10,
-                         torch.Generator().manual_seed(0))
-
-
 def test_unported_parallelism_raises(tmp_path):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         cli.main(["--dataset_type", "synthetic", "--dp", "2",
