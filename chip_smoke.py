@@ -7,6 +7,7 @@
     python3 chip_smoke.py --only hybrid_train  # phases 1 and 17-20 alone
     python3 chip_smoke.py --only distill # phases 1 and 21-23 alone
     python3 chip_smoke.py --only distill --seed 1  # other weights and data
+    python3 chip_smoke.py --only parallel # phases 1 and 24-25 alone
 
 Needs one CUDA device (an H100: the kernels are built for sm_90a) and the
 CUDA toolkit's nvcc; imports nothing of JAX.  Phases, each fatal on
@@ -147,7 +148,26 @@ failure:
    ``lambda_adv 0.1`` and, at the largest point count the dense EMD fits,
    ``lambda_emd 0.1`` (exact FiLM launches, finite losses, peak memory);
    and ``pf_width 1024`` with the kernel trunk stopped by the backward
-   kernel's C <= 512 error.
+   kernel's C <= 512 error;
+24. data and point-axis parallel steps: two ranks as processes on the one
+   card (NCCL takes one rank a device), joined over a gloo group the
+   phase makes, which must take CUDA tensors in all-reduce, all-gather
+   and broadcast; for the mlp and the hybrid at full width (8 x 20 000
+   RGB points globally) in two layouts, dp = 2 (4 x 20 000 a rank) and
+   sp = 2 (8 x 10 000 a rank): one fp32 step through the kernels from the
+   seed's weights and the global batch's draws against the one-rank step
+   (rank 0 alone): the loss within PAR_LOSS_REL_TOL, every gradient after
+   the all-reduce within its bound of its max, the control (the rank's
+   gradient before the all-reduce) beyond it, the kinks on another side
+   counted; each rank's launches (as one device's a step); after
+   PAR_STEPS steps every rank's parameters and buffers bitwise equal; the
+   bf16 train step's ms/step of each layout (two ranks sharing one card:
+   not a scaling number) beside the one-rank step's;
+25. the training CLI through torchrun's variables at WORLD_SIZE = 1 over
+   NCCL (the hybrid at full width, PAR_TRAIN_COUNT clouds,
+   ``--async_save``), its resume, and a two-rank dp = 2 CLI run over
+   gloo on the one card: one checkpoint and one validation dump, from
+   rank 0.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -2333,11 +2353,463 @@ def distill_phases(fb, tvs, torch, np, heun_ms=None, hyb_heun_ms=None):
     return {"mlp": dm, "hybrid": dh, "card_vs_cpu": cv, "knobs": kn}
 
 
+# ------------------------------------------------------------ parallel
+
+# phases 24-25: data and point-axis parallel training.  The card machine
+# has one card and NCCL takes one rank a device, so the multi-rank runs
+# put their ranks on the one card as processes joined over gloo (a group
+# the phase makes; pcfm_torch.parallel takes it as it is)
+PAR_LAYOUTS = {"dp2": (2, 1), "sp2": (1, 2)}     # of the global 8 x 20 000
+PAR_STEPS = 3            # steps before the ranks' parameters are compared
+PAR_WARM, PAR_TIMED = 2, 5
+PAR_TRAIN_COUNT = 32     # the CLI runs' synthetic clouds (4 steps at B = 8)
+# one step of the sharded layout against the one-rank step, from the same
+# weights, batch and draws, in fp32 with the kernels (the FiLM kernels'
+# products in bf16): the loss within PAR_LOSS_REL_TOL, every gradient
+# after the all-reduce within the bound of its max.  Each bound lies
+# between the sound reading and its control, the rank's own gradient
+# before the all-reduce (its block's gradient, not the batch's), which
+# must exceed it (readings: PERF.md, the parallel findings; on an H100).
+PAR_LOSS_REL_TOL = 1e-4
+# mlp: no kink moves; the ranks' partial sums of dW and the all-reduce
+# add in another order than one rank's sum (seeds 0 / 1: 2.32e-5 /
+# 2.52e-5 at dp2, 2.34e-5 / 2.53e-5 at sp2; control 0.257 / 0.327 and
+# 0.589 / 0.727)
+PAR_GRAD_REL_TOL_MLP = 1e-3
+# hybrid: unpinned; a ReLU input or voxel coordinate within rounding
+# distance of a kink may take another side under the all-reduced
+# statistics, counted and printed (seeds 0 / 1: 2.51e-5 / 2.12e-5 at
+# dp2 with 512 / 704 ReLU and 29 / 51 grid leaky-ReLU elements on
+# another side, 2.53e-5 / 2.13e-5 at sp2 with 52 / 60 grid elements;
+# control 0.581 / 0.825 and 0.909 / 0.825); the bound leaves room for a
+# flip's whole contribution (PERF.md: one step card against CPU, 327
+# ReLU flips, read 3.776e-2 unpinned)
+PAR_GRAD_REL_TOL_HYBRID = 1e-2
+
+
+def par_cfg(kind: str, precision: str):
+    """The bench configuration of ``kind`` in fp32 (the comparison's) or
+    bf16 (the main path's, timed)."""
+    over = {} if precision == "bf16" else {"amp": False, "ctx_dtype": "fp32"}
+    return (hybrid_cfg if kind == "hybrid" else bench_cfg)(**over)
+
+
+def par_batch(torch):
+    """The global batch, the same on every rank (CPU generator)."""
+    g = torch.Generator().manual_seed(SEED + 24)
+    return {"pts": torch.randn(B, N, 3, generator=g) * 0.5,
+            "rgb": torch.rand(B, N, 3, generator=g),
+            "cond": torch.rand(B, 1, generator=g)}
+
+
+def par_grads(bundle) -> dict:
+    return {f"{g}/{n}": p.grad for g in ("enc", "pf", "lf")
+            for n, p in getattr(bundle, g).named_parameters()
+            if p.grad is not None}
+
+
+def par_rank_step(torch, kinks, cfg, batch, draws, rec):
+    """One forward and backward on this rank's block (the grid in
+    sp_context): (loss, this rank's gradients)."""
+    from pcfm_torch.train.state import broadcast_state, init_state
+    from pcfm_torch.train.step import compute_loss, shard_draws
+    from pcfm_torch.parallel import sp_context
+    from pcfm_torch.parallel.mesh import shard_batch
+    state = init_state(cfg, "cuda:0", STEPS_PER_EPOCH,
+                       torch.Generator().manual_seed(SEED))
+    broadcast_state(state)
+    mine = {k: v.cuda() for k, v in shard_batch(
+        batch, sp_context.get_grid()).items()}
+    with kinks.record(rec):
+        loss, _ = compute_loss(state.bundle, mine, {
+            k: v.cuda() for k, v in shard_draws(draws).items()}, 1.0)
+    loss.backward()
+    return state, loss.detach()
+
+
+def par_flips(kinks, ref, rec, grid) -> dict:
+    """The kinks at which this rank's step took another side than the
+    one-rank step: every kind under dp (the rank's rows of each record),
+    the voxel grids' leaky ReLUs under sp (a replica of the whole grid;
+    the points' records are in each rank's own sorted order)."""
+    from pcfm_torch.parallel.mesh import batch_block
+    rows = batch_block(grid, B)
+    if grid.sp == 1:
+        mine = kinks.Kinks()
+        mine.sites = [(k, (d[0][rows], d[1][rows]) if k == "coords"
+                       else d[rows]) for k, d in ref.sites]
+        return kinks.flips(mine, rec)
+    pairs = [(x, y) for (k, x), (_, y) in zip(ref.sites, rec.sites)
+             if k == "leaky_relu"]
+    return {"leaky_relu": (sum(int((x != y).sum()) for x, y in pairs),
+                           sum(x.numel() for x, _ in pairs))}
+
+
+def parallel_rank(rank: int, world: int, port: int, out: str,
+                  seed: int) -> None:
+    """Phase 24 in one of two ranks on the one card (a spawned process:
+    ``seed`` is the parent's ``--seed``)."""
+    global SEED
+    SEED = seed
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    try:
+        res = _parallel_rank(torch, dist, rank)
+        if rank == 0:
+            with open(out, "w") as f:
+                json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _gloo_on_cuda(torch, dist, rank: int) -> dict:
+    """Whether this torch's gloo takes CUDA tensors in the three
+    collectives the port uses (each must give the right values)."""
+    x = torch.full((8,), rank + 1.0, device="cuda")
+    dist.all_reduce(x)
+    parts = [torch.empty(8, device="cuda") for _ in range(2)]
+    dist.all_gather(parts, torch.full((8,), rank + 1.0, device="cuda"))
+    y = torch.full((8,), rank + 1.0, device="cuda")
+    dist.broadcast(y, 0)
+    got = {"all_reduce": bool((x == 3).all()),
+           "all_gather": bool((parts[0] == 1).all() and (parts[1] == 2).all()),
+           "broadcast": bool((y == 1).all())}
+    if not all(got.values()):
+        raise RuntimeError(f"gloo on CUDA tensors: {got}")
+    return got
+
+
+def _parallel_rank(torch, dist, rank: int) -> dict:
+    from pcfm_torch import kinks
+    from pcfm_torch.ops import film_block as fb
+    from pcfm_torch.ops import voxel_sorted as tvs
+    from pcfm_torch.parallel import sp_context
+    from pcfm_torch.parallel.mesh import make_grid
+    from pcfm_torch.train.state import init_state
+    from pcfm_torch.train.step import compute_loss, make_draws, train_step
+    res = {"gloo_cuda": _gloo_on_cuda(torch, dist, rank)}
+    batch = par_batch(torch)
+    for kind in ("mlp", "hybrid"):
+        cfg32 = par_cfg(kind, "fp32")
+        draws = make_draws(cfg32, batch, torch.Generator().manual_seed(
+            SEED + 25), 0.5)
+        # the one-rank step on rank 0 (the other waits)
+        ref = {}
+        if rank == 0:
+            t0 = time.perf_counter()
+            rec_ref = kinks.Kinks()
+            state = init_state(cfg32, "cuda:0", STEPS_PER_EPOCH,
+                               torch.Generator().manual_seed(SEED))
+            with kinks.record(rec_ref):
+                loss, _ = compute_loss(state.bundle, {
+                    k: v.cuda() for k, v in batch.items()},
+                    {k: v.cuda() for k, v in draws.items()}, 1.0)
+            loss.backward()
+            ref = {"loss": float(loss.detach()), "grads": {
+                k: g.float().clone() for k, g in par_grads(
+                    state.bundle).items()}, "kinks": rec_ref}
+            del state, loss
+            torch.cuda.empty_cache()
+            print(f"[parallel] {kind} one-rank step at {B} x {N} fp32: "
+                  f"{time.perf_counter() - t0:.1f} s, kinks "
+                  f"{rec_ref.counts()}", flush=True)
+        dist.barrier()
+        for layout, (dp, sp) in PAR_LAYOUTS.items():
+            grid = make_grid(dp, sp, N)
+            sp_context.set_sp_group(grid)
+            try:
+                entry = _par_layout(torch, dist, kinks, fb, tvs, kind,
+                                    layout, grid, cfg32, batch, draws, ref,
+                                    rank)
+            finally:
+                sp_context.set_sp_group(None)
+            res[f"{kind}_{layout}"] = entry
+        # the one-rank bf16 step's time, rank 0 alone
+        if rank == 0:
+            state = init_state(par_cfg(kind, "bf16"), "cuda:0",
+                               STEPS_PER_EPOCH,
+                               torch.Generator().manual_seed(SEED))
+            full = {k: v.cuda() for k, v in batch.items()}
+            gen = torch.Generator(device="cuda").manual_seed(SEED)
+            ms = _par_time(torch, None, lambda: train_step(
+                state, full, gen, 1.0, 0.1))
+            res[f"{kind}_one_rank_ms_per_step"] = ms
+            del state
+            torch.cuda.empty_cache()
+        dist.barrier()
+    return res
+
+
+def _par_time(torch, dist, step) -> float:
+    """ms/step of ``step`` after PAR_WARM warm-up steps (host clock,
+    synchronised; with ``dist``, every rank starts and ends together)."""
+    for _ in range(PAR_WARM):
+        step()
+    torch.cuda.synchronize()
+    if dist is not None:
+        dist.barrier()
+    t0 = time.perf_counter()
+    for _ in range(PAR_TIMED):
+        step()
+    torch.cuda.synchronize()
+    if dist is not None:
+        dist.barrier()
+    return (time.perf_counter() - t0) * 1e3 / PAR_TIMED
+
+
+def _par_layout(torch, dist, kinks, fb, tvs, kind, layout, grid, cfg32,
+                batch, draws, ref, rank) -> dict:
+    """One layout of phase 24 in this rank."""
+    from pcfm_torch.parallel.collectives import reduce_no_grad
+    from pcfm_torch.parallel.mesh import shard_batch
+    from pcfm_torch.train.state import average_gradients, init_state
+    from pcfm_torch.train.step import train_step
+    tag = f"[parallel] {kind} {layout}"
+    reset_counts(fb, tvs)
+    rec = kinks.Kinks()
+    state, loss = par_rank_step(torch, kinks, cfg32, batch, draws, rec)
+    launched = counts(fb, tvs)
+    grads = par_grads(state.bundle)
+    local = {k: g.float().clone() for k, g in grads.items()}
+    average_gradients(list(grads.values()))
+    loss = float(reduce_no_grad(loss, grid.world)) / grid.size
+    flips = par_flips(kinks, ref["kinks"], rec, grid) if rank == 0 else {}
+    every = [None] * grid.size
+    dist.all_gather_object(every, {"launches": launched, "flips": flips})
+    entry = {"launches_step": [e["launches"] for e in every]}
+    if rank == 0:
+        got = (loss, 1.0, {k: g.float() for k, g in grads.items()})
+        want = (ref["loss"], 1.0, ref["grads"])
+        e = grad_errors(got, want)
+        c = grad_errors((loss, 1.0, local), want)
+        bound = PAR_GRAD_REL_TOL_MLP if kind == "mlp" \
+            else PAR_GRAD_REL_TOL_HYBRID
+        ok = (e["finite"] and e["loss_rel"] <= PAR_LOSS_REL_TOL
+              and e["worst_rel"] <= bound < c["worst_rel"])
+        print(f"{tag}: one step at {B} x {N} fp32 ({grid.dp} x "
+              f"{grid.sp} ranks, {B // grid.dp} x {N // grid.sp} a rank) "
+              f"against the one-rank step: loss rel {e['loss_rel']:.3g} "
+              f"(bound {PAR_LOSS_REL_TOL}); {len(want[2])} gradients after "
+              f"the all-reduce, max abs err / max |grad|: worst "
+              f"{e['worst_rel']:.4g}, median {e['median_rel']:.3g} (bound "
+              f"{bound}); control, rank 0's gradient before the all-reduce:"
+              f" worst {c['worst_rel']:.4g}, median {c['median_rel']:.3g} "
+              f"(must exceed {bound}); worst: "
+              + ", ".join(f"{k} {v:.3g}" for k, v in e["worst"])
+              + f"; kinks on another side (elements, of): {flips}; "
+              f"launches per rank {entry['launches_step']}", flush=True)
+        entry.update(loss_rel=e["loss_rel"], worst_rel=e["worst_rel"],
+                     median_rel=e["median_rel"],
+                     control_worst_rel=c["worst_rel"], flips=flips, ok=ok)
+    del local, grads
+    # PAR_STEPS steps: every rank's parameters stay bitwise equal
+    mine = {k: v.cuda() for k, v in shard_batch(batch, grid).items()}
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    reset_counts(fb, tvs)
+    for _ in range(PAR_STEPS):
+        m = train_step(state, mine, gen, 1.0, 0.1)
+    launched = counts(fb, tvs)
+    flat = torch.cat([t.detach().float().flatten() for mod in
+                      state.bundle.modules().values()
+                      for t in (*mod.parameters(), *mod.buffers())])
+    first = flat.clone()
+    dist.broadcast(first, 0)
+    same = torch.tensor([float(torch.equal(flat, first))], device="cuda")
+    dist.all_reduce(same)
+    del state, flat, first
+    torch.cuda.empty_cache()
+    # the main path's bf16 step: ms/step with two ranks on one card
+    state = init_state(par_cfg(kind, "bf16"), "cuda:0", STEPS_PER_EPOCH,
+                       torch.Generator().manual_seed(SEED))
+    ms = _par_time(torch, dist, lambda: train_step(state, mine, gen, 1.0,
+                                                   0.1))
+    del state
+    torch.cuda.empty_cache()
+    if grid.sp > 1 and kind == "hybrid":
+        # the grids' all-reduces of one step, alone: each PVConv's partial
+        # grid forward and its cotangent backward, fp32 (B, R^3, C)
+        entry["grid_all_reduce_ms"] = {
+            f"R{r}_C{c}": _par_time(torch, dist, lambda: dist.all_reduce(
+                grid_buf)) for r, c in VOXEL_STAGES
+            for grid_buf in [torch.zeros(B, r ** 3, c, device="cuda")]}
+    every = [None] * grid.size
+    dist.all_gather_object(every, launched)
+    entry.update(launches_steps=every, bitwise_equal=int(same) == grid.size,
+                 ms_per_step_shared_card=ms,
+                 loss_after=float(m["loss"]))
+    if rank == 0:
+        print(f"{tag}: {PAR_STEPS} steps: parameters and buffers of every "
+              f"rank bitwise equal: {entry['bitwise_equal']}; launches per "
+              f"rank {every}; bf16 train step {ms:.3f} ms/step (two ranks "
+              f"sharing one card, not a scaling number)"
+              + (f"; one gloo all-reduce of a stage's fp32 grid (ms): "
+                 f"{entry['grid_all_reduce_ms']} (2 a PVConv a step)"
+                 if "grid_all_reduce_ms" in entry else ""), flush=True)
+        entry["ok"] = entry["ok"] and entry["bitwise_equal"] \
+            and math.isfinite(entry["loss_after"])
+    return entry
+
+
+def parallel_steps(fb, tvs, torch) -> dict:
+    """Phase 24: the sharded train step against the one-rank step, two
+    ranks on the one card over gloo, for the mlp and the hybrid at full
+    width, dp = 2 and sp = 2.  Returns rank 0's results."""
+    import torch.multiprocessing as mp
+    torch.cuda.empty_cache()
+    out = os.path.join(RUN_DIR, "parallel_steps.json")
+    os.makedirs(RUN_DIR, exist_ok=True)
+    t0 = time.perf_counter()
+    mp.start_processes(parallel_rank, args=(2, free_port(), out, SEED),
+                       nprocs=2, join=True, start_method="spawn")
+    with open(out) as f:
+        res = json.load(f)
+    print(f"[parallel] gloo on CUDA tensors: {res['gloo_cuda']}")
+    for kind in ("mlp", "hybrid"):
+        shared = {lay: res[f"{kind}_{lay}"]["ms_per_step_shared_card"]
+                  for lay in PAR_LAYOUTS}
+        print(f"[parallel] {kind} bf16 train step at {B} x {N}: one rank "
+              f"{res[f'{kind}_one_rank_ms_per_step']:.3f} ms/step; "
+              + "; ".join(f"{lay} {ms:.3f}" for lay, ms in shared.items())
+              + " ms/step (two ranks sharing one card)")
+    per_step = {"mlp": {"film_block": FILM_BLOCKS,
+                        "film_block_bwd": FILM_BLOCKS, "voxel_gather": 0,
+                        "voxel_scatter": 0},
+                "hybrid": HYB_STEP_LAUNCHES}
+    ok = True
+    for kind in ("mlp", "hybrid"):
+        for lay in PAR_LAYOUTS:
+            e = res[f"{kind}_{lay}"]
+            want = per_step[kind]
+            ok = ok and e["ok"] and all(
+                got == want for got in e["launches_step"]) and all(
+                got == {k: v * PAR_STEPS for k, v in want.items()}
+                for got in e["launches_steps"])
+    print(f"[parallel] phase 24: {time.perf_counter() - t0:.1f} s")
+    if not ok:
+        raise RuntimeError("parallel step: a sharded step disagrees with "
+                           "the one-rank step, a control is within its "
+                           "bound, ranks differ or a kernel count is wrong")
+    return res
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def par_cli_argv(out_dir: str) -> list:
+    return ["--pf_backbone", "hybrid", "--dataset_type", "synthetic",
+            "--train_count", str(PAR_TRAIN_COUNT), "--batch_size", str(B),
+            "--tr_max_sample_points", str(N), "--te_max_sample_points",
+            str(N), "--latent_dim", "128", "--fused_trunk", "on",
+            "--save_every", "1", "--warmup_steps", "0", "--sample_steps",
+            str(TRAIN_SAMPLE_STEPS), "--num_workers", "2", "--async_save",
+            "--seed", str(SEED), "--out_dir", out_dir]
+
+
+def parallel_cli_rank(rank: int, world: int, port: int, argv: list) -> None:
+    """One rank of phase 25's two-rank CLI run on the one card."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, ROOT)
+    from pcfm_torch.train import cli
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    try:
+        cli.main(argv, device="cuda:0")
+    finally:
+        dist.destroy_process_group()
+
+
+def parallel_cli(torch) -> dict:
+    """Phase 25: the train CLI through torchrun's variables at WORLD_SIZE
+    = 1 over NCCL (the hybrid at full width, PAR_TRAIN_COUNT clouds,
+    ``--async_save``), its resume, and a two-rank dp = 2 CLI run over gloo
+    on the one card: one checkpoint and one validation dump, from rank
+    0."""
+    import torch.multiprocessing as mp
+    t0 = time.perf_counter()
+    out_dir = os.path.join(RUN_DIR, "parallel_nccl")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    env = dict(os.environ, RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+               MASTER_ADDR="localhost", MASTER_PORT=str(free_port()))
+    logs, walls = [], []
+    for epochs in (1, 2):
+        t = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "pcfm_torch.train.cli",
+             *par_cli_argv(out_dir), "--epochs", str(epochs)],
+            cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+        walls.append(time.perf_counter() - t)
+        if proc.returncode != 0:
+            raise RuntimeError(f"NCCL CLI run failed: {proc.stderr[-3000:]}")
+        logs.append(proc.stdout)
+    steps = PAR_TRAIN_COUNT // B
+    ck = torch.load(os.path.join(out_dir, "ckpts", "hybrid_ep0002.pt"),
+                    map_location="cpu", weights_only=True)
+    nccl_ok = ("[Dist] nccl, world 1" in logs[0]
+               and "[Val ep0001]" in logs[0]
+               and "Resume from epoch 1" in logs[1]
+               and "Ep2: lp=" in logs[1] and ck["global_step"] == 2 * steps)
+    print(f"[parallel] CLI through torchrun's variables, WORLD_SIZE 1, "
+          f"NCCL: {walls[0]:.1f} s (epoch 1, {steps} steps, validation, "
+          f"asynchronous save), resume {walls[1]:.1f} s: "
+          + " | ".join(line for log in logs for line in log.splitlines()
+                       if line.startswith(("[Dist]", "[Auto-Resume] Resume",
+                                           "Ep"))))
+    out2 = os.path.join(RUN_DIR, "parallel_dp2")
+    shutil.rmtree(out2, ignore_errors=True)
+    t = time.perf_counter()
+    torch.cuda.empty_cache()
+    mp.start_processes(parallel_cli_rank, args=(
+        2, free_port(), par_cli_argv(out2) + ["--epochs", "1", "--dp", "2"]),
+        nprocs=2, join=True, start_method="spawn")
+    wall2 = time.perf_counter() - t
+    ckpts = sorted(os.listdir(os.path.join(out2, "ckpts")))
+    dumps = sorted(d for d in os.listdir(out2) if d.startswith("samples"))
+    with open(os.path.join(out2, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    ck2 = torch.load(os.path.join(out2, "ckpts", ckpts[0]),
+                     map_location="cpu", weights_only=True)
+    dp_ok = (ckpts == ["hybrid_ep0001.pt"]
+             and dumps == ["samples_ep0001", "samples_recon_ep0001"]
+             and len(rows) == 1 and math.isfinite(rows[0]["loss"])
+             and ck2["global_step"] == PAR_TRAIN_COUNT // (2 * B))
+    print(f"[parallel] two-rank dp = 2 CLI over gloo on one card: "
+          f"{wall2:.1f} s, checkpoints {ckpts}, dumps {dumps}, metrics "
+          f"{rows}, global step {ck2['global_step']}")
+    print(f"[parallel] phase 25: {time.perf_counter() - t0:.1f} s")
+    if not (nccl_ok and dp_ok):
+        raise RuntimeError("parallel CLI: a run did not train, save, "
+                           "validate or resume as it should")
+    return {"nccl_wall_s": walls, "dp2_wall_s": wall2}
+
+
+def parallel_phases(fb, tvs, torch) -> dict:
+    return {"steps": parallel_steps(fb, tvs, torch),
+            "cli": parallel_cli(torch)}
+
+
+def parallel_launches(par: dict, name: str) -> dict:
+    """The kernels line's per-rank launches of one sharded step."""
+    return {f"{kind}_{lay}": [e[name] for e in
+                              par["steps"][f"{kind}_{lay}"]["launches_step"]]
+            for kind in ("mlp", "hybrid") for lay in PAR_LAYOUTS}
+
+
 def main() -> int:
     global SEED
     p = argparse.ArgumentParser(description="on-card smoke run of pcfm_torch")
     p.add_argument("--only", choices=("voxel", "chamfer", "hybrid_train",
-                                      "distill"),
+                                      "distill", "parallel"),
                    help="phase 1 and one group of phases alone")
     p.add_argument("--seed", type=int, default=SEED,
                    help="seed of every random weight, cloud and draw")
@@ -2380,6 +2852,11 @@ def main() -> int:
         # work on distillation and the train step's options
         distill_phases(fb, tvs, torch, np)
         return 0
+    if args.only == "parallel":
+        # phase 1 and phases 24-25, for work on parallel training
+        par = parallel_phases(fb, tvs, torch)
+        print(json.dumps({"parallel": par}))
+        return 0
     if args.only == "hybrid_train":
         # phase 1, phase 11's checkpoint and phases 17-20 alone, for work
         # on hybrid training
@@ -2411,6 +2888,7 @@ def main() -> int:
     dist = distill_phases(fb, tvs, torch, np, ms["on"],
                           hyb_ms["ms_per_shape"])
     dm, dh = dist["mlp"]["step"], dist["hybrid"]["step"]
+    par = parallel_phases(fb, tvs, torch)
 
     film = film_bounds(B, N, C)
     # the main path's shapes: R = 32 stage, 8 clouds, bf16 features;
@@ -2460,6 +2938,8 @@ def main() -> int:
                 "launches_distill_mlp": dm["launches_per_step"][name],
                 "launches_distill_hybrid": dh["launches_per_step"][name],
                 "distill_hybrid_profiled_ms_per_step": dh["profiled_ms"][name],
+                "launches_parallel_step_per_rank": parallel_launches(par,
+                                                                     name),
                 **extra}
 
     # the card again, beside the numbers (the first line may scroll away)
@@ -2489,7 +2969,16 @@ def main() -> int:
         "distill_mlp_peak_gib": dm["peak_gib"],
         "distill_mlp_kernel_share": dm["kernel_share"],
         "distilled_mlp_euler12_ms_per_shape":
-            dist["mlp"]["euler_ms_per_shape"]}, {
+            dist["mlp"]["euler_ms_per_shape"],
+        "launches_parallel_step_per_rank": parallel_launches(par,
+                                                             "film_block"),
+        "parallel_ms_per_step_two_ranks_sharing_one_card": {
+            f"{kind}_{lay}": par["steps"][f"{kind}_{lay}"][
+                "ms_per_step_shared_card"]
+            for kind in ("mlp", "hybrid") for lay in PAR_LAYOUTS},
+        "parallel_one_rank_ms_per_step": {
+            kind: par["steps"][f"{kind}_one_rank_ms_per_step"]
+            for kind in ("mlp", "hybrid")}}, {
         "name": "film_block_bwd", "route": "cuda",
         "source": "pcfm_torch/csrc/film_block_bwd.cu",
         "replaces": "pcfm/ops/pallas/film_block.py:75",
@@ -2523,7 +3012,9 @@ def main() -> int:
         "distill_mlp_grad_rel_err": {
             k: {"worst": e["worst_rel"], "median": e["median_rel"]}
             for k, e in dist["card_vs_cpu"]["mlp"].items()},
-        "train_knobs": dist["knobs"]},
+        "train_knobs": dist["knobs"],
+        "launches_parallel_step_per_rank": parallel_launches(
+            par, "film_block_bwd")},
         voxel_entry("voxel_gather", "pcfm_torch/csrc/voxel_gather.cu",
                     "pcfm/ops/pallas/voxel_sorted.py:150", gather, "gather",
                     hybrid_heun50_ms_per_shape=hyb_ms["ms_per_shape"],

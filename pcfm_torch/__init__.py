@@ -9,7 +9,8 @@ copied here (``pcfm_torch.config``, ``pcfm_torch.data``,
 asks for the CPU (``pcfm_torch.device``).
 
 Layout (ported so far: the ``mlp`` and ``hybrid`` sampling, training
-and distillation paths, with every train-step option, and evaluation):
+and distillation paths, with every train-step option and data and
+point-axis parallel training, and evaluation):
   pcfm_torch.nn       inits, FiLMBlock, FiLM1d, GroupNorm / BatchNorm,
                       SharedMLP, SE3d, PVConv
   pcfm_torch.models   timestep embedding, VelocityNet(WithContext),
@@ -23,6 +24,8 @@ and distillation paths, with every train-step option, and evaluation):
   pcfm_torch.sample   priors, fixed-grid ODE integrators, sampling CLI
   pcfm_torch.distill  progressive few-NFE distillation, distill CLI
   pcfm_torch.eval     CD / EMD / F-score, the generative suite, eval CLI
+  pcfm_torch.parallel process group, (data, points) grid, differentiable
+                      collectives, the voxel ops over split clouds
   pcfm_torch.data     datasets, host loader, PLY IO
   pcfm_torch.interop  JAX param trees -> port state_dicts
 """

@@ -28,9 +28,15 @@ embedding, the global branch and the head stay fp32, as in the JAX package.
 Parameter names are the reference's (``t_proj``, ``c_proj``,
 ``stages.{s}.proj``, ``stages.{s}.blocks.{b}.{pvconv,post,film}``,
 ``global_mlp.{0,2}``, ``head_pre``, ``head_norm``, ``head_out``,
-``ctx_from_emb.0``), so reference checkpoints load directly.  The JAX
-package's points-sharded (``sp_mesh``) branches are not ported (ROADMAP
-Queue 1 item 12).
+``ctx_from_emb.0``), so reference checkpoints load directly.
+
+Under point-axis parallelism (``sp_context.sp_axis()``; the JAX package's
+``sp_mesh`` branches, pcfm/models/context.py:151-162,213-216,279-281)
+each rank holds N / sp points of every cloud: the entry sort is this
+rank's, of voxel ids from coordinates normalised over the whole cloud,
+and its inverse restores this rank's order at exit; the stage caches
+hold the whole cloud's voxel counts; the global branch's max pool is over
+every rank's points (pcfm_torch/parallel/sp_ops.py).
 """
 from __future__ import annotations
 
@@ -50,6 +56,8 @@ from pcfm_torch.nn.shared_mlp import Conv1x1, SharedMLP
 from pcfm_torch.ops.voxel_sorted import (build_stage_cache, permute_points,
                                          sort_perm_by_voxel,
                                          unpermute_points)
+from pcfm_torch.parallel.sp_context import sp_axis
+from pcfm_torch.parallel.sp_ops import sp_global_max
 
 # normalize_coords eps shared by the entry sort, the stage caches and every
 # Voxelization — all must agree (a different denominator can move a
@@ -166,9 +174,10 @@ class ContextNet(nn.Module):
                              f"{self.in_point_dim}, got {d}")
         out_dtype = x.dtype
         x = x.to(torch.float32)
+        axis = sp_axis()
         perm, inv = sort_perm_by_voxel(x[..., :3], self.stage_res[0],
                                        normalize=self.voxel_normalize,
-                                       eps=VOXEL_EPS)
+                                       eps=VOXEL_EPS, axis=axis)
         x = permute_points(x, perm, inv)
         coords = x[..., :3]
         t = t.reshape(b).to(torch.float32)
@@ -191,7 +200,7 @@ class ContextNet(nn.Module):
 
         caches = {r: build_stage_cache(coords, r,
                                        normalize=self.voxel_normalize,
-                                       eps=VOXEL_EPS)
+                                       eps=VOXEL_EPS, axis=axis)
                   for r in dict.fromkeys(self.stage_res)}
         ms_feats, c = [], coords
         for stage, r in zip(self.stages, self.stage_res):
@@ -199,7 +208,7 @@ class ContextNet(nn.Module):
             ms_feats.append(f)
         if self.with_global:
             g0, _, g1 = self.global_mlp
-            g = f.amax(dim=1).to(torch.float32)                     # (B, C)
+            g = sp_global_max(f, axis).to(torch.float32)            # (B, C)
             g = flinear(silu(flinear(g, g0.weight, g0.bias)), g1.weight,
                         g1.bias)
             ms_feats.append(g[:, None, :].expand(b, n, g.shape[-1]))

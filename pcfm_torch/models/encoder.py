@@ -1,6 +1,8 @@
 """ShapeEncoder — port of pcfm/models/encoder.py (reference
 models.py:156-187): 3 shared Linear+SiLU layers -> max-pool over points ->
-head -> latent z.  Parameter names: ``mlp.{0,2,4}``, ``head.{2j}``."""
+head -> latent z.  Parameter names: ``mlp.{0,2,4}``, ``head.{2j}``.  With
+the points cut over the points axis (``sp_context.sp_axis()``) the pool is
+over every rank's points."""
 from __future__ import annotations
 
 import torch
@@ -8,6 +10,8 @@ from torch import nn
 from torch.nn.functional import silu
 
 from pcfm_torch.nn.common import dense, kaiming_normal_, linear
+from pcfm_torch.parallel.sp_context import sp_axis
+from pcfm_torch.parallel.sp_ops import sp_global_max
 
 
 class ShapeEncoder(nn.Module):
@@ -36,7 +40,7 @@ class ShapeEncoder(nn.Module):
         h = pts
         for lin in self.mlp[0::2]:
             h = silu(dense(h, lin, self.dtype))
-        d = h.amax(dim=1)                                          # (B, C)
+        d = sp_global_max(h, sp_axis())                            # (B, C)
         for lin in self.head[0:-1:2]:
             d = silu(dense(d, lin, self.dtype))
         z = dense(d, self.head[-1], self.dtype)

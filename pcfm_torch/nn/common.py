@@ -4,6 +4,12 @@ lecun_normal, GroupNorm and BatchNorm).
 Every draw comes from an explicit ``torch.Generator``.  Weights are torch
 ``Linear`` layout (out, in), so fan_in is ``weight.shape[1]``.  Norm layers
 are channel-last, with fp32 statistics, and carry torch's parameter names.
+
+Under data or point-axis parallelism (pcfm_torch/parallel) the statistics
+are the global batch's, as GSPMD computes them for the JAX package
+(PARITY.md deviation 2): the sums and sums of squares are all-reduced over
+the axis the rows are cut over (``sp_context.stats_axis``, ``sp_axis``),
+and their gradients summed back (``all_reduce_sum``).
 """
 from __future__ import annotations
 
@@ -11,6 +17,9 @@ import math
 
 import torch
 from torch import nn
+
+from pcfm_torch.parallel import sp_context
+from pcfm_torch.parallel.collectives import all_reduce_sum
 
 # flax variance_scaling(..., "truncated_normal") divides the std by the std
 # of a unit normal truncated at +-2 so the result has the asked variance
@@ -78,6 +87,21 @@ def dense(x: torch.Tensor, lin: nn.Linear, dtype: torch.dtype
 
 # ------------------------------------------------------------ norms
 
+def moments(x: torch.Tensor, dims, axis) -> tuple:
+    """fp32 (E[x], E[x^2]) over ``dims`` (kept), and over the ranks of
+    ``axis`` when the rows are cut over them (equal parts on every rank:
+    one all-reduce of the sums)."""
+    x = x.to(torch.float32)
+    if axis is None:
+        return x.mean(dim=dims, keepdim=True), \
+            (x * x).mean(dim=dims, keepdim=True)
+    rows = math.prod(x.shape[d] for d in dims) * axis.size
+    sums = all_reduce_sum(torch.stack([x.sum(dim=dims, keepdim=True),
+                                       (x * x).sum(dim=dims, keepdim=True)]),
+                          axis) / rows
+    return sums[0], sums[1]
+
+
 def choose_gn_groups(channels: int, prefer: int = 32) -> int:
     """GroupNorm group count (pcfm/nn/common.py:29, reference
     models.py:303-310): gcd(channels, prefer), or the largest of 32..2
@@ -92,11 +116,13 @@ def choose_gn_groups(channels: int, prefer: int = 32) -> int:
 
 
 class GroupNorm(nn.Module):
-    """flax ``nn.GroupNorm(num_groups, epsilon)`` on channel-last (B, ..., C)
-    tensors: per (cloud, group) statistics over every point and the group's
-    C / G channels, in fp32 with flax's fast variance (E[x^2] - E[x]^2,
-    clipped at 0); ``(x - mean) * (rsqrt(var + eps) * scale) + bias``;
-    fp32 out.  Parameters ``weight`` / ``bias`` as torch's GroupNorm."""
+    """flax ``nn.GroupNorm(num_groups, epsilon)`` on channel-last (B, N, C)
+    point features: per (cloud, group) statistics over every point and the
+    group's C / G channels, in fp32 with flax's fast variance (E[x^2] -
+    E[x]^2, clipped at 0); ``(x - mean) * (rsqrt(var + eps) * scale) +
+    bias``; fp32 out.  With the points cut over the points axis, over
+    every rank's points.  Parameters ``weight`` / ``bias`` as torch's
+    GroupNorm."""
 
     def __init__(self, groups: int, channels: int, eps: float = 1e-5,
                  device=None):
@@ -112,9 +138,8 @@ class GroupNorm(nn.Module):
         b, c = x.shape[0], x.shape[-1]
         g = self.groups
         xg = x.to(torch.float32).reshape(b, -1, g, c // g)
-        mean = xg.mean(dim=(1, 3), keepdim=True)
-        var = ((xg * xg).mean(dim=(1, 3), keepdim=True)
-               - mean * mean).clamp_min(0.0)
+        mean, ex2 = moments(xg, (1, 3), sp_context.sp_axis())
+        var = (ex2 - mean * mean).clamp_min(0.0)
         mul = torch.rsqrt(var + self.eps) * self.weight.reshape(g, c // g)
         y = (xg - mean) * mul + self.bias.reshape(g, c // g)
         return y.reshape(x.shape)
@@ -141,12 +166,20 @@ class BatchNorm(nn.Module):
     out of the arithmetic: the JAX package has no such bias and folds a
     reference checkpoint's into the running mean, so eval subtracts it
     (``running_mean - shift``), and training normalises the bias-free
-    product and adds ``shift`` to the batch mean of the running update."""
+    product and adds ``shift`` to the batch mean of the running update.
+
+    ``over``: what the rows are.  "points": point features, cut over the
+    batch and the points, so the training statistics reduce over every
+    rank of the process grid; "grid": a voxel grid, cut over the batch and
+    replicated over the points axis, so they reduce over the data axis."""
 
     def __init__(self, channels: int, eps: float, clamp_var: bool = True,
-                 device=None):
+                 device=None, over: str = "points"):
         super().__init__()
-        self.eps, self.clamp_var = eps, clamp_var
+        if over not in ("points", "grid"):
+            raise ValueError(f"BatchNorm over must be 'points' or 'grid', "
+                             f"got {over!r}")
+        self.eps, self.clamp_var, self.over = eps, clamp_var, over
         self.weight = nn.Parameter(torch.ones(channels, device=device))
         self.bias = nn.Parameter(torch.zeros(channels, device=device))
         self.register_buffer("running_mean",
@@ -184,10 +217,11 @@ class BatchNorm(nn.Module):
         return (x.to(dtype) - mean.to(dtype)) * mul + self.bias.to(dtype)
 
     def _batch_stats(self, x: torch.Tensor) -> tuple:
-        """fp32 (mean, biased fast variance) over every non-channel row."""
-        x2 = x.reshape(-1, x.shape[-1]).to(torch.float32)
-        mean = x2.mean(dim=0)
-        var = (x2 * x2).mean(dim=0) - mean * mean
+        """fp32 (mean, biased fast variance) over every non-channel row
+        (of every rank's rows, ``sp_context.stats_axis``)."""
+        mean, ex2 = moments(x.reshape(-1, x.shape[-1]), (0,),
+                            sp_context.stats_axis(self.over))
+        mean, var = mean[0], ex2[0] - mean[0] * mean[0]
         return mean, (var.clamp_min(0.0) if self.clamp_var else var)
 
 

@@ -30,6 +30,15 @@ through each other's kernel, and the grid BatchNorm's variance is clipped
 at 0 only under ``grid_bn`` "flax" (flax's BatchNorm; FlatBatchNorm does
 not clip).
 
+Under point-axis parallelism (a stage cache built with the points axis,
+``cache['sp']``, or ``sp_context.sp_axis()`` when a PVConv builds its own)
+each rank scatters its own points into a partial grid and the partial
+grids are all-reduced (``sp_avg_voxelize``); every rank then runs the
+convolutions on its replica of the grid and gathers its own points back
+(pcfm_torch/parallel/sp_ops.py; pcfm/nn/pvconv.py:85-99,191-211).  The
+grid BatchNorms reduce over the data axis (``over="grid"``), the
+SharedMLP's over every rank.
+
 Parameter names are the reference's: ``voxel_layers.{0,3}`` Conv3d (out,
 in, 3, 3, 3) with a bias, ``voxel_layers.{1,4}`` BatchNorm,
 ``voxel_layers.6.fc`` SE, ``point_features.layers``.  The JAX package's
@@ -47,9 +56,10 @@ from torch.nn.functional import conv3d, leaky_relu
 from pcfm_torch.nn.common import BatchNorm, lecun_normal_tensor_
 from pcfm_torch.nn.se import SE3d
 from pcfm_torch.nn.shared_mlp import SharedMLP
-from pcfm_torch.ops.voxel_sorted import (avg_voxelize_sorted,
-                                         build_stage_cache,
+from pcfm_torch.ops.voxel_sorted import (build_stage_cache,
                                          trilinear_devoxelize_sorted)
+from pcfm_torch.parallel.sp_context import sp_axis
+from pcfm_torch.parallel.sp_ops import sp_avg_voxelize
 
 GRID_BN = ("auto", "flax", "flat", "flat_bf16")
 
@@ -80,10 +90,8 @@ class Voxelization(nn.Module):
         r = self.resolution
         if cache is None:
             cache = build_stage_cache(coords, r, normalize=self.normalize,
-                                      eps=self.eps)
-        grid = avg_voxelize_sorted(features, cache["vox_ids"], r,
-                                   plan=cache["plan"],
-                                   inv_pt=cache["inv_pt"])
+                                      eps=self.eps, axis=sp_axis())
+        grid = sp_avg_voxelize(features, cache, r)
         b, _, c = grid.shape
         return grid.reshape(b, r, r, r, c), cache["norm_coords"]
 
@@ -111,7 +119,8 @@ class PVConv(nn.Module):
                 conv.bias.zero_()
             layers += [conv.to(device),
                        BatchNorm(out_channels, eps=1e-4,
-                                 clamp_var=grid_bn == "flax", device=device),
+                                 clamp_var=grid_bn == "flax", device=device,
+                                 over="grid"),
                        nn.LeakyReLU(0.1)]
         if with_se:
             layers.append(SE3d(out_channels, dtype=dtype,
@@ -138,7 +147,7 @@ class PVConv(nn.Module):
         if cache is None:
             cache = build_stage_cache(coords, r,
                                       normalize=self.vox.normalize,
-                                      eps=self.vox.eps)
+                                      eps=self.vox.eps, axis=sp_axis())
         grid, norm_coords = self.vox(features.to(self.dtype), coords, cache)
         vl = self.voxel_layers
         grid = self._conv_bn(grid, vl[0], vl[1])

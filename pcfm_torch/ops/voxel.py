@@ -4,7 +4,11 @@
   (modules/voxelization.py:16-25): mean-centre, divide by twice the max
   point norm (+ eps), + 0.5, scale by R, clamp to [0, R-1]; rounded
   (half to even, as ``jnp.round``) to int32 voxel coordinates.  Always
-  fp32 and detached (the reference detaches coords).
+  fp32 and detached (the reference detaches coords).  With the points of
+  a cloud cut over the ranks of an ``axis`` (point-axis parallelism), the
+  mean and the max norm are the whole cloud's: the sums, the counts and
+  the max are all-reduced, as GSPMD reduces them for the JAX package
+  (pcfm/parallel/sp_sorted.py:59-61).
 * ``flatten_voxel_ids`` — ``x * R^2 + y * R + z``.
 * ``avg_voxelize`` / ``trilinear_devoxelize`` — the plain scatter-mean and
   8-corner trilinear gather on (B, R, R, R, C) grids: the oracle the
@@ -20,17 +24,35 @@ Channel-last throughout, as in the JAX package: features (B, N, C), grids
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
+
+from pcfm_torch.parallel.collectives import reduce_no_grad
+
+
+def _cloud_mean(coords: torch.Tensor, axis) -> torch.Tensor:
+    """(B, 1, 3) mean of each cloud; over every rank's points with an
+    ``axis`` (one all-reduce of the sums and the counts)."""
+    if axis is None:
+        return coords.mean(dim=1, keepdim=True)
+    b, n, _ = coords.shape
+    sums = torch.cat([coords.sum(dim=1), coords.new_full((b, 1), n)], 1)
+    sums = reduce_no_grad(sums, axis)
+    return (sums[:, :3] / sums[:, 3:])[:, None, :]
 
 
 def normalize_coords(coords: torch.Tensor, resolution: int,
-                     normalize: bool = True, eps: float = 0.0):
-    """(B, N, 3) xyz -> (norm_coords fp32 in [0, R-1], vox_coords int32)."""
+                     normalize: bool = True, eps: float = 0.0, axis=None):
+    """(B, N, 3) xyz -> (norm_coords fp32 in [0, R-1], vox_coords int32).
+    ``axis``: the points axis of the process grid the cloud is cut over
+    (None: the points are the whole cloud)."""
     coords = coords.detach().to(torch.float32)
     r = float(resolution)
-    centered = coords - coords.mean(dim=1, keepdim=True)
+    centered = coords - _cloud_mean(coords, axis)
     if normalize:
         norm = torch.linalg.vector_norm(centered, dim=-1, keepdim=True)
-        denom = norm.amax(dim=1, keepdim=True) * 2.0 + eps
+        top = reduce_no_grad(norm.amax(dim=1, keepdim=True), axis,
+                             dist.ReduceOp.MAX)
+        denom = top * 2.0 + eps
         norm_coords = centered / denom + 0.5
     else:
         norm_coords = (centered + 1.0) / 2.0

@@ -53,6 +53,7 @@ from pcfm_torch.ops.build import (check_launch, current_device, load_library,
                                   stream_of, use_kernel)
 from pcfm_torch.ops.voxel import (corner_ids_weights, flatten_voxel_ids,
                                   normalize_coords)
+from pcfm_torch.parallel.collectives import reduce_no_grad
 
 launches = {"voxel_gather": 0, "voxel_scatter": 0}
 
@@ -359,11 +360,15 @@ def voxel_scatter(upd: torch.Tensor, w: torch.Tensor,
 
 # ------------------------------------------------------------ the voxel ops
 
-def inv_counts(plan: ScatterPlan) -> torch.Tensor:
+def inv_counts(plan: ScatterPlan, axis=None) -> torch.Tensor:
     """(B, N) fp32: 1 / occupancy of each point's voxel (K = 1 plans),
-    read off the plan's row pointer."""
-    cnt = plan.counts().gather(1, plan.ids[:, 0].long())
-    return 1.0 / cnt.to(torch.float32)
+    read off the plan's row pointer.  ``axis``: the points axis of the
+    process grid the clouds are cut over; a voxel's points may then lie
+    on several ranks, so the (B, R^3) count grids are all-reduced first
+    (pcfm/parallel/sp_sorted.py:shmap_inv_counts; exact in fp32 below
+    2^24 points a voxel)."""
+    grid = reduce_no_grad(plan.counts().to(torch.float32), axis)
+    return 1.0 / grid.gather(1, plan.ids[:, 0].long())
 
 
 class _AvgVoxelize(torch.autograd.Function):
@@ -467,19 +472,23 @@ def trilinear_devoxelize_sorted(grid_flat: torch.Tensor,
 
 
 def build_stage_cache(coords: torch.Tensor, r: int, normalize: bool = True,
-                      eps: float = 0.0) -> dict:
+                      eps: float = 0.0, axis=None) -> dict:
     """What every PVConv at resolution ``r`` shares in one forward (the
     coordinates do not change across the ContextNet): normalised coords,
     voxel ids, the scatter plan, inverse counts and the 8 corners.
-    Returns {'norm_coords', 'vox_ids', 'plan', 'inv_pt', 'corners'};
-    ``corner_plan`` adds the K = 8 plan on demand (the first backward)."""
+    Returns {'norm_coords', 'vox_ids', 'plan', 'inv_pt', 'corners', 'sp'};
+    ``corner_plan`` adds the K = 8 plan on demand (the first backward).
+    ``axis`` (kept as 'sp'): the points axis the clouds are cut over; the
+    plan is this rank's, the normalisation and the counts the whole
+    cloud's (pcfm/parallel/sp_sorted.py:shmap_stage_cache)."""
     norm_coords, vox_coords = normalize_coords(coords, r,
-                                               normalize=normalize, eps=eps)
+                                               normalize=normalize, eps=eps,
+                                               axis=axis)
     ids = flatten_voxel_ids(vox_coords, r)
     plan = scatter_plan(ids[:, None, :].contiguous(), r ** 3)
     return {"norm_coords": norm_coords, "vox_ids": ids, "plan": plan,
-            "inv_pt": inv_counts(plan),
-            "corners": corner_data(norm_coords, r)}
+            "inv_pt": inv_counts(plan, axis),
+            "corners": corner_data(norm_coords, r), "sp": axis}
 
 
 def corner_plan(cache: dict, num_rows: int | None = None) -> ScatterPlan:
@@ -495,12 +504,14 @@ def corner_plan(cache: dict, num_rows: int | None = None) -> ScatterPlan:
 
 
 def sort_perm_by_voxel(coords: torch.Tensor, resolution: int,
-                       normalize: bool = True, eps: float = 0.0):
+                       normalize: bool = True, eps: float = 0.0, axis=None):
     """(B, N, 3) coords -> (perm, inv) int64 sorting the points stably by
     their flat voxel id at ``resolution`` (the ContextNet entry sort;
-    ``jnp.argsort`` is stable too)."""
+    ``jnp.argsort`` is stable too).  ``axis``: the points axis the clouds
+    are cut over; the voxel ids are the whole cloud's, the sort this
+    rank's (pcfm/parallel/sp_sorted.py:shmap_sort_perm)."""
     _, vc = normalize_coords(coords, resolution, normalize=normalize,
-                             eps=eps)
+                             eps=eps, axis=axis)
     ids = flatten_voxel_ids(vc, resolution)
     perm = torch.argsort(ids, dim=1, stable=True)
     return perm, torch.argsort(perm, dim=1)

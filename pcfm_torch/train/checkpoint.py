@@ -16,12 +16,21 @@ state is restored all or nothing, with a warning when it does not fit; the
 reference's legacy top-level keys ``model`` and ``opt_main`` are read as
 ``pf`` and ``opt``.
 Old checkpoints are deleted down to the newest ``keep_last_ckpts``.
+
+Saves may be asynchronous (``async_save``, pcfm/train/checkpoint.py:21,
+69-82): the state is copied to host memory on the caller's thread, so the
+next steps may change the live tensors at once, and written on a
+background thread, at most one save in flight.  ``wait_for_saves`` blocks
+until it is on disk (and raises what the writer raised); ``find_latest``,
+``restore_tolerant`` and ``gc_old`` call it first, as the train loop does
+at its end.
 """
 from __future__ import annotations
 
 import dataclasses
 import os
 import re
+from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Optional, Tuple, Union
 
 import torch
@@ -38,9 +47,24 @@ def ckpt_dir(out_dir: str) -> str:
     return os.path.join(os.path.abspath(out_dir), "ckpts")
 
 
+# the background writer and its save in flight (at most one)
+_WRITER = {"pool": None, "pending": None}
+
+
+def wait_for_saves() -> None:
+    """Block until the save in flight, if any, is on disk; re-raise its
+    error."""
+    pending: Optional[Future] = _WRITER["pending"]
+    _WRITER["pending"] = None
+    if pending is not None:
+        pending.result()
+
+
 def _to_cpu(x):
+    """A host copy of every tensor in ``x`` that no later step changes
+    (``.cpu()`` of a CPU tensor would be the tensor itself)."""
     if isinstance(x, torch.Tensor):
-        return x.detach().cpu()
+        return x.detach().to("cpu", copy=True)
     if isinstance(x, dict):
         return {k: _to_cpu(v) for k, v in x.items()}
     if isinstance(x, (list, tuple)):
@@ -51,9 +75,12 @@ def _to_cpu(x):
 def save(out_dir: str, epoch: int, bundle: ModelBundle,
          global_step: int = 0,
          opt: Union[torch.optim.Optimizer, dict, None] = None,
-         keep_last: int = 0) -> str:
+         keep_last: int = 0, async_save: bool = False) -> str:
     """Write the bundle's modules, ``opt`` (an optimizer, or the state
-    dict of one, as a checkpoint carries it) and the run's counters."""
+    dict of one, as a checkpoint carries it) and the run's counters; with
+    ``async_save`` the file is written on the background thread (the
+    path is returned at once)."""
+    wait_for_saves()
     d = ckpt_dir(out_dir)
     os.makedirs(d, exist_ok=True)
     path = os.path.join(d, f"hybrid_ep{epoch:04d}.pt")
@@ -64,11 +91,22 @@ def save(out_dir: str, epoch: int, bundle: ModelBundle,
     ckpt.update(args=dataclasses.asdict(bundle.cfg),
                 cond_dim=int(bundle.cfg.cond_dim), epoch=int(epoch),
                 global_step=int(global_step))
+    if async_save:
+        if _WRITER["pool"] is None:
+            _WRITER["pool"] = ThreadPoolExecutor(
+                1, thread_name_prefix="pcfm-ckpt")
+        _WRITER["pending"] = _WRITER["pool"].submit(
+            _write, ckpt, path, out_dir, keep_last)
+    else:
+        _write(ckpt, path, out_dir, keep_last)
+    return path
+
+
+def _write(ckpt: dict, path: str, out_dir: str, keep_last: int) -> None:
     tmp = f"{path}.tmp"
     torch.save(ckpt, tmp)
     os.replace(tmp, path)               # a reader never sees half a file
-    gc_old(out_dir, keep_last)
-    return path
+    _gc(out_dir, keep_last)
 
 
 def _list(out_dir: str) -> list:
@@ -82,12 +120,18 @@ def _list(out_dir: str) -> list:
 
 def find_latest(out_dir: str) -> Tuple[Optional[str], int]:
     """(path, epoch) of the newest checkpoint, or (None, 0)."""
+    wait_for_saves()
     found = _list(out_dir)
     return (found[-1][1], found[-1][0]) if found else (None, 0)
 
 
 def gc_old(out_dir: str, keep_last: int) -> None:
     """Delete all but the newest ``keep_last`` checkpoints (0: keep all)."""
+    wait_for_saves()
+    _gc(out_dir, keep_last)
+
+
+def _gc(out_dir: str, keep_last: int) -> None:
     if keep_last > 0:
         for _, path in _list(out_dir)[:-keep_last]:
             os.remove(path)
@@ -143,6 +187,7 @@ def restore_tolerant(path: str, state: TrainState,
                      verbose: bool = True) -> dict:
     """Non-strict restore of ``path`` into ``state``; returns the
     checkpoint dict (see the module docstring)."""
+    wait_for_saves()
     ckpt = _read(path)
     for old, new in LEGACY_KEY_MAP.items():
         if old in ckpt and new not in ckpt:

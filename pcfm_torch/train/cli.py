@@ -10,6 +10,12 @@ stops with an error that names the flag.
     python -m pcfm_torch.train.cli --dataset_type synthetic --epochs 1 \\
         --batch_size 8 --tr_max_sample_points 20000 --latent_dim 128 \\
         --fused_trunk on --out_dir runs/port
+
+Data and point-axis parallel, one process per card (torchrun's
+environment; ``--dp`` x ``--sp`` = the number of processes, and each data
+shard loads ``--batch_size`` clouds):
+
+    torchrun --nproc_per_node=8 -m pcfm_torch.train.cli --dp 8 ...
 """
 from __future__ import annotations
 
@@ -19,6 +25,8 @@ from typing import Optional, Sequence
 
 from pcfm_torch.config import Config
 from pcfm_torch.device import DEVICES
+from pcfm_torch.parallel.distributed import (cleanup_distributed,
+                                             init_distributed)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -182,13 +190,20 @@ def parse_config(argv: Optional[Sequence[str]] = None) -> Config:
 
 def main(argv: Optional[Sequence[str]] = None, device=None) -> dict:
     """Parse ``argv`` and train.  ``device`` (a keyword for callers)
-    overrides ``--device``."""
+    overrides ``--device``.  Under torchrun the process joins the group
+    first (``init_distributed``; a group the caller made is used as it
+    is) and leaves it after."""
     from pcfm_torch.train.loop import train
     args = build_parser().parse_args(argv)
     cfg = _config(args)
     if cfg.dataset_type != "synthetic" and not cfg.data_dir:
         raise SystemExit("--data_dir is required for H5 datasets")
-    return train(cfg, device=device or args.device)
+    device = device or args.device
+    init_distributed(device)
+    try:
+        return train(cfg, device=device)
+    finally:
+        cleanup_distributed()
 
 
 if __name__ == "__main__":

@@ -1,4 +1,4 @@
-"""The training loop — port of pcfm/train/loop.py for one device.
+"""The training loop — port of pcfm/train/loop.py.
 
   * data from pcfm_torch.data (the port's copy of the framework-free
     pcfm.data: datasets, host loader)
@@ -10,6 +10,19 @@ The host reads the device's values once every ``log_every`` steps (the
 progress bar) and once per epoch (the metrics line), never per step, so it
 can queue the next steps while the card works.  Batches are copied from
 pinned host memory without blocking, two ahead.
+
+Data and point-axis parallel: one process per rank in the default process
+group (``pcfm_torch.parallel.init_distributed``: torchrun's environment),
+laid out as a (dp, sp) grid (``cfg.dp`` x ``cfg.sp`` = the world size;
+``dp = -1``: world // sp).  Each data shard's loader yields ``batch_size``
+clouds (the global batch is ``batch_size * dp``); the sp ranks of a shard
+load the same clouds and keep N / sp points each.  Every rank's card is
+``cuda:LOCAL_RANK`` unless the caller names one.  Rank 0's parameters and
+buffers are broadcast at the start and after a resume; rank 0 prints,
+writes TensorBoard, saves, and runs validation alone on the fixed val
+batch, which is every data shard's first val batch (gathered once), while
+the other ranks wait at a barrier.  Every rank waits for rank 0's save
+before ``auto_resume`` reads.
 """
 from __future__ import annotations
 
@@ -20,27 +33,29 @@ from collections import deque
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from pcfm_torch.config import Config
 from pcfm_torch.data import DataLoader, get_datasets, to_model_batch
 from pcfm_torch.device import resolve_device
+from pcfm_torch.parallel import sp_context
+from pcfm_torch.parallel.distributed import cuda_device
+from pcfm_torch.parallel.mesh import data_axis_shard, make_grid, shard_batch
 from pcfm_torch.train import checkpoint as ckpt
 from pcfm_torch.train.evaluate import (dump_clouds, make_recon_fn,
                                        make_sample_fn, val_cd)
-from pcfm_torch.train.state import count_parameters, init_state
+from pcfm_torch.train.state import (broadcast_state, count_parameters,
+                                    init_state)
 from pcfm_torch.train.step import train_step
 from pcfm_torch.utils import MetricEMA, seed_all
 
 
 def check_single_device(cfg: Config) -> None:
-    missing = [what for what, on in (
-        (f"dp={cfg.dp} (data parallel)", cfg.dp not in (-1, 1)),
-        (f"sp={cfg.sp} (point-axis parallel)", cfg.sp != 1),
-        ("loader_backend='grain'", cfg.loader_backend == "grain")) if on]
-    if missing:
-        raise NotImplementedError(f"{', '.join(missing)}: not yet ported "
-                                  "to pcfm_torch (one device, thread "
-                                  "loader)")
+    """What the port's loop does not run: ``loader_backend='grain'``
+    (grain_loader.py is not copied)."""
+    if cfg.loader_backend == "grain":
+        raise NotImplementedError("loader_backend='grain': not yet ported "
+                                  "to pcfm_torch (thread loader)")
 
 
 def to_device(arrays: dict, device: torch.device) -> dict:
@@ -55,13 +70,16 @@ def to_device(arrays: dict, device: torch.device) -> dict:
     return out
 
 
-def device_prefetch(batches, cfg: Config, device, depth: int = 2):
-    """Start the host->device copies ``depth`` batches ahead."""
+def device_prefetch(batches, cfg: Config, device, depth: int = 2,
+                    grid=None):
+    """Start the host->device copies ``depth`` batches ahead, of this
+    rank's points of each cloud."""
     buf = deque()
     for batch in batches:
-        buf.append(to_device(to_model_batch(
-            batch, train=True, has_rgb=cfg.has_rgb, cond_dim=cfg.cond_dim),
-            device))
+        mb = to_model_batch(batch, train=True, has_rgb=cfg.has_rgb,
+                            cond_dim=cfg.cond_dim)
+        buf.append(to_device(shard_batch(mb, grid, data_sharded=True),
+                             device))
         if len(buf) >= depth:
             yield buf.popleft()
     while buf:
@@ -87,21 +105,46 @@ def _progress(total: int, desc: str):
 
 
 def train(cfg: Config, verbose: bool = True, device="cuda") -> dict:
-    """Run training to cfg.epochs on ``device`` ("cuda", or "cpu" when
-    asked); returns summary metrics."""
+    """Run training to cfg.epochs on ``device`` ("cuda": this rank's card,
+    or "cpu" when asked); returns summary metrics (every rank's mean)."""
     check_single_device(cfg)
     device = resolve_device(device)
-    seed_all(cfg.seed)
-    os.makedirs(cfg.out_dir, exist_ok=True)
+    if device.type == "cuda":
+        device = cuda_device(device)
+        torch.cuda.set_device(device)
+    grid = make_grid(cfg.dp, cfg.sp, cfg.tr_max_sample_points)
+    if grid.size == 1:
+        grid = None                     # one rank: no collective anywhere
+    sp_context.set_sp_group(grid)
+    try:
+        return _train(cfg, verbose, device, grid)
+    finally:
+        sp_context.set_sp_group(None)
+
+
+def _barrier(grid) -> None:
+    if grid is not None:
+        dist.barrier()
+
+
+def _train(cfg: Config, verbose: bool, device: torch.device, grid) -> dict:
+    rank = 0 if grid is None else grid.rank
+    verbose = verbose and rank == 0
+    seed_all(cfg.seed + rank)
+    if rank == 0:
+        os.makedirs(cfg.out_dir, exist_ok=True)
 
     # ---- data (sets cfg.cond_dim / cfg.has_rgb) ----
     tr_ds, te_ds = get_datasets(cfg)
+    d_rank, d_world = data_axis_shard(grid)
     train_loader = DataLoader(tr_ds, cfg.batch_size, shuffle=True,
                               drop_last=True, seed=cfg.seed,
-                              num_workers=cfg.num_workers)
+                              num_workers=cfg.num_workers, rank=d_rank,
+                              world_size=d_world)
     val_loader = DataLoader(te_ds, cfg.batch_size, shuffle=False,
                             drop_last=False, seed=cfg.seed,
-                            num_workers=max(1, cfg.num_workers // 2))
+                            num_workers=max(1, cfg.num_workers // 2),
+                            rank=d_rank, world_size=d_world)
     total_steps = cfg.epochs * max(1, len(train_loader))
 
     # ---- models / state ----
@@ -115,8 +158,17 @@ def train(cfg: Config, verbose: bool = True, device="cuda") -> dict:
         print(f"[Dims] cond_dim(joint)={cfg.cond_dim} "
               f"latent_dim={cfg.latent_dim} pf_cond_dim={cfg.pf_cond_dim} "
               f"enc_in={cfg.enc_in_channels} pf_point_dim={cfg.pf_point_dim}")
+        if dist.is_initialized():
+            print(f"[Dist] {dist.get_backend()}, world "
+                  f"{dist.get_world_size()}")
+        if grid is not None:
+            print(f"[Mesh] {{'data': {grid.dp}, 'points': {grid.sp}}}: "
+                  f"global batch {cfg.batch_size * grid.dp} x "
+                  f"{cfg.tr_max_sample_points} points")
 
+    _barrier(grid)                # the files every rank reads are complete
     start_epoch, _ = ckpt.auto_resume(cfg.out_dir, state, verbose=verbose)
+    broadcast_state(state)
     if start_epoch > cfg.epochs:
         if verbose:
             print("[Auto-Resume] Training already completed for the "
@@ -124,15 +176,18 @@ def train(cfg: Config, verbose: bool = True, device="cuda") -> dict:
         return {"epochs_run": 0}
 
     recon_fn, sample_fn = make_recon_fn(bundle), make_sample_fn(bundle)
-    # fixed val batch for comparable visualizations (train.py:260-263)
-    val_batch = next(iter(val_loader.epoch_batches(0)))
+    # fixed val batch for comparable visualizations (train.py:260-263):
+    # the first batch of every data shard (pcfm/train/loop.py:237-266)
+    val_batch = gather_val_batch(
+        next(iter(val_loader.epoch_batches(0))), grid)
     gen = torch.Generator(device=device).manual_seed(cfg.seed)
+    global_batch = cfg.batch_size * (1 if grid is None else grid.dp)
 
     lp_ema, lz_ema = MetricEMA(), MetricEMA()
     last_metrics = {}
     prof, steps_seen = None, 0
     tb = None
-    if cfg.tensorboard:
+    if cfg.tensorboard and rank == 0:
         from pcfm_torch.utils.tb import SummaryWriter
         tb = SummaryWriter(os.path.join(cfg.out_dir, "tb"))
 
@@ -142,8 +197,8 @@ def train(cfg: Config, verbose: bool = True, device="cuda") -> dict:
         n_steps = 0
         pbar = _progress(len(train_loader), f"Ep{ep}") if verbose else None
         for mb in device_prefetch(train_loader.epoch_batches(ep), cfg,
-                                  device):
-            if cfg.profile_dir and steps_seen == 1:
+                                  device, grid=grid):
+            if cfg.profile_dir and steps_seen == 1 and rank == 0:
                 # skip the first step (allocator and kernel warm-up)
                 prof = start_profile(device)
             metrics = train_step(state, mb, gen, color_on, drop_p)
@@ -173,13 +228,14 @@ def train(cfg: Config, verbose: bool = True, device="cuda") -> dict:
         lp_ema.update(last_metrics["loss_point"])
         lz_ema.update(last_metrics["loss_latent"])
         dt = time.perf_counter() - t_ep
-        pps = cfg.batch_size * cfg.tr_max_sample_points * n_steps / dt
-        with open(os.path.join(cfg.out_dir, "metrics.jsonl"), "a") as f:
-            json.dump({"epoch": ep, "sec": round(dt, 3),
-                       "points_per_sec": round(pps, 1),
-                       **{k: round(v, 6) for k, v in last_metrics.items()}},
-                      f)
-            f.write("\n")
+        pps = global_batch * cfg.tr_max_sample_points * n_steps / dt
+        if rank == 0:
+            with open(os.path.join(cfg.out_dir, "metrics.jsonl"), "a") as f:
+                json.dump({"epoch": ep, "sec": round(dt, 3),
+                           "points_per_sec": round(pps, 1),
+                           **{k: round(v, 6)
+                              for k, v in last_metrics.items()}}, f)
+                f.write("\n")
         if tb is not None:
             tb.add_scalars({f"train/{k}": v for k, v in last_metrics.items()}
                            | {"perf/sec_per_epoch": dt,
@@ -192,20 +248,43 @@ def train(cfg: Config, verbose: bool = True, device="cuda") -> dict:
                   f"{dt:.1f}s, {pps/1e6:.2f}M pts/s)")
 
         if (ep % cfg.save_every) == 0 or ep == cfg.epochs:
-            ckpt.save(cfg.out_dir, ep, bundle, global_step=state.step,
-                      opt=state.opt, keep_last=cfg.keep_last_ckpts)
-            cd_rec, cd_gen = run_validation(cfg, recon_fn, sample_fn,
-                                            val_batch, ep, device, verbose)
-            if tb is not None:
-                tb.add_scalars({"val/recon_cd": cd_rec,
-                                "val/gen_cd": cd_gen}, ep)
-                tb.flush()
+            if rank == 0:
+                ckpt.save(cfg.out_dir, ep, bundle, global_step=state.step,
+                          opt=state.opt, keep_last=cfg.keep_last_ckpts,
+                          async_save=cfg.async_save)
+                with sp_context.suspended():     # whole clouds, rank 0 alone
+                    cd_rec, cd_gen = run_validation(
+                        cfg, recon_fn, sample_fn, val_batch, ep, device,
+                        verbose)
+                if tb is not None:
+                    tb.add_scalars({"val/recon_cd": cd_rec,
+                                    "val/gen_cd": cd_gen}, ep)
+                    tb.flush()
+            _barrier(grid)
 
     if prof is not None:           # the run ended inside the window
         stop_profile(prof, cfg.profile_dir, device)
     if tb is not None:
         tb.close()
+    ckpt.wait_for_saves()
+    _barrier(grid)                 # every rank returns after the last save
     return {"epochs_run": cfg.epochs - start_epoch + 1, **last_metrics}
+
+
+def gather_val_batch(batch: dict, grid) -> dict:
+    """The fixed val batch of a run: every data shard's first val batch,
+    concatenated in data order (on every rank; one rank of each points
+    group contributes).  The batch itself on one rank."""
+    if grid is None:
+        return batch
+    keys = ("test_points", "test_rgb", "cond")
+    mine = {k: batch.get(k) for k in keys}
+    every = [None] * grid.size
+    dist.all_gather_object(every, mine)
+    shards = every[::grid.sp]            # points index 0 of each data index
+    return {k: (None if shards[0][k] is None else
+                np.concatenate([s[k] for s in shards]))
+            for k in keys}
 
 
 def start_profile(device: torch.device):

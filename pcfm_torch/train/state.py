@@ -30,6 +30,14 @@ the pre-increment step and held at ``min_lr`` past the end.  The joint
 global-norm clip runs on the gradients before the moments, with pcfm's
 formula ``g * clip / max(gnorm, clip)`` (flat_opt.py:62-64).  There is no
 raveled parameter vector, so ``cfg.flat_optimizer`` selects nothing here.
+
+Under data or point-axis parallelism the gradients are averaged over the
+world before the clip, in one all-reduce of a flat buffer, after the
+whole backward, as the JAX package's psum-mean comes after its whole
+backward (pcfm_torch/parallel/collectives.py says why the mean is the
+single-device gradient).  Every rank then takes the same update and its
+parameters stay equal to every other rank's; ``broadcast_state`` makes
+them equal at the start.
 """
 from __future__ import annotations
 
@@ -48,6 +56,8 @@ from pcfm_torch.models.hybrid import HybridMLP
 from pcfm_torch.models.latent import ConditionalLatentVelocityNet
 from pcfm_torch.models.velocity import VelocityNet
 from pcfm_torch.nn.pvconv import dead_conv_biases
+from pcfm_torch.parallel import sp_context
+from pcfm_torch.parallel.collectives import all_reduce_, broadcast_
 
 
 class ModelBundle:
@@ -204,6 +214,7 @@ class TrainState:
         for p in params:
             if p.grad is None:  # JAX differentiates every leaf: zero, not skip
                 p.grad = torch.zeros_like(p)
+        average_gradients([p.grad for p in params])
         gnorm = clip_by_global_norm_([p.grad for p in params],
                                      cfg.grad_clip_norm or 0.0)
         for g in self.opt.param_groups:  # LR at the pre-increment step
@@ -215,6 +226,26 @@ class TrainState:
         ema_update(self.bundle.ema_lf, self.bundle.lf, cfg.ema_decay)
         self.step += 1
         return gnorm
+
+
+def average_gradients(grads: List[torch.Tensor]) -> None:
+    """The world's mean of each gradient, in place (nothing on one rank):
+    one all-reduce of the gradients flattened into one buffer."""
+    world = sp_context.world_axis()
+    if world is None:
+        return
+    flat = all_reduce_(torch._utils._flatten_dense_tensors(grads), world)
+    flat /= world.size
+    for g, mean in zip(grads, torch._utils._unflatten_dense_tensors(
+            flat, grads)):
+        g.copy_(mean)
+
+
+def broadcast_state(state: "TrainState") -> None:
+    """Rank 0's parameters and buffers (the EMA shadows' too) into every
+    rank's modules."""
+    broadcast_([t for m in state.bundle.modules().values()
+                for t in (*m.parameters(), *m.buffers())])
 
 
 def init_state(cfg: Config, device, total_steps: int,

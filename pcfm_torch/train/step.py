@@ -20,6 +20,28 @@ indices, the sliced-OT direction) come from an explicit
 so a test can give both frameworks the same numbers.  Beta(a, 1) is
 drawn as ``u ** (1 / a)`` with u ~ U(0, 1) (its CDF is x^a):
 ``torch.distributions.Beta`` takes no generator.
+
+Under data and point-axis parallelism (pcfm_torch/parallel; the grid in
+``sp_context``) each rank holds a (B / dp, N / sp) block of the global
+batch.  The draws are made for the global batch from the one generator
+(every rank's is seeded alike) and each rank takes its block
+(``shard_draws``), so the sharded step sees the single-device step's
+numbers, as the JAX package's one ``rng`` gives them.  Each rank's loss
+is its block's, as if the block were the batch
+(pcfm_torch/parallel/collectives.py gives the rule); the terms that are
+not means over points or clouds reduce explicitly:
+
+  * ``loss_var`` and ``loss_cov`` take statistics of z over the global
+    batch: z is all-gathered over the data axis (``loss_zreg`` is a mean
+    and needs none);
+  * the endpoint EMD, the sliced-OT coupling and the pair penalty need
+    whole clouds: the cloud (and the prediction, the prior) is
+    all-gathered over the points axis first.  The pair penalty's second
+    subsample (``idx2``, indices into the whole cloud) is cut over the
+    points axis like the cloud, and the encoder pools it over the axis.
+
+The logged metrics are averaged over the world; the gradients are
+averaged by ``TrainState.apply_gradients``.
 """
 from __future__ import annotations
 
@@ -29,6 +51,9 @@ import torch
 
 from pcfm_torch.models.adversary import grad_reverse
 from pcfm_torch.ops.emd import earth_mover_distance
+from pcfm_torch.parallel import sp_context
+from pcfm_torch.parallel.collectives import all_gather, reduce_no_grad
+from pcfm_torch.parallel.mesh import batch_block, point_block
 from pcfm_torch.sample.priors import make_pf_prior
 from pcfm_torch.train.state import TrainState
 
@@ -73,12 +98,17 @@ def _rgb_path(cfg, batch) -> bool:
 def make_draws(cfg, batch: Dict[str, torch.Tensor],
                generator: torch.Generator, drop_p_now: float
                ) -> Dict[str, torch.Tensor]:
-    """Every random number of one step, from ``generator``:
-    ``t`` (B,), ``x0`` the point prior (B, N, D) before ``color_on``,
-    ``drop`` the CFG drop mask (B,) (1 = dropped), ``t_z`` (B,), ``eps_z``
-    (B, latent), with ``lambda_pair > 0`` ``idx2`` (B, N), and with
-    ``fm_coupling='sliced_ot'`` the direction ``u`` (3,) (normal)."""
+    """Every random number of one step of the global batch, from
+    ``generator``: ``t`` (B,), ``x0`` the point prior (B, N, D) before
+    ``color_on``, ``drop`` the CFG drop mask (B,) (1 = dropped), ``t_z``
+    (B,), ``eps_z`` (B, latent), with ``lambda_pair > 0`` ``idx2`` (B, N),
+    and with ``fm_coupling='sliced_ot'`` the direction ``u`` (3,)
+    (normal).  ``batch`` is this rank's block: (B, N) are its shape times
+    the grid's (dp, sp)."""
     bsz, n, _ = batch["pts"].shape
+    grid = sp_context.get_grid()
+    if grid is not None:
+        bsz, n = bsz * grid.dp, n * grid.sp
     dev = generator.device
     d = 6 if _rgb_path(cfg, batch) else 3
     draws = {
@@ -96,6 +126,26 @@ def make_draws(cfg, batch: Dict[str, torch.Tensor],
     if cfg.fm_coupling == "sliced_ot":
         draws["u"] = torch.randn(3, generator=generator, device=dev)
     return draws
+
+
+def shard_draws(draws: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """This rank's block of the global batch's draws: the batch rows of
+    each, and the points of ``x0`` and ``idx2`` (whose values stay indices
+    into the whole cloud); ``u`` is every rank's.  The draws themselves
+    with no grid."""
+    grid = sp_context.get_grid()
+    if grid is None:
+        return draws
+    rows = batch_block(grid, draws["t"].shape[0])
+    out = {}
+    for k, v in draws.items():
+        if k == "u":
+            out[k] = v
+        elif k in ("x0", "idx2"):
+            out[k] = v[rows, point_block(grid, v.shape[1])]
+        else:
+            out[k] = v[rows]
+    return out
 
 
 def compute_loss(bundle, batch: Dict[str, torch.Tensor],
@@ -118,9 +168,16 @@ def compute_loss(bundle, batch: Dict[str, torch.Tensor],
         x0 = torch.cat([x0[..., :3], x0[..., 3:] * color_on], dim=-1)
     else:
         data_pf = pts
+    points = sp_context.sp_axis()
     if cfg.fm_coupling == "sliced_ot":
-        perm = sliced_ot_permutation(draws["u"], pts, x0[..., :3])
-        x0 = torch.gather(x0, 1, perm[..., None].expand_as(x0))
+        # the rank pairing runs over the whole cloud; this rank's data
+        # points take their prior points from the whole cloud's prior
+        x0_all = all_gather(x0, 1, points)
+        perm = sliced_ot_permutation(draws["u"], all_gather(pts, 1, points),
+                                     x0_all[..., :3])
+        perm = perm[:, point_block(sp_context.get_grid(), perm.shape[1])]
+        x0 = torch.gather(x0_all, 1, perm[..., None].expand(
+            -1, -1, x0.shape[-1]))
     x_t, target_v = fm_interpolate(draws["t"], data_pf, x0)
 
     if cfg.enc_in_channels == 6:
@@ -157,25 +214,31 @@ def compute_loss(bundle, batch: Dict[str, torch.Tensor],
         tb = draws["t"].reshape(bsz, 1, 1).to(torch.float32)
         x1_hat = (x_t[..., :3].to(torch.float32)
                   + (1.0 - tb) * pred_v[..., :3].to(torch.float32))
-        metrics["loss_emd"] = torch.mean(earth_mover_distance(x1_hat, pts))
+        metrics["loss_emd"] = torch.mean(earth_mover_distance(
+            all_gather(x1_hat, 1, points), all_gather(pts, 1, points)))
         loss = loss + cfg.lambda_emd * metrics["loss_emd"]
     if cfg.lambda_zreg > 0:
         metrics["loss_zreg"] = torch.mean(z ** 2)
         loss = loss + cfg.lambda_zreg * metrics["loss_zreg"]
+    # the global batch's codes (this rank's block is z)
+    z_all = all_gather(z, 0, sp_context.data_axis()) \
+        if cfg.lambda_var > 0 or cfg.lambda_cov > 0 else None
     if cfg.lambda_var > 0:
-        std = torch.sqrt(torch.var(z, dim=0, unbiased=False) + 1e-4)
+        std = torch.sqrt(torch.var(z_all, dim=0, unbiased=False) + 1e-4)
         metrics["loss_var"] = torch.mean(torch.relu(1.0 - std))
         loss = loss + cfg.lambda_var * metrics["loss_var"]
     if cfg.lambda_cov > 0:
-        zc = z - z.mean(dim=0, keepdim=True)
-        cov = (zc.T @ zc) / max(1, bsz - 1)
+        zc = z_all - z_all.mean(dim=0, keepdim=True)
+        cov = (zc.T @ zc) / max(1, z_all.shape[0] - 1)
         off = cov - torch.diag(torch.diag(cov))
         metrics["loss_cov"] = torch.sum(off ** 2) / z.shape[-1]
         loss = loss + cfg.lambda_cov * metrics["loss_cov"]
     if cfg.lambda_pair > 0:
         # a second random subsample of the same clouds must encode alike
+        # (idx2 indexes the whole cloud; this rank holds its points' draws)
         idx2 = draws["idx2"][..., None].expand(-1, -1, enc_in.shape[-1])
-        z2, _ = bundle.enc(torch.gather(enc_in, 1, idx2))
+        z2, _ = bundle.enc(torch.gather(all_gather(enc_in, 1, points), 1,
+                                        idx2))
         metrics["loss_pair"] = mse(z, z2)
         loss = loss + cfg.lambda_pair * metrics["loss_pair"]
     if bundle.adv is not None and cond is not None:
@@ -198,8 +261,14 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
     if draws is None:
         draws = make_draws(state.bundle.cfg, batch, generator, drop_p_now)
     state.opt.zero_grad(set_to_none=True)
-    loss, metrics = compute_loss(state.bundle, batch, draws, color_on)
+    loss, metrics = compute_loss(state.bundle, batch, shard_draws(draws),
+                                 color_on)
     loss.backward()
-    out = {k: v.detach() for k, v in metrics.items()}
+    names = sorted(metrics)
+    world = sp_context.world_axis()
+    values = torch.stack([metrics[k].detach().float() for k in names])
+    if world is not None:       # the world's mean, every rank's value
+        values = reduce_no_grad(values, world) / world.size
+    out = dict(zip(names, values.unbind()))
     out["grad_norm"] = state.apply_gradients()
     return out

@@ -35,7 +35,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "'pcfm_torch.eval.cli', 'pcfm_torch.eval.metrics', "
         "'pcfm_torch.ops.emd', 'pcfm_torch.ops.sampling', "
         "'pcfm_torch.distill', 'pcfm_torch.distill.progressive', "
-        "'pcfm_torch.distill.cli', 'pcfm_torch.models.adversary'} "
+        "'pcfm_torch.distill.cli', 'pcfm_torch.models.adversary', "
+        "'pcfm_torch.parallel', 'pcfm_torch.parallel.distributed', "
+        "'pcfm_torch.parallel.mesh', 'pcfm_torch.parallel.sp_context', "
+        "'pcfm_torch.parallel.collectives', 'pcfm_torch.parallel.sp_ops'} "
         "<= set(names), names\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'flax', "
         "'optax', 'orbax') or m == 'pcfm' or m.startswith('pcfm.') "
@@ -72,6 +75,31 @@ def test_train_parser_matches_the_jax_parser():
     device = port.pop(("--device",))
     assert device[1] == "cuda" and tuple(device[3]) == ("cuda", "cpu")
     assert port == jax
+
+
+def test_parallel_imports_neither_jax_nor_the_jax_package():
+    """pcfm_torch.parallel alone (the port's parallel training), and the
+    train CLI that starts it, load no JAX: the parser keeps JAX's options,
+    --dp and --sp among them, and adds none for the process group."""
+    code = ("import sys, pcfm_torch.parallel, pcfm_torch.parallel.sp_ops, "
+            "pcfm_torch.train.cli\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m == 'pcfm' or m.startswith('pcfm.'))\n"
+            "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    port = _options(train_cli.build_parser())
+    assert {("--dp",), ("--sp",), ("--async_save",)} <= set(port)
+    assert set(port) - set(_options(jax_parser())) == {("--device",)}
+
+
+def test_check_single_device_rejects_only_grain():
+    from pcfm_torch.train.loop import check_single_device
+    with pytest.raises(NotImplementedError,
+                       match="loader_backend='grain': not yet ported"):
+        check_single_device(Config(loader_backend="grain"))
+    check_single_device(Config(dp=4, sp=2))      # the grid checks the sizes
 
 
 def _help_options(main) -> set:
