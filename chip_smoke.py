@@ -8,6 +8,7 @@
     python3 chip_smoke.py --only distill # phases 1 and 21-23 alone
     python3 chip_smoke.py --only distill --seed 1  # other weights and data
     python3 chip_smoke.py --only parallel # phases 1 and 24-25 alone
+    python3 chip_smoke.py --only wide    # phases 1 and 26-28 alone
 
 Needs one CUDA device (an H100: the kernels are built for sm_90a) and the
 CUDA toolkit's nvcc; imports nothing of JAX.  Phases, each fatal on
@@ -147,8 +148,11 @@ failure:
    full-width mlp train steps with ``fm_coupling sliced_ot``, with
    ``lambda_adv 0.1`` and, at the largest point count the dense EMD fits,
    ``lambda_emd 0.1`` (exact FiLM launches, finite losses, peak memory);
-   and ``pf_width 1024`` with the kernel trunk stopped by the backward
-   kernel's C <= 512 error;
+   and one distill step at ``pf_width 1024`` with the kernel trunk (the
+   backward's wide path) at WIDE_DISTILL_POINTS on the card and the CPU,
+   with the mlp's legs: the fp32 leg within
+   WIDE_DISTILL_GRAD_REL_TOL_FP32 and its control beyond it, the bf16 leg
+   within phase 23's bound;
 24. data and point-axis parallel steps: two ranks as processes on the one
    card (NCCL takes one rank a device), joined over a gloo group the
    phase makes, which must take CUDA tensors in all-reduce, all-gather
@@ -167,7 +171,30 @@ failure:
    NCCL (the hybrid at full width, PAR_TRAIN_COUNT clouds,
    ``--async_save``), its resume, and a two-rank dp = 2 CLI run over
    gloo on the one card: one checkpoint and one validation dump, from
-   rank 0.
+   rank 0;
+26. the FiLM-block kernels at the widths of their wide paths (forward
+   C > 1024: statistics and a packed silu(f), then a streamed product;
+   backward C > 512: packed dy, a streamed dp product, a rows kernel over
+   column chunks) against their plain versions: (8, 20 000, C) bf16 for
+   C = 640, 768, 1024, 1536, 2048 and the edges (N = 1, 129, 300; fp32
+   inputs), within KERNEL_TOL / GRAD_REL_TOL, bitwise equal across two
+   launches, fp32 with W = 0 within FP32_DY_TOL; CUDA-event times of each
+   kernel, its plain version and torch.matmul of each product alone at C
+   = 640, 1024, 2048 beside the bounds, each kernel's parts profiled; C =
+   2176 stopped by the wrappers' named limit;
+27. the mlp at ``pf_width 1024`` with the kernel trunk at bench.py's
+   workload: the training CLI (8 steps, 5 forward and 5 backward launches
+   a step, validation, a checkpoint, a rerun with nothing to do), the train
+   step's ms/step with both trunks and the kernels' share, the sampling
+   CLI (Heun x 50, 500 launches) and ms/shape with both trunks, the
+   distill step (25 forward + 5 backward launches a step) and its ms/step;
+   then ``pf_width 2048`` (both wide paths): the sampling CLI and train
+   steps with exact launches and finite losses (``--only wide`` also
+   runs phase 23's wide distill step);
+28. the PointNet++ modules (plain PyTorch): set abstraction from 8 x 20 000
+   points to 1024 centers, then feature propagation back, on the card and
+   on the CPU with the same weights and lattice coordinates, within
+   PN_REL_TOL.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -291,6 +318,22 @@ EVAL_BATCHES = 2
 # cdist's launch grid takes at most 2^31 - 1 (cloud x row x column)
 # entries a call, so the yardstick runs in calls of at most this many
 CDIST_MAX_ENTRIES = 2 ** 31 - 1
+# the FiLM kernels' wide paths (phases 26-27): the widths held against the
+# plain versions, the widths timed, the mlp's point-flow width on the wide
+# path (forward one-kernel, backward wide), and the (clouds, points) of its
+# distill step against the CPU
+WIDE_CS = (640, 768, 1024, 1536, 2048)
+WIDE_TIMED_CS = (640, 1024, 2048)
+WIDE_PF_WIDTH = 1024
+WIDE_DISTILL_POINTS = (2, 256)
+# its bound on the card's fp32 step against the CPU's fp32 step, between
+# the sound readings (4.72e-3 to 6.37e-3 at --seed 0, 1, 2: the kernels'
+# bf16 products) and the control's (the bf16 step against the CPU's fp32
+# step, 1.18e-2 to 1.77e-2); on an H100, PERF.md §6.  At 256 points
+# the bf16 step's difference from the CPU's bf16 step (7.6e-3 to 1.36e-2)
+# reaches its control's, so that leg keeps phase 23's bound with its
+# control printed, not required
+WIDE_DISTILL_GRAD_REL_TOL_FP32 = 9e-3
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, dense bf16 tensor-core
 # and fp32 (non-tensor) FLOP/s
 HBM_BPS = 3.35e12
@@ -489,12 +532,13 @@ def check_backward(fb, torch, args) -> tuple:
     return worst_abs, worst
 
 
-def check_backward_fp32_dy(fb, torch, g) -> float:
+def check_backward_fp32_dy(fb, torch, g,
+                           shapes=((B, 1000, C), (2, 300, 384))) -> float:
     """fp32 inputs with W = 0, so that df = dy: dh, ds, dt, dgamma, dbeta
-    and db within FP32_DY_TOL of each one's max |plain|. Returns the worst
-    of those errors over the max."""
+    and db within FP32_DY_TOL of each one's max |plain|, at each (B, N, C)
+    of ``shapes``. Returns the worst of those errors over the max."""
     worst = 0.0
-    for bsz, n, c in ((B, 1000, C), (2, 300, 384)):
+    for bsz, n, c in shapes:
         args = list(backward_inputs(fb, torch, g, bsz, n, c, torch.float32))
         args[6] = torch.zeros_like(args[6])
         got = fb.film_block_backward(*args)
@@ -632,17 +676,21 @@ def main_path(fb, torch, np):
     return launches["heun50"]
 
 
-def sample_ms_per_shape(torch):
-    """Phase 4: Heun x 50 ms/shape, kernel trunk vs plain trunk, in turns."""
+def sample_ms_per_shape(torch, run_dir: str = RUN_DIR, over=None,
+                        tag: str = "[sample]",
+                        order=("on", "off", "off", "on", "on", "off")):
+    """Phase 4: Heun x 50 ms/shape, kernel trunk vs plain trunk, in turns
+    (the first run of each trunk a warm-up)."""
     from pcfm_torch.sample.cli import load_run
     from pcfm_torch.train.evaluate import make_sample_fn
 
     fns = {}
     for trunk in ("on", "off"):
-        _, bundle, _ = load_run(RUN_DIR, {"fused_trunk": trunk}, DEVICE)
+        _, bundle, _ = load_run(run_dir, {**(over or {}),
+                                          "fused_trunk": trunk}, DEVICE)
         fns[trunk] = make_sample_fn(bundle)
     times = {"on": [], "off": []}
-    for trunk in ("on", "off", "off", "on", "on", "off"):
+    for trunk in order:
         gen = torch.Generator(device=DEVICE).manual_seed(SEED)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -650,7 +698,7 @@ def sample_ms_per_shape(torch):
         torch.cuda.synchronize()
         times[trunk].append((time.perf_counter() - t0) * 1e3 / B)
     for trunk, ts in times.items():
-        print(f"[sample] Heun x50 at {B} x {N}, fused_trunk={trunk}: "
+        print(f"{tag} Heun x50 at {B} x {N}, fused_trunk={trunk}: "
               f"{' '.join(f'{t:.2f}' for t in ts)} ms/shape (first is "
               f"warm-up)")
     return {k: statistics.median(v[1:]) for k, v in times.items()}
@@ -691,19 +739,21 @@ def trunk_end_to_end(torch):
     return diff
 
 
-def train_cli(fb, torch):
+def train_cli(fb, torch, name: str = "train", extra=(),
+              tag: str = "[train]"):
     """Phase 7: the training CLI at full width: one epoch of the synthetic
     set (8 steps), validation and a checkpoint, then a rerun that must
-    find nothing to do. Returns (forward, backward launches, steps)."""
+    find nothing to do (``extra``: more flags, into RUN_DIR/``name``).
+    Returns (forward, backward launches, steps)."""
     from pcfm_torch.train import cli
-    out_dir = os.path.join(RUN_DIR, "train")
+    out_dir = os.path.join(RUN_DIR, name)
     shutil.rmtree(out_dir, ignore_errors=True)
     argv = ["--dataset_type", "synthetic", "--batch_size", str(B),
             "--tr_max_sample_points", str(N), "--te_max_sample_points",
             str(N), "--latent_dim", "128", "--fused_trunk", "on",
             "--epochs", "1", "--save_every", "1", "--warmup_steps", "0",
             "--sample_steps", str(TRAIN_SAMPLE_STEPS), "--num_workers", "2",
-            "--out_dir", out_dir]
+            "--out_dir", out_dir, *extra]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fb.launches = fb.bwd_launches = 0
@@ -720,7 +770,7 @@ def train_cli(fb, torch):
     finite = all(math.isfinite(v) for r in rows for v in r.values())
     # validation: recon + sample, Heun x TRAIN_SAMPLE_STEPS (2 NFE a step)
     val_fwd = FILM_BLOCKS * 2 * 2 * TRAIN_SAMPLE_STEPS
-    print(f"[train] CLI 1 epoch at {B} x {N}: {steps} steps, {bwd} backward "
+    print(f"{tag} CLI 1 epoch at {B} x {N}: {steps} steps, {bwd} backward "
           f"and {fwd} forward launches ({fwd - val_fwd} in the steps, "
           f"{val_fwd} in validation), losses {rows[-1]}, wall {wall:.2f} s "
           f"incl. data, validation and checkpoint, peak device memory "
@@ -733,7 +783,7 @@ def train_cli(fb, torch):
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         again = cli.main(argv)
-    print(f"[train] rerun: {buf.getvalue().strip().splitlines()[-1]}")
+    print(f"{tag} rerun: {buf.getvalue().strip().splitlines()[-1]}")
     if again != {"epochs_run": 0} or "Nothing to do" not in buf.getvalue():
         raise RuntimeError("training CLI rerun did not resume as finished")
     return fwd, bwd, steps
@@ -746,18 +796,19 @@ def train_batch(torch):
             "cond": torch.rand(B, 1, device=DEVICE, generator=g)}
 
 
-def train_state(torch, trunk: str):
+def train_state(torch, trunk: str, **kw):
     from pcfm_torch.train.state import init_state
-    cfg = bench_cfg(fused_trunk=trunk)
+    cfg = bench_cfg(fused_trunk=trunk, **kw)
     return init_state(cfg, DEVICE, STEPS_PER_EPOCH,
                       torch.Generator().manual_seed(SEED))
 
 
-def kernel_share(prof_dir: str, torch, fn, steps: int) -> dict:
+def kernel_share(prof_dir: str, torch, fn, steps: int,
+                 trace: str = "train_step_trace.json") -> dict:
     """One torch.profiler run of ``steps`` calls of ``fn``: device time by
     kernel and the FiLM-block kernels' share of it."""
     prof = profile_kernels(torch, fn, steps, {"film_block": ("film_block",)},
-                           os.path.join(prof_dir, "train_step_trace.json"))
+                           os.path.join(prof_dir, trace))
     ours, busy = prof["film_block"][0], prof["busy_ms"]
     return {"wall_ms": prof["wall_ms"], "busy_ms": busy,
             "film_block_ms": ours,
@@ -765,15 +816,17 @@ def kernel_share(prof_dir: str, torch, fn, steps: int) -> dict:
             "top": [(k, v) for k, v, _ in prof["top"][:10]]}
 
 
-def train_step_time(torch):
-    """Phase 8: the train step at bench.py's workload, kernel trunk and
-    plain trunk in turns, after warm-up; peak memory; profiler shares."""
+def train_step_time(torch, tag: str = "[step]", rounds: int = 2,
+                    trace: str = "train_step_trace.json", **kw):
+    """Phase 8: the train step at bench.py's workload (``kw``: Config
+    changes), kernel trunk and plain trunk in turns, after warm-up; peak
+    memory; profiler shares."""
     from pcfm_torch.train.step import train_step
     batch = train_batch(torch)
     out = {}
     runs = {}
     for trunk in ("on", "off"):
-        state = train_state(torch, trunk)
+        state = train_state(torch, trunk, **kw)
         gen = torch.Generator(device=DEVICE).manual_seed(SEED)
         runs[trunk] = (state, gen)
         torch.cuda.synchronize()
@@ -783,7 +836,7 @@ def train_step_time(torch):
         torch.cuda.synchronize()
         out[f"peak_gib_{trunk}"] = torch.cuda.max_memory_allocated() / 2**30
     times = {"on": [], "off": []}
-    for trunk in ("on", "off", "off", "on") * 2:
+    for trunk in ("on", "off", "off", "on") * rounds:
         state, gen = runs[trunk]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -796,21 +849,22 @@ def train_step_time(torch):
     for trunk, ts in times.items():
         ms = statistics.median(ts)
         out[f"ms_{trunk}"] = ms
-        print(f"[step] train step at {B} x {N} bf16, fused_trunk={trunk}: "
+        print(f"{tag} train step at {B} x {N} bf16, fused_trunk={trunk}: "
               f"{' '.join(f'{t:.3f}' for t in ts)} ms/step (median "
               f"{ms:.3f}; x {STEPS_PER_EPOCH} = "
               f"{ms * STEPS_PER_EPOCH / 1e3:.3f} s/epoch), peak device "
               f"memory {out[f'peak_gib_{trunk}']:.3f} GiB")
     state, gen = runs["on"]
     share = kernel_share(RUN_DIR, torch,
-                         lambda: train_step(state, batch, gen, 1.0, 0.1), 3)
-    print(f"[step] profiler, 3 kernel-trunk steps: {share['wall_ms']:.3f} ms"
+                         lambda: train_step(state, batch, gen, 1.0, 0.1), 3,
+                         trace)
+    print(f"{tag} profiler, 3 kernel-trunk steps: {share['wall_ms']:.3f} ms"
           f"/step wall, {share['busy_ms']:.3f} ms device busy (idle share "
           f"{1 - share['busy_ms'] / share['wall_ms']:.3f}), film_block "
           f"kernels {share['film_block_ms']:.3f} ms = "
           f"{share['film_block_share']:.3f} of device time")
     for name, ms in share["top"]:
-        print(f"[step]   {ms:9.3f} ms/step  {name}")
+        print(f"{tag}   {ms:9.3f} ms/step  {name}")
     out["share"] = share
     del runs
     torch.cuda.empty_cache()
@@ -2070,18 +2124,21 @@ def euler_ms_per_shape(torch, run_dir: str, tag: str, heun_ms) -> float:
     return ms
 
 
-def distill_step_time(fb, tvs, torch, kind: str, src: str) -> dict:
+def distill_step_time(fb, tvs, torch, kind: str, src: str, over=None,
+                      label: str = "") -> dict:
     """The distill step of phase 0 (guided, N_p = 25) at bench.py's
     workload: ms/step on the host clock (3 x 5 steps after 2 warm-up
     steps), peak memory, and one torch.profiler run of 3 steps: launches
-    per step, device busy time, idle share, the kernels' share."""
+    per step, device busy time, idle share, the kernels' share.  ``over``:
+    changes to the run's Config; ``label``: the tag, if not ``kind``."""
     import copy
 
     from pcfm_torch.distill.progressive import (init_distill_state,
                                                 make_distill_step)
     from pcfm_torch.sample.cli import load_run
-    tag = f"[distill-{kind}]"
-    cfg, bundle, _ = load_run(src, None, DEVICE)
+    label = label or kind
+    tag = f"[distill-{label}]"
+    cfg, bundle, _ = load_run(src, over, DEVICE)
     batch = train_batch(torch)
     dstate = init_distill_state(copy.deepcopy(bundle.ema_pf), 1e-4)
     dstep = make_distill_step(bundle, cfg.sample_steps // 2,
@@ -2114,7 +2171,7 @@ def distill_step_time(fb, tvs, torch, kind: str, src: str) -> dict:
               "voxel_scatter": ("voxel_scatter",)}
     reset_counts(fb, tvs)
     prof = profile_kernels(torch, run, 3, groups,
-                           os.path.join(RUN_DIR, f"distill_{kind}_trace.json"))
+                           os.path.join(RUN_DIR, f"distill_{label}_trace.json"))
     per_step = {k: v / 3 for k, v in counts(fb, tvs).items()}
     idle = 1 - prof["busy_ms"] / prof["wall_ms"]
     ours = sum(prof[g][0] for g in groups)
@@ -2144,7 +2201,9 @@ def distill_step_time(fb, tvs, torch, kind: str, src: str) -> dict:
             "profiled_ms": {g: prof[g][0] for g in groups}}
 
 
-def distill_card_vs_cpu(fb, tvs, torch, kind: str):
+def distill_card_vs_cpu(fb, tvs, torch, kind: str, src: str = "",
+                        points=HYB_E2E_POINTS, label: str = "",
+                        mlp_checks=None):
     """Phase 23, first part: one distill step (phase 0: guided, N_p 25)
     at HYB_E2E_POINTS from phase 21's or 22's input and the same draws, on
     the CPU (plain versions) and on the card (kernels); each gradient's
@@ -2152,7 +2211,10 @@ def distill_card_vs_cpu(fb, tvs, torch, kind: str):
     the CPU's bf16 step and the card's fp32 step (fp32 inputs to the
     kernels) against the CPU's fp32 step, each bound's control the card's
     bf16 step against the CPU's fp32 step.  hybrid: as phase 20, the pinned
-    legs replaying the CPU fp32 step's choices at the kinks."""
+    legs replaying the CPU fp32 step's choices at the kinks.  ``src``,
+    ``points``, ``label``, ``mlp_checks``: another input run, another
+    (clouds, points), the tag and the mlp's (leg, reference, bound,
+    control, control required) checks, if not phase 23's."""
     import copy
 
     from pcfm_torch import kinks
@@ -2160,9 +2222,9 @@ def distill_card_vs_cpu(fb, tvs, torch, kind: str):
                                                 make_distill_draws,
                                                 make_distill_step)
     from pcfm_torch.sample.cli import load_run
-    tag = f"[distill-{kind}]"
-    b, n = HYB_E2E_POINTS
-    src = os.path.join(RUN_DIR, f"distill_{kind}")
+    tag = f"[distill-{label or kind}]"
+    b, n = points
+    src = src or os.path.join(RUN_DIR, f"distill_{kind}")
     g = torch.Generator().manual_seed(SEED + 9)
     batch = {"pts": torch.randn(b, n, 3, generator=g) * 0.5,
              "rgb": torch.rand(b, n, 3, generator=g),
@@ -2179,10 +2241,11 @@ def distill_card_vs_cpu(fb, tvs, torch, kind: str):
                 "cpu_bf16": ("cpu", {}, False, False, none),
                 "bf16": (DEVICE, {}, False, False, full),
                 "fp32": (DEVICE, fp32, False, False, full)}
-        checks = (("bf16", "cpu_bf16", MLP_DISTILL_GRAD_REL_TOL_BF16,
-                   ("bf16", "cpu_fp32")),
-                  ("fp32", "cpu_fp32", MLP_DISTILL_GRAD_REL_TOL_FP32,
-                   ("bf16", "cpu_fp32")))
+        checks = mlp_checks or (
+            ("bf16", "cpu_bf16", MLP_DISTILL_GRAD_REL_TOL_BF16,
+             ("bf16", "cpu_fp32")),
+            ("fp32", "cpu_fp32", MLP_DISTILL_GRAD_REL_TOL_FP32,
+             ("bf16", "cpu_fp32")))
     else:
         plain = dict(fp32, fused_trunk="off")
         legs = {"cpu_fp32": ("cpu", fp32, False, False, none),
@@ -2239,11 +2302,13 @@ def distill_card_vs_cpu(fb, tvs, torch, kind: str):
     torch.cuda.empty_cache()
     res, ok = {}, all(grad_errors(out[leg], out["cpu_fp32"])["finite"]
                       for leg in out)
-    for leg, ref, tol, control in checks:
+    for leg, ref, tol, control, *required in checks:
+        must = not required or required[0]
         e = res[f"{leg}_vs_{ref}"] = grad_errors(out[leg], out[ref])
         c = res[f"{control[0]}_vs_{control[1]}"] = grad_errors(
             out[control[0]], out[control[1]])
-        ok = (ok and e["worst_rel"] <= tol and c["worst_rel"] > tol
+        ok = (ok and e["worst_rel"] <= tol
+              and (c["worst_rel"] > tol or not must)
               and max(e["loss_rel"], c["loss_rel"]) <= DISTILL_LOSS_REL_TOL)
         print(f"{tag} card {leg} vs {ref}, one distill step at ({b}, {n}): "
               f"loss rel {e['loss_rel']:.3g}, grad norm rel "
@@ -2251,7 +2316,8 @@ def distill_card_vs_cpu(fb, tvs, torch, kind: str):
               f"err / max |grad|: worst {e['worst_rel']:.4g}, median "
               f"{e['median_rel']:.3g} (bound {tol}); control {control[0]} "
               f"vs {control[1]}: worst {c['worst_rel']:.4g}, median "
-              f"{c['median_rel']:.3g} (must exceed {tol}); worst: "
+              f"{c['median_rel']:.3g} ("
+              + (f"must exceed {tol}" if must else "printed") + "); worst: "
               + ", ".join(f"{k} {v:.3g}" for k, v in e["worst"]))
     if kind == "hybrid" and rec["bf16"].sites:
         print(f"{tag} unpinned card bf16 step: flips against the CPU's "
@@ -2270,14 +2336,10 @@ def train_knobs_full_width(fb, tvs, torch):
     endpoint EMD (lambda_emd 0.1) at the largest multiple of 1024 points a
     cloud at which its EMD_DENSE_MATRICES (B, N, N) fp32 matrices fit in
     80 % of the free memory; exact FiLM launches, finite losses, ms/step
-    after a warm-up step, peak memory.  Then a width the backward kernel
-    does not take (pf_width 1024, fused_trunk on) must stop a distill step
-    with the wrapper's error."""
-    import copy
-
-    from pcfm_torch.distill.progressive import (init_distill_state,
-                                                make_distill_step)
-    from pcfm_torch.train.state import ModelBundle, init_state
+    after a warm-up step, peak memory.  Then the distill step at pf_width
+    1024 with the kernel trunk (the backward's wide path) against the CPU
+    (``wide_distill_card_vs_cpu``)."""
+    from pcfm_torch.train.state import init_state
     from pcfm_torch.train.step import train_step
     torch.cuda.empty_cache()
     free = torch.cuda.mem_get_info()[0]
@@ -2319,26 +2381,329 @@ def train_knobs_full_width(fb, tvs, torch):
         torch.cuda.empty_cache()
     print(f"[knobs] the endpoint EMD's step ran at {n_emd} points a cloud "
           f"(free memory {free / 2**30:.1f} GiB before the steps)")
-    bundle = ModelBundle(bench_cfg(pf_width=1024), DEVICE,
-                         torch.Generator().manual_seed(SEED))
-    g = torch.Generator(device=DEVICE).manual_seed(SEED)
-    small = {k: v[:2, :256] if v.dim() == 3 else v[:2]
-             for k, v in train_batch(torch).items()}
-    dstate = init_distill_state(copy.deepcopy(bundle.ema_pf), 1e-4)
+    out["wide_distill"] = wide_distill_card_vs_cpu(fb, tvs, torch)
+    torch.cuda.empty_cache()
+    return out
+
+
+def wide_distill_card_vs_cpu(fb, tvs, torch) -> dict:
+    """Phase 23's last part (also in ``--only wide``): one distill step at
+    pf_width WIDE_PF_WIDTH with the kernel trunk, so the backward's wide
+    path, at WIDE_DISTILL_POINTS, on the card and on the CPU from a
+    random-weight checkpoint of the bench configuration at that width:
+    phase 23's mlp legs (exact launches, finite loss), the fp32 step
+    within WIDE_DISTILL_GRAD_REL_TOL_FP32 of the CPU's and its control
+    beyond it, the bf16 step within phase 23's bound of the CPU's bf16
+    step, its control printed."""
+    from pcfm_torch.train import checkpoint
+    from pcfm_torch.train.state import ModelBundle
+    src = os.path.join(RUN_DIR, "distill_wide")
+    shutil.rmtree(src, ignore_errors=True)
+    checkpoint.save(src, 1, ModelBundle(
+        bench_cfg(pf_width=WIDE_PF_WIDTH, dataset_type="synthetic"),
+        DEVICE, torch.Generator().manual_seed(SEED)))
+    checks = (("bf16", "cpu_bf16", MLP_DISTILL_GRAD_REL_TOL_BF16,
+               ("bf16", "cpu_fp32"), False),
+              ("fp32", "cpu_fp32", WIDE_DISTILL_GRAD_REL_TOL_FP32,
+               ("bf16", "cpu_fp32")))
+    res = distill_card_vs_cpu(fb, tvs, torch, "mlp", src, WIDE_DISTILL_POINTS,
+                              f"wide-{WIDE_PF_WIDTH}", checks)
+    return {k: {"worst": e["worst_rel"], "median": e["median_rel"]}
+            for k, e in res.items()}
+
+
+def profiled_parts(prof: dict, groups) -> dict:
+    """Device ms a call of each group of one ``profile_kernels`` run; None
+    for every group (not measured) when the profiler returned no kernel
+    event, as 5 of phase 26's 6 profiles did in one whole run (PERF.md)."""
+    if not prof["busy_ms"]:
+        return dict.fromkeys(groups)
+    return {g: prof[g][0] for g in groups}
+
+
+def format_parts(parts: dict) -> str:
+    if all(v is None for v in parts.values()):
+        return "not measured (the profiler returned no kernel event)"
+    return " / ".join(f"{v:.4f}" for v in parts.values()) + " ms a call"
+
+
+def wide_kernels_vs_plain(fb, torch) -> dict:
+    """Phase 26: the FiLM-block kernels at the widths of their wide paths
+    (forward C > NARROW_C, backward C > NARROW_C_BWD) against their plain
+    versions: at (8, 20 000, C) bf16 for every C of WIDE_CS and the edges
+    (N = 1, 129, 300 at C = 640, 1536, 2048 bf16; fp32 inputs at C = 640
+    and 2048), the forward within KERNEL_TOL and every backward gradient
+    within GRAD_REL_TOL of its max, two launches bitwise equal; fp32 with
+    W = 0 within FP32_DY_TOL; then for each C of WIDE_TIMED_CS CUDA-event
+    times of both kernels, their plain versions and torch.matmul of each
+    product alone (yardsticks the port never calls), beside the bounds,
+    and one profile of each kernel's parts."""
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 11)
+    fwd_err, bwd_abs, bwd_rel = 0.0, 0.0, 0.0
+    cases = [(B, N, c, torch.bfloat16) for c in WIDE_CS]
+    cases += [(B, n, c, torch.bfloat16) for c in (640, 1536, 2048)
+              for n in (1, 129, 300)]
+    cases += [(B, n, c, torch.float32) for c in (640, 2048)
+              for n in (129, 300)]
+    for bsz, n, c, dtype in cases:
+        fwd_err = max(fwd_err, check_forward(
+            fb, torch, film_inputs(torch, g, bsz, n, c, dtype)))
+        e_abs, e_rel = check_backward(
+            fb, torch, backward_inputs(fb, torch, g, bsz, n, c, dtype))
+        bwd_abs, bwd_rel = max(bwd_abs, e_abs), max(bwd_rel, e_rel)
+        torch.cuda.empty_cache()
+    out = {"fwd_max_abs_err": fwd_err, "bwd_max_abs_err": bwd_abs,
+           "bwd_max_err_over_grad_max": bwd_rel,
+           "fp32_dy_err_over_grad_max": check_backward_fp32_dy(
+               fb, torch, g, ((2, 300, 640), (2, 300, 2048),
+                              (B, 1000, 1024)))}
+    for c in WIDE_TIMED_CS:
+        args = film_inputs(torch, g, B, N, c, torch.bfloat16)
+        bargs = backward_inputs(fb, torch, g, B, N, c, torch.bfloat16)
+        a2d = args[0].reshape(-1, c)
+        wt = args[5].T.contiguous().bfloat16()
+        dy2d = bargs[0].reshape(-1, c)
+        w16 = bargs[6].bfloat16()
+        p2d = torch.nn.functional.silu(bargs[1].float()).bfloat16() \
+            .reshape(-1, c)
+        tf = timed_turns({"kernel": lambda: fb.film_block_forward(*args),
+                          "plain": lambda: fb.film_block_reference(*args),
+                          "gemm": lambda: torch.matmul(a2d, wt)},
+                         rounds=2, reps={"kernel": 10, "plain": 3,
+                                         "gemm": 10})
+        tb = timed_turns({
+            "kernel": lambda: fb.film_block_backward(*bargs),
+            "plain": lambda: fb.film_block_reference_backward(*bargs),
+            "gemm_dp": lambda: torch.matmul(dy2d, w16),
+            "gemm_dw": lambda: torch.matmul(dy2d.T, p2d)},
+            rounds=2, reps={"kernel": 5, "plain": 2, "gemm_dp": 10,
+                            "gemm_dw": 10})
+        fprof = profile_kernels(
+            torch, lambda: fb.film_block_forward(*args), 3,
+            {"pack": ("pack_w",), "stats": ("wide_stats",),
+             "product": ("film_block_fwd",)},
+            os.path.join(RUN_DIR, f"wide_forward_c{c}_trace.json"))
+        bprof = profile_kernels(
+            torch, lambda: fb.film_block_backward(*bargs), 3,
+            {"pack": ("bwd_pack", "wide_pack"), "dp": ("wide_dp",),
+             "rows": ("rows",), "dw": ("bwd_dw",),
+             "reduce": ("bwd_sum", "bwd_finalize")},
+            os.path.join(RUN_DIR, f"wide_backward_c{c}_trace.json"))
+        bounds = film_bounds(B, N, c)
+        fpath = "wide" if c > fb.NARROW_C else "one-kernel"
+        bpath = "wide" if c > fb.NARROW_C_BWD else "register"
+        fparts = profiled_parts(fprof, ("pack", "stats", "product"))
+        bparts = profiled_parts(bprof, ("pack", "dp", "rows", "dw", "reduce"))
+        print(f"[wide] film_block forward ({B}, {N}, {c}) bf16 ({fpath} "
+              f"path): kernel {tf['kernel']:.4f} ms, bound "
+              f"{bounds['fwd'][0]:.4f} ms ({bounds['fwd'][1]}), plain fp32 "
+              f"{tf['plain']:.4f} ms, torch.matmul ({B * N}, {c}) x ({c}, "
+              f"{c}) bf16 alone {tf['gemm']:.4f} ms (medians of 4 timings "
+              f"in turns); profiled, 3 calls (W pack, statistics and "
+              f"silu(f) pack, product and epilogue): "
+              f"{format_parts(fparts)}")
+        print(f"[wide] film_block backward ({B}, {N}, {c}) bf16 ({bpath} "
+              f"path): kernel {tb['kernel']:.4f} ms, bound "
+              f"{bounds['bwd'][0]:.4f} ms ({bounds['bwd'][1]}), plain fp32 "
+              f"{tb['plain']:.4f} ms; torch.matmul alone (bf16): dy @ W "
+              f"{tb['gemm_dp']:.4f} ms, dyᵀ @ p {tb['gemm_dw']:.4f} ms; "
+              f"profiled, 3 calls (packs, dp product, rows, dW, "
+              f"reductions): {format_parts(bparts)}")
+        out[c] = {"fwd_ms": tf["kernel"], "fwd_plain_ms": tf["plain"],
+                  "fwd_gemm_ms": tf["gemm"], "fwd_bound_ms": bounds["fwd"][0],
+                  "fwd_bound_by": bounds["fwd"][1],
+                  "fwd_profiled_ms": fparts,
+                  "bwd_ms": tb["kernel"], "bwd_plain_ms": tb["plain"],
+                  "bwd_gemm_dp_ms": tb["gemm_dp"],
+                  "bwd_gemm_dw_ms": tb["gemm_dw"],
+                  "bwd_bound_ms": bounds["bwd"][0],
+                  "bwd_bound_by": bounds["bwd"][1],
+                  "bwd_profiled_ms": bparts}
+        del args, bargs, a2d, wt, dy2d, w16, p2d
+        torch.cuda.empty_cache()
+    # above the kernels' width: the wrappers stop with the named limit
+    c = fb.MAX_C + fb.N_TILE
     try:
-        make_distill_step(bundle, 2)(bundle.ema_pf, dstate, small, g)
+        fb.film_block_forward(*film_inputs(torch, g, 1, 4, c, torch.bfloat16))
     except ValueError as e:
         said = str(e)
     else:
         said = ""
-    print(f"[knobs] distill step at pf_width 1024, fused_trunk on: "
-          f"{said or 'no error'}")
-    if "C <= 512" not in said:
-        raise RuntimeError("pf_width 1024: the backward kernel's limit "
-                           "did not stop the step")
-    del bundle, dstate
-    torch.cuda.empty_cache()
+    print(f"[wide] film_block at C = {c}: {said or 'no error'}")
+    if f"C <= {fb.MAX_C} (MAX_C)" not in said:
+        raise RuntimeError(f"C = {c}: the kernels' limit did not stop it")
     return out
+
+
+def wide_path(fb, tvs, torch, np) -> dict:
+    """Phase 27: the mlp at pf_width WIDE_PF_WIDTH with the kernel trunk,
+    bench.py's workload otherwise: the training CLI (8 steps, validation,
+    a checkpoint, a rerun with nothing to do; 5 forward and 5 backward
+    launches a step), the train step's ms/step with the kernel and the
+    plain trunk in turns and the kernels' share, the sampling CLI from the
+    checkpoint (Heun x 50: 500 forward launches, 8 finite clouds) and
+    ms/shape with both trunks, and the distill step (N_p 25, guided: 25
+    forward and 5 backward launches a step) with its ms/step."""
+    from pcfm_torch.sample import cli
+    width = ["--pf_width", str(WIDE_PF_WIDTH)]
+    name = f"train_wide{WIDE_PF_WIDTH}"
+    fwd, bwd, steps = train_cli(fb, torch, name, width, "[wide-train]")
+    src = os.path.join(RUN_DIR, name)
+    step = train_step_time(torch, "[wide-step]", 1,
+                           f"train_step_wide{WIDE_PF_WIDTH}_trace.json",
+                           pf_width=WIDE_PF_WIDTH)
+    save_dir = os.path.join(RUN_DIR, f"sample_wide{WIDE_PF_WIDTH}")
+    fb.launches = fb.bwd_launches = 0
+    x = cli.main(["--out_dir", src, "--save_dir", save_dir, "--num_samples",
+                  str(B), "--n_points", str(N), "--sample_steps", "50",
+                  "--seed", str(SEED)])
+    torch.cuda.synchronize()
+    plys = sorted(os.listdir(save_dir))
+    print(f"[wide-sample] sampling CLI, Heun x 50 at {B} x {N}: "
+          f"{fb.launches} film_block launches, {fb.bwd_launches} backward, "
+          f"{len(plys)} PLYs, clouds {x.shape}, finite "
+          f"{bool(np.isfinite(x).all())}")
+    if fb.launches != FILM_BLOCKS * NFE or fb.bwd_launches \
+            or len(plys) != B or x.shape != (B, N, 6) \
+            or not np.isfinite(x).all():
+        raise RuntimeError("wide sampling CLI: launches or output")
+    sample = sample_ms_per_shape(torch, src, {"sample_steps": 50},
+                                 "[wide-sample]", ("on", "off", "on", "off"))
+    dist = distill_step_time(fb, tvs, torch, "mlp", src,
+                             {"sample_steps": 50,
+                              "guidance_scale": DISTILL_GUIDANCE},
+                             f"wide-{WIDE_PF_WIDTH}")
+    return {"train_fwd_launches": fwd, "train_bwd_launches": bwd,
+            "train_steps": steps, "step": step, "sample": sample,
+            "sample_launches": FILM_BLOCKS * NFE, "distill": dist,
+            "max_width": wide_max_width(fb, torch, np)}
+
+
+def wide_max_width(fb, torch, np) -> dict:
+    """Phase 27, last part: the mlp at pf_width MAX_C (both kernels' wide
+    paths) with random weights from the seed: the sampling CLI (Heun x 50,
+    500 forward launches, 8 finite clouds) and train steps at bench.py's
+    workload (5 forward and 5 backward launches a step, finite losses,
+    ms/step after a warm-up step)."""
+    from pcfm_torch.sample import cli
+    from pcfm_torch.train import checkpoint
+    from pcfm_torch.train.state import ModelBundle
+    from pcfm_torch.train.step import train_step
+    width = fb.MAX_C
+    src = os.path.join(RUN_DIR, f"wide{width}")
+    shutil.rmtree(src, ignore_errors=True)
+    checkpoint.save(src, 1, ModelBundle(bench_cfg(pf_width=width), DEVICE,
+                                        torch.Generator().manual_seed(SEED)))
+    fb.launches = fb.bwd_launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x = cli.main(["--out_dir", src, "--save_dir", os.path.join(src, "ply"),
+                  "--num_samples", str(B), "--n_points", str(N),
+                  "--seed", str(SEED)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    sample_launches = fb.launches
+    print(f"[wide-{width}] sampling CLI, Heun x 50 at {B} x {N}: "
+          f"{sample_launches} film_block launches, clouds {x.shape}, finite "
+          f"{bool(np.isfinite(x).all())}, CLI wall {wall:.3f} s incl. load "
+          f"and PLY writes")
+    if sample_launches != FILM_BLOCKS * NFE or fb.bwd_launches \
+            or x.shape != (B, N, 6) or not np.isfinite(x).all():
+        raise RuntimeError(f"pf_width {width} sampling: launches or output")
+    state = train_state(torch, "on", pf_width=width)
+    batch = train_batch(torch)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    train_step(state, batch, gen, 1.0, 0.1)                     # warm-up
+    fb.launches = fb.bwd_launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [float(train_step(state, batch, gen, 1.0, 0.1)["loss"])
+              for _ in range(3)]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / 3
+    print(f"[wide-{width}] train step at {B} x {N} bf16, kernel trunk: "
+          f"{ms:.3f} ms/step (3 steps after a warm-up), losses {losses}, "
+          f"launches {fb.launches} forward, {fb.bwd_launches} backward")
+    if (fb.launches, fb.bwd_launches) != (3 * FILM_BLOCKS, 3 * FILM_BLOCKS) \
+            or not all(math.isfinite(v) for v in losses):
+        raise RuntimeError(f"pf_width {width} train step: launches or loss")
+    del state
+    torch.cuda.empty_cache()
+    return {"sample_launches": sample_launches, "train_ms_per_step": ms,
+            "train_launches_per_step": FILM_BLOCKS}
+
+
+# the PointNet++ modules on the card (phase 28): SA from 8 x 20 000 points
+# to PN_CENTERS centers (radius PN_RADIUS, PN_NEIGHBORS neighbours), then
+# FP back to the points; coordinates on a 1/64 lattice, so that every
+# squared distance is exact in fp32 and the card and the CPU choose the
+# same centers and neighbours; outputs within PN_REL_TOL of the CPU's
+# (max abs error over max |CPU|; fp32, TF32 off: sums in other orders)
+PN_CENTERS, PN_RADIUS, PN_NEIGHBORS = 1024, 0.2, 32
+PN_REL_TOL = 1e-4
+
+
+def pointnet_on_card(torch) -> dict:
+    """Phase 28: ``PointNetSAModule`` and ``PointNetFPModule`` (plain
+    PyTorch, as the JAX package's are jnp) on the card and on the CPU with
+    the same weights, in training mode (batch statistics): finite outputs
+    within PN_REL_TOL of the CPU's, the running statistics too, and the
+    card's time."""
+    from pcfm_torch.nn.pointnet import PointNetFPModule, PointNetSAModule
+    g = torch.Generator().manual_seed(SEED + 13)
+    coords = torch.round((torch.rand(B, N, 3, generator=g) * 2 - 1) * 64) / 64
+    rgb = torch.rand(B, N, 3, generator=g)
+    mods = {}
+    for dev in ("cpu", DEVICE):
+        gen = torch.Generator().manual_seed(SEED)
+        sa = PointNetSAModule(PN_CENTERS, PN_RADIUS, PN_NEIGHBORS, 3,
+                              [64, 128], generator=gen)
+        fp = PointNetFPModule(128 + 3, [128, 64], generator=gen)
+        mods[dev] = (sa.to(dev).train(), fp.to(dev).train())
+    outs, ms = {}, 0.0
+    for dev, (sa, fp) in mods.items():
+        x, f = coords.to(dev), rgb.to(dev)
+        if dev != "cpu":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        feats, centers = sa(f, x)
+        up, _ = fp(x, centers, feats, f)
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        outs[dev] = [t.detach().cpu() for t in (centers, feats, up)] + [
+            v.detach().cpu() for m in (sa, fp)
+            for k, v in m.state_dict().items() if k.endswith("running_var")]
+    errs = [(a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+            for a, b in zip(outs[DEVICE], outs["cpu"])]
+    finite = all(torch.isfinite(t).all() for t in outs[DEVICE])
+    print(f"[pointnet] SA ({B} x {N} -> {PN_CENTERS} centers, r "
+          f"{PN_RADIUS}, {PN_NEIGHBORS} neighbours, [64, 128]) then FP back "
+          f"to {N} ([128, 64]), training mode, card vs CPU: max abs err / "
+          f"max |CPU| centers {errs[0]:.3g}, SA {errs[1]:.3g}, FP "
+          f"{errs[2]:.3g}, running variances {max(errs[3:]):.3g} (bound "
+          f"{PN_REL_TOL}); finite {finite}; card {ms:.1f} ms (one call, "
+          f"host clock, the first)")
+    if not finite or max(errs) > PN_REL_TOL:
+        raise RuntimeError("PointNet++ modules: card and CPU disagree")
+    return {"rel_errs": errs, "card_ms_first_call": ms}
+
+
+def wide_phases(fb, tvs, torch, np, distill_check: bool) -> dict:
+    """Phases 26-28 (``distill_check``: phase 23's distill step at the wide
+    width against the CPU as well)."""
+    t0 = time.perf_counter()
+    kernels = wide_kernels_vs_plain(fb, torch)
+    print(f"[wide] phase 26: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    path = wide_path(fb, tvs, torch, np)
+    if distill_check:
+        path["distill_card_vs_cpu"] = wide_distill_card_vs_cpu(fb, tvs, torch)
+    print(f"[wide] phase 27: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    pn = pointnet_on_card(torch)
+    print(f"[wide] phase 28: {time.perf_counter() - t0:.1f} s")
+    return {"kernels": kernels, "path": path, "pointnet": pn}
 
 
 def distill_phases(fb, tvs, torch, np, heun_ms=None, hyb_heun_ms=None):
@@ -2809,7 +3174,7 @@ def main() -> int:
     global SEED
     p = argparse.ArgumentParser(description="on-card smoke run of pcfm_torch")
     p.add_argument("--only", choices=("voxel", "chamfer", "hybrid_train",
-                                      "distill", "parallel"),
+                                      "distill", "parallel", "wide"),
                    help="phase 1 and one group of phases alone")
     p.add_argument("--seed", type=int, default=SEED,
                    help="seed of every random weight, cloud and draw")
@@ -2857,6 +3222,11 @@ def main() -> int:
         par = parallel_phases(fb, tvs, torch)
         print(json.dumps({"parallel": par}))
         return 0
+    if args.only == "wide":
+        # phase 1 and phases 26-28, for work on the FiLM kernels' wide
+        # paths and the PointNet++ modules
+        wide_phases(fb, tvs, torch, np, distill_check=True)
+        return 0
     if args.only == "hybrid_train":
         # phase 1, phase 11's checkpoint and phases 17-20 alone, for work
         # on hybrid training
@@ -2889,6 +3259,7 @@ def main() -> int:
                           hyb_ms["ms_per_shape"])
     dm, dh = dist["mlp"]["step"], dist["hybrid"]["step"]
     par = parallel_phases(fb, tvs, torch)
+    wide = wide_phases(fb, tvs, torch, np, distill_check=False)
 
     film = film_bounds(B, N, C)
     # the main path's shapes: R = 32 stage, 8 clouds, bf16 features;
@@ -2941,6 +3312,26 @@ def main() -> int:
                 "launches_parallel_step_per_rank": parallel_launches(par,
                                                                      name),
                 **extra}
+
+    wk, wp = wide["kernels"], wide["path"]
+
+    def wide_entry(d: str, c: int, launches: int, **extra):
+        """The kernels line's entry of one direction's wide path: its time
+        at (B, N, c), and each timed width's row."""
+        rows = {str(cc): {k[4:]: v for k, v in wk[cc].items()
+                          if k.startswith(d + "_")} for cc in WIDE_TIMED_CS}
+        row = rows[str(c)]
+        return {"name": f"film_block_{d}_wide", "route": "cuda",
+                "source": {"fwd": "pcfm_torch/csrc/film_block.cu",
+                           "bwd": "pcfm_torch/csrc/film_block_bwd.cu"}[d],
+                "replaces": {"fwd": "pcfm/ops/pallas/film_block.py:56",
+                             "bwd": "pcfm/ops/pallas/film_block.py:75"}[d],
+                "launches": launches,
+                "max_abs_err": wk[f"{d}_max_abs_err"],
+                "ms": row["ms"], "plain_ms": row["plain_ms"],
+                "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+                "library_ms": None, "shape": [B, N, c], "widths": rows,
+                "widths_checked": list(WIDE_CS), **extra}
 
     # the card again, beside the numbers (the first line may scroll away)
     print(sh("nvidia-smi", "--query-gpu=name,power.limit",
@@ -3015,6 +3406,31 @@ def main() -> int:
         "train_knobs": dist["knobs"],
         "launches_parallel_step_per_rank": parallel_launches(
             par, "film_block_bwd")},
+        wide_entry("fwd", fb.MAX_C, wp["max_width"]["sample_launches"],
+                   launches_from=f"sampling CLI, Heun x 50, pf_width "
+                                 f"{fb.MAX_C}",
+                   launches_train_per_step_max_width=wp["max_width"][
+                       "train_launches_per_step"],
+                   train_ms_per_step_max_width=wp["max_width"][
+                       "train_ms_per_step"],
+                   pointnet_card_vs_cpu_rel_errs=wide["pointnet"][
+                       "rel_errs"]),
+        wide_entry("bwd", WIDE_PF_WIDTH, wp["train_bwd_launches"],
+                   launches_from=f"training CLI, pf_width {WIDE_PF_WIDTH}",
+                   train_steps=wp["train_steps"],
+                   fp32_dy_err_over_grad_max=wk["fp32_dy_err_over_grad_max"],
+                   max_err_over_grad_max=wk["bwd_max_err_over_grad_max"],
+                   train_ms_per_step=wp["step"]["ms_on"],
+                   train_plain_trunk_ms_per_step=wp["step"]["ms_off"],
+                   train_film_block_share=wp["step"]["share"][
+                       "film_block_share"],
+                   train_peak_gib=wp["step"]["peak_gib_on"],
+                   sample_heun50_ms_per_shape=wp["sample"]["on"],
+                   sample_heun50_plain_trunk_ms_per_shape=wp["sample"]["off"],
+                   distill_ms_per_step=wp["distill"]["ms_per_step"],
+                   distill_launches_per_step=wp["distill"][
+                       "launches_per_step"],
+                   distill_grad_rel_err=dist["knobs"]["wide_distill"]),
         voxel_entry("voxel_gather", "pcfm_torch/csrc/voxel_gather.cu",
                     "pcfm/ops/pallas/voxel_sorted.py:150", gather, "gather",
                     hybrid_heun50_ms_per_shape=hyb_ms["ms_per_shape"],

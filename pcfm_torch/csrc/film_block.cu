@@ -66,13 +66,14 @@
 #include <cstdint>
 
 #include "film_common.cuh"
+#include "film_wide.cuh"
 #include "wgmma_common.cuh"
 
 namespace {
 
 constexpr int STAGES = 4;     // W ring depth
 constexpr int STAGE_BYTES = N_TILE * K_TILE * 2;
-constexpr int MAX_C = 1024;
+constexpr int MAX_C = 1024;  // the one-kernel path; wider C: the wide path
 constexpr int PACK_THREADS = 256;
 
 // WG warpgroups of 64 rows; thread 0 also keeps the W ring full
@@ -90,13 +91,6 @@ struct Tile {
            2 * STAGES * 8;                              // full, empty
   }
 };
-
-template <typename T>
-__device__ __forceinline__ void load8(const T* p, float (&x)[8]) {
-  Group<T> g;
-  g.load(p);
-  g.unpack(x);
-}
 
 // two consecutive values, as loaded and as fp32
 template <typename T>
@@ -368,6 +362,259 @@ __global__ void __launch_bounds__(Tile<WG>::THREADS, 1)
   }
 }
 
+// ------------------------------------------------------ the wide path
+//
+// For MAX_C < C <= WIDE_MAX_C the 64 x C bf16 silu(f) tile no longer fits
+// in shared memory (256 KB at C = 2048), so the forward runs in two
+// kernels (film_wide.cuh):
+//   * statistics and prologue: a block owns one 64-row tile of one cloud,
+//     a warp a row at a time (16-byte loads, the row in registers, the
+//     two-pass mean and variance as the one-kernel path takes them); it
+//     writes mean and rstd and silu(f) as bf16 into device memory, packed
+//     as the product's A (rows_packed_index), zeros past N;
+//   * the streamed product over A's and W's k stages, and the epilogue on
+//     the accumulators: f recomputed in fp32 from h and the saved
+//     statistics, y = f + acc + bias.
+// What bounds it: the product, 2 B N C^2 operations (1.357 ms at (8, 20000,
+// 2048) at 989 TFLOP/s dense bf16), against ~1.3 GB of h, y and the stats
+// (0.4 ms at 3.35 TB/s). What it adds to the one-kernel path's bytes:
+// silu(f) written and read back (2 x B x N x C bf16), and A read once for
+// each block of output chunks (from L2: the blocks that share a pair of
+// tiles run together). Its time beside the bound: PERF.md §6.
+
+template <typename T>
+__global__ void __launch_bounds__(WIDE_THREADS)
+    film_block_fwd_wide_stats_kernel(const T* __restrict__ h,
+                                     const float* __restrict__ s,
+                                     const float* __restrict__ t,
+                                     const T* __restrict__ gamma,
+                                     const T* __restrict__ beta,
+                                     __nv_bfloat16* __restrict__ a_packed,
+                                     float* __restrict__ mean_out,
+                                     float* __restrict__ rstd_out,
+                                     int n_points, int c) {
+  constexpr int GROUPS = WIDE_MAX_C / 256;  // 8-value groups a lane holds
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int groups = c >> 3;
+  const size_t tile = static_cast<size_t>(blockIdx.y) * gridDim.x +
+                      blockIdx.x;
+  const size_t cloud_row0 = static_cast<size_t>(blockIdx.y) * n_points;
+  const T* g_c = gamma + static_cast<size_t>(blockIdx.y) * c;
+  const T* be_c = beta + static_cast<size_t>(blockIdx.y) * c;
+  for (int r = warp; r < WIDE_ROWS; r += WIDE_THREADS / 32) {
+    const int n = blockIdx.x * WIDE_ROWS + r;
+    if (n >= n_points) {  // rows past N: zeros
+      for (int gidx = lane; gidx < groups; gidx += 32)
+        *reinterpret_cast<uint4*>(a_packed +
+                                  wide_a_offset(tile, r, gidx * 8, c)) =
+            make_uint4(0u, 0u, 0u, 0u);
+      continue;
+    }
+    Group<T> raw[GROUPS];
+#pragma unroll
+    for (int gi = 0; gi < GROUPS; ++gi) {
+      const int gidx = lane + 32 * gi;
+      if (gidx < groups)
+        raw[gi].load(h + (cloud_row0 + n) * c + gidx * 8);
+      else
+        raw[gi].clear();
+    }
+    float sum = 0.0f;
+#pragma unroll
+    for (int gi = 0; gi < GROUPS; ++gi) {
+      float x[8];
+      raw[gi].unpack(x);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) sum += x[e];
+    }
+    const float mean = warp_sum(sum) / c;
+    float sq = 0.0f;
+#pragma unroll
+    for (int gi = 0; gi < GROUPS; ++gi) {
+      if (lane + 32 * gi >= groups) continue;  // padding, not zeros
+      float x[8];
+      raw[gi].unpack(x);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const float d = x[e] - mean;
+        sq += d * d;
+      }
+    }
+    const float rstd = rsqrtf(warp_sum(sq) / c + LN_EPS);
+    if (lane == 0) {
+      mean_out[cloud_row0 + n] = mean;
+      rstd_out[cloud_row0 + n] = rstd;
+    }
+#pragma unroll
+    for (int gi = 0; gi < GROUPS; ++gi) {
+      const int gidx = lane + 32 * gi;
+      if (gidx >= groups) continue;
+      float sv[8], tv[8], gv[8], bv[8], x[8];
+      load8(s + gidx * 8, sv);
+      load8(t + gidx * 8, tv);
+      load8(g_c + gidx * 8, gv);
+      load8(be_c + gidx * 8, bv);
+      raw[gi].unpack(x);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const float f = film_f(x[e], mean, rstd, sv[e], tv[e], gv[e], bv[e]);
+        x[e] = __fdividef(f, 1.0f + __expf(-f));  // as the one-kernel path
+      }
+      *reinterpret_cast<uint4*>(a_packed +
+                                wide_a_offset(tile, r, gidx * 8, c)) =
+          pack_bf16x8(x);
+    }
+  }
+}
+
+// four consecutive values, as loaded and stored (8 bytes of bf16, 16 of
+// fp32)
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
+  return make_float4(__uint_as_float(v.x << 16),
+                     __uint_as_float(v.x & 0xFFFF0000u),
+                     __uint_as_float(v.y << 16),
+                     __uint_as_float(v.y & 0xFFFF0000u));
+}
+__device__ __forceinline__ float4 load4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 x) {
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2(bf16x2_bits(x.x, x.y), bf16x2_bits(x.z, x.w));
+}
+__device__ __forceinline__ void store4(float* p, float4 x) {
+  *reinterpret_cast<float4*>(p) = x;
+}
+
+// the product and the epilogue: block i takes output chunks (i % nchunk) *
+// NB .. + NB - 1 of the pair of row tiles i / nchunk. The accumulators go
+// through the freed ring (a row of 128 NB fp32 + 8 of padding), so that the
+// epilogue walks whole rows: a warp 16 rows, a lane 4 consecutive columns
+// of each 128, h read and y written 256 or 512 contiguous bytes a warp
+// instruction, and few registers live beside the loads.
+template <typename T, int NB>
+__global__ void __launch_bounds__(WIDE_THREADS, 1)
+    film_block_fwd_wide_kernel(const T* __restrict__ h,
+                               const float* __restrict__ s,
+                               const float* __restrict__ t,
+                               const T* __restrict__ gamma,
+                               const T* __restrict__ beta,
+                               const __nv_bfloat16* __restrict__ a_packed,
+                               const __nv_bfloat16* __restrict__ w_packed,
+                               const float* __restrict__ bias,
+                               T* __restrict__ y,
+                               const float* __restrict__ mean,
+                               const float* __restrict__ rstd, int bsz,
+                               int n_points, int c) {
+  constexpr int LD = N_TILE * NB + 8;
+  const int nchunk = c / (N_TILE * NB);
+  const int chunk0 = (blockIdx.x % nchunk) * NB;
+  const size_t pair = blockIdx.x / nchunk;
+  float acc[NB][64];
+  wide_product<NB>(a_packed, w_packed, c, pair, chunk0, acc);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wg = warp >> 2;
+  __syncthreads();  // both warpgroups' products have read the ring
+  float* stage = reinterpret_cast<float*>(wide_ring()) + wg * WIDE_ROWS * LD;
+  {
+    const int er = (warp & 3) * 16 + (lane >> 2), ec = 2 * (lane & 3);
+#pragma unroll
+    for (int q = 0; q < NB; ++q)
+#pragma unroll
+      for (int j = 0; j < N_TILE / 8; ++j)
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr)
+          *reinterpret_cast<float2*>(stage + (er + 8 * hr) * LD +
+                                     q * N_TILE + 8 * j + ec) =
+              make_float2(acc[q][4 * j + 2 * hr], acc[q][4 * j + 2 * hr + 1]);
+  }
+  named_barrier_sync(1 + wg, 128);  // this warpgroup's rows are staged
+
+  const size_t tile = 2 * pair + wg;
+  const int tiles = (n_points + WIDE_ROWS - 1) / WIDE_ROWS;
+  const size_t b = tile / tiles;
+  if (b >= static_cast<size_t>(bsz)) return;  // the pairs' padding tile
+  const T* g_c = gamma + b * c;
+  const T* be_c = beta + b * c;
+  const int n0 = static_cast<int>(tile % tiles) * WIDE_ROWS;
+#pragma unroll 4
+  for (int rr = 0; rr < 16; ++rr) {
+    const int r = (warp & 3) * 16 + rr, n = n0 + r;
+    if (n >= n_points) break;
+    const size_t row = b * n_points + n;
+    const float mu = mean[row], rs = rstd[row];
+#pragma unroll
+    for (int q = 0; q < NB; ++q) {
+      const int k = (chunk0 + q) * N_TILE + 4 * lane;
+      const float4 x = load4(h + row * c + k);
+      const float4 sv = load4(s + k), tv = load4(t + k);
+      const float4 gv = load4(g_c + k), bv = load4(be_c + k);
+      const float4 bb = load4(bias + k);
+      const float4 a = *reinterpret_cast<const float4*>(
+          stage + r * LD + q * N_TILE + 4 * lane);
+      store4(y + row * c + k,
+             make_float4(film_f(x.x, mu, rs, sv.x, tv.x, gv.x, bv.x) + a.x +
+                             bb.x,
+                         film_f(x.y, mu, rs, sv.y, tv.y, gv.y, bv.y) + a.y +
+                             bb.y,
+                         film_f(x.z, mu, rs, sv.z, tv.z, gv.z, bv.z) + a.z +
+                             bb.z,
+                         film_f(x.w, mu, rs, sv.w, tv.w, gv.w, bv.w) + a.w +
+                             bb.w));
+    }
+  }
+}
+
+template <typename T, int NB>
+int launch_wide_product(const void* h, const void* s, const void* t,
+                        const void* gamma, const void* beta,
+                        const __nv_bfloat16* a_packed,
+                        const __nv_bfloat16* w_packed, const void* bias,
+                        void* y, const void* mean, const void* rstd, int b,
+                        int n, int c, cudaStream_t stream) {
+  const size_t smem = Wide<NB>::smem_bytes();
+  cudaError_t err = cudaFuncSetAttribute(
+      film_block_fwd_wide_kernel<T, NB>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long blocks = wide_tiles(b, n) / 2 * (c / (N_TILE * NB));
+  film_block_fwd_wide_kernel<T, NB>
+      <<<static_cast<unsigned>(blocks), WIDE_THREADS, smem, stream>>>(
+          static_cast<const T*>(h), static_cast<const float*>(s),
+          static_cast<const float*>(t), static_cast<const T*>(gamma),
+          static_cast<const T*>(beta), a_packed, w_packed,
+          static_cast<const float*>(bias), static_cast<T*>(y),
+          static_cast<const float*>(mean), static_cast<const float*>(rstd),
+          b, n, c);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// w_packed: c * c bf16 (W), then the packed A (wide_tiles x 64 x c bf16)
+template <typename T>
+int launch_wide(const void* h, const void* s, const void* t,
+                const void* gamma, const void* beta, const void* w_packed,
+                const void* bias, void* y, void* mean, void* rstd, int b,
+                int n, int c, cudaStream_t stream) {
+  const auto* wp = static_cast<const __nv_bfloat16*>(w_packed);
+  auto* a_packed = const_cast<__nv_bfloat16*>(wp) +
+                   static_cast<size_t>(c) * c;
+  const dim3 grid((n + WIDE_ROWS - 1) / WIDE_ROWS, b);
+  film_block_fwd_wide_stats_kernel<T><<<grid, WIDE_THREADS, 0, stream>>>(
+      static_cast<const T*>(h), static_cast<const float*>(s),
+      static_cast<const float*>(t), static_cast<const T*>(gamma),
+      static_cast<const T*>(beta), a_packed, static_cast<float*>(mean),
+      static_cast<float*>(rstd), n, c);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (wide_nb(c) == 2)
+    return launch_wide_product<T, 2>(h, s, t, gamma, beta, a_packed, wp,
+                                     bias, y, mean, rstd, b, n, c, stream);
+  return launch_wide_product<T, 1>(h, s, t, gamma, beta, a_packed, wp, bias,
+                                   y, mean, rstd, b, n, c, stream);
+}
+
 int launch_pack(const void* w, void* packed, int c, cudaStream_t stream) {
   const int items = c * (c / 8);
   pack_w_kernel<<<(items + PACK_THREADS - 1) / PACK_THREADS, PACK_THREADS, 0,
@@ -403,6 +650,9 @@ int launch_any(const void* h, const void* s, const void* t,
                const void* gamma, const void* beta, const void* w_packed,
                const void* bias, void* y, void* mean, void* rstd, int b,
                int n, int c, cudaStream_t stream) {
+  if (c > MAX_C)
+    return launch_wide<T>(h, s, t, gamma, beta, w_packed, bias, y, mean,
+                          rstd, b, n, c, stream);
   if (c <= 32 * 8 * Tile<2>::GROUPS)  // two warpgroups up to C = 512
     return launch<T, 2>(h, s, t, gamma, beta, w_packed, bias, y, mean, rstd,
                         b, n, c, stream);
@@ -410,7 +660,7 @@ int launch_any(const void* h, const void* s, const void* t,
                       n, c, stream);
 }
 
-bool bad_c(int c) { return c <= 0 || c % N_TILE != 0 || c > MAX_C; }
+bool bad_c(int c) { return c <= 0 || c % N_TILE != 0 || c > WIDE_MAX_C; }
 
 }  // namespace
 
@@ -425,9 +675,19 @@ extern "C" int pcfm_film_block_pack_w(const void* w, void* w_packed, int c,
   return launch_pack(w, w_packed, c, static_cast<cudaStream_t>(stream));
 }
 
+// bf16 values of scratch that pcfm_film_block_fwd needs for (b, n, c): W
+// packed (c * c), and for c > MAX_C the packed silu(f) tiles; -1 for a
+// shape the kernel does not take.
+extern "C" long long pcfm_film_block_fwd_workspace(int b, int n, int c) {
+  if (b <= 0 || n <= 0 || bad_c(c) || b > 65535) return -1;
+  const long long w = static_cast<long long>(c) * c;
+  return c > MAX_C ? w + wide_tiles(b, n) * WIDE_ROWS * c : w;
+}
+
 // h, y (b, n, c) and gamma, beta (b, c) in bf16 when is_bf16 else fp32;
 // s, t, bias (c,), w (c, c), mean, rstd (b, n) fp32; w_packed is scratch of
-// c * c bf16, filled from w by the pack kernel before the forward runs.
+// pcfm_film_block_fwd_workspace(b, n, c) bf16: W packed by the pack kernel
+// before the forward runs, then (C > MAX_C) the packed silu(f).
 extern "C" int pcfm_film_block_fwd(const void* h, const void* s,
                                    const void* t, const void* gamma,
                                    const void* beta, const void* w,

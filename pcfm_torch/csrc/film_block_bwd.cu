@@ -79,7 +79,33 @@
 // What it leaves for later: overlap across tiles (a persistent block whose
 // warpgroups take turns at product and epilogue), W tiles multicast to a
 // cluster, a dW pass that reads dy through a tensor map instead of the
-// packed copy, C > 512 (dp would no longer fit in the registers).
+// packed copy.
+//
+// The wide path, MAX_C < C <= WIDE_MAX_C: a 64-row tile's fp32 dp no
+// longer fits in the registers (256 KB at C = 1024), nor dy's bf16 A
+// operand beside the Wᵀ ring in shared memory. So dp goes through device
+// memory:
+//   * dy is packed as bf16 in the rows pass's byte order (the dW pass's dy
+//     operand as before), by a small kernel;
+//   * dp = dy @ W is the streamed wgmma product of film_wide.cuh over the
+//     packed dy's and Wᵀ's k stages, written in fp32 to the workspace
+//     (1.31 GB at (8, 20000, 2048));
+//   * a rows kernel owns one 64-row tile and takes the columns in chunks
+//     of 256 (a warp a row, a lane 8 columns): f, df, p (packed, as the
+//     narrow rows pass writes it) and the tile's column sums, chunk by
+//     chunk in a fixed order, carrying each row's sums of dxhat and dxhat *
+//     xhat across the chunks; then a second sweep over the same rows
+//     recomputes df from dy, h and dp and writes dh. dy stays in its own
+//     dtype throughout, so fp32 inputs need no second pass;
+//   * the dW pass and the reductions are the narrow path's.
+// What bounds it: the two products, 4 B N C^2 operations (0.679 ms at (8,
+// 20000, 1024), 2.714 at C = 2048, at 989 TFLOP/s dense bf16). What the
+// design adds in bytes: dy packed (2 bytes an element, written and read
+// twice), dp (4, written and read twice), p (2, written and read), and the
+// second sweep's dy and h; about 24 bytes an element against the bound's
+// 6, so the rows kernel, bound by those bytes, takes the most time
+// (PERF.md §6). It is right and simple; keeping df on chip between the
+// sweeps and overlapping the rows work with the product is later work.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -87,6 +113,7 @@
 #include <type_traits>
 
 #include "film_common.cuh"
+#include "film_wide.cuh"
 #include "wgmma_common.cuh"
 
 namespace {
@@ -94,7 +121,8 @@ namespace {
 constexpr int ROWS = 64;            // rows of one cloud per rows-pass block
 constexpr int THREADS = 256;        // two warpgroups
 constexpr int TILE_BYTES = N_TILE * K_TILE * 2;  // 16 KB
-constexpr int MAX_C = 512;          // 2 chunks of dp a warpgroup
+constexpr int MAX_C = 512;          // 2 chunks of dp a warpgroup; wider C:
+                                    // the wide path
 constexpr int NQ = 5;               // tile sums: db, dgamma, dbeta, ds, dt
 constexpr int NS = 3;               // column sums kept: dy, df, df * xhat
 constexpr int ROWS_STAGES = 4;      // Wᵀ ring, a tile pair a stage
@@ -693,6 +721,265 @@ __global__ void __launch_bounds__(THREADS, 1)
                acc[q][4 * j + 2 * hr], acc[q][4 * j + 2 * hr + 1]);
 }
 
+// ------------------------------------------------------ the wide path
+
+template <typename T>
+__device__ __forceinline__ void store8(T* p, const float (&x)[8]);
+template <>
+__device__ __forceinline__ void store8<__nv_bfloat16>(__nv_bfloat16* p,
+                                                      const float (&x)[8]) {
+  *reinterpret_cast<uint4*>(p) = pack_bf16x8(x);
+}
+template <>
+__device__ __forceinline__ void store8<float>(float* p, const float (&x)[8]) {
+  reinterpret_cast<float4*>(p)[0] = make_float4(x[0], x[1], x[2], x[3]);
+  reinterpret_cast<float4*>(p)[1] = make_float4(x[4], x[5], x[6], x[7]);
+}
+
+// dy (b, n, c) -> bf16 tiles laid out as rows_packed_index, zeros past N
+// and in the pairs' padding tile; one thread a row's 8 columns
+template <typename T>
+__global__ void __launch_bounds__(RED_THREADS)
+    film_block_bwd_wide_pack_dy_kernel(const T* __restrict__ dy,
+                                       __nv_bfloat16* __restrict__ packed,
+                                       int bsz, int n_points, int c,
+                                       long long items) {
+  const long long idx =
+      static_cast<long long>(blockIdx.x) * RED_THREADS + threadIdx.x;
+  if (idx >= items) return;
+  const int groups = c / 8, gi = static_cast<int>(idx % groups);
+  const long long row = idx / groups;  // tile * 64 + r
+  const size_t tile = static_cast<size_t>(row / WIDE_ROWS);
+  const int r = static_cast<int>(row % WIDE_ROWS);
+  const int tiles = (n_points + WIDE_ROWS - 1) / WIDE_ROWS;
+  const size_t b = tile / tiles;
+  const int n = static_cast<int>(tile % tiles) * WIDE_ROWS + r;
+  float x[8] = {};
+  if (b < static_cast<size_t>(bsz) && n < n_points)
+    load8(dy + (b * n_points + n) * c + gi * 8, x);
+  *reinterpret_cast<uint4*>(packed + wide_a_offset(tile, r, gi * 8, c)) =
+      pack_bf16x8(x);
+}
+
+// dp = dy @ W in fp32, (wide_tiles x 64, c) row-major: block i takes output
+// chunks (i % nchunk) * NB .. + NB - 1 of the pair of row tiles i / nchunk
+template <int NB>
+__global__ void __launch_bounds__(WIDE_THREADS, 1)
+    film_block_bwd_wide_dp_kernel(const __nv_bfloat16* __restrict__ dy_packed,
+                                  const __nv_bfloat16* __restrict__ wt_packed,
+                                  float* __restrict__ dp, int c) {
+  const int nchunk = c / (N_TILE * NB);
+  const int chunk0 = (blockIdx.x % nchunk) * NB;
+  const size_t pair = blockIdx.x / nchunk;
+  float acc[NB][64];
+  wide_product<NB>(dy_packed, wt_packed, c, pair, chunk0, acc);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const size_t row0 = (2 * pair + (warp >> 2)) * WIDE_ROWS + (warp & 3) * 16 +
+                      (lane >> 2);
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr)
+#pragma unroll
+    for (int q = 0; q < NB; ++q)
+#pragma unroll
+      for (int j = 0; j < N_TILE / 8; ++j)
+        store2(dp + (row0 + 8 * hr) * c + (chunk0 + q) * N_TILE + 8 * j +
+                   2 * (lane & 3),
+               acc[q][4 * j + 2 * hr], acc[q][4 * j + 2 * hr + 1]);
+}
+
+constexpr int WIDE_CHUNK = 256;               // columns a lane pass: 32 x 8
+constexpr int WIDE_WARPS = WIDE_THREADS / 32;
+constexpr int WIDE_RPW = WIDE_ROWS / WIDE_WARPS;  // rows a warp
+
+// The wide rows kernel: grid (ceil(N / 64), B). Warp w takes rows w, w + 8,
+// ... of the tile; lane l columns k0 + 8 l .. + 7 of each 256-column chunk
+template <typename T>
+__global__ void __launch_bounds__(WIDE_THREADS, 1)
+    film_block_bwd_wide_rows_kernel(const T* __restrict__ dy,
+                                    const T* __restrict__ h,
+                                    const float* __restrict__ s,
+                                    const float* __restrict__ t,
+                                    const T* __restrict__ gamma,
+                                    const T* __restrict__ beta,
+                                    const float* __restrict__ dp,
+                                    const float* __restrict__ mean_in,
+                                    const float* __restrict__ rstd_in,
+                                    T* __restrict__ dh,
+                                    __nv_bfloat16* __restrict__ p_packed,
+                                    float* __restrict__ part, int n_points,
+                                    int c) {
+  // each warp's column sums of a chunk (dy, df, df * xhat), then summed
+  // over the warps in order
+  __shared__ float4 colred[WIDE_WARPS][NS][WIDE_CHUNK / 4];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row0 = blockIdx.x * WIDE_ROWS;
+  const int n_valid = min(WIDE_ROWS, n_points - row0);
+  const size_t tile = static_cast<size_t>(blockIdx.y) * gridDim.x +
+                      blockIdx.x;
+  const size_t tile_row0 = static_cast<size_t>(blockIdx.y) * n_points + row0;
+  const T* g_c = gamma + static_cast<size_t>(blockIdx.y) * c;
+  const T* be_c = beta + static_cast<size_t>(blockIdx.y) * c;
+  float mu[WIDE_RPW], rs[WIDE_RPW], m1[WIDE_RPW], m2[WIDE_RPW];
+#pragma unroll
+  for (int i = 0; i < WIDE_RPW; ++i) {
+    const int r = warp + WIDE_WARPS * i;
+    mu[i] = r < n_valid ? mean_in[tile_row0 + r] : 0.0f;
+    rs[i] = r < n_valid ? rstd_in[tile_row0 + r] : 0.0f;
+    m1[i] = m2[i] = 0.0f;
+  }
+  float* part_t = part + tile * NQ * c;
+
+  // ---- sweep 1: p, the column sums, the rows' sums
+  for (int k0 = 0; k0 < c; k0 += WIDE_CHUNK) {
+    const int k = k0 + 8 * lane;
+    if (k < c) {
+      float sv[8], tv[8], g1[8], bv[8];
+      load8(s + k, sv);
+      load8(t + k, tv);
+      load8(g_c + k, g1);
+      load8(be_c + k, bv);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) g1[e] += 1.0f;
+      float cs[NS][8] = {};
+#pragma unroll
+      for (int i = 0; i < WIDE_RPW; ++i) {
+        // two rows' loads in flight at a time, so that the registers hold
+        if (i % 2 == 0) hoist_barrier();
+        const int r = warp + WIDE_WARPS * i;
+        float pv[8] = {};
+        if (r < n_valid) {
+          float d[8], x[8], a[8];
+          load8(dy + (tile_row0 + r) * c + k, d);
+          load8(h + (tile_row0 + r) * c + k, x);
+          load8(dp + (tile * WIDE_ROWS + r) * c + k, a);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            // the narrow rows pass's arithmetic, in its order
+            const float xhat = (x[e] - mu[i]) * rs[i];
+            const float f = (xhat * sv[e] + tv[e]) * g1[e] + bv[e];
+            const float sig = __fdividef(1.0f, 1.0f + __expf(-f));
+            pv[e] = f * sig;
+            const float df = d[e] + sig * (1.0f + f * (1.0f - sig)) * a[e];
+            const float dx = df * g1[e] * sv[e];
+            m1[i] += dx;
+            m2[i] += dx * xhat;
+            cs[0][e] += d[e];
+            cs[1][e] += df;
+            cs[2][e] += df * xhat;
+          }
+        }
+        *reinterpret_cast<uint4*>(p_packed + wide_a_offset(tile, r, k, c)) =
+            pack_bf16x8(pv);  // rows past N: zeros
+      }
+#pragma unroll
+      for (int q = 0; q < NS; ++q) {
+        colred[warp][q][2 * lane] =
+            make_float4(cs[q][0], cs[q][1], cs[q][2], cs[q][3]);
+        colred[warp][q][2 * lane + 1] =
+            make_float4(cs[q][4], cs[q][5], cs[q][6], cs[q][7]);
+      }
+    }
+    __syncthreads();
+    // the tile's sums of this chunk: the warps' column sums in order
+    const int kk = threadIdx.x, col = k0 + kk;
+    if (col < c) {
+      float sq[NS];
+#pragma unroll
+      for (int q = 0; q < NS; ++q) {
+        const float* v = reinterpret_cast<const float*>(colred[0][q]) + kk;
+        float acc = v[0];
+#pragma unroll
+        for (int w = 1; w < WIDE_WARPS; ++w)
+          acc += v[static_cast<size_t>(w) * NS * WIDE_CHUNK];
+        sq[q] = acc;
+      }
+      const float sk = s[col], tk = t[col];
+      const float g1 = 1.0f + to_f32(g_c[col]);
+      part_t[col] = sq[0];                          // db
+      part_t[c + col] = sk * sq[2] + tk * sq[1];    // dgamma: df * u
+      part_t[2 * c + col] = sq[1];                  // dbeta
+      part_t[3 * c + col] = g1 * sq[2];             // ds: du * xhat
+      part_t[4 * c + col] = g1 * sq[1];             // dt: du
+    }
+    __syncthreads();  // colred is rewritten by the next chunk
+  }
+
+  // ---- the rows' means, then sweep 2: dh
+#pragma unroll
+  for (int i = 0; i < WIDE_RPW; ++i) {
+    m1[i] = warp_sum(m1[i]) / c;
+    m2[i] = warp_sum(m2[i]) / c;
+  }
+  for (int k0 = 0; k0 < c; k0 += WIDE_CHUNK) {
+    const int k = k0 + 8 * lane;
+    if (k >= c) continue;
+    float sv[8], tv[8], g1[8], bv[8];
+    load8(s + k, sv);
+    load8(t + k, tv);
+    load8(g_c + k, g1);
+    load8(be_c + k, bv);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) g1[e] += 1.0f;
+#pragma unroll
+    for (int i = 0; i < WIDE_RPW; ++i) {
+      if (i % 2 == 0) hoist_barrier();
+      const int r = warp + WIDE_WARPS * i;
+      if (r >= n_valid) continue;
+      float d[8], x[8], a[8];
+      load8(dy + (tile_row0 + r) * c + k, d);
+      load8(h + (tile_row0 + r) * c + k, x);
+      load8(dp + (tile * WIDE_ROWS + r) * c + k, a);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const float xhat = (x[e] - mu[i]) * rs[i];
+        const float f = (xhat * sv[e] + tv[e]) * g1[e] + bv[e];
+        const float sig = __fdividef(1.0f, 1.0f + __expf(-f));
+        const float df = d[e] + sig * (1.0f + f * (1.0f - sig)) * a[e];
+        const float dx = df * g1[e] * sv[e];
+        x[e] = rs[i] * (dx - m1[i] - xhat * m2[i]);
+      }
+      store8(dh + (tile_row0 + r) * c + k, x);
+    }
+  }
+}
+
+// dy packed, dp, then the wide rows kernel
+template <typename T>
+int launch_wide_rows(const void* dy, const void* h, const void* s,
+                     const void* t, const void* gamma, const void* beta,
+                     const __nv_bfloat16* wt_packed, const void* mean,
+                     const void* rstd, void* dh, __nv_bfloat16* p_packed,
+                     __nv_bfloat16* dy_packed, float* dp, float* part, int b,
+                     int n, int c, cudaStream_t stream) {
+  const long long items = wide_tiles(b, n) * WIDE_ROWS * (c / 8);
+  film_block_bwd_wide_pack_dy_kernel<T>
+      <<<cdiv(items, RED_THREADS), RED_THREADS, 0, stream>>>(
+          static_cast<const T*>(dy), dy_packed, b, n, c, items);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int nb = wide_nb(c);
+  const unsigned blocks =
+      static_cast<unsigned>(wide_tiles(b, n) / 2 * (c / (N_TILE * nb)));
+  auto* dp_kernel = nb == 2 ? film_block_bwd_wide_dp_kernel<2>
+                            : film_block_bwd_wide_dp_kernel<1>;
+  const size_t smem = nb == 2 ? Wide<2>::smem_bytes() : Wide<1>::smem_bytes();
+  err = cudaFuncSetAttribute(dp_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dp_kernel<<<blocks, WIDE_THREADS, smem, stream>>>(dy_packed, wt_packed, dp,
+                                                    c);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  film_block_bwd_wide_rows_kernel<T>
+      <<<dim3(cdiv(n, WIDE_ROWS), b), WIDE_THREADS, 0, stream>>>(
+          static_cast<const T*>(dy), static_cast<const T*>(h),
+          static_cast<const float*>(s), static_cast<const float*>(t),
+          static_cast<const T*>(gamma), static_cast<const T*>(beta), dp,
+          static_cast<const float*>(mean), static_cast<const float*>(rstd),
+          static_cast<T*>(dh), p_packed, part, n, c);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // out[y, j] = sum_{i < n} in[y * in_stride + i * m + j], i in order
 __global__ void __launch_bounds__(RED_THREADS)
     film_block_bwd_sum_kernel(const float* __restrict__ in,
@@ -748,21 +1035,26 @@ DwSplit dw_split(int b, int n, int c) {
 }
 
 // region offsets in floats: the slices' dW, the tile sums, the cloud sums,
-// packed p, packed dy, packed Wᵀ, and the end. Every region is a multiple
-// of 4 floats, so each starts 16-byte aligned.
-enum { R_DW, R_PART, R_CLOUD, R_P, R_DY, R_WT, R_END };
+// packed p, packed dy, packed Wᵀ, the wide path's dp, and the end. Every
+// region is a multiple of 4 floats, so each starts 16-byte aligned. The
+// wide path pads packed dy and dp to an even number of row tiles (the
+// product's pairs); the narrow path has no dp.
+enum { R_DW, R_PART, R_CLOUD, R_P, R_DY, R_WT, R_DP, R_END };
 
 void regions(int b, int n, int c, long long (&off)[R_END + 1]) {
   const long long tiles = static_cast<long long>(b) * cdiv(n, ROWS);
   const long long packed = tiles * ROWS * c / 2;  // bf16 in floats
+  const bool wide = c > MAX_C;
+  const long long padded = wide ? wide_tiles(b, n) * ROWS : 0;  // dp rows
   off[R_DW] = 0;
   off[R_PART] = off[R_DW] + static_cast<long long>(dw_split(b, n, c).slices) *
                                 c * c;
   off[R_CLOUD] = off[R_PART] + tiles * NQ * c;
   off[R_P] = off[R_CLOUD] + static_cast<long long>(b) * NQ * c;
   off[R_DY] = off[R_P] + packed;
-  off[R_WT] = off[R_DY] + packed;
-  off[R_END] = off[R_WT] + static_cast<long long>(c) * c / 2;
+  off[R_WT] = off[R_DY] + (wide ? padded * c / 2 : packed);
+  off[R_DP] = off[R_WT] + static_cast<long long>(c) * c / 2;
+  off[R_END] = off[R_DP] + padded * c;
 }
 
 template <typename T>
@@ -789,21 +1081,29 @@ int launch(const void* dy, const void* h, const void* s, const void* t,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  auto* rows_kernel = (c / N_TILE) % 2 == 0
-                          ? film_block_bwd_rows_kernel<T, true>
-                          : film_block_bwd_rows_kernel<T, false>;
-  const size_t smem = rows_smem_bytes(c);
-  err = cudaFuncSetAttribute(rows_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  rows_kernel<<<dim3(tiles, b), THREADS, smem, stream>>>(
-      static_cast<const T*>(dy), static_cast<const T*>(h),
-      static_cast<const float*>(s), static_cast<const float*>(t),
-      static_cast<const T*>(gamma), static_cast<const T*>(beta), wt_packed,
-      static_cast<const float*>(mean), static_cast<const float*>(rstd),
-      static_cast<T*>(dh), p_packed, dy_packed, part, n, c);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  if (c > MAX_C) {
+    const int werr = launch_wide_rows<T>(
+        dy, h, s, t, gamma, beta, wt_packed, mean, rstd, dh, p_packed,
+        dy_packed, base + off[R_DP], part, b, n, c, stream);
+    if (werr != 0) return werr;
+  } else {
+    auto* rows_kernel = (c / N_TILE) % 2 == 0
+                            ? film_block_bwd_rows_kernel<T, true>
+                            : film_block_bwd_rows_kernel<T, false>;
+    const size_t smem = rows_smem_bytes(c);
+    err = cudaFuncSetAttribute(rows_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    rows_kernel<<<dim3(tiles, b), THREADS, smem, stream>>>(
+        static_cast<const T*>(dy), static_cast<const T*>(h),
+        static_cast<const float*>(s), static_cast<const float*>(t),
+        static_cast<const T*>(gamma), static_cast<const T*>(beta), wt_packed,
+        static_cast<const float*>(mean), static_cast<const float*>(rstd),
+        static_cast<T*>(dh), p_packed, dy_packed, part, n, c);
+    if ((err = cudaGetLastError()) != cudaSuccess)
+      return static_cast<int>(err);
+  }
 
   const DwSplit d = dw_split(b, n, c);
   const dim3 dw_grid(d.out_tiles, d.slices);
@@ -846,7 +1146,7 @@ int launch(const void* dy, const void* h, const void* s, const void* t,
 }
 
 bool bad_shape(int b, int n, int c) {
-  return b <= 0 || n <= 0 || c <= 0 || c % N_TILE != 0 || c > MAX_C ||
+  return b <= 0 || n <= 0 || c <= 0 || c % N_TILE != 0 || c > WIDE_MAX_C ||
          b > 65535 || static_cast<long long>(b) * cdiv(n, ROWS) * ROWS >
                           0x7fffffffLL;
 }
@@ -866,7 +1166,8 @@ extern "C" long long pcfm_film_block_bwd_workspace(int b, int n, int c) {
 // tensors: dy, h, dh (b, n, c) and gamma, beta, dgamma, dbeta (b, c) in
 // bf16 when is_bf16 else fp32; s, t (c,), w (c, c) (out x in), mean, rstd
 // (b, n), dw (c, c), db, ds, dt (c,) and the workspace in fp32. Launches the
-// Wᵀ pack, the rows pass, the dW pass and three fixed-order reductions on
+// Wᵀ pack, the rows pass (C > MAX_C: the dy pack, the dp product and the
+// wide rows kernel), the dW pass and three fixed-order reductions on
 // `stream`, does not synchronise, returns a cudaError_t code.
 extern "C" int pcfm_film_block_bwd(const void* dy, const void* h,
                                    const void* s, const void* t,

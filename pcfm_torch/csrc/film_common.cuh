@@ -90,6 +90,14 @@ struct Group<float> {
   }
 };
 
+// 8 consecutive values as fp32, by one or two 16-byte loads
+template <typename T>
+__device__ __forceinline__ void load8(const T* p, float (&x)[8]) {
+  Group<T> g;
+  g.load(p);
+  g.unpack(x);
+}
+
 __device__ __forceinline__ uint32_t bf16x2_bits(float lo, float hi) {
   const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&p);

@@ -114,14 +114,23 @@ def _bn(p: Tree, s: Tree, where: str, prefix: str, width: int
     return sd
 
 
-def _shared_mlp(p: Tree, s: Tree, where: str, prefix: str
+def _shared_mlp(p: Tree, s: Tree, where: str, prefix: str, dim: int = 1
                 ) -> Dict[str, torch.Tensor]:
-    """JAX SharedMLP (dense_0 without bias, bn_0) -> reference
-    ``layers.0`` Conv1d (bias 0) + ``layers.1`` BatchNorm."""
-    sd = _conv1d(p["dense_0"], f"{where}/dense_0", f"{prefix}.layers.0")
-    width = sd[f"{prefix}.layers.0.weight"].shape[0]
-    sd.update(_bn(p["bn_0"], s["bn_0"], f"{where}/bn_0",
-                  f"{prefix}.layers.1", width))
+    """JAX SharedMLP (dense_i without bias, bn_i) -> reference
+    ``layers.{3i}`` Conv1d (bias 0; a Conv2d's (out, in, 1, 1) weight at
+    ``dim=2``) + ``layers.{3i+1}`` BatchNorm."""
+    sd = {}
+    layers = sorted(int(k.split("_")[1]) for k in p if k.startswith("dense_"))
+    if layers != list(range(len(layers))) or not layers:
+        raise ValueError(f"{where}: Dense layers {layers}")
+    for i in layers:
+        conv, bn = f"{prefix}.layers.{3 * i}", f"{prefix}.layers.{3 * i + 1}"
+        part = _conv1d(p[f"dense_{i}"], f"{where}/dense_{i}", conv)
+        part[f"{conv}.weight"] = part[f"{conv}.weight"].reshape(
+            *part[f"{conv}.weight"].shape[:2], *(1,) * dim)
+        sd.update(part)
+        sd.update(_bn(p[f"bn_{i}"], s[f"bn_{i}"], f"{where}/bn_{i}", bn,
+                      part[f"{conv}.weight"].shape[0]))
     return sd
 
 
@@ -229,3 +238,32 @@ def adversary_to_sd(p: Tree) -> Dict[str, torch.Tensor]:
     for name in p:
         sd.update(_dense(p[name], name, name))
     return sd
+
+
+# ------------------------------------------------------------ PointNet++
+
+def _pointnet_mlps(p: Tree, s: Tree, where: str, dim: int
+                   ) -> Dict[str, torch.Tensor]:
+    sd = {}
+    for i in sorted(int(k.split("_")[1]) for k in p if k.startswith("mlp_")):
+        sd.update(_shared_mlp(p[f"mlp_{i}"], s[f"mlp_{i}"],
+                              f"{where}/mlp_{i}", f"mlps.{i}", dim))
+    return sd
+
+
+def pointnet_a_to_sd(p: Tree, s: Tree) -> Dict[str, torch.Tensor]:
+    """JAX ``PointNetAModule`` params + batch_stats -> port state_dict
+    (``mlps.{i}``: the reference's Conv1d SharedMLPs)."""
+    return _pointnet_mlps(p, s, "pointnet_a", 1)
+
+
+def pointnet_sa_to_sd(p: Tree, s: Tree) -> Dict[str, torch.Tensor]:
+    """JAX ``PointNetSAModule`` params + batch_stats -> port state_dict
+    (``mlps.{i}``: the reference's Conv2d SharedMLPs, one a radius)."""
+    return _pointnet_mlps(p, s, "pointnet_sa", 2)
+
+
+def pointnet_fp_to_sd(p: Tree, s: Tree) -> Dict[str, torch.Tensor]:
+    """JAX ``PointNetFPModule`` params + batch_stats -> port state_dict
+    (``mlp``: the reference's Conv1d SharedMLP)."""
+    return _shared_mlp(p["mlp"], s["mlp"], "pointnet_fp/mlp", "mlp", 1)

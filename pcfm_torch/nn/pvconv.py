@@ -172,5 +172,6 @@ def dead_conv_biases(module: nn.Module) -> list:
             vl = m.voxel_layers
             pairs += [(vl[0].bias, vl[1]), (vl[3].bias, vl[4])]
         elif isinstance(m, SharedMLP):
-            pairs.append((m.layers[0].bias, m.layers[1]))
+            pairs += [(m.layers[i].bias, m.layers[i + 1])
+                      for i in range(0, len(m.layers), 3)]
     return pairs

@@ -17,6 +17,16 @@ kernels do not take.  For CPU tensors the two directions run
 ``film_block_reference_forward`` and ``film_block_reference_backward``,
 the plain-torch versions that the CPU tests and the on-card comparison use.
 
+Each direction has two paths in its C entry point, chosen by C.  The
+forward keeps a 64- or 128-row tile's whole bf16 silu(f) in shared memory
+up to ``NARROW_C``; the backward keeps a 64-row tile's fp32 dp in
+registers up to ``NARROW_C_BWD``.  Above those, up to ``MAX_C`` (both
+directions; the JAX kernel takes any C % 128 == 0 that fits its VMEM
+budget), the wide paths stream both operands of their product through
+shared memory (pcfm_torch/csrc/film_wide.cuh): the forward packs silu(f)
+in ``rows_packed_index`` order first, the backward packs dy the same way
+and writes dp in fp32 to its workspace.
+
 The forward kernel reads W as bf16 in the byte order of its wgmma B
 operand; ``pack_w`` makes that copy (a small kernel that the forward's C
 entry point launches first, once per call) and ``pack_w_reference`` is its
@@ -25,9 +35,9 @@ plain version.  The backward reads Wᵀ the same way (``packed_t_index``,
 tiles packed by its rows pass (``rows_packed_index``,
 ``pack_rows_reference``).
 
-``launches`` and ``bwd_launches`` count kernel launches of each direction
-(never plain-version calls), so a run can show that its path went through
-the kernels.
+``launches`` and ``bwd_launches`` count calls of each direction's C entry
+point (each launches several kernels; never plain-version calls), so a
+run can show that its path went through the kernels.
 """
 from __future__ import annotations
 
@@ -39,11 +49,14 @@ import torch
 from pcfm_torch.ops.build import check_launch, load_library, use_kernel
 
 LN_EPS = 1e-5
-MAX_C = 1024          # the 64 x C bf16 A operand must fit in shared memory
+MAX_C = 2048          # both directions' kernels (their wide paths)
+NARROW_C = 1024       # the forward's one-kernel path: the 64 x C bf16 A
+                      # operand fits in shared memory
 N_TILE = 128          # output rows of W in one packed tile (wgmma n)
 K_TILE = 64           # k of one packed tile: one 128-byte swizzle row
-MAX_C_BWD = 512       # the backward keeps a 64-row tile's fp32 dp in
-                      # two warpgroups' registers
+MAX_C_BWD = MAX_C
+NARROW_C_BWD = 512    # the backward's register path: a 64-row tile's fp32
+                      # dp in two warpgroups' registers
 ROWS_BWD = 64         # rows of one cloud in a backward tile
 
 launches = 0
@@ -220,6 +233,8 @@ def _lib():
     lib.pcfm_film_block_pack_w.argtypes = [ptr, ptr, ctypes.c_int, ptr]
     lib.pcfm_film_block_pack_w.restype = ctypes.c_int
     lib.pcfm_film_block_fwd.restype = ctypes.c_int
+    lib.pcfm_film_block_fwd_workspace.argtypes = [ctypes.c_int] * 3
+    lib.pcfm_film_block_fwd_workspace.restype = ctypes.c_longlong
     lib.pcfm_film_block_bwd.argtypes = [ptr] * 17 + [ctypes.c_int] * 4 + [ptr]
     lib.pcfm_film_block_bwd.restype = ctypes.c_int
     lib.pcfm_film_block_bwd_workspace.argtypes = [ctypes.c_int] * 3
@@ -246,7 +261,7 @@ def _check_operands(h, args: dict, max_c: int):
                             f"{x.dtype}")
     bsz, n, c = h.shape
     if c > max_c or bsz > 65535 or n == 0:
-        raise ValueError(f"film_block kernel takes C <= {max_c}, "
+        raise ValueError(f"film_block kernel takes C <= {max_c} (MAX_C), "
                          f"B <= 65535, N > 0; got {tuple(h.shape)}")
     for name, x in args.items():       # the kernels' 16-byte loads
         if x.data_ptr() % 16:
@@ -261,7 +276,12 @@ def _launch(h, s, t, gamma, beta, w, b):
     y = torch.empty_like(h)
     mean = torch.empty((bsz, n, 1), dtype=torch.float32, device=h.device)
     rstd = torch.empty_like(mean)
-    packed = torch.empty(c * c, dtype=torch.bfloat16, device=h.device)
+    # W packed, and for C > NARROW_C the packed silu(f) tiles
+    scratch = _lib().pcfm_film_block_fwd_workspace(bsz, n, c)
+    if scratch < 0:
+        raise ValueError(f"film_block kernel does not take "
+                         f"{tuple(h.shape)}")
+    packed = torch.empty(scratch, dtype=torch.bfloat16, device=h.device)
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream
         err = _lib().pcfm_film_block_fwd(

@@ -6,7 +6,9 @@ sampling.cu:86-167): each round keeps every point's least squared distance
 to the chosen set and takes the first point of greatest distance
 (``argmax`` picks the first maximum, as the CUDA tree reduction prefers the
 lowest index).  The rounds are sequential, one (B, N) pass each.
-``logits_mask`` is not ported yet.
+``logits_mask`` draws its selection from an explicit ``torch.Generator``
+(JAX: a PRNG key), so it matches the JAX package in distribution, not in
+values.
 """
 from __future__ import annotations
 
@@ -43,3 +45,37 @@ def furthest_point_sample(coords: torch.Tensor,
     """(B, N, 3) -> (B, M, 3) sampled coordinates (reference
     ``furthest_point_sample``, functional/sampling.py:37-49)."""
     return gather(coords, furthest_point_sample_indices(coords, num_samples))
+
+
+def logits_mask(coords: torch.Tensor, logits: torch.Tensor,
+                num_points_per_object: int, generator: torch.Generator):
+    """Sample points predicted positive by binary logits (reference
+    ``logits_mask``, functional/sampling.py:52-85, the frustum pipeline's).
+
+    coords (B, N, 3), logits (B, N, 2), M = ``num_points_per_object`` ->
+    (selected (B, M, 3): mean-centered positive coords, mean (B, 3) of the
+    positives, mask (B, N) bool).  Each cloud takes its positives in a
+    random order drawn from ``generator``, repeated (tiled) when there are
+    fewer than M (the reference's draw without replacement and its
+    floor / remainder repetition), then shuffled; a cloud with no positive
+    selects index 0 of its zeroed coords."""
+    b = coords.shape[0]
+    m = int(num_points_per_object)
+    mask = logits[..., 0] < logits[..., 1]                      # (B, N)
+    num_candidates = mask.sum(dim=-1, keepdim=True)             # (B, 1)
+    masked_coords = coords * mask[..., None]
+    mean = masked_coords.sum(dim=1) / num_candidates.clamp_min(1).to(
+        coords.dtype)                                           # (B, 3)
+    dev = generator.device
+    sel = torch.zeros((b, m), dtype=torch.long, device=coords.device)
+    for i in range(b):
+        cand = torch.nonzero(mask[i]).flatten()   # the positives, in order
+        cnt = cand.numel()
+        if cnt == 0:
+            continue
+        perm = torch.randperm(cnt, generator=generator, device=dev)
+        take = perm[torch.arange(m, device=dev) % cnt]
+        take = take[torch.randperm(m, generator=generator, device=dev)]
+        sel[i] = cand[take.to(cand.device)]
+    selected = gather(masked_coords - mean[:, None, :], sel)
+    return selected, mean, mask
