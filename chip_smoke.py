@@ -9,6 +9,7 @@
     python3 chip_smoke.py --only distill --seed 1  # other weights and data
     python3 chip_smoke.py --only parallel # phases 1 and 24-25 alone
     python3 chip_smoke.py --only wide    # phases 1 and 26-28 alone
+    python3 chip_smoke.py --only interop # phases 1 and 29-30 alone
 
 Needs one CUDA device (an H100: the kernels are built for sm_90a) and the
 CUDA toolkit's nvcc; imports nothing of JAX.  Phases, each fatal on
@@ -194,10 +195,33 @@ failure:
 28. the PointNet++ modules (plain PyTorch): set abstraction from 8 x 20 000
    points to 1024 centers, then feature propagation back, on the card and
    on the CPU with the same weights and lattice coordinates, within
-   PN_REL_TOL.
+   PN_REL_TOL;
+29. reference checkpoints imported into port runs: a full-width mlp
+   (512/6/256, the synthetic set's args) and hybrid (the Config's
+   ContextNet) in the reference's format with random weights from the seed
+   and its variants (``module.``-prefixed state_dicts, the legacy key
+   ``model``, float-only EMA shadows, args without ``ctx_dtype`` and with
+   a reference-only key, an empty optimizer state) through ``python -m
+   pcfm_torch.interop`` on the card and with ``--device cpu``: the runs'
+   state_dicts equal the files' bit for bit after unwrapping and each
+   other's, the hybrid's island fp32, the counters carried; the sampling
+   CLI on both runs (Heun x 50 at 8 x 20 000, kernel trunk: exact launches,
+   finite clouds, ms/shape), the eval CLI on the mlp's (one batch: exact
+   launches, finite metrics), and one fp32 plain-trunk velocity of each
+   imported model, card against CPU, within INTEROP_VEL_REL_TOL (the card
+   at the CPU's kinks);
+30. model FLOPs (pcfm_torch.utils.flops): the mlp and hybrid train steps at
+   8 x 20 000 bf16 and one velocity evaluation of each, counted with the
+   kernels (their formula hooks) and with the plain trunk and plain voxel
+   ops (the counter sees their products), equal exactly; MFU against the
+   dense bf16 peak beside each kernel step's host-clock and device-busy
+   ms.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``.
+A profile whose session holds kernel records for fewer than
+PROFILE_RECORDED of its kernel launches is taken again in new sessions
+(PROFILE_TRAILS_S), and fails its phase if every one is short.  The line
+before the last is a JSON object with one entry per kernel; the last
+line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -233,6 +257,18 @@ FP32_DY_TOL = 1e-4
 TRAIN_SAMPLE_STEPS = 4               # validation sampler of the CLI phase
 STEPS_PER_EPOCH = 293                # bench.py's epoch at batch 8
 TIMED_STEPS = 10
+# a profile whose session holds kernel records for fewer than this share
+# of its kernel launches (a whole Heun x 50 run's 112 409 launches held
+# 112 401) is taken again in new sessions, each held open its trail of
+# PROFILE_TRAILS_S after the kernels.  Once a process has run a minute,
+# sessions lose most of a short session's records (PERF.md §6).  The
+# first retry follows at once: in scripts/torch_profile_probe.py's runs
+# on the card late sessions alternate short and whole, whatever their
+# trail.  The last holds 5 s: in those runs only a 5 s trail kept every record at
+# every point of the process.  (A 5 s trail as the only retry took 67
+# short profiles of a whole run, 335 s of its 1005 s.)
+PROFILE_RECORDED = 0.99
+PROFILE_TRAILS_S = (0.0, 0.0, 5.0)
 HYB_DIR = os.path.join(RUN_DIR, "hybrid")
 # the hybrid's ContextNet stages (Config defaults): (resolution, channels)
 VOXEL_STAGES = ((32, 128), (16, 256), (8, 256))
@@ -1183,25 +1219,41 @@ def profile_kernels(torch, fn, calls: int, groups: dict,
     contain any of its words and no earlier group took), device-busy time
     and the wall time."""
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
     os.makedirs(os.path.dirname(trace), exist_ok=True)
-    prof.export_chrome_trace(trace)
-    with open(trace) as f:
-        events = [e for e in json.load(f)["traceEvents"]
-                  if e.get("cat") == "kernel"]
+    for attempt, wait in enumerate(PROFILE_TRAILS_S, 1):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+            time.sleep(wait)
+        prof.export_chrome_trace(trace)
+        with open(trace) as f:
+            every = json.load(f)["traceEvents"]
+        events = [e for e in every if e.get("cat") == "kernel"]
+        launched = sum(1 for e in every
+                       if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                       and "LaunchKernel" in e.get("name", ""))
+        if events and len(events) >= PROFILE_RECORDED * launched:
+            break
+        print(f"[profile] {os.path.relpath(trace, ROOT)}: session "
+              f"{attempt} held {len(events)} kernel records of {launched} "
+              f"launches")
+    else:               # a measurement that would hide itself as zeros
+        raise RuntimeError(f"{trace}: the profile holds {len(events)} "
+                           f"kernel records of {launched} launches in each "
+                           f"of {attempt} sessions")
     by_name, count = {}, {}
     for e in events:
         by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"]
         count[e["name"]] = count.get(e["name"], 0) + 1
     busy = sum(by_name.values())
-    out = {"wall_ms": wall_us / 1e3 / calls, "busy_ms": busy / 1e3 / calls,
+    # every call of ``fn`` in all sessions (counters read after it)
+    out = {"calls_run": attempt * calls,
+           "wall_ms": wall_us / 1e3 / calls, "busy_ms": busy / 1e3 / calls,
            "top": [(k[:90], v / 1e3 / calls, count[k]) for k, v in
                    sorted(by_name.items(), key=lambda kv: -kv[1])[:12]]}
     taken = set()
@@ -1761,9 +1813,9 @@ def hybrid_train_step_time(fb, tvs, torch):
     prof = profile_kernels(torch, lambda: train_step(state, batch, gen, 1.0,
                                                      0.1), 3, groups,
                            os.path.join(RUN_DIR, "hybrid_train_trace.json"))
-    per_step = {k: v / 3 for k, v in (("film_block", fb.launches),
-                                      ("film_block_bwd", fb.bwd_launches),
-                                      *tvs.launches.items())}
+    per_step = {k: v / prof["calls_run"] for k, v in (
+        ("film_block", fb.launches), ("film_block_bwd", fb.bwd_launches),
+        *tvs.launches.items())}
     idle = 1 - prof["busy_ms"] / prof["wall_ms"]
     print(f"[hybrid-train] profiler, 3 steps: {prof['wall_ms']:.3f} ms/step "
           f"wall, {prof['busy_ms']:.3f} ms device busy (idle share "
@@ -2172,7 +2224,7 @@ def distill_step_time(fb, tvs, torch, kind: str, src: str, over=None,
     reset_counts(fb, tvs)
     prof = profile_kernels(torch, run, 3, groups,
                            os.path.join(RUN_DIR, f"distill_{label}_trace.json"))
-    per_step = {k: v / 3 for k, v in counts(fb, tvs).items()}
+    per_step = {k: v / prof["calls_run"] for k, v in counts(fb, tvs).items()}
     idle = 1 - prof["busy_ms"] / prof["wall_ms"]
     ours = sum(prof[g][0] for g in groups)
     print(f"{tag} distill step (phase 0, N_p {cfg.sample_steps // 2}, "
@@ -2412,18 +2464,7 @@ def wide_distill_card_vs_cpu(fb, tvs, torch) -> dict:
             for k, e in res.items()}
 
 
-def profiled_parts(prof: dict, groups) -> dict:
-    """Device ms a call of each group of one ``profile_kernels`` run; None
-    for every group (not measured) when the profiler returned no kernel
-    event, as 5 of phase 26's 6 profiles did in one whole run (PERF.md)."""
-    if not prof["busy_ms"]:
-        return dict.fromkeys(groups)
-    return {g: prof[g][0] for g in groups}
-
-
 def format_parts(parts: dict) -> str:
-    if all(v is None for v in parts.values()):
-        return "not measured (the profiler returned no kernel event)"
     return " / ".join(f"{v:.4f}" for v in parts.values()) + " ms a call"
 
 
@@ -2492,8 +2533,9 @@ def wide_kernels_vs_plain(fb, torch) -> dict:
         bounds = film_bounds(B, N, c)
         fpath = "wide" if c > fb.NARROW_C else "one-kernel"
         bpath = "wide" if c > fb.NARROW_C_BWD else "register"
-        fparts = profiled_parts(fprof, ("pack", "stats", "product"))
-        bparts = profiled_parts(bprof, ("pack", "dp", "rows", "dw", "reduce"))
+        fparts = {g: fprof[g][0] for g in ("pack", "stats", "product")}
+        bparts = {g: bprof[g][0] for g in ("pack", "dp", "rows", "dw",
+                                           "reduce")}
         print(f"[wide] film_block forward ({B}, {N}, {c}) bf16 ({fpath} "
               f"path): kernel {tf['kernel']:.4f} ms, bound "
               f"{bounds['fwd'][0]:.4f} ms ({bounds['fwd'][1]}), plain fp32 "
@@ -3170,11 +3212,359 @@ def parallel_launches(par: dict, name: str) -> dict:
             for kind in ("mlp", "hybrid") for lay in PAR_LAYOUTS}
 
 
+# ------------------------------------------------------- interop and FLOPs
+
+# phases 29-30: reference checkpoints imported into port runs, and the
+# model-FLOP counter
+INTEROP_DIR = os.path.join(RUN_DIR, "interop")
+# one velocity evaluation of each imported model in fp32 with the plain
+# trunk, at HYB_E2E_POINTS, card against CPU (the card's pass takes the
+# CPU pass's choices at the kinks, pcfm_torch.kinks; TF32 off): max abs
+# err over max |v|
+INTEROP_VEL_REL_TOL = 1e-4
+INTEROP_EVAL_BATCHES = 1
+MODULE_KEYS = ("encoder", "pf", "lf", "ema_pf", "ema_lf")
+
+
+def reference_ckpt(torch, bundle, epoch: int, global_step: int) -> dict:
+    """A reference-format checkpoint of ``bundle`` (on the CPU) with the
+    reference's variants: every state_dict taken from a live DDP wrapper
+    (``module.`` prefix), the point flow under the legacy key ``model``,
+    EMA shadows of the float entries only (the reference's EMA registers
+    no other) moved off the live weights, ``args`` without ``ctx_dtype``
+    and with a reference-only key, and an empty optimizer state."""
+    import dataclasses
+    gen = torch.Generator().manual_seed(SEED + 29)
+
+    def ddp(sd):
+        return {f"module.{k}": v.detach().cpu().clone()
+                for k, v in sd.items()}
+
+    def ema(module):
+        params = dict(module.named_parameters())
+        return ddp({k: (v + 1e-3 * torch.randn(v.shape, generator=gen)
+                        if k in params else v)
+                    for k, v in module.state_dict().items()
+                    if v.is_floating_point()})
+
+    args = dataclasses.asdict(bundle.cfg)
+    del args["ctx_dtype"]
+    args["local_rank"] = 0                       # the reference's DDP flag
+    return {"encoder": ddp(bundle.enc.state_dict()),
+            "model": ddp(bundle.pf.state_dict()),
+            "lf": ddp(bundle.lf.state_dict()), "ema_pf": ema(bundle.pf),
+            "ema_lf": ema(bundle.lf), "args": args,
+            "cond_dim": bundle.cfg.cond_dim, "opt": {}, "scaler": None,
+            "epoch": epoch, "global_step": global_step}
+
+
+def unwrapped_reference(ref: dict) -> dict:
+    """What a port run must hold of ``ref``: the state_dicts unwrapped,
+    ``model`` as ``pf``, the EMA with the live non-float entries."""
+    def strip(sd):
+        return {k[len("module."):]: v for k, v in sd.items()}
+    out = {"encoder": strip(ref["encoder"]), "pf": strip(ref["model"]),
+           "lf": strip(ref["lf"])}
+    for key in ("ema_pf", "ema_lf"):
+        out[key] = {**out[key[4:]], **strip(ref[key])}
+    return out
+
+
+def same_state_dicts(torch, a: dict, b: dict) -> bool:
+    return all(set(a[k]) == set(b[k]) and all(
+        a[k][n].dtype == b[k][n].dtype and torch.equal(a[k][n], b[k][n])
+        for n in a[k]) for k in MODULE_KEYS)
+
+
+def interop_sample(fb, tvs, torch, np, kind: str, run: str) -> dict:
+    """The sampling CLI (Heun x 50, kernel trunk) on an imported run:
+    exact launches, finite clouds, then ms/shape of one more call."""
+    from pcfm_torch.sample import cli
+    from pcfm_torch.sample.cli import load_run
+    from pcfm_torch.train.evaluate import make_sample_fn
+    tag = f"[interop] {kind}"
+    reset_counts(fb, tvs)
+    x = cli.main(["--out_dir", run, "--save_dir", os.path.join(run, "gen"),
+                  "--num_samples", str(B), "--n_points", str(N), "--seed",
+                  str(SEED), "--device", DEVICE])
+    got = counts(fb, tvs)
+    pv = PVCONVS if kind == "hybrid" else 0
+    want = {"film_block": FILM_BLOCKS * NFE, "film_block_bwd": 0,
+            "voxel_gather": pv * NFE, "voxel_scatter": pv * NFE}
+    _, bundle, _ = load_run(run, None, DEVICE)
+    sample = make_sample_fn(bundle)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sample(None, gen, B, N)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / B
+    del bundle, sample
+    torch.cuda.empty_cache()
+    print(f"{tag}: sampling CLI, Heun x 50 at {B} x {N}, kernel trunk: "
+          f"launches {got} (expected {want}), clouds {x.shape}, finite "
+          f"{bool(np.isfinite(x).all())}; {ms:.2f} ms/shape (one call "
+          f"after the CLI's)")
+    if got != want or x.shape != (B, N, 6) or not np.isfinite(x).all():
+        raise RuntimeError(f"{tag}: sampling launches {got} or output")
+    return {"launches": got, "ms_per_shape": ms}
+
+
+def interop_eval(fb, tvs, tc, torch, run: str) -> dict:
+    """The evaluation CLI on the imported mlp run, INTEROP_EVAL_BATCHES
+    batch(es): exact launches, finite metrics."""
+    from pcfm_torch.eval import cli
+    reset_counts(fb, tvs, tc)
+    t0 = time.perf_counter()
+    out = cli.main(["--out_dir", run, "--mode", "both", "--max_batches",
+                    str(INTEROP_EVAL_BATCHES), "--device", DEVICE])
+    wall = time.perf_counter() - t0
+    got = {"chamfer_nn": tc.launches, **counts(fb, tvs)}
+    calls = 2 * INTEROP_EVAL_BATCHES              # recon and gen
+    want = {"chamfer_nn": 2 * calls, "film_block": calls * FILM_BLOCKS * NFE,
+            "film_block_bwd": 0, **dict.fromkeys(tvs.launches, 0)}
+    keys = [f"{m}_{k}" for m in ("recon", "gen")
+            for k in ("cd", "emd", "fscore", "precision", "recall")]
+    print(f"[interop] mlp: eval CLI --mode both, {INTEROP_EVAL_BATCHES} "
+          f"batch of {B} x {N}: launches {got} (expected {want}), wall "
+          f"{wall:.3f} s; " + ", ".join(f"{k} {out.get(k, math.nan):.4g}"
+                                        for k in keys))
+    if got != want or not all(math.isfinite(out.get(k, math.nan))
+                              for k in keys):
+        raise RuntimeError(f"interop eval: launches {got} or output {out}")
+    return {"launches": got, "wall_s": wall}
+
+
+def interop_velocity(torch, kind: str, card_run: str, cpu_run: str) -> float:
+    """One velocity evaluation of the imported model in fp32 with the plain
+    trunk: the card-imported run on the card against the CPU-imported run
+    on the CPU, the card taking the CPU's choices at the kinks."""
+    from pcfm_torch import kinks
+    from pcfm_torch.sample.cli import load_run
+    b, n = HYB_E2E_POINTS
+    over = {"amp": False, "fused_trunk": "off"}
+    g = torch.Generator().manual_seed(SEED + 30)
+    cfg, cpu_bundle, _ = load_run(cpu_run, over, "cpu")
+    x = torch.randn(b, n, cfg.pf_point_dim, generator=g)
+    t = torch.rand(b, generator=g)
+    cond = torch.randn(b, cfg.pf_cond_dim, generator=g)
+    rec = kinks.Kinks()
+    with torch.no_grad(), kinks.record(rec):
+        want = cpu_bundle.ema_pf.eval()(x, t, cond)
+    _, bundle, _ = load_run(card_run, over, DEVICE)
+    with torch.no_grad(), kinks.replay(rec):
+        got = bundle.ema_pf.eval()(x.to(DEVICE), t.to(DEVICE),
+                                   cond.to(DEVICE)).cpu()
+    scale = want.abs().max().item()
+    rel = (got - want).abs().max().item() / scale
+    print(f"[interop] {kind}: one velocity at ({b}, {n}), fp32, plain "
+          f"trunk, card-imported run on the card against the CPU-imported "
+          f"run on the CPU (kinks pinned: {rec.counts()}): max abs err / "
+          f"max |v| {rel:.4g} (bound {INTEROP_VEL_REL_TOL}; max |v| "
+          f"{scale:.4g})")
+    if not torch.isfinite(got).all() or rel > INTEROP_VEL_REL_TOL:
+        raise RuntimeError(f"interop {kind}: card and CPU velocities differ")
+    del bundle, cpu_bundle
+    torch.cuda.empty_cache()
+    return rel
+
+
+def interop_import(fb, tvs, tc, torch, np) -> dict:
+    """Phase 29: full-width reference checkpoints (mlp 512/6/256 and the
+    hybrid with the Config's ContextNet, random weights from the seed, the
+    reference's variants) through ``python -m pcfm_torch.interop`` on the
+    card and with ``--device cpu``; the runs' state_dicts, Config and
+    counters; the sampling CLI on both imported runs and the eval CLI on
+    the mlp's; one fp32 velocity of each, card against CPU."""
+    from pcfm_torch.train.state import ModelBundle
+    t_phase = time.perf_counter()
+    shutil.rmtree(INTEROP_DIR, ignore_errors=True)
+    os.makedirs(INTEROP_DIR)
+    refs = {}
+    for kind, cfg in (("mlp", bench_cfg(dataset_type="synthetic",
+                                        te_max_sample_points=N)),
+                      ("hybrid", hybrid_cfg())):
+        gen = torch.Generator().manual_seed(SEED)
+        bundle = ModelBundle(cfg, "cpu", gen)
+        if kind == "hybrid":   # as write_hybrid_checkpoint: the pyramid
+            with torch.no_grad():                     # reaches the head
+                for name, p in bundle.pf.named_parameters():
+                    if name.endswith(("head_out.weight",
+                                      "film.affine.weight")):
+                        p.copy_(torch.randn(p.shape, generator=gen) * 0.02)
+        refs[kind] = reference_ckpt(torch, bundle, epoch=3, global_step=879)
+        torch.save(refs[kind], os.path.join(INTEROP_DIR, f"{kind}_ref.pt"))
+        del bundle
+    # the four imports at once: each a process, as a user runs it
+    procs, t0 = {}, time.perf_counter()
+    for kind in refs:
+        for where, dev in (("card", DEVICE), ("cpu", "cpu")):
+            procs[kind, where] = subprocess.Popen(
+                [sys.executable, "-m", "pcfm_torch.interop",
+                 os.path.join(INTEROP_DIR, f"{kind}_ref.pt"), "--out_dir",
+                 os.path.join(INTEROP_DIR, f"{kind}_{where}"), "--device",
+                 dev], cwd=ROOT, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True)
+    logs = {}
+    for key, proc in procs.items():
+        out, err = proc.communicate(timeout=600)
+        if proc.returncode:
+            raise RuntimeError(f"import {key} failed: {err[-3000:]}")
+        logs[key] = out
+    wall = time.perf_counter() - t0
+    res = {"import_wall_s": wall}
+    for kind, ref in refs.items():
+        saved = {where: torch.load(os.path.join(
+            INTEROP_DIR, f"{kind}_{where}", "ckpts", "hybrid_ep0003.pt"),
+            map_location="cpu", weights_only=True)
+            for where in ("card", "cpu")}
+        card = saved["card"]
+        want = unwrapped_reference(ref)
+        exact = same_state_dicts(torch, card, want)
+        devices = same_state_dicts(torch, card, saved["cpu"])
+        ctx = card["args"]["ctx_dtype"]
+        ok = (exact and devices and ctx == "fp32"
+              and "local_rank" not in card["args"]
+              and card["global_step"] == 879 and card["epoch"] == 3
+              and "opt" not in card)
+        print(f"[interop] {kind}: python -m pcfm_torch.interop (card and "
+              f"--device cpu, 4 imports at once: {wall:.1f} s): "
+              + " | ".join(line for line in logs[kind, "card"].splitlines())
+              + f"; state_dicts equal the file's after unwrapping, bit for "
+              f"bit: {exact}; card and CPU imports bit for bit: {devices}; "
+              f"ctx_dtype {ctx}; global_step {card['global_step']}, epoch "
+              f"{card['epoch']}")
+        if not ok:
+            raise RuntimeError(f"interop {kind}: the imported run differs "
+                               "from the reference file")
+    for kind in refs:
+        res[kind] = interop_sample(fb, tvs, torch, np, kind,
+                                   os.path.join(INTEROP_DIR, f"{kind}_card"))
+    res["eval"] = interop_eval(fb, tvs, tc, torch,
+                               os.path.join(INTEROP_DIR, "mlp_card"))
+    for kind in refs:
+        res[kind]["velocity_rel_err"] = interop_velocity(
+            torch, kind, os.path.join(INTEROP_DIR, f"{kind}_card"),
+            os.path.join(INTEROP_DIR, f"{kind}_cpu"))
+    print(f"[interop] phase 29: {time.perf_counter() - t_phase:.1f} s")
+    return res
+
+
+@contextlib.contextmanager
+def plain_voxel_ops(tvs, on: bool):
+    """The voxel ops' plain versions on CUDA tensors for the block (a
+    comparison's yardstick, never the port's path)."""
+    if not on:
+        yield
+        return
+    kernel = tvs.use_kernel
+    tvs.use_kernel = lambda x, what: False
+    try:
+        yield
+    finally:
+        tvs.use_kernel = kernel
+
+
+def flop_counts(fb, tvs, torch) -> dict:
+    """Phase 30: pcfm_torch.utils.flops's count of the mlp and hybrid train
+    steps at 8 x 20 000 (bf16) and of one velocity evaluation (a Heun
+    NFE), with the kernels and with the plain trunk and plain voxel ops:
+    equal, exactly.  MFU of each kernel step beside its host-clock and
+    device-busy ms."""
+    from pcfm_torch.train.evaluate import eval_mode
+    from pcfm_torch.train.state import init_state
+    from pcfm_torch.train.step import train_step
+    from pcfm_torch.utils import flops
+    smi = sh("nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader")
+    batch = train_batch(torch)
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 31)
+    x = torch.randn(B, N, 6, device=DEVICE, generator=g)
+    t = torch.rand(B, device=DEVICE, generator=g)
+    res = {}
+    for kind, make in (("mlp", bench_cfg), ("hybrid", hybrid_train_cfg)):
+        entry = {}
+        for path in ("kernels", "plain"):
+            cfg = make(fused_trunk="on" if path == "kernels" else "off")
+            state = init_state(cfg, DEVICE, STEPS_PER_EPOCH,
+                               torch.Generator().manual_seed(SEED))
+            gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+            cond = torch.randn(B, cfg.pf_cond_dim, device=DEVICE,
+                               generator=torch.Generator(
+                                   device=DEVICE).manual_seed(SEED + 32))
+            with plain_voxel_ops(tvs, path == "plain"):
+                reset_counts(fb, tvs)
+                with flops.FlopCount() as step_count:
+                    m = train_step(state, batch, gen, 1.0, 0.1)
+                step_launches = counts(fb, tvs)
+                reset_counts(fb, tvs)
+                pf = state.bundle.ema_pf
+                with torch.no_grad(), eval_mode(pf), \
+                        flops.FlopCount() as nfe_count:
+                    v = pf(x, t, cond)
+                nfe_launches = counts(fb, tvs)
+            if not (math.isfinite(float(m["loss"]))
+                    and torch.isfinite(v).all()):
+                raise RuntimeError(f"flops {kind} {path}: not finite")
+            entry[path] = {"step": step_count.total,
+                           "step_by_op": step_count.by_op,
+                           "nfe": nfe_count.total,
+                           "step_launches": step_launches,
+                           "nfe_launches": nfe_launches}
+            if path == "kernels":
+                step = lambda: train_step(state, batch, gen, 1.0, 0.1)  # noqa
+                for _ in range(3):
+                    step()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(TIMED_STEPS):
+                    step()
+                torch.cuda.synchronize()
+                entry["ms_per_step"] = (time.perf_counter() - t0) * 1e3 \
+                    / TIMED_STEPS
+                prof = profile_kernels(torch, step, 3, {}, os.path.join(
+                    RUN_DIR, f"flops_{kind}_step_trace.json"))
+                entry["busy_ms_per_step"] = prof["busy_ms"]
+            del state
+            torch.cuda.empty_cache()
+        k, p = entry["kernels"], entry["plain"]
+        mfu_host = flops.mfu(k["step"], entry["ms_per_step"] / 1e3)
+        mfu_busy = flops.mfu(k["step"], entry["busy_ms_per_step"] / 1e3)
+        entry.update(mfu_host_clock=mfu_host, mfu_device_busy=mfu_busy)
+        kernel_launched = any(k["step_launches"].values())
+        plain_launched = any(p["step_launches"].values()) \
+            or any(p["nfe_launches"].values())
+        print(f"[flops] {kind} train step at {B} x {N} bf16: "
+              f"{k['step']:.6e} FLOP with the kernels ({k['step_by_op']}; "
+              f"launches {k['step_launches']}), {p['step']:.6e} with the "
+              f"plain trunk and plain voxel ops ({p['step_by_op']}; "
+              f"launches {p['step_launches']}): equal {k['step'] == p['step']}"
+              f"; one velocity evaluation (Heun NFE): {k['nfe']:.6e} / "
+              f"{p['nfe']:.6e}, equal {k['nfe'] == p['nfe']} ({smi})")
+        print(f"[flops] {kind} train step, kernels: "
+              f"{entry['ms_per_step']:.3f} ms/step host clock ({TIMED_STEPS}"
+              f" steps after 3), {entry['busy_ms_per_step']:.3f} ms device "
+              f"busy (profiler, 3 steps); MFU at "
+              f"{flops.H100_BF16_DENSE_PEAK / 1e12:.0f} TFLOP/s dense bf16: "
+              f"{100 * mfu_host:.3f} % host clock, {100 * mfu_busy:.3f} % "
+              f"device busy ({smi})")
+        if (k["step"] != p["step"] or k["nfe"] != p["nfe"]
+                or not kernel_launched or plain_launched
+                or not (0 < mfu_host < 1 and 0 < mfu_busy < 1)):
+            raise RuntimeError(f"flops {kind}: counts differ between the "
+                               f"kernels and the plain versions, or MFU "
+                               f"out of range: {entry}")
+        res[kind] = entry
+    res["card"] = smi
+    return res
+
+
 def main() -> int:
     global SEED
     p = argparse.ArgumentParser(description="on-card smoke run of pcfm_torch")
     p.add_argument("--only", choices=("voxel", "chamfer", "hybrid_train",
-                                      "distill", "parallel", "wide"),
+                                      "distill", "parallel", "wide",
+                                      "interop"),
                    help="phase 1 and one group of phases alone")
     p.add_argument("--seed", type=int, default=SEED,
                    help="seed of every random weight, cloud and draw")
@@ -3227,6 +3617,13 @@ def main() -> int:
         # paths and the PointNet++ modules
         wide_phases(fb, tvs, torch, np, distill_check=True)
         return 0
+    if args.only == "interop":
+        # phase 1 and phases 29-30, for work on checkpoint import and the
+        # FLOP counter
+        inter = interop_import(fb, tvs, tc, torch, np)
+        fl = flop_counts(fb, tvs, torch)
+        print(json.dumps({"interop": inter, "flops": fl}))
+        return 0
     if args.only == "hybrid_train":
         # phase 1, phase 11's checkpoint and phases 17-20 alone, for work
         # on hybrid training
@@ -3260,6 +3657,9 @@ def main() -> int:
     dm, dh = dist["mlp"]["step"], dist["hybrid"]["step"]
     par = parallel_phases(fb, tvs, torch)
     wide = wide_phases(fb, tvs, torch, np, distill_check=False)
+    inter = interop_import(fb, tvs, tc, torch, np)
+    fl = flop_counts(fb, tvs, torch)
+    print(json.dumps({"interop": inter, "flops": fl}))
 
     film = film_bounds(B, N, C)
     # the main path's shapes: R = 32 stage, 8 clouds, bf16 features;
@@ -3311,6 +3711,8 @@ def main() -> int:
                 "distill_hybrid_profiled_ms_per_step": dh["profiled_ms"][name],
                 "launches_parallel_step_per_rank": parallel_launches(par,
                                                                      name),
+                "launches_imported_reference_sample": inter["hybrid"][
+                    "launches"][name],
                 **extra}
 
     wk, wp = wide["kernels"], wide["path"]
@@ -3369,7 +3771,18 @@ def main() -> int:
             for kind in ("mlp", "hybrid") for lay in PAR_LAYOUTS},
         "parallel_one_rank_ms_per_step": {
             kind: par["steps"][f"{kind}_one_rank_ms_per_step"]
-            for kind in ("mlp", "hybrid")}}, {
+            for kind in ("mlp", "hybrid")},
+        "launches_imported_reference_sample": {
+            kind: inter[kind]["launches"]["film_block"]
+            for kind in ("mlp", "hybrid")},
+        "model_flops_train_step": {kind: fl[kind]["kernels"]["step"]
+                                   for kind in ("mlp", "hybrid")},
+        "model_flops_velocity": {kind: fl[kind]["kernels"]["nfe"]
+                                 for kind in ("mlp", "hybrid")},
+        "train_step_mfu_host_clock": {kind: fl[kind]["mfu_host_clock"]
+                                      for kind in ("mlp", "hybrid")},
+        "train_step_mfu_device_busy": {kind: fl[kind]["mfu_device_busy"]
+                                       for kind in ("mlp", "hybrid")}}, {
         "name": "film_block_bwd", "route": "cuda",
         "source": "pcfm_torch/csrc/film_block_bwd.cu",
         "replaces": "pcfm/ops/pallas/film_block.py:75",
@@ -3478,7 +3891,9 @@ def main() -> int:
         "launches_suite": su["launches"]["chamfer_nn"],
         "eval_cli_wall_s": ev["wall_s"], "suite_cli_wall_s": su["wall_s"],
         "streamed_emd_ms_per_batch": ev["emd_ms"],
-        "eval_metrics_profiled_chamfer_ms": ev["profile"]["chamfer_nn"][0]}]}))
+        "eval_metrics_profiled_chamfer_ms": ev["profile"]["chamfer_nn"][0],
+        "launches_imported_reference_eval": inter["eval"]["launches"][
+            "chamfer_nn"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

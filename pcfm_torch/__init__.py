@@ -8,9 +8,9 @@ copied here (``pcfm_torch.config``, ``pcfm_torch.data``,
 ``pcfm_torch.utils``).  Entry points run on the card unless the caller
 asks for the CPU (``pcfm_torch.device``).
 
-Layout (ported so far: the ``mlp`` and ``hybrid`` sampling, training
-and distillation paths, with every train-step option and data and
-point-axis parallel training, and evaluation):
+Layout (the ``mlp`` and ``hybrid`` sampling, training and distillation
+paths, with every train-step option and data and point-axis parallel
+training, evaluation, checkpoint import and the FLOP counter):
   pcfm_torch.nn       inits, FiLMBlock, FiLM1d, GroupNorm / BatchNorm,
                       SharedMLP, SE3d, PVConv
   pcfm_torch.models   timestep embedding, VelocityNet(WithContext),
@@ -27,7 +27,10 @@ point-axis parallel training, and evaluation):
   pcfm_torch.parallel process group, (data, points) grid, differentiable
                       collectives, the voxel ops over split clouds
   pcfm_torch.data     datasets, host loader, PLY IO
-  pcfm_torch.interop  JAX param trees -> port state_dicts
+  pcfm_torch.utils    runtime helpers, the model-FLOP counter and MFU
+  pcfm_torch.interop  JAX param trees -> port state_dicts; reference
+                      checkpoints -> port runs (``python -m
+                      pcfm_torch.interop``)
 """
 
 __version__ = "0.1.0"

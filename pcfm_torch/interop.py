@@ -1,4 +1,5 @@
-"""JAX param trees -> port state_dicts.
+"""JAX param trees -> port state_dicts, and reference checkpoints -> port
+runs.
 
 The inverse of pcfm/interop/torch_ckpt.py's ``*_from_sd``: a flax param
 tree of the JAX package (nested dicts of numpy arrays, e.g.
@@ -7,13 +8,23 @@ hybrid) becomes a state_dict that the port's modules load with
 ``load_state_dict``.  flax Dense kernels are (in, out); torch Linear
 weights are (out, in); flax Conv kernels (D, H, W, in, out), torch's
 (out, in, D, H, W).  No jax is imported: the trees are plain numpy.
+
+``import_reference_checkpoint`` (and ``python -m pcfm_torch.interop
+ref.pt --out_dir D``) is the port's counterpart of pcfm/interop/: a
+reference ``hybrid_epNNNN.pt`` becomes a port run (below).
+``adamw_state_dict`` builds the port optimizer's state from per-parameter
+AdamW moments, as scripts/jax_run_to_torch.py carries a JAX run's.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+
+# the reference-format readers live beside the port's own checkpoint code
+from pcfm_torch.train.checkpoint import (  # noqa: F401
+    config_from_reference_args, unwrap_ddp)
 
 Tree = Dict[str, Any]
 
@@ -267,3 +278,152 @@ def pointnet_fp_to_sd(p: Tree, s: Tree) -> Dict[str, torch.Tensor]:
     """JAX ``PointNetFPModule`` params + batch_stats -> port state_dict
     (``mlp``: the reference's Conv1d SharedMLP)."""
     return _shared_mlp(p["mlp"], s["mlp"], "pointnet_fp/mlp", "mlp", 1)
+
+
+# ------------------------------------------------ reference checkpoints
+#
+# The counterpart of pcfm/interop/torch_ckpt.py:263-372.  The port keeps
+# the reference's state_dict names and checkpoint format, so
+# ``checkpoint.load`` reads a reference ``hybrid_epNNNN.pt`` as it reads a
+# port run (its variants normalised, every tensor checked against the
+# modules its Config builds); importing adds the optimizer state and
+# writes a port run.
+
+
+def _group_params(bundle) -> Dict[str, list]:
+    """{group: [(name, parameter, trainable)]} in module order, the groups
+    of ``make_optimizer``."""
+    from pcfm_torch.train.state import GROUP_LR, trainable_parameters
+    out = {}
+    for g in GROUP_LR:
+        module = getattr(bundle, g)
+        if module is not None:
+            live = {id(p) for p in trainable_parameters(module)}
+            out[g] = [(n, p, id(p) in live)
+                      for n, p in module.named_parameters()]
+    return out
+
+
+def adamw_state_dict(bundle, moments: Dict[str, Tree], step: int) -> Tree:
+    """The state_dict of ``make_optimizer(bundle)`` carrying AdamW moments:
+    ``moments[group][name] = (exp_avg, exp_avg_sq)`` for every trainable
+    parameter of each group (the dead conv biases have none), and ``step``
+    as each parameter's step (torch counts it as optax counts ``count``)."""
+    from pcfm_torch.train.state import make_optimizer
+    opt = make_optimizer(bundle)
+    sd = opt.state_dict()
+    state, idx = {}, 0
+    for g, params in _group_params(bundle).items():
+        have = moments.get(g, {})
+        for name, p, trainable in params:
+            if not trainable:
+                continue
+            if name not in have:
+                raise ValueError(f"no moments for {g}/{name}")
+            m, v = (torch.as_tensor(x, dtype=torch.float32).reshape(p.shape)
+                    for x in have[name])
+            state[idx] = {"step": torch.tensor(float(step)),
+                          "exp_avg": m.clone(), "exp_avg_sq": v.clone()}
+            idx += 1
+    if idx != sum(len(g["params"]) for g in sd["param_groups"]):
+        raise ValueError("moments do not cover the optimizer's parameters")
+    sd["state"] = state
+    return sd
+
+
+# the checkpoint key of each optimizer group's module
+GROUP_CKPT_KEY = {"enc": "encoder", "pf": "pf", "lf": "lf", "adv": "adv"}
+
+
+def reference_adamw_state(bundle, ckpt: Tree) -> Optional[Tree]:
+    """The reference optimizer's state (torch AdamW, groups enc / pf / lf,
+    train.py:249-253) in the port's layout, or None where it does not
+    fit.  A group's ids follow its module's ``parameters()`` order in the
+    reference, which is the order of the parameters in the checkpoint's
+    own state_dict of that module (torch lists both module by module), so
+    each id is matched to a parameter by name, whatever order the port
+    registers them in.  The reference's groups hold every parameter, the
+    dead conv biases too; their moments are dropped, as the port's AdamW
+    holds none."""
+    ref_opt = ckpt.get("opt") or {}
+    groups = ref_opt.get("param_groups") or []
+    params = _group_params(bundle)
+    if not groups or len(groups) != len(params):
+        return None
+    moments = {}
+    for (g, plist), group in zip(params.items(), groups):
+        by_name = {name: (p, trainable) for name, p, trainable in plist}
+        order = [k for k in ckpt[GROUP_CKPT_KEY[g]] if k in by_name]
+        ids = list(group["params"])
+        if len(ids) != len(order):
+            return None
+        pairs = [(n, i) for n, i in zip(order, ids) if by_name[n][1]]
+        moments[g] = {}
+        for name, i in pairs:
+            st = ref_opt.get("state", {}).get(i)
+            if st is None or "exp_avg" not in st:
+                return None
+            if tuple(st["exp_avg"].shape) != tuple(by_name[name][0].shape):
+                return None
+            moments[g][name] = (st["exp_avg"], st["exp_avg_sq"])
+    steps = {float(st["step"]) for st in ref_opt["state"].values()
+             if "step" in st}
+    if len(steps) != 1:
+        return None
+    return adamw_state_dict(bundle, moments, int(steps.pop()))
+
+
+def import_reference_checkpoint(path: str, out_dir: str, device="cuda",
+                                **cfg_overrides):
+    """Load a reference ``hybrid_epNNNN.pt`` with ``checkpoint.load`` and
+    write a port run under ``{out_dir}/ckpts/hybrid_ep{epoch:04d}.pt``
+    that the port's train (auto-resume), sample, eval and distill CLIs
+    load as it is: the modules built on ``device`` and checked, the EMA
+    shadows, ``global_step``, ``epoch`` and the optimizer state (where it
+    fits).  Returns (checkpoint path, Config)."""
+    from pcfm_torch.device import resolve_device
+    from pcfm_torch.train import checkpoint
+
+    cfg, bundle, ckpt = checkpoint.load(
+        path, resolve_device(device), {"out_dir": out_dir, **cfg_overrides})
+    saved = checkpoint.save(out_dir, int(ckpt.get("epoch", 0) or 0), bundle,
+                            global_step=int(ckpt.get("global_step", 0)
+                                            or 0),
+                            opt=reference_adamw_state(bundle, ckpt))
+    return saved, cfg
+
+
+def main(argv=None):
+    """``python -m pcfm_torch.interop ref.pt --out_dir D``: the options of
+    ``python -m pcfm.interop`` (pcfm/interop/__main__.py) plus
+    ``--device``."""
+    import argparse
+
+    from pcfm_torch.device import DEVICES
+    ap = argparse.ArgumentParser(
+        description="Import a reference PyTorch checkpoint into a "
+        "pcfm_torch run")
+    ap.add_argument("ckpt", help="path to hybrid_epNNNN.pt")
+    ap.add_argument("--out_dir", required=True,
+                    help="pcfm_torch run dir to write ckpts/ under")
+    ap.add_argument("--ctx_dtype", default="fp32", choices=["fp32", "bf16"],
+                    help="ContextNet island precision for the continued "
+                    "run (fp32 = exact reference semantics)")
+    ap.add_argument("--device", default="cuda", choices=DEVICES,
+                    help="where the modules are built and checked")
+    args = ap.parse_args(argv)
+    path, cfg = import_reference_checkpoint(
+        args.ckpt, args.out_dir, device=args.device,
+        ctx_dtype=args.ctx_dtype)
+    with_opt = "opt" in torch.load(path, map_location="cpu",
+                                   weights_only=True, mmap=True)
+    print(f"[interop] wrote {path}")
+    print(f"[interop] backbone={cfg.pf_backbone} cond_dim={cfg.cond_dim} "
+          f"point_dim={cfg.pf_point_dim} latent_dim={cfg.latent_dim} "
+          f"ctx_dtype={cfg.ctx_dtype} optimizer state "
+          f"{'carried' if with_opt else 'not carried (fresh on resume)'}")
+    return path, cfg
+
+
+if __name__ == "__main__":
+    main()

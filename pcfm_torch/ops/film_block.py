@@ -37,7 +37,10 @@ tiles packed by its rows pass (``rows_packed_index``,
 
 ``launches`` and ``bwd_launches`` count calls of each direction's C entry
 point (each launches several kernels; never plain-version calls), so a
-run can show that its path went through the kernels.
+run can show that its path went through the kernels.  Inside a FLOP count
+(pcfm_torch/utils/flops.py) each call adds its model math: 2·B·N·C²
+forward (``silu(f) @ W``), 4·B·N·C² backward (``dy @ W``, ``dyᵀ @ p``),
+as many as the plain versions' products.
 """
 from __future__ import annotations
 
@@ -47,6 +50,7 @@ import functools
 import torch
 
 from pcfm_torch.ops.build import check_launch, load_library, use_kernel
+from pcfm_torch.utils.flops import kernel_flops
 
 LN_EPS = 1e-5
 MAX_C = 2048          # both directions' kernels (their wide paths)
@@ -268,6 +272,18 @@ def _check_operands(h, args: dict, max_c: int):
             raise ValueError(f"film_block: {name} must be 16-byte aligned")
 
 
+def film_block_flops(h, *_) -> int:
+    """The forward's model math: ``silu(f) @ W`` over B·N rows."""
+    bsz, n, c = h.shape
+    return 2 * bsz * n * c * c
+
+
+def film_block_bwd_flops(dy, *_) -> int:
+    """The backward's: ``dy @ W`` and ``silu(f)ᵀ @ dy``."""
+    return 2 * film_block_flops(dy)
+
+
+@kernel_flops(film_block_flops)
 def _launch(h, s, t, gamma, beta, w, b):
     global launches
     _check_operands(h, {"h": h, "s": s, "t": t, "gamma": gamma,
@@ -294,6 +310,7 @@ def _launch(h, s, t, gamma, beta, w, b):
     return y, mean, rstd
 
 
+@kernel_flops(film_block_bwd_flops)
 def _launch_bwd(dy, h, s, t, gamma, beta, w, mean, rstd):
     global bwd_launches
     _check_operands(h, {"dy": dy, "h": h, "s": s, "t": t, "gamma": gamma,

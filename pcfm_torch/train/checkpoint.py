@@ -14,7 +14,15 @@ match are loaded and the rest keeps its fresh value (non-strict model load;
 for the EMA shadows, the key union with the current shadow); the optimizer
 state is restored all or nothing, with a warning when it does not fit; the
 reference's legacy top-level keys ``model`` and ``opt_main`` are read as
-``pf`` and ``opt``.
+``pf`` and ``opt``, here and in ``load``, and a state_dict saved from a
+live DDP wrapper loses its uniform ``module.`` prefix
+(``normalise_reference_ckpt``).  ``load`` is the one reader of a
+checkpoint into modules, a port run's or the reference's
+(pcfm_torch.interop imports through it): it reads ``args`` with
+``config_from_reference_args`` (no ``ctx_dtype`` means the reference's
+fp32 ContextNet island), fills the non-float entries that the
+reference's EMA shadows lack from the live state_dict, and loads every
+module strictly, naming what does not fit as a ValueError.
 Old checkpoints are deleted down to the newest ``keep_last_ckpts``.
 
 Saves may be asynchronous (``async_save``, pcfm/train/checkpoint.py:21,
@@ -31,7 +39,7 @@ import dataclasses
 import os
 import re
 from concurrent.futures import Future, ThreadPoolExecutor
-from typing import Optional, Tuple, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
@@ -39,8 +47,9 @@ from pcfm_torch.config import Config
 from pcfm_torch.train.state import ModelBundle, TrainState
 
 _CKPT_RE = re.compile(r"hybrid_ep(\d+)\.pt$")
-# reference train.py:487,504
+# the reference's legacy top-level keys (train.py:487,504)
 LEGACY_KEY_MAP = {"model": "pf", "opt_main": "opt"}
+MODULE_KEYS = ("encoder", "pf", "lf", "ema_pf", "ema_lf", "adv")
 
 
 def ckpt_dir(out_dir: str) -> str:
@@ -137,25 +146,98 @@ def _gc(out_dir: str, keep_last: int) -> None:
             os.remove(path)
 
 
+# ------------------------------------------------ the reference's variants
+#
+# pcfm/interop/torch_ckpt.py:54-60,263-279,325-341: the same rules.
+
+def unwrap_ddp(sd: Dict[str, Any]) -> Dict[str, Any]:
+    """Strip a uniform 'module.' prefix (a state_dict taken from a live
+    DistributedDataParallel wrapper; the reference trainer unwraps before
+    saving, train.py:687-689, but hand-rolled exports often don't)."""
+    if sd and all(k.startswith("module.") for k in sd):
+        return {k[len("module."):]: v for k, v in sd.items()}
+    return sd
+
+
+def normalise_reference_ckpt(ckpt: dict) -> dict:
+    """A copy of a loaded checkpoint with the legacy keys read as ``pf`` /
+    ``opt`` and every module state_dict unwrapped (its order kept)."""
+    ckpt = dict(ckpt)
+    for old, new in LEGACY_KEY_MAP.items():
+        if old in ckpt and new not in ckpt:
+            ckpt[new] = ckpt.pop(old)
+    for key in MODULE_KEYS:
+        if ckpt.get(key):
+            ckpt[key] = unwrap_ddp(dict(ckpt[key]))
+    return ckpt
+
+
+def config_from_reference_args(args: Dict[str, Any], cond_dim=None,
+                               **overrides) -> Config:
+    """The port's Config from the ``args`` dict stored in a checkpoint:
+    known fields only, ``cond_dim`` from the checkpoint, and the
+    ContextNet island in fp32 unless the args say otherwise, since the
+    reference trained with the exact fp32 island (reference
+    models.py:513)."""
+    fields = {f.name for f in dataclasses.fields(Config)}
+    kw = {k: v for k, v in args.items() if k in fields}
+    if cond_dim is not None:
+        kw["cond_dim"] = int(cond_dim)
+    kw.setdefault("ctx_dtype", "fp32")
+    kw.update(overrides)
+    return Config(**kw)
+
+
+def ema_state_dict(ema: dict, live: dict) -> dict:
+    """An EMA shadow's state_dict: the reference's EMA registers the float
+    entries only (util.py:11-24), so the others (``num_batches_tracked``)
+    come from the live state_dict."""
+    return {**{k: v for k, v in live.items()
+               if k not in ema and not v.is_floating_point()}, **ema}
+
+
+def _load_checked(module: torch.nn.Module, sd: dict, where: str) -> None:
+    """Strict load that names what does not fit (a missing, extra or
+    misshapen entry) as a ValueError."""
+    own = module.state_dict()
+    missing, extra = sorted(set(own) - set(sd)), sorted(set(sd) - set(own))
+    if missing or extra:
+        raise ValueError(f"{where}: state_dict mismatch; missing="
+                         f"{missing[:8]} extra={extra[:8]}")
+    for k, v in sd.items():
+        if tuple(v.shape) != tuple(own[k].shape):
+            raise ValueError(f"{where}.{k}: shape {tuple(v.shape)} != "
+                             f"expected {tuple(own[k].shape)}")
+    module.load_state_dict(sd)
+
+
 def _read(path: str) -> dict:
-    return torch.load(path, map_location="cpu", weights_only=True)
+    return normalise_reference_ckpt(
+        torch.load(path, map_location="cpu", weights_only=True))
 
 
 def load(path: str, device, overrides: Optional[dict] = None
          ) -> Tuple[Config, ModelBundle, dict]:
-    """Rebuild (cfg, bundle, ckpt) from a checkpoint.  ``overrides``
-    replaces Config fields (None values are ignored) before the modules
-    are built; weights load strictly."""
+    """Rebuild (cfg, bundle, ckpt) from a checkpoint, the port's or the
+    reference's.  ``overrides`` replaces Config fields (None values are
+    ignored) before the modules are built; weights load strictly; the EMA
+    shadows are the checkpoint's, or its live weights where it has none;
+    ``ckpt`` is the normalised dict."""
     ckpt = _read(path)
-    cfg = Config(**{k: v for k, v in ckpt["args"].items()
-                    if k in {f.name for f in dataclasses.fields(Config)}})
-    cfg = cfg.replace(cond_dim=int(ckpt.get("cond_dim", cfg.cond_dim)),
-                      **{k: v for k, v in (overrides or {}).items()
-                         if v is not None})
+    args = ckpt["args"]
+    cfg = config_from_reference_args(
+        args, cond_dim=ckpt.get("cond_dim", args.get("cond_dim")),
+        **{k: v for k, v in (overrides or {}).items() if v is not None})
     # the initial draw is overwritten by the checkpoint's weights
     bundle = ModelBundle(cfg, device, torch.Generator().manual_seed(0))
     for key, module in bundle.modules().items():
-        module.load_state_dict(ckpt.get(key) or ckpt[key.replace("ema_", "")])
+        live = ckpt.get(key.replace("ema_", ""))
+        if live is None:
+            raise ValueError(f"checkpoint has no "
+                             f"'{key.replace('ema_', '')}'")
+        _load_checked(module, ema_state_dict(ckpt[key], live)
+                      if key.startswith("ema_") and ckpt.get(key)
+                      else live, key)
     return cfg, bundle, ckpt
 
 
@@ -189,9 +271,6 @@ def restore_tolerant(path: str, state: TrainState,
     checkpoint dict (see the module docstring)."""
     wait_for_saves()
     ckpt = _read(path)
-    for old, new in LEGACY_KEY_MAP.items():
-        if old in ckpt and new not in ckpt:
-            ckpt[new] = ckpt.pop(old)
     n_loaded, kept = 0, []
     for key, module in state.bundle.modules().items():
         # a checkpoint without EMA shadows seeds them from the live weights

@@ -40,7 +40,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "'pcfm_torch.parallel.mesh', 'pcfm_torch.parallel.sp_context', "
         "'pcfm_torch.parallel.collectives', 'pcfm_torch.parallel.sp_ops', "
         "'pcfm_torch.ops.ball_query', 'pcfm_torch.ops.interpolate', "
-        "'pcfm_torch.ops.losses', 'pcfm_torch.nn.pointnet'} "
+        "'pcfm_torch.ops.losses', 'pcfm_torch.nn.pointnet', "
+        "'pcfm_torch.interop', 'pcfm_torch.utils.flops'} "
         "<= set(names), names\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'flax', "
         "'optax', 'orbax') or m == 'pcfm' or m.startswith('pcfm.') "
@@ -145,6 +146,42 @@ def test_distill_parser_is_the_jax_parser_and_device(monkeypatch):
     assert port == _options(seen["parser"])
 
 
+def _grab_parser(monkeypatch, main, argv) -> argparse.ArgumentParser:
+    """The parser that ``main`` builds inside itself, taken at parse."""
+    class Parsed(Exception):
+        pass
+
+    seen = {}
+
+    def grab(self, *args, **kwargs):
+        seen["parser"] = self
+        raise Parsed
+
+    with monkeypatch.context() as m:
+        m.setattr(argparse.ArgumentParser, "parse_args", grab)
+        with pytest.raises(Parsed):
+            main(argv)
+    return seen["parser"]
+
+
+def test_interop_cli_options_are_the_jax_options_and_device(monkeypatch):
+    """``python -m pcfm_torch.interop``: pcfm/interop/__main__.py's
+    arguments and options, plus ``--device``."""
+    from pcfm.interop.__main__ import main as jax_interop_main
+    from pcfm_torch import interop
+    argv = ["ref.pt", "--out_dir", "x"]
+    port = _options(_grab_parser(monkeypatch, interop.main, argv))
+    jax = _options(_grab_parser(monkeypatch, jax_interop_main, argv))
+    device = port.pop(("--device",))
+    assert device[1] == "cuda" and tuple(device[3]) == ("cuda", "cpu")
+    assert ("--ctx_dtype",) in port and port == jax
+    positional = [[a.dest for a in p._actions if not a.option_strings]
+                  for p in (_grab_parser(monkeypatch, interop.main, argv),
+                            _grab_parser(monkeypatch, jax_interop_main,
+                                         argv))]
+    assert positional[0] == positional[1] == ["ckpt"]
+
+
 @pytest.fixture
 def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -162,6 +199,10 @@ def test_entry_points_need_cuda_or_an_explicit_cpu(no_cuda, tmp_path):
         eval_cli.main(["--out_dir", str(tmp_path)])
     with pytest.raises(RuntimeError, match="--device cpu"):
         distill_cli.main(["--out_dir", str(tmp_path)])
+    from pcfm_torch import interop
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        interop.main([str(tmp_path / "ref.pt"), "--out_dir",
+                      str(tmp_path)])
     # asked for, the CPU is taken (here: no checkpoint to load)
     with pytest.raises(FileNotFoundError):
         sample_cli.main(["--out_dir", str(tmp_path), "--device", "cpu"])
