@@ -58,7 +58,9 @@ failure:
    equal, CUDA-event times of the kernel, the plain version and the one
    PyTorch call that computes the same function (``F.grid_sample`` for the
    K = 8 gather, ``scatter_reduce(mean)`` for the K = 1 scatter-mean), the
-   kernel's device time (profiler) and the output's write alone (a floor);
+   kernel's device time (CUDA events around calls queued behind a sleep
+   kernel: no host time between them) and the output's write alone (a
+   floor);
 11. the hybrid main path: a full-width hybrid checkpoint of the bench
    configuration with the Config's ContextNet (128/256/256 channels, 2/2/2
    blocks, resolutions 32/16/8, SE, GroupNorm 32, global branch, bf16
@@ -79,7 +81,8 @@ failure:
    the tile, duplicated targets (ties must go to the lowest index) and the
    suite's pairs form (32 clouds x 2048 points, all 32^2 pairs), within
    CHAMFER_REL_TOL, bitwise equal across two launches; CUDA-event times of
-   the kernel, the plain version and ``cdist`` + ``min``; then the cases
+   the kernel, the plain version and ``cdist`` + ``min`` (8 and 16
+   clouds; the pairs form); then the cases
    that test its screen's margin at (8, 20 000, 3): clouds shifted by 1e2
    and 1e4, an integer lattice (exact ties: the indices must equal the
    plain version's), clouds sorted along x, each held the same way and
@@ -175,14 +178,15 @@ failure:
    rank 0;
 26. the FiLM-block kernels at the widths of their wide paths (forward
    C > 1024: statistics and a packed silu(f), then a streamed product;
-   backward C > 512: packed dy, a streamed dp product, a rows kernel over
-   column chunks) against their plain versions: (8, 20 000, C) bf16 for
-   C = 640, 768, 1024, 1536, 2048 and the edges (N = 1, 129, 300; fp32
-   inputs), within KERNEL_TOL / GRAD_REL_TOL, bitwise equal across two
-   launches, fp32 with W = 0 within FP32_DY_TOL; CUDA-event times of each
-   kernel, its plain version and torch.matmul of each product alone at C
-   = 640, 1024, 2048 beside the bounds, each kernel's parts profiled; C =
-   2176 stopped by the wrappers' named limit;
+   backward C > 512: packed dy, then a thread-block cluster a 64-row tile
+   that keeps dp on chip) against their plain versions: (8, 20 000, C)
+   bf16 for C = 640, 768, 1024, 1536, 2048 and the edges (N = 1, 129, 300;
+   fp32 inputs), within KERNEL_TOL / GRAD_REL_TOL, bitwise equal across
+   two launches, fp32 with W = 0 within FP32_DY_TOL; CUDA-event times of
+   each kernel, its plain version and torch.matmul of each product alone
+   at C = 640, 1024, 2048 beside the bounds, each kernel's parts
+   profiled, the backward's workspace bytes and the clusters the card
+   holds at once; C = 2176 stopped by the wrappers' named limit;
 27. the mlp at ``pf_width 1024`` with the kernel trunk at bench.py's
    workload: the training CLI (8 steps, 5 forward and 5 backward launches
    a step, validation, a checkpoint, a rerun with nothing to do), the train
@@ -190,8 +194,8 @@ failure:
    CLI (Heun x 50, 500 launches) and ms/shape with both trunks, the
    distill step (25 forward + 5 backward launches a step) and its ms/step;
    then ``pf_width 2048`` (both wide paths): the sampling CLI and train
-   steps with exact launches and finite losses (``--only wide`` also
-   runs phase 23's wide distill step);
+   steps with exact launches, finite losses and peak memory (``--only
+   wide`` also runs phase 23's wide distill step);
 28. the PointNet++ modules (plain PyTorch): set abstraction from 8 x 20 000
    points to 1024 centers, then feature propagation back, on the card and
    on the CPU with the same weights and lattice coordinates, within
@@ -256,7 +260,8 @@ GRAD_REL_TOL = 2e-2
 FP32_DY_TOL = 1e-4
 TRAIN_SAMPLE_STEPS = 4               # validation sampler of the CLI phase
 STEPS_PER_EPOCH = 293                # bench.py's epoch at batch 8
-TIMED_STEPS = 10
+TIMED_STEPS = 10                     # a timed run of train steps
+WARMUP_STEPS = 3
 # a profile whose session holds kernel records for fewer than this share
 # of its kernel launches (a whole Heun x 50 run's 112 409 launches held
 # 112 401) is taken again in new sessions, each held open its trail of
@@ -394,6 +399,36 @@ def cuda_ms(fn, reps: int = 10) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def queued_ms(torch, fn, calls: int = 10) -> float:
+    """Device time of one call of ``fn``: CUDA events around ``calls``
+    calls queued behind a sleep kernel, so that the card runs them back
+    to back with no host time between them (the host must have queued
+    them all before the sleep ends, else a longer sleep is tried); the
+    median of 3 such runs."""
+    times, cycles = [], 1 << 21             # ~1 ms at the card's clock
+    while len(times) < 3:
+        e0, e1, e2 = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        torch.cuda.synchronize()
+        e0.record()
+        torch.cuda._sleep(cycles)
+        e1.record()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        e2.record()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        if host_ms < 0.5 * e0.elapsed_time(e1):
+            times.append(e1.elapsed_time(e2) / calls)
+        elif cycles < 1 << 31:
+            cycles *= 4
+        else:
+            raise RuntimeError(f"queued_ms: the host took {host_ms:.3f} ms "
+                               f"to queue {calls} calls, longer than a "
+                               f"{e0.elapsed_time(e1):.1f} ms sleep")
+    return statistics.median(times)
 
 
 def ply_vertices(path: str) -> tuple:
@@ -852,6 +887,35 @@ def kernel_share(prof_dir: str, torch, fn, steps: int,
             "top": [(k, v) for k, v, _ in prof["top"][:10]]}
 
 
+def step_run_ms(torch, state, batch, gen) -> tuple:
+    """One run of TIMED_STEPS synchronised train steps: ms/step on the
+    host clock and the last step's metrics."""
+    from pcfm_torch.train.step import train_step
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TIMED_STEPS):
+        m = train_step(state, batch, gen, 1.0, 0.1)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / TIMED_STEPS, m
+
+
+def kernel_step_ms(torch, state, batch, gen, runs: int = 2) -> dict:
+    """The train step with one trunk, by train_step_time's method:
+    WARMUP_STEPS steps, then ``runs`` runs of step_run_ms; the runs'
+    ms/step and their median, the runs' last losses, and the peak device
+    memory of the timed runs."""
+    from pcfm_torch.train.step import train_step
+    for _ in range(WARMUP_STEPS):
+        train_step(state, batch, gen, 1.0, 0.1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    got = [step_run_ms(torch, state, batch, gen) for _ in range(runs)]
+    times = [t for t, _ in got]
+    return {"ms": statistics.median(times), "runs_ms": times,
+            "losses": [float(m["loss"]) for _, m in got],
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
 def train_step_time(torch, tag: str = "[step]", rounds: int = 2,
                     trace: str = "train_step_trace.json", **kw):
     """Phase 8: the train step at bench.py's workload (``kw``: Config
@@ -867,19 +931,15 @@ def train_step_time(torch, tag: str = "[step]", rounds: int = 2,
         runs[trunk] = (state, gen)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        for _ in range(3):                                      # warm-up
+        for _ in range(WARMUP_STEPS):
             train_step(state, batch, gen, 1.0, 0.1)
         torch.cuda.synchronize()
         out[f"peak_gib_{trunk}"] = torch.cuda.max_memory_allocated() / 2**30
     times = {"on": [], "off": []}
     for trunk in ("on", "off", "off", "on") * rounds:
         state, gen = runs[trunk]
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(TIMED_STEPS):
-            m = train_step(state, batch, gen, 1.0, 0.1)
-        torch.cuda.synchronize()
-        times[trunk].append((time.perf_counter() - t0) * 1e3 / TIMED_STEPS)
+        ms, m = step_run_ms(torch, state, batch, gen)
+        times[trunk].append(ms)
         if not math.isfinite(float(m["loss"])):
             raise RuntimeError(f"train step, trunk {trunk}: loss {m}")
     for trunk, ts in times.items():
@@ -1094,13 +1154,9 @@ def voxel_case(tvs, torch, F, cache, r, c, bsz, k, dtype, ids, w, plan,
         t = timed_turns({"plain": plain, "kernel": kern,
                          **({"library": library[what]}
                             if what in library else {})})
-        # the kernels' own device time (the profiler's kernel durations),
-        # beside the CUDA-event time that includes the wrapper's host time
-        # (None where the trace caught no kernel: "not measured")
-        dev_ms = profile_kernels(torch, kern, 5, {},
-                                 os.path.join(RUN_DIR, "voxel_trace.json")
-                                 )["busy_ms"] or None
-        dev_note = "not measured" if dev_ms is None else f"{dev_ms:.4f}"
+        # the kernel's own device time (calls queued back to back), beside
+        # the CUDA-event time that includes the wrapper's host time
+        dev_ms = queued_ms(torch, kern)
         # the floor under both: the fp32 output written once (zero_)
         sink = torch.empty_like(got)
         write_ms = cuda_ms(sink.zero_)
@@ -1113,7 +1169,7 @@ def voxel_case(tvs, torch, F, cache, r, c, bsz, k, dtype, ids, w, plan,
               f"(max err/bound {worst.item():.3g}), bitwise equal across "
               f"two launches"
               f"{lib_note}; kernel {t['kernel']:.4f} ms (device "
-              f"{dev_note}), plain "
+              f"{dev_ms:.4f}), plain "
               f"{t['plain']:.4f} ms{lib_t}; bound {bms:.4f} ms ({by}); "
               f"the output's write alone {write_ms:.4f} ms")
         rows[(what, r, c, bsz, k, dtype)] = {
@@ -1463,20 +1519,18 @@ def chamfer_vs_plain(tc, torch):
         a, b = rnd(bsz, N, 3), rnd(bsz, N, 3)
         pairs = list(range(bsz))
         got = both_ways(a, b, f"({bsz}, {N}, 3) both ways")
-        if bsz == B:       # the yardstick takes seconds: the main shape only
-            lib = cdist_min(torch, a, b)
-            per = lib[0][0][0].shape[0]
-            lib_err = (lib[0][0][0] ** 2 - got[0][:per]).abs().max().item()
-            print(f"[chamfer] ({bsz}, {N}, 3): cdist + min in {len(lib)} "
-                  f"calls, max |cdist^2 - kernel| {lib_err:.3g}")
-            del lib
+        lib = cdist_min(torch, a, b)
+        per = lib[0][0][0].shape[0]
+        lib_err = (lib[0][0][0] ** 2 - got[0][:per]).abs().max().item()
+        print(f"[chamfer] ({bsz}, {N}, 3): cdist + min in {len(lib)} "
+              f"calls, max |cdist^2 - kernel| {lib_err:.3g}")
+        del lib
         out[bsz] = chamfer_timed(
             f"({bsz}, {N}, 3) both ways",
             lambda: tc.chamfer_distance(a, b),
             lambda: (tc.chamfer_nn_reference(a, b, pairs, pairs),
                      tc.chamfer_nn_reference(b, a, pairs, pairs)),
-            (lambda: cdist_min(torch, a, b)) if bsz == B else None,
-            (2 * bsz, bsz, N, N, 3))
+            lambda: cdist_min(torch, a, b), (2 * bsz, bsz, N, N, 3))
         del a, b, got
         torch.cuda.empty_cache()
     both_ways(rnd(B, 20011, 3), rnd(B, 17389, 3), f"({B}, 20011 vs 17389, 3)")
@@ -2478,7 +2532,8 @@ def wide_kernels_vs_plain(fb, torch) -> dict:
     W = 0 within FP32_DY_TOL; then for each C of WIDE_TIMED_CS CUDA-event
     times of both kernels, their plain versions and torch.matmul of each
     product alone (yardsticks the port never calls), beside the bounds,
-    and one profile of each kernel's parts."""
+    one profile of each kernel's parts, the backward's workspace bytes and
+    the clusters of its cluster kernel that the card holds at once."""
     g = torch.Generator(device=DEVICE).manual_seed(SEED + 11)
     fwd_err, bwd_abs, bwd_rel = 0.0, 0.0, 0.0
     cases = [(B, N, c, torch.bfloat16) for c in WIDE_CS]
@@ -2526,16 +2581,17 @@ def wide_kernels_vs_plain(fb, torch) -> dict:
             os.path.join(RUN_DIR, f"wide_forward_c{c}_trace.json"))
         bprof = profile_kernels(
             torch, lambda: fb.film_block_backward(*bargs), 3,
-            {"pack": ("bwd_pack", "wide_pack"), "dp": ("wide_dp",),
-             "rows": ("rows",), "dw": ("bwd_dw",),
-             "reduce": ("bwd_sum", "bwd_finalize")},
+            {"pack": ("bwd_pack", "wide_pack"), "cluster": ("cluster",),
+             "dw": ("bwd_dw",), "reduce": ("bwd_sum", "bwd_finalize")},
             os.path.join(RUN_DIR, f"wide_backward_c{c}_trace.json"))
         bounds = film_bounds(B, N, c)
         fpath = "wide" if c > fb.NARROW_C else "one-kernel"
         bpath = "wide" if c > fb.NARROW_C_BWD else "register"
         fparts = {g: fprof[g][0] for g in ("pack", "stats", "product")}
-        bparts = {g: bprof[g][0] for g in ("pack", "dp", "rows", "dw",
+        bparts = {g: bprof[g][0] for g in ("pack", "cluster", "dw",
                                            "reduce")}
+        work = fb._lib().pcfm_film_block_bwd_workspace(B, N, c) * 4
+        clusters = fb.bwd_max_clusters(c, True, torch.cuda.current_device())
         print(f"[wide] film_block forward ({B}, {N}, {c}) bf16 ({fpath} "
               f"path): kernel {tf['kernel']:.4f} ms, bound "
               f"{bounds['fwd'][0]:.4f} ms ({bounds['fwd'][1]}), plain fp32 "
@@ -2549,8 +2605,10 @@ def wide_kernels_vs_plain(fb, torch) -> dict:
               f"{bounds['bwd'][0]:.4f} ms ({bounds['bwd'][1]}), plain fp32 "
               f"{tb['plain']:.4f} ms; torch.matmul alone (bf16): dy @ W "
               f"{tb['gemm_dp']:.4f} ms, dyᵀ @ p {tb['gemm_dw']:.4f} ms; "
-              f"profiled, 3 calls (packs, dp product, rows, dW, "
-              f"reductions): {format_parts(bparts)}")
+              f"profiled, 3 calls (packs, cluster kernel, dW, "
+              f"reductions): {format_parts(bparts)}; workspace "
+              f"{work} bytes; {len(fb.cluster_split(c))} "
+              f"CTAs a cluster, {clusters} clusters at once")
         out[c] = {"fwd_ms": tf["kernel"], "fwd_plain_ms": tf["plain"],
                   "fwd_gemm_ms": tf["gemm"], "fwd_bound_ms": bounds["fwd"][0],
                   "fwd_bound_by": bounds["fwd"][1],
@@ -2560,7 +2618,8 @@ def wide_kernels_vs_plain(fb, torch) -> dict:
                   "bwd_gemm_dw_ms": tb["gemm_dw"],
                   "bwd_bound_ms": bounds["bwd"][0],
                   "bwd_bound_by": bounds["bwd"][1],
-                  "bwd_profiled_ms": bparts}
+                  "bwd_profiled_ms": bparts, "bwd_workspace_bytes": work,
+                  "bwd_max_active_clusters": clusters}
         del args, bargs, a2d, wt, dy2d, w16, p2d
         torch.cuda.empty_cache()
     # above the kernels' width: the wrappers stop with the named limit
@@ -2626,11 +2685,10 @@ def wide_max_width(fb, torch, np) -> dict:
     paths) with random weights from the seed: the sampling CLI (Heun x 50,
     500 forward launches, 8 finite clouds) and train steps at bench.py's
     workload (5 forward and 5 backward launches a step, finite losses,
-    ms/step after a warm-up step)."""
+    ms/step and peak memory by kernel_step_ms)."""
     from pcfm_torch.sample import cli
     from pcfm_torch.train import checkpoint
     from pcfm_torch.train.state import ModelBundle
-    from pcfm_torch.train.step import train_step
     width = fb.MAX_C
     src = os.path.join(RUN_DIR, f"wide{width}")
     shutil.rmtree(src, ignore_errors=True)
@@ -2653,26 +2711,24 @@ def wide_max_width(fb, torch, np) -> dict:
             or x.shape != (B, N, 6) or not np.isfinite(x).all():
         raise RuntimeError(f"pf_width {width} sampling: launches or output")
     state = train_state(torch, "on", pf_width=width)
-    batch = train_batch(torch)
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
-    train_step(state, batch, gen, 1.0, 0.1)                     # warm-up
     fb.launches = fb.bwd_launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    losses = [float(train_step(state, batch, gen, 1.0, 0.1)["loss"])
-              for _ in range(3)]
-    torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) * 1e3 / 3
+    step = kernel_step_ms(torch, state, train_batch(torch), gen)
+    ms, losses, peak = step["ms"], step["losses"], step["peak_gib"]
+    steps = WARMUP_STEPS + len(step["runs_ms"]) * TIMED_STEPS
     print(f"[wide-{width}] train step at {B} x {N} bf16, kernel trunk: "
-          f"{ms:.3f} ms/step (3 steps after a warm-up), losses {losses}, "
-          f"launches {fb.launches} forward, {fb.bwd_launches} backward")
-    if (fb.launches, fb.bwd_launches) != (3 * FILM_BLOCKS, 3 * FILM_BLOCKS) \
+          f"{' '.join(f'{t:.3f}' for t in step['runs_ms'])} ms/step "
+          f"(median {ms:.3f}; runs of {TIMED_STEPS} steps after "
+          f"{WARMUP_STEPS}), last losses {losses}, launches {fb.launches} "
+          f"forward, {fb.bwd_launches} backward in {steps} steps, peak "
+          f"device memory {peak:.3f} GiB")
+    if (fb.launches, fb.bwd_launches) != (steps * FILM_BLOCKS,) * 2 \
             or not all(math.isfinite(v) for v in losses):
         raise RuntimeError(f"pf_width {width} train step: launches or loss")
     del state
     torch.cuda.empty_cache()
     return {"sample_launches": sample_launches, "train_ms_per_step": ms,
-            "train_launches_per_step": FILM_BLOCKS}
+            "train_launches_per_step": FILM_BLOCKS, "train_peak_gib": peak}
 
 
 # the PointNet++ modules on the card (phase 28): SA from 8 x 20 000 points
@@ -3826,6 +3882,8 @@ def main() -> int:
                        "train_launches_per_step"],
                    train_ms_per_step_max_width=wp["max_width"][
                        "train_ms_per_step"],
+                   train_peak_gib_max_width=wp["max_width"][
+                       "train_peak_gib"],
                    pointnet_card_vs_cpu_rel_errs=wide["pointnet"][
                        "rel_errs"]),
         wide_entry("bwd", WIDE_PF_WIDTH, wp["train_bwd_launches"],
@@ -3884,8 +3942,7 @@ def main() -> int:
         "shape": [B, N, N, 3],
         "screen_err_over_kappa": cham["screen_err_over_kappa"],
         "cases": cham["cases"],
-        **{f"{k}_2b": v for k, v in cham[2 * B].items()
-           if k not in ("bound_by", "library_ms")},
+        **{f"{k}_2b": v for k, v in cham[2 * B].items() if k != "bound_by"},
         **{f"suite_{k}": v for k, v in cham["suite"].items()},
         "suite_shape": [SUITE_CLOUDS ** 2, SUITE_POINTS, SUITE_POINTS, 3],
         "launches_suite": su["launches"]["chamfer_nn"],

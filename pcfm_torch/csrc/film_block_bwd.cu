@@ -63,7 +63,9 @@
 // the slices' dW tiles
 // (16 x C x C at C = 512), the tile sums B x ceil(N / 64) x 5 x C, the
 // cloud sums B x 5 x C, packed p and packed dy (each B x ceil(N / 64) x
-// 64 x C bf16: 164 MB at (8, 20000, 512)) and the packed Wᵀ.
+// 64 x C bf16: 164 MB at (8, 20000, 512)) and the packed Wᵀ; the same
+// regions at every width (the wide path keeps dp on chip too, and pads the
+// row tiles to an even count).
 //
 // What bounds it at (B, N, C) = (8, 20000, 512) (chip_smoke.py's
 // film_bounds): the two C x C products over 160k rows, 168 GFLOP, take
@@ -81,31 +83,52 @@
 // cluster, a dW pass that reads dy through a tensor map instead of the
 // packed copy.
 //
-// The wide path, MAX_C < C <= WIDE_MAX_C: a 64-row tile's fp32 dp no
-// longer fits in the registers (256 KB at C = 1024), nor dy's bf16 A
-// operand beside the Wᵀ ring in shared memory. So dp goes through device
-// memory:
-//   * dy is packed as bf16 in the rows pass's byte order (the dW pass's dy
-//     operand as before), by a small kernel;
-//   * dp = dy @ W is the streamed wgmma product of film_wide.cuh over the
-//     packed dy's and Wᵀ's k stages, written in fp32 to the workspace
-//     (1.31 GB at (8, 20000, 2048));
-//   * a rows kernel owns one 64-row tile and takes the columns in chunks
-//     of 256 (a warp a row, a lane 8 columns): f, df, p (packed, as the
-//     narrow rows pass writes it) and the tile's column sums, chunk by
-//     chunk in a fixed order, carrying each row's sums of dxhat and dxhat *
-//     xhat across the chunks; then a second sweep over the same rows
-//     recomputes df from dy, h and dp and writes dh. dy stays in its own
-//     dtype throughout, so fp32 inputs need no second pass;
+// The wide path, MAX_C < C <= WIDE_MAX_C: a 64-row tile's fp32 dp (256 KB
+// at C = 1024) no longer fits in one SM's registers, nor the tile's bf16 dy
+// beside the Wᵀ ring in its shared memory. So a thread-block cluster shares
+// the rows, and dp never leaves the chip:
+//   * a pack kernel writes dy as bf16 in the rows pass's byte order (the
+//     dW pass's dy operand, as the narrow path's; the row tiles padded to
+//     an even count) and each tile's column sums of dy (db), over the
+//     tile's rows in order;
+//   * the cluster kernel: the ncta = ceil(C / 256) CTAs of a cluster (3 at
+//     640-768, 4 at 1024, up to 8, the portable cluster size, at 2048)
+//     take a pair of 64-row tiles; rank q owns the 128-column chunks
+//     [q nch / ncta, (q + 1) nch / ncta) of the nch = C / 128, at most 2.
+//     Warpgroup g computes dp = dy @ W for tile g of the pair over the
+//     CTA's chunks in registers (128 fp32 a thread, as the register path
+//     at C = 512), streaming 4 stages of 48 KB through an mbarrier ring:
+//     the pair's two 8 KB k blocks of the packed dy (A) and the CTA's Wᵀ
+//     tiles at that k, which both warpgroups read (so every 128 rows read
+//     the CTA's Wᵀ columns from L2 once: 64 rows a CTA read them twice as
+//     often, and were slower).
+//     Then the CTA's slices of the packed dy and its columns of the pair's
+//     h rows (prefetched into L2 at the start) come into the freed ring;
+//     the register path's epilogue on the accumulators gives df in place
+//     of dp, p = silu(f) in place of dy (one bulk store a tile, in the dW
+//     pass's byte order), each tile's column sums and each row's partial
+//     sums of dxhat and dxhat * xhat over the CTA's columns. Those meet in
+//     distributed shared memory across a cluster barrier, every CTA adding
+//     all of them in rank order (no atomics: the cluster agrees to the
+//     bit, two launches are bitwise equal), and each CTA writes dh for its
+//     columns from the df that stayed in its registers. fp32 inputs take
+//     the register path's second pass (dy - bf16(dy) from device memory);
+//     fp32 h rows fit the same ring, so both dtypes split alike;
 //   * the dW pass and the reductions are the narrow path's.
 // What bounds it: the two products, 4 B N C^2 operations (0.679 ms at (8,
-// 20000, 1024), 2.714 at C = 2048, at 989 TFLOP/s dense bf16). What the
-// design adds in bytes: dy packed (2 bytes an element, written and read
-// twice), dp (4, written and read twice), p (2, written and read), and the
-// second sweep's dy and h; about 24 bytes an element against the bound's
-// 6, so the rows kernel, bound by those bytes, takes the most time
-// (PERF.md §6). It is right and simple; keeping df on chip between the
-// sweeps and overlapping the rows work with the product is later work.
+// 20000, 1024), 2.714 at C = 2048, at 989 TFLOP/s dense bf16). Bytes an
+// element in device memory: dy read and packed (2 + 2), the packed dy read
+// by the cluster kernel (2; its re-reads by the cluster's CTAs and the
+// slices come from L2), h read (2), dh and p written (2 + 2), the dW
+// pass's packed dy and p (2 + 2): 16 against the bound's 6. From L2 the
+// product reads, for every 128 rows, each CTA's Wᵀ columns (256 x C x 2
+// bytes) and the pair's packed dy (128 x C x 2) once a CTA. A CTA's
+// product, loads and epilogues run in series (one CTA an SM); the
+// epilogues loop over quarters of the accumulators (rotate_acc32), so that
+// their code stays in the instruction cache while the other SMs' products
+// load L2. Left for later: overlap across tiles. (Multicasting the pair's
+// A to the cluster, each stage refilled once every CTA had released it,
+// was tried and was slower: the CTAs then move in lockstep.)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -723,260 +746,637 @@ __global__ void __launch_bounds__(THREADS, 1)
 
 // ------------------------------------------------------ the wide path
 
+// the cluster kernel: a CTA takes a pair of 64-row tiles (warpgroup g: tile
+// 2 pair + g) and up to CL_MAX_CHUNKS 128-column chunks; a ring stage is
+// the pair's two 8 KB k blocks of the packed dy (A) and the CTA's Wᵀ tiles
+// at that k, which both warpgroups read
+constexpr int CL_STAGES = 4;
+constexpr int CL_MAX_CHUNKS = 2;  // 128 fp32 accumulators a thread
+constexpr int CL_MAXW = CL_MAX_CHUNKS * N_TILE;  // columns a CTA at most
+constexpr int CL_ROWS = 2 * ROWS;                // rows a CTA
+constexpr int CL_STAGE = 2 * WIDE_A_BYTES + CL_MAX_CHUNKS * TILE_BYTES;
+constexpr int CL_H_LD = 8;  // pad of a row of h in shared memory (values)
+
+// the pair's slices of the packed dy and its h rows, after the product
 template <typename T>
-__device__ __forceinline__ void store8(T* p, const float (&x)[8]);
-template <>
-__device__ __forceinline__ void store8<__nv_bfloat16>(__nv_bfloat16* p,
-                                                      const float (&x)[8]) {
-  *reinterpret_cast<uint4*>(p) = pack_bf16x8(x);
-}
-template <>
-__device__ __forceinline__ void store8<float>(float* p, const float (&x)[8]) {
-  reinterpret_cast<float4*>(p)[0] = make_float4(x[0], x[1], x[2], x[3]);
-  reinterpret_cast<float4*>(p)[1] = make_float4(x[4], x[5], x[6], x[7]);
+__host__ __device__ constexpr int cl_epilogue_bytes() {
+  return CL_MAXW * CL_ROWS * 2 +
+         CL_ROWS * (CL_MAXW + CL_H_LD) * static_cast<int>(sizeof(T));
 }
 
-// dy (b, n, c) -> bf16 tiles laid out as rows_packed_index, zeros past N
-// and in the pairs' padding tile; one thread a row's 8 columns
+// the ring: the product's stages (192 KB), then the epilogue's inputs
+// (fp32: 196 KB)
+template <typename T>
+__host__ __device__ constexpr int cl_ring_bytes() {
+  return CL_STAGES * CL_STAGE > cl_epilogue_bytes<T>()
+             ? CL_STAGES * CL_STAGE
+             : cl_epilogue_bytes<T>();
+}
+
+// CTAs of a cluster at width c: ceil(c / 256), 3 at 640-768, 4 at 1024,
+// up to 8 (the portable cluster size) at 2048
+int cluster_ctas(int c) { return cdiv(c / N_TILE, CL_MAX_CHUNKS); }
+
+template <typename T>
+size_t cluster_smem_bytes() {
+  return 1024 +                                     // alignment slack
+         cl_ring_bytes<T>() +                       // ring, then dy and h
+         static_cast<size_t>(8) * 2 * CL_MAXW * 4 +  // column sums a warp
+         CL_ROWS * 2 * 4 +                          // the CTA's row sums
+         CL_ROWS * 2 * 4 +                          // the rows' means
+         2 * CL_ROWS * 4 +                          // mean, rstd
+         2 * CL_MAXW * 16 +                         // s, t, 1 + g, beta
+         (2 * CL_STAGES + 1) * 8;                   // full, empty, inputs
+}
+
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// every thread of every CTA of the cluster arrives (release) / waits for
+// all of them (acquire): shared-memory stores before the arrival are seen
+// by the other CTAs' reads after the wait
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// the float2 at p's shared-memory offset in CTA `rank` of the cluster
+__device__ __forceinline__ float2 ld_cluster(const float* p, uint32_t rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(smem_u32(p)), "r"(rank));
+  float2 v;
+  asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];\n"
+               : "=f"(v.x), "=f"(v.y)
+               : "r"(remote)
+               : "memory");
+  return v;
+}
+
+// the cluster kernel's 128 accumulators (chunk 0's 64, then chunk 1's)
+// moved 32 places to the front, the first 32 to the back: the epilogues
+// loop over four quarters, each on acc[0][0 .. 31], and after four calls
+// every value is back in its place (a loop, not straight-line code: its
+// body stays in the instruction cache)
+__device__ __forceinline__ void rotate_acc32(float (&acc)[CL_MAX_CHUNKS][64]) {
+  float t[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) t[i] = acc[0][i];
+#pragma unroll
+  for (int i = 0; i < 96; ++i)
+    acc[i / 64][i % 64] = acc[(i + 32) / 64][(i + 32) % 64];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[1][32 + i] = t[i];
+}
+
+// where lane_col_sum's sum goes in a warp's column sums of the cluster
+// kernel: df (slot 0) or df * xhat (slot 1), CL_MAXW columns each
+__device__ __forceinline__ int cl_col_index(int lane, int ch, int j0,
+                                            int ec) {
+  const int b4 = (lane >> 4) & 1, b3 = (lane >> 3) & 1, b2 = (lane >> 2) & 1;
+  return b3 * CL_MAXW + ch * N_TILE + 8 * (j0 + b4) + ec + b2;
+}
+
+// A row tile of the wide path: tile t of the b * ceil(N / 64) (in that
+// order), or the padding tile that makes their count even (no rows)
+struct RowTile {
+  int cloud, n_valid;
+  size_t row0;  // its first row in (b * n)
+  __device__ RowTile(size_t t, int bsz, int n_points) {
+    const int tiles = (n_points + ROWS - 1) / ROWS;
+    cloud = static_cast<int>(t / tiles);
+    const int r0 = static_cast<int>(t % tiles) * ROWS;
+    n_valid = cloud < bsz ? min(ROWS, n_points - r0) : 0;
+    cloud = min(cloud, bsz - 1);  // the padding tile's params: any cloud's
+    row0 = static_cast<size_t>(cloud) * n_points + r0;
+  }
+};
+
+// dy (b, n, c) -> bf16 tiles laid out as rows_packed_index (zeros past N
+// and in the padding tile), and each tile's column sums of dy over its
+// rows in order (db: part's first slot). One thread a tile's 8 columns
 template <typename T>
 __global__ void __launch_bounds__(RED_THREADS)
     film_block_bwd_wide_pack_dy_kernel(const T* __restrict__ dy,
                                        __nv_bfloat16* __restrict__ packed,
-                                       int bsz, int n_points, int c,
-                                       long long items) {
+                                       float* __restrict__ part, int bsz,
+                                       int n_points, int c, long long items) {
   const long long idx =
       static_cast<long long>(blockIdx.x) * RED_THREADS + threadIdx.x;
   if (idx >= items) return;
   const int groups = c / 8, gi = static_cast<int>(idx % groups);
-  const long long row = idx / groups;  // tile * 64 + r
-  const size_t tile = static_cast<size_t>(row / WIDE_ROWS);
-  const int r = static_cast<int>(row % WIDE_ROWS);
-  const int tiles = (n_points + WIDE_ROWS - 1) / WIDE_ROWS;
-  const size_t b = tile / tiles;
-  const int n = static_cast<int>(tile % tiles) * WIDE_ROWS + r;
-  float x[8] = {};
-  if (b < static_cast<size_t>(bsz) && n < n_points)
-    load8(dy + (b * n_points + n) * c + gi * 8, x);
-  *reinterpret_cast<uint4*>(packed + wide_a_offset(tile, r, gi * 8, c)) =
-      pack_bf16x8(x);
+  const size_t tile = static_cast<size_t>(idx / groups);
+  const RowTile rt(tile, bsz, n_points);
+  const T* src = dy + rt.row0 * c + gi * 8;
+  constexpr int U = 8;  // rows' loads in flight
+  float db8[8] = {};
+#pragma unroll 1
+  for (int r0 = 0; r0 < ROWS; r0 += U) {
+    Group<T> raw[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (r0 + u < rt.n_valid)
+        raw[u].load(src + static_cast<size_t>(r0 + u) * c);
+      else
+        raw[u].clear();
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      float x[8];
+      raw[u].unpack(x);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) db8[e] += x[e];
+      *reinterpret_cast<uint4*>(packed +
+                                wide_a_offset(tile, r0 + u, gi * 8, c)) =
+          pack_bf16x8(x);
+    }
+  }
+  float4* dst = reinterpret_cast<float4*>(part + tile * NQ * c + gi * 8);
+  dst[0] = make_float4(db8[0], db8[1], db8[2], db8[3]);
+  dst[1] = make_float4(db8[4], db8[5], db8[6], db8[7]);
 }
 
-// dp = dy @ W in fp32, (wide_tiles x 64, c) row-major: block i takes output
-// chunks (i % nchunk) * NB .. + NB - 1 of the pair of row tiles i / nchunk
-template <int NB>
-__global__ void __launch_bounds__(WIDE_THREADS, 1)
-    film_block_bwd_wide_dp_kernel(const __nv_bfloat16* __restrict__ dy_packed,
-                                  const __nv_bfloat16* __restrict__ wt_packed,
-                                  float* __restrict__ dp, int c) {
-  const int nchunk = c / (N_TILE * NB);
-  const int chunk0 = (blockIdx.x % nchunk) * NB;
-  const size_t pair = blockIdx.x / nchunk;
-  float acc[NB][64];
-  wide_product<NB>(dy_packed, wt_packed, c, pair, chunk0, acc);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const size_t row0 = (2 * pair + (warp >> 2)) * WIDE_ROWS + (warp & 3) * 16 +
-                      (lane >> 2);
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr)
+// The cluster kernel's product: acc[q] (64 x 128 a warpgroup) = the rows
+// of warpgroup wg's tile times the CTA's chunk q < NB, over the k stages
+// of the ring (load_stage(kt) asks for stage kt). Returns with every stage
+// released and the accumulators final.
+template <int NB, typename LoadStage>
+__device__ __forceinline__ void cluster_product(
+    uint32_t ring_base, uint64_t* full, uint64_t* empty, int k_tiles, int wg,
+    const LoadStage& load_stage, float (&acc)[CL_MAX_CHUNKS][64]) {
+  const int tid = threadIdx.x & 127;
+  auto release = [&](int i) {
+    if (tid == 0) mbar_arrive(&empty[i % CL_STAGES]);
+    if (threadIdx.x == 0 && i + CL_STAGES < k_tiles) {
+      mbar_wait(&empty[i % CL_STAGES], (i / CL_STAGES) & 1);
+      load_stage(i + CL_STAGES);
+    }
+  };
+  for (int kt = 0; kt < k_tiles; ++kt) {
+    const int st = kt % CL_STAGES;
+    mbar_wait(&full[st], (kt / CL_STAGES) & 1);
 #pragma unroll
     for (int q = 0; q < NB; ++q)
 #pragma unroll
-      for (int j = 0; j < N_TILE / 8; ++j)
-        store2(dp + (row0 + 8 * hr) * c + (chunk0 + q) * N_TILE + 8 * j +
-                   2 * (lane & 3),
-               acc[q][4 * j + 2 * hr], acc[q][4 * j + 2 * hr + 1]);
+      for (int i = 0; i < 64; ++i) fence_operand(acc[q][i]);
+    wgmma_fence();
+    const uint32_t sb = ring_base + st * CL_STAGE;
+    const uint64_t da = desc_sw128(sb + wg * WIDE_A_BYTES);
+#pragma unroll
+    for (int kk = 0; kk < K_TILE / 16; ++kk)
+#pragma unroll
+      for (int q = 0; q < NB; ++q)
+        wgmma_m64n128k16(acc[q], da + 2 * kk,
+                         desc_sw128(sb + 2 * WIDE_A_BYTES + q * TILE_BYTES) +
+                             2 * kk,
+                         (kt | kk) != 0);
+    wgmma_commit();
+    if (kt > 0) {
+      wgmma_wait<1>();  // the previous stage's products are done
+      release(kt - 1);
+    }
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int q = 0; q < NB; ++q)
+#pragma unroll
+    for (int i = 0; i < 64; ++i) fence_operand(acc[q][i]);
+  release(k_tiles - 1);
 }
 
-constexpr int WIDE_CHUNK = 256;               // columns a lane pass: 32 x 8
-constexpr int WIDE_WARPS = WIDE_THREADS / 32;
-constexpr int WIDE_RPW = WIDE_ROWS / WIDE_WARPS;  // rows a warp
-
-// The wide rows kernel: grid (ceil(N / 64), B). Warp w takes rows w, w + 8,
-// ... of the tile; lane l columns k0 + 8 l .. + 7 of each 256-column chunk
+// The cluster kernel: grid (ncta x tile pairs) in clusters of ncta CTAs.
+// The CTAs of a cluster share a pair of 64-row tiles; rank q owns the
+// 128-column chunks [q nch / ncta, (q + 1) nch / ncta) of the nch = C / 128
+// and keeps that slice of dp in registers (warpgroup g: tile 2 pair + g).
+// The rows' sums of dxhat and dxhat * xhat meet in distributed shared
+// memory, added in rank order.
 template <typename T>
-__global__ void __launch_bounds__(WIDE_THREADS, 1)
-    film_block_bwd_wide_rows_kernel(const T* __restrict__ dy,
-                                    const T* __restrict__ h,
-                                    const float* __restrict__ s,
-                                    const float* __restrict__ t,
-                                    const T* __restrict__ gamma,
-                                    const T* __restrict__ beta,
-                                    const float* __restrict__ dp,
-                                    const float* __restrict__ mean_in,
-                                    const float* __restrict__ rstd_in,
-                                    T* __restrict__ dh,
-                                    __nv_bfloat16* __restrict__ p_packed,
-                                    float* __restrict__ part, int n_points,
-                                    int c) {
-  // each warp's column sums of a chunk (dy, df, df * xhat), then summed
-  // over the warps in order
-  __shared__ float4 colred[WIDE_WARPS][NS][WIDE_CHUNK / 4];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int row0 = blockIdx.x * WIDE_ROWS;
-  const int n_valid = min(WIDE_ROWS, n_points - row0);
-  const size_t tile = static_cast<size_t>(blockIdx.y) * gridDim.x +
-                      blockIdx.x;
-  const size_t tile_row0 = static_cast<size_t>(blockIdx.y) * n_points + row0;
-  const T* g_c = gamma + static_cast<size_t>(blockIdx.y) * c;
-  const T* be_c = beta + static_cast<size_t>(blockIdx.y) * c;
-  float mu[WIDE_RPW], rs[WIDE_RPW], m1[WIDE_RPW], m2[WIDE_RPW];
-#pragma unroll
-  for (int i = 0; i < WIDE_RPW; ++i) {
-    const int r = warp + WIDE_WARPS * i;
-    mu[i] = r < n_valid ? mean_in[tile_row0 + r] : 0.0f;
-    rs[i] = r < n_valid ? rstd_in[tile_row0 + r] : 0.0f;
-    m1[i] = m2[i] = 0.0f;
-  }
-  float* part_t = part + tile * NQ * c;
+__global__ void __launch_bounds__(THREADS, 1)
+    film_block_bwd_cluster_kernel(const T* __restrict__ dy,
+                                  const T* __restrict__ h,
+                                  const float* __restrict__ s,
+                                  const float* __restrict__ t,
+                                  const T* __restrict__ gamma,
+                                  const T* __restrict__ beta,
+                                  const __nv_bfloat16* __restrict__ wt_packed,
+                                  const __nv_bfloat16* __restrict__ dy_packed,
+                                  const float* __restrict__ mean_in,
+                                  const float* __restrict__ rstd_in,
+                                  T* __restrict__ dh,
+                                  __nv_bfloat16* __restrict__ p_packed,
+                                  float* __restrict__ part, int bsz,
+                                  int n_points, int c, int ncta) {
+  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
+  extern __shared__ uint8_t smem_raw[];
+  // the ring on a 1024-byte boundary (the swizzle repeats every 1024 bytes)
+  uint8_t* ring = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  float* colred = reinterpret_cast<float*>(ring + cl_ring_bytes<T>());
+  float* xsum = colred + 8 * 2 * CL_MAXW;  // the CTA's row sums: the cluster's
+  float* rmean = xsum + CL_ROWS * 2;
+  float* s_mean = rmean + CL_ROWS * 2;
+  float* s_rstd = s_mean + CL_ROWS;
+  float4* prm = reinterpret_cast<float4*>(s_rstd + CL_ROWS);  // [tile][col]
+  uint64_t* full = reinterpret_cast<uint64_t*>(prm + 2 * CL_MAXW);
+  uint64_t* empty = full + CL_STAGES;
+  uint64_t* in_bar = empty + CL_STAGES;
 
-  // ---- sweep 1: p, the column sums, the rows' sums
-  for (int k0 = 0; k0 < c; k0 += WIDE_CHUNK) {
-    const int k = k0 + 8 * lane;
-    if (k < c) {
-      float sv[8], tv[8], g1[8], bv[8];
-      load8(s + k, sv);
-      load8(t + k, tv);
-      load8(g_c + k, g1);
-      load8(be_c + k, bv);
+  const int rank = static_cast<int>(cluster_ctarank());
+  const size_t pair = blockIdx.x / ncta;
+  const int nch = c / N_TILE;
+  const int ch0 = rank * nch / ncta;
+  const int m = (rank + 1) * nch / ncta - ch0;  // this CTA's chunks
+  const int k0 = ch0 * N_TILE, cw = m * N_TILE;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wg = warp >> 2;
+  const int k_tiles = c / K_TILE;
+  const RowTile rt0(2 * pair, bsz, n_points), rt1(2 * pair + 1, bsz, n_points);
+  // this warpgroup's tile, by reference: the two tiles then stay in local
+  // memory and no register holds them through the product (copied into
+  // registers, the kernel ran slower)
+  const RowTile& mine = wg ? rt1 : rt0;
+  // the pair's packed dy: two adjacent tiles
+  const __nv_bfloat16* a_pair = dy_packed + 2 * pair * ROWS * c;
+
+  // stage kt holds k block kt of both tiles of A and of the CTA's m
+  // chunks of Wᵀ
+  auto load_stage = [&](int kt) {
+    const int st = kt % CL_STAGES;
+    uint8_t* dst = ring + st * CL_STAGE;
+    mbar_arrive_expect_tx(&full[st], 2 * WIDE_A_BYTES + m * TILE_BYTES);
+    for (int g = 0; g < 2; ++g)
+      bulk_copy_g2s(dst + g * WIDE_A_BYTES,
+                    a_pair + static_cast<size_t>(g) * ROWS * c +
+                        static_cast<size_t>(kt) * ROWS * K_TILE,
+                    WIDE_A_BYTES, &full[st]);
+    for (int q = 0; q < m; ++q)
+      bulk_copy_g2s(dst + 2 * WIDE_A_BYTES + q * TILE_BYTES,
+                    wt_packed + (static_cast<size_t>(ch0 + q) * k_tiles +
+                                 kt) * N_TILE * K_TILE,
+                    TILE_BYTES, &full[st]);
+  };
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < CL_STAGES; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 2);
+    }
+    mbar_init(in_bar, 1);
+    mbar_fence_init();
+  }
+  // the epilogue's h (the CTA's columns of the pair's rows): in L2 by the
+  // time the product is done
+  if (warp == 1)
+    for (int q = 0; q < 2; ++q) {
+      const RowTile& rt = q ? rt1 : rt0;
+      for (int r = lane; r < rt.n_valid; r += 32)
+        prefetch_l2(h + (rt.row0 + r) * c + k0,
+                    static_cast<uint32_t>(cw * sizeof(T)));
+    }
+  __syncthreads();
+  if (threadIdx.x == 0)
+    for (int i = 0; i < CL_STAGES && i < k_tiles; ++i) load_stage(i);
+  if (threadIdx.x < CL_ROWS) {
+    const RowTile& rt = threadIdx.x < ROWS ? rt0 : rt1;
+    const int r = threadIdx.x % ROWS;
+    s_mean[threadIdx.x] = r < rt.n_valid ? mean_in[rt.row0 + r] : 0.0f;
+    s_rstd[threadIdx.x] = r < rt.n_valid ? rstd_in[rt.row0 + r] : 0.0f;
+  }
+  for (int i = threadIdx.x; i < 2 * cw; i += THREADS) {
+    const int q = i / cw, k = i % cw;
+    const size_t pk = static_cast<size_t>((q ? rt1 : rt0).cloud) * c + k0 + k;
+    // f = xhat (s (1 + g)) + (t (1 + g) + beta); s kept for dgamma
+    const float g1 = 1.0f + to_f32(gamma[pk]);
+    prm[q * CL_MAXW + k] = make_float4(s[k0 + k] * g1,
+                                       t[k0 + k] * g1 + to_f32(beta[pk]),
+                                       g1, s[k0 + k]);
+  }
+
+  // ---- dp = dy @ W: warpgroup wg computes its tile's rows of the CTA's
+  // chunks (the chunk count a template argument: no branch between the
+  // wgmma instructions)
+  float acc[CL_MAX_CHUNKS][64];
+  if (m == CL_MAX_CHUNKS)
+    cluster_product<CL_MAX_CHUNKS>(smem_u32(ring), full, empty, k_tiles, wg,
+                                   load_stage, acc);
+  else
+    cluster_product<1>(smem_u32(ring), full, empty, k_tiles, wg, load_stage,
+                       acc);
+
+  // ---- the CTA's slices of the pair's packed dy (bf16, the dW pass's
+  // byte order: one contiguous block a tile) and its columns of the pair's
+  // h rows (one bulk copy a row, the row stride padded) into the ring, now
+  // free; rows past N are zeros, so that the epilogues need no branch on
+  // them
+  __syncthreads();  // both warpgroups' products have read the ring
+  const uint32_t dy_bytes = static_cast<uint32_t>(cw * ROWS * 2);
+  uint8_t* dys = ring;  // tile q's packed dy at q dy_bytes, then p there
+  T* hd = reinterpret_cast<T*>(ring + 2 * static_cast<size_t>(dy_bytes));
+  const int h_ld = cw + CL_H_LD;
+  if (warp == 0) {
+    const uint32_t row_bytes = static_cast<uint32_t>(cw * sizeof(T));
+    if (lane == 0) {
+      mbar_arrive_expect_tx(
+          in_bar, (rt0.n_valid + rt1.n_valid) * row_bytes + 2 * dy_bytes);
+      for (int q = 0; q < 2; ++q)
+        bulk_copy_g2s(dys + q * dy_bytes,
+                      a_pair + static_cast<size_t>(q) * ROWS * c +
+                          static_cast<size_t>(k0) * ROWS,
+                      dy_bytes, in_bar);
+    }
+    __syncwarp();
+    for (int q = 0; q < 2; ++q) {
+      const RowTile& rt = q ? rt1 : rt0;
+      for (int r = lane; r < rt.n_valid; r += 32)
+        bulk_copy_g2s(hd + (q * ROWS + r) * h_ld, h + (rt.row0 + r) * c + k0,
+                      row_bytes, in_bar);
+    }
+  }
+  {
+    const int per_row = cw * static_cast<int>(sizeof(T)) / 16;
+    for (int idx = threadIdx.x; idx < CL_ROWS * per_row; idx += THREADS) {
+      const int row = idx / per_row;
+      if (row % ROWS >= (row < ROWS ? rt0 : rt1).n_valid)
+        reinterpret_cast<uint4*>(hd + row * h_ld)[idx % per_row] =
+            make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+  __syncthreads();
+  mbar_wait(in_bar, 0);
+
+  // ---- epilogue 1: df in place of dp, p (in place of dy), the row and
+  // column sums; a loop over the accumulators' quarters (rotate_acc32),
+  // straight-line code within one (the shuffles need a converged warp).
+  // Thread (warp, lane) holds rows lr and lr + 8 of its warpgroup's tile
+  // (the CTA's rows er, er + 8), the CTA's columns 8 j + ec, +1 of each
+  // of its chunks
+  const int lr = (warp & 3) * 16 + (lane >> 2);
+  const int er = wg * ROWS + lr;
+  const int ec = 2 * (lane & 3);
+  float nm[2], rs[2];  // xhat = x rs + nm
 #pragma unroll
-      for (int e = 0; e < 8; ++e) g1[e] += 1.0f;
-      float cs[NS][8] = {};
+  for (int hr = 0; hr < 2; ++hr) {
+    rs[hr] = s_rstd[er + 8 * hr];
+    nm[hr] = -s_mean[er + 8 * hr] * rs[hr];
+  }
+  __nv_bfloat16* a16 =
+      reinterpret_cast<__nv_bfloat16*>(dys + wg * dy_bytes);
+  const float4* prm_t = prm + wg * CL_MAXW;
+  float m1[2] = {0.0f, 0.0f}, m2[2] = {0.0f, 0.0f};
+  float* colred_w = colred + warp * 2 * CL_MAXW;
+#pragma unroll 1
+  for (int it = 0; it < 4; ++it) {  // quarter it: chunk it / 2's column
+    const int ch = it >> 1, jb = 8 * (it & 1);  // groups jb .. jb + 7
+    if (ch < m) {
 #pragma unroll
-      for (int i = 0; i < WIDE_RPW; ++i) {
-        // two rows' loads in flight at a time, so that the registers hold
-        if (i % 2 == 0) hoist_barrier();
-        const int r = warp + WIDE_WARPS * i;
-        float pv[8] = {};
-        if (r < n_valid) {
-          float d[8], x[8], a[8];
-          load8(dy + (tile_row0 + r) * c + k, d);
-          load8(h + (tile_row0 + r) * c + k, x);
-          load8(dp + (tile * WIDE_ROWS + r) * c + k, a);
+    for (int j0 = 0; j0 < 8; j0 += 2) {
+      hoist_barrier();
+      // the sums of df and df * xhat over this thread's two rows, for
+      // column groups j0 and j0 + 1: v[4 jj + 2 q + e], q 0 df, 1 df * xhat
+      float v[8] = {};
 #pragma unroll
-          for (int e = 0; e < 8; ++e) {
-            // the narrow rows pass's arithmetic, in its order
-            const float xhat = (x[e] - mu[i]) * rs[i];
-            const float f = (xhat * sv[e] + tv[e]) * g1[e] + bv[e];
+      for (int jj = 0; jj < 2; ++jj) {
+        const int j = j0 + jj;
+        const int k = ch * N_TILE + 8 * (jb + j) + ec;
+        const float4 p0 = prm_t[k], p1 = prm_t[k + 1];
+        const float ak[2] = {p0.x, p1.x}, bk[2] = {p0.y, p1.y};
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int r = lr + 8 * hr;
+          const float2 xv = ld2(hd + (er + 8 * hr) * h_ld + k);
+          // dy from the packed slice: exact for bf16 inputs, rounded to
+          // bf16 for fp32 ones (the fp32 pass below adds what it took)
+          __nv_bfloat16* a_rk = a16 + tile_offset(r, k);
+          const float2 dv = ld2(a_rk);
+          const float x[2] = {xv.x, xv.y}, d[2] = {dv.x, dv.y};
+          float pv[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float xhat = fmaf(x[e], rs[hr], nm[hr]);
+            const float f = fmaf(xhat, ak[e], bk[e]);
             const float sig = __fdividef(1.0f, 1.0f + __expf(-f));
-            pv[e] = f * sig;
-            const float df = d[e] + sig * (1.0f + f * (1.0f - sig)) * a[e];
-            const float dx = df * g1[e] * sv[e];
-            m1[i] += dx;
-            m2[i] += dx * xhat;
-            cs[0][e] += d[e];
-            cs[1][e] += df;
-            cs[2][e] += df * xhat;
+            const float pf = f * sig;
+            pv[e] = r < mine.n_valid ? pf : 0.0f;  // past N: nothing
+            float& a = acc[0][4 * j + 2 * hr + e];
+            // sig (1 + f (1 - sig)) = sig + p (1 - sig)
+            const float df = fmaf(fmaf(-pf, sig, pf) + sig, a, d[e]);
+            a = df;
+            const float dx = df * ak[e];
+            m1[hr] += dx;
+            m2[hr] += dx * xhat;
+            v[4 * jj + e] += df;
+            v[4 * jj + 2 + e] += df * xhat;
+          }
+          store2(a_rk, pv[0], pv[1]);
+        }
+      }
+      colred_w[cl_col_index(lane, ch, jb + j0, ec)] = lane_col_sum(v, lane);
+    }
+    }
+    rotate_acc32(acc);
+  }
+  // fp32 inputs: add dy - bf16(dy), from device memory, to df and to its
+  // row and column sums, as the register path's second pass does
+  if constexpr (!kBf16) {
+#pragma unroll 1
+    for (int it = 0; it < 4; ++it) {
+      const int ch = it >> 1, jb = 8 * (it & 1);
+      if (ch < m) {
+#pragma unroll
+      for (int j0 = 0; j0 < 8; j0 += 2) {
+        float v[8] = {};
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          const int j = j0 + jj;
+          const int k = ch * N_TILE + 8 * (jb + j) + ec;
+          const float gs[2] = {prm_t[k].x, prm_t[k + 1].x};
+#pragma unroll
+          for (int hr = 0; hr < 2; ++hr) {
+            const int r = lr + 8 * hr;
+            const float2 xv = ld2(hd + (er + 8 * hr) * h_ld + k);
+            const float2 dv = r < mine.n_valid
+                                  ? ld2(dy + (mine.row0 + r) * c + k0 + k)
+                                  : make_float2(0.0f, 0.0f);
+            const float x[2] = {xv.x, xv.y}, d[2] = {dv.x, dv.y};
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float xhat = fmaf(x[e], rs[hr], nm[hr]);
+              const float rem =
+                  d[e] - __bfloat162float(__float2bfloat16_rn(d[e]));
+              acc[0][4 * j + 2 * hr + e] += rem;
+              const float dx = rem * gs[e];
+              m1[hr] += dx;
+              m2[hr] += dx * xhat;
+              v[4 * jj + e] += rem;
+              v[4 * jj + 2 + e] += rem * xhat;
+            }
           }
         }
-        *reinterpret_cast<uint4*>(p_packed + wide_a_offset(tile, r, k, c)) =
-            pack_bf16x8(pv);  // rows past N: zeros
+        colred_w[cl_col_index(lane, ch, jb + j0, ec)] +=
+            lane_col_sum(v, lane);
       }
-#pragma unroll
-      for (int q = 0; q < NS; ++q) {
-        colred[warp][q][2 * lane] =
-            make_float4(cs[q][0], cs[q][1], cs[q][2], cs[q][3]);
-        colred[warp][q][2 * lane + 1] =
-            make_float4(cs[q][4], cs[q][5], cs[q][6], cs[q][7]);
       }
+      rotate_acc32(acc);
     }
-    __syncthreads();
-    // the tile's sums of this chunk: the warps' column sums in order
-    const int kk = threadIdx.x, col = k0 + kk;
-    if (col < c) {
-      float sq[NS];
-#pragma unroll
-      for (int q = 0; q < NS; ++q) {
-        const float* v = reinterpret_cast<const float*>(colred[0][q]) + kk;
-        float acc = v[0];
-#pragma unroll
-        for (int w = 1; w < WIDE_WARPS; ++w)
-          acc += v[static_cast<size_t>(w) * NS * WIDE_CHUNK];
-        sq[q] = acc;
-      }
-      const float sk = s[col], tk = t[col];
-      const float g1 = 1.0f + to_f32(g_c[col]);
-      part_t[col] = sq[0];                          // db
-      part_t[c + col] = sk * sq[2] + tk * sq[1];    // dgamma: df * u
-      part_t[2 * c + col] = sq[1];                  // dbeta
-      part_t[3 * c + col] = g1 * sq[2];             // ds: du * xhat
-      part_t[4 * c + col] = g1 * sq[1];             // dt: du
-    }
-    __syncthreads();  // colred is rewritten by the next chunk
   }
+  // the rows' sums over the CTA's columns
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+#pragma unroll
+    for (int o = 1; o < 4; o <<= 1) {
+      m1[hr] += __shfl_xor_sync(0xffffffffu, m1[hr], o);
+      m2[hr] += __shfl_xor_sync(0xffffffffu, m2[hr], o);
+    }
+    if ((lane & 3) == 0)
+      *reinterpret_cast<float2*>(xsum + (er + 8 * hr) * 2) =
+          make_float2(m1[hr], m2[hr]);
+  }
+  fence_proxy_async();  // p in place of dy: generic stores before the store
+  __syncthreads();
+  if (threadIdx.x == 0)
+    for (int q = 0; q < 2; ++q)
+      bulk_copy_s2g(p_packed + (2 * pair + q) * ROWS * c +
+                        static_cast<size_t>(k0) * ROWS,
+                    dys + q * dy_bytes, dy_bytes);
+  // ---- the whole rows' sums: every CTA's, in rank order (the same order
+  // in every CTA of the cluster, so that they agree to the bit)
+  cluster_arrive();
+  cluster_wait();
+  if (threadIdx.x < CL_ROWS) {
+    float s1 = 0.0f, s2 = 0.0f;
+    for (int q = 0; q < ncta; ++q) {
+      const float2 v = ld_cluster(xsum + threadIdx.x * 2, q);
+      s1 += v.x;
+      s2 += v.y;
+    }
+    *reinterpret_cast<float2*>(rmean + threadIdx.x * 2) =
+        make_float2(s1 / c, s2 / c);
+  }
+  // this CTA has read the others' sums; no CTA leaves before the wait at
+  // the end, so that its shared memory stays while another may read it
+  cluster_arrive();
 
-  // ---- the rows' means, then sweep 2: dh
+  // ---- each tile's sums of the CTA's columns: its 4 warps' in order (db
+  // came from the dy pack)
+  for (int i = threadIdx.x; i < 2 * cw; i += THREADS) {
+    const int q = i / cw, k = i % cw;
+    const float* cr = colred + 4 * q * 2 * CL_MAXW + k;
+    float sq[2];
 #pragma unroll
-  for (int i = 0; i < WIDE_RPW; ++i) {
-    m1[i] = warp_sum(m1[i]) / c;
-    m2[i] = warp_sum(m2[i]) / c;
+    for (int e = 0; e < 2; ++e)
+      sq[e] = ((cr[e * CL_MAXW] + cr[(2 + e) * CL_MAXW]) +
+               cr[(4 + e) * CL_MAXW]) +
+              cr[(6 + e) * CL_MAXW];
+    const float4 pk = prm[q * CL_MAXW + k];
+    const float g1 = pk.z;
+    float* part_t = part + (2 * pair + q) * NQ * c + k0 + k;
+    part_t[c] = pk.w * sq[1] + t[k0 + k] * sq[0];  // dgamma: df * u
+    part_t[2 * c] = sq[0];                    // dbeta
+    part_t[3 * c] = g1 * sq[1];               // ds: du * xhat
+    part_t[4 * c] = g1 * sq[0];               // dt: du
   }
-  for (int k0 = 0; k0 < c; k0 += WIDE_CHUNK) {
-    const int k = k0 + 8 * lane;
-    if (k >= c) continue;
-    float sv[8], tv[8], g1[8], bv[8];
-    load8(s + k, sv);
-    load8(t + k, tv);
-    load8(g_c + k, g1);
-    load8(be_c + k, bv);
+  __syncthreads();  // the rows' means
+
+  // ---- epilogue 2: dh from the registers, in place of h in shared
+  // memory, then one bulk store a row
+  float rm1[2], rm2[2];
 #pragma unroll
-    for (int e = 0; e < 8; ++e) g1[e] += 1.0f;
+  for (int hr = 0; hr < 2; ++hr) {
+    rm1[hr] = rmean[(er + 8 * hr) * 2];
+    rm2[hr] = rmean[(er + 8 * hr) * 2 + 1];
+  }
+#pragma unroll 1
+  for (int it = 0; it < 4; ++it) {
+    const int ch = it >> 1, jb = 8 * (it & 1);
+    if (ch < m) {
 #pragma unroll
-    for (int i = 0; i < WIDE_RPW; ++i) {
-      if (i % 2 == 0) hoist_barrier();
-      const int r = warp + WIDE_WARPS * i;
-      if (r >= n_valid) continue;
-      float d[8], x[8], a[8];
-      load8(dy + (tile_row0 + r) * c + k, d);
-      load8(h + (tile_row0 + r) * c + k, x);
-      load8(dp + (tile * WIDE_ROWS + r) * c + k, a);
+    for (int j = 0; j < 8; ++j) {
+      const int k = ch * N_TILE + 8 * (jb + j) + ec;
+      const float a0 = prm_t[k].x, a1 = prm_t[k + 1].x;
 #pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const float xhat = (x[e] - mu[i]) * rs[i];
-        const float f = (xhat * sv[e] + tv[e]) * g1[e] + bv[e];
-        const float sig = __fdividef(1.0f, 1.0f + __expf(-f));
-        const float df = d[e] + sig * (1.0f + f * (1.0f - sig)) * a[e];
-        const float dx = df * g1[e] * sv[e];
-        x[e] = rs[i] * (dx - m1[i] - xhat * m2[i]);
+      for (int hr = 0; hr < 2; ++hr) {
+        T* hp = hd + (er + 8 * hr) * h_ld + k;
+        const float2 x = ld2(hp);
+        const float x0 = fmaf(x.x, rs[hr], nm[hr]);
+        const float x1 = fmaf(x.y, rs[hr], nm[hr]);
+        const float dx0 = acc[0][4 * j + 2 * hr] * a0;
+        const float dx1 = acc[0][4 * j + 2 * hr + 1] * a1;
+        store2(hp, rs[hr] * (dx0 - rm1[hr] - x0 * rm2[hr]),
+               rs[hr] * (dx1 - rm1[hr] - x1 * rm2[hr]));
       }
-      store8(dh + (tile_row0 + r) * c + k, x);
     }
+    }
+    rotate_acc32(acc);
   }
+  fence_proxy_async();  // dh in shared memory before the bulk stores
+  __syncthreads();
+  if ((warp & 3) == 0) {  // warp 0 stores tile 0's rows, warp 4 tile 1's
+    for (int r = lane; r < mine.n_valid; r += 32)
+      bulk_copy_s2g(dh + (mine.row0 + r) * c + k0, hd + (er - lr + r) * h_ld,
+                    static_cast<uint32_t>(cw * sizeof(T)));
+    // the bulk stores (p, dh) have read shared memory before it is freed
+    bulk_store_wait_read();
+  }
+  cluster_wait();
 }
 
-// dy packed, dp, then the wide rows kernel
+// the cluster kernel's launch: its shared memory allowed, the grid and the
+// cluster shape; `cfg` points into `attr`
 template <typename T>
-int launch_wide_rows(const void* dy, const void* h, const void* s,
-                     const void* t, const void* gamma, const void* beta,
-                     const __nv_bfloat16* wt_packed, const void* mean,
-                     const void* rstd, void* dh, __nv_bfloat16* p_packed,
-                     __nv_bfloat16* dy_packed, float* dp, float* part, int b,
-                     int n, int c, cudaStream_t stream) {
-  const long long items = wide_tiles(b, n) * WIDE_ROWS * (c / 8);
+cudaError_t cluster_config(int b, int n, int c, cudaStream_t stream,
+                           cudaLaunchConfig_t& cfg,
+                           cudaLaunchAttribute& attr) {
+  const size_t smem = cluster_smem_bytes<T>();
+  const cudaError_t err = cudaFuncSetAttribute(
+      film_block_bwd_cluster_kernel<T>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const int ncta = cluster_ctas(c);
+  cfg = cudaLaunchConfig_t{};
+  cfg.gridDim = dim3(static_cast<unsigned>(ncta * (wide_tiles(b, n) / 2)));
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = static_cast<unsigned>(ncta);
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaSuccess;
+}
+
+// the dy pack (with db's tile sums), then the cluster kernel
+template <typename T>
+int launch_wide(const void* dy, const void* h, const void* s, const void* t,
+                const void* gamma, const void* beta,
+                const __nv_bfloat16* wt_packed, const void* mean,
+                const void* rstd, void* dh, __nv_bfloat16* p_packed,
+                __nv_bfloat16* dy_packed, float* part, int b, int n, int c,
+                cudaStream_t stream) {
+  const long long items = wide_tiles(b, n) * (c / 8);
   film_block_bwd_wide_pack_dy_kernel<T>
       <<<cdiv(items, RED_THREADS), RED_THREADS, 0, stream>>>(
-          static_cast<const T*>(dy), dy_packed, b, n, c, items);
+          static_cast<const T*>(dy), dy_packed, part, b, n, c, items);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int nb = wide_nb(c);
-  const unsigned blocks =
-      static_cast<unsigned>(wide_tiles(b, n) / 2 * (c / (N_TILE * nb)));
-  auto* dp_kernel = nb == 2 ? film_block_bwd_wide_dp_kernel<2>
-                            : film_block_bwd_wide_dp_kernel<1>;
-  const size_t smem = nb == 2 ? Wide<2>::smem_bytes() : Wide<1>::smem_bytes();
-  err = cudaFuncSetAttribute(dp_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  if ((err = cluster_config<T>(b, n, c, stream, cfg, attr)) != cudaSuccess)
+    return static_cast<int>(err);
+  auto* kernel = film_block_bwd_cluster_kernel<T>;
+  err = cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const T*>(dy), static_cast<const T*>(h),
+      static_cast<const float*>(s), static_cast<const float*>(t),
+      static_cast<const T*>(gamma), static_cast<const T*>(beta), wt_packed,
+      static_cast<const __nv_bfloat16*>(dy_packed),
+      static_cast<const float*>(mean), static_cast<const float*>(rstd),
+      static_cast<T*>(dh), p_packed, part, b, n, c, cluster_ctas(c));
   if (err != cudaSuccess) return static_cast<int>(err);
-  dp_kernel<<<blocks, WIDE_THREADS, smem, stream>>>(dy_packed, wt_packed, dp,
-                                                    c);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  film_block_bwd_wide_rows_kernel<T>
-      <<<dim3(cdiv(n, WIDE_ROWS), b), WIDE_THREADS, 0, stream>>>(
-          static_cast<const T*>(dy), static_cast<const T*>(h),
-          static_cast<const float*>(s), static_cast<const float*>(t),
-          static_cast<const T*>(gamma), static_cast<const T*>(beta), dp,
-          static_cast<const float*>(mean), static_cast<const float*>(rstd),
-          static_cast<T*>(dh), p_packed, part, n, c);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1035,26 +1435,23 @@ DwSplit dw_split(int b, int n, int c) {
 }
 
 // region offsets in floats: the slices' dW, the tile sums, the cloud sums,
-// packed p, packed dy, packed Wᵀ, the wide path's dp, and the end. Every
-// region is a multiple of 4 floats, so each starts 16-byte aligned. The
-// wide path pads packed dy and dp to an even number of row tiles (the
-// product's pairs); the narrow path has no dp.
-enum { R_DW, R_PART, R_CLOUD, R_P, R_DY, R_WT, R_DP, R_END };
+// packed p, packed dy, packed Wᵀ, and the end. Every region is a multiple
+// of 4 floats, so each starts 16-byte aligned. The wide path pads its row
+// tiles to an even count (the cluster kernel's pairs).
+enum { R_DW, R_PART, R_CLOUD, R_P, R_DY, R_WT, R_END };
 
 void regions(int b, int n, int c, long long (&off)[R_END + 1]) {
-  const long long tiles = static_cast<long long>(b) * cdiv(n, ROWS);
+  const long long tiles = c > MAX_C ? wide_tiles(b, n)
+                                    : static_cast<long long>(b) * cdiv(n, ROWS);
   const long long packed = tiles * ROWS * c / 2;  // bf16 in floats
-  const bool wide = c > MAX_C;
-  const long long padded = wide ? wide_tiles(b, n) * ROWS : 0;  // dp rows
   off[R_DW] = 0;
   off[R_PART] = off[R_DW] + static_cast<long long>(dw_split(b, n, c).slices) *
                                 c * c;
   off[R_CLOUD] = off[R_PART] + tiles * NQ * c;
   off[R_P] = off[R_CLOUD] + static_cast<long long>(b) * NQ * c;
   off[R_DY] = off[R_P] + packed;
-  off[R_WT] = off[R_DY] + (wide ? padded * c / 2 : packed);
-  off[R_DP] = off[R_WT] + static_cast<long long>(c) * c / 2;
-  off[R_END] = off[R_DP] + padded * c;
+  off[R_WT] = off[R_DY] + packed;
+  off[R_END] = off[R_WT] + static_cast<long long>(c) * c / 2;
 }
 
 template <typename T>
@@ -1082,9 +1479,9 @@ int launch(const void* dy, const void* h, const void* s, const void* t,
   if (err != cudaSuccess) return static_cast<int>(err);
 
   if (c > MAX_C) {
-    const int werr = launch_wide_rows<T>(
-        dy, h, s, t, gamma, beta, wt_packed, mean, rstd, dh, p_packed,
-        dy_packed, base + off[R_DP], part, b, n, c, stream);
+    const int werr =
+        launch_wide<T>(dy, h, s, t, gamma, beta, wt_packed, mean, rstd, dh,
+                       p_packed, dy_packed, part, b, n, c, stream);
     if (werr != 0) return werr;
   } else {
     auto* rows_kernel = (c / N_TILE) % 2 == 0
@@ -1162,13 +1559,38 @@ extern "C" long long pcfm_film_block_bwd_workspace(int b, int n, int c) {
   return off[R_END];
 }
 
+// Clusters of the wide path's cluster kernel at width c that the current
+// device can hold at once (cudaOccupancyMaxActiveClusters); 0 where it
+// holds none, and for c <= MAX_C (no cluster); minus a cudaError_t code on
+// an error.
+extern "C" int pcfm_film_block_bwd_max_clusters(int c, int is_bf16) {
+  if (bad_shape(1, 1, c)) return -static_cast<int>(cudaErrorInvalidValue);
+  if (c <= MAX_C) return 0;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  int clusters = 0;
+  cudaError_t err;
+  if (is_bf16) {
+    auto* kernel = film_block_bwd_cluster_kernel<__nv_bfloat16>;
+    err = cluster_config<__nv_bfloat16>(1, 1, c, nullptr, cfg, attr);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  } else {
+    auto* kernel = film_block_bwd_cluster_kernel<float>;
+    err = cluster_config<float>(1, 1, c, nullptr, cfg, attr);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  }
+  return err == cudaSuccess ? clusters : -static_cast<int>(err);
+}
+
 // Plain C entry point (bound with ctypes). Device pointers of contiguous
 // tensors: dy, h, dh (b, n, c) and gamma, beta, dgamma, dbeta (b, c) in
 // bf16 when is_bf16 else fp32; s, t (c,), w (c, c) (out x in), mean, rstd
 // (b, n), dw (c, c), db, ds, dt (c,) and the workspace in fp32. Launches the
-// Wᵀ pack, the rows pass (C > MAX_C: the dy pack, the dp product and the
-// wide rows kernel), the dW pass and three fixed-order reductions on
-// `stream`, does not synchronise, returns a cudaError_t code.
+// Wᵀ pack, the rows pass (C > MAX_C: the dy pack and the cluster kernel),
+// the dW pass and three fixed-order reductions on `stream`, does not
+// synchronise, returns a cudaError_t code.
 extern "C" int pcfm_film_block_bwd(const void* dy, const void* h,
                                    const void* s, const void* t,
                                    const void* gamma, const void* beta,

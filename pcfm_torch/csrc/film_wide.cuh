@@ -1,5 +1,9 @@
 // The FiLM block's wide paths (forward C > 1024, backward C > 512, up to
-// WIDE_MAX_C): one streamed wgmma product shared by both directions.
+// WIDE_MAX_C): the packed row tiles both directions stream (wide_tiles,
+// wide_a_offset) and the forward's streamed wgmma product. The backward's
+// cluster kernel (film_block_bwd.cu) streams the same operands in a loop of
+// its own: its chunk count differs between the CTAs of a cluster, and its
+// ring is shared with its epilogue.
 //
 // At these widths a 64-row tile's whole bf16 operand (64 x C) or its fp32
 // dp (64 x C in registers) no longer fits on an SM, so the product streams
@@ -24,9 +28,8 @@
 // registers). The grid is one-dimensional, the chunk fastest, so that the
 // blocks that read one pair's A run together and find it in L2.
 //
-// The epilogue is the caller's: the forward adds f and the bias, the
-// backward stores dp in fp32. No atomics, a fixed order: bitwise
-// reproducible.
+// The epilogue is the caller's: the forward adds f and the bias. No
+// atomics, a fixed order: bitwise reproducible.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -22,10 +22,16 @@ forward keeps a 64- or 128-row tile's whole bf16 silu(f) in shared memory
 up to ``NARROW_C``; the backward keeps a 64-row tile's fp32 dp in
 registers up to ``NARROW_C_BWD``.  Above those, up to ``MAX_C`` (both
 directions; the JAX kernel takes any C % 128 == 0 that fits its VMEM
-budget), the wide paths stream both operands of their product through
-shared memory (pcfm_torch/csrc/film_wide.cuh): the forward packs silu(f)
-in ``rows_packed_index`` order first, the backward packs dy the same way
-and writes dp in fp32 to its workspace.
+budget), the forward packs silu(f) in ``rows_packed_index`` order and
+streams both operands of its product through shared memory
+(pcfm_torch/csrc/film_wide.cuh).  The backward packs dy the same way (and
+sums each tile's dy over its rows for db), then a thread-block cluster
+shares each pair of 64-row tiles: each CTA keeps dp = dy @ W for its slice
+of the columns in registers (``cluster_split``: at most 256 columns a
+CTA), and the rows' sums of dxhat and dxhat * xhat meet in distributed
+shared memory, added in rank order, so that dh comes from df that never
+left the chip.  The wide backward moves ~16 bytes an element through device
+memory (the bound: 6) and its workspace holds no dp.
 
 The forward kernel reads W as bf16 in the byte order of its wgmma B
 operand; ``pack_w`` makes that copy (a small kernel that the forward's C
@@ -62,6 +68,9 @@ MAX_C_BWD = MAX_C
 NARROW_C_BWD = 512    # the backward's register path: a 64-row tile's fp32
                       # dp in two warpgroups' registers
 ROWS_BWD = 64         # rows of one cloud in a backward tile
+CLUSTER_MAX_CHUNKS = 2  # the backward's wide path: 128-column chunks a
+                        # cluster CTA owns at most (128 fp32 accumulators
+                        # a thread)
 
 launches = 0
 bwd_launches = 0
@@ -114,6 +123,20 @@ def film_block_reference_backward(dy, h, s, t, gamma, beta, w, mean, rstd):
     return (dh.to(h.dtype), (du * xhat).sum(dim=(0, 1)), du.sum(dim=(0, 1)),
             (df * u).sum(dim=1).to(gamma.dtype),
             df.sum(dim=1).to(beta.dtype), dw, dy32.sum(dim=(0, 1)))
+
+
+def cluster_split(c: int) -> list:
+    """The backward's wide path at width ``c``: [(k0, k1)] column ranges of
+    the cluster's CTAs in rank order, as the cluster kernel splits them:
+    ceil(C / 128 / CLUSTER_MAX_CHUNKS) CTAs, rank q owning the 128-column
+    chunks [q nch / ncta, (q + 1) nch / ncta) of the nch = C / 128."""
+    if c % N_TILE or not NARROW_C_BWD < c <= MAX_C_BWD:
+        raise ValueError(f"cluster_split: the wide path takes C % {N_TILE} "
+                         f"== 0, {NARROW_C_BWD} < C <= {MAX_C_BWD}; got {c}")
+    nch = c // N_TILE
+    ncta = -(-nch // CLUSTER_MAX_CHUNKS)
+    return [(q * nch // ncta * N_TILE, (q + 1) * nch // ncta * N_TILE)
+            for q in range(ncta)]
 
 
 def packed_index(c: int, n_tile: int = N_TILE) -> torch.Tensor:
@@ -243,7 +266,27 @@ def _lib():
     lib.pcfm_film_block_bwd.restype = ctypes.c_int
     lib.pcfm_film_block_bwd_workspace.argtypes = [ctypes.c_int] * 3
     lib.pcfm_film_block_bwd_workspace.restype = ctypes.c_longlong
+    lib.pcfm_film_block_bwd_max_clusters.argtypes = [ctypes.c_int] * 2
+    lib.pcfm_film_block_bwd_max_clusters.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_max_clusters(c: int, is_bf16: bool, device_index: int) -> int:
+    """Clusters of the backward's wide-path kernel at width ``c`` that the
+    card can hold at once (``cudaOccupancyMaxActiveClusters``), asked once
+    per width, dtype and card; raises if it is 0 (the launch would be
+    refused) or on a CUDA error."""
+    with torch.cuda.device(device_index):
+        got = _lib().pcfm_film_block_bwd_max_clusters(c, int(is_bf16))
+    if got < 0:
+        check_launch(-got, "film_block backward cluster occupancy")
+    if got == 0:
+        raise RuntimeError(
+            f"film_block backward: the card holds no cluster of "
+            f"{len(cluster_split(c))} CTAs of the wide path at C = {c} "
+            f"(cudaOccupancyMaxActiveClusters is 0)")
+    return got
 
 
 def _check_operands(h, args: dict, max_c: int):
@@ -331,6 +374,8 @@ def _launch_bwd(dy, h, s, t, gamma, beta, w, mean, rstd):
         raise ValueError(f"film_block backward kernel does not take "
                          f"{tuple(h.shape)}")
     work = torch.empty(floats, **f32)
+    if c > NARROW_C_BWD:
+        bwd_max_clusters(c, h.dtype == torch.bfloat16, h.device.index)
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream
         err = _lib().pcfm_film_block_bwd(

@@ -154,6 +154,78 @@ def test_rows_packed_index_matches_swizzle_formula_at_2048(b, n, k, want):
     assert int(fb.rows_packed_index(2, 65, 2048)[b, n, k]) == want
 
 
+# the wide backward's cluster split: CTAs of a cluster at each width,
+# ceil(C / 256)
+_CLUSTER_CTAS = {640: 3, 768: 3, 1024: 4, 1152: 5, 1536: 6, 2048: 8}
+
+
+@pytest.mark.parametrize("c", sorted(_CLUSTER_CTAS))
+def test_cluster_split_covers_the_columns_in_rank_order(c):
+    # the ranks' column ranges follow each other from 0 to C in 128-column
+    # chunks, at most CLUSTER_MAX_CHUNKS a CTA, balanced to one chunk, in
+    # clusters of at most 8 (the portable size)
+    split = fb.cluster_split(c)
+    assert len(split) == _CLUSTER_CTAS[c] <= 8
+    assert split[0][0] == 0 and split[-1][1] == c
+    assert all(a[1] == b[0] for a, b in zip(split, split[1:]))
+    widths = [k1 - k0 for k0, k1 in split]
+    assert all(w % fb.N_TILE == 0 and
+               0 < w <= fb.CLUSTER_MAX_CHUNKS * fb.N_TILE for w in widths)
+    assert max(widths) - min(widths) <= fb.N_TILE
+
+
+def test_cluster_split_at_640_and_its_limits():
+    # 5 chunks over 3 CTAs: rank q takes chunks [5 q / 3, 5 (q + 1) / 3)
+    assert fb.cluster_split(640) == [(0, 128), (128, 384), (384, 640)]
+    assert fb.cluster_split(2048) == [(k, k + 256) for k in range(0, 2048,
+                                                                  256)]
+    for c in (512, 2176, 700):      # the register path, above MAX_C, odd
+        with pytest.raises(ValueError, match="cluster_split"):
+            fb.cluster_split(c)
+
+
+def _cluster_dh(dy, h, s, t, gamma, beta, w, mean, rstd):
+    """dh as the backward's cluster kernel sums it, in plain torch (fp32
+    math): each CTA's partial row sums of dxhat and dxhat * xhat over its
+    columns (``fb.cluster_split``), added in rank order, then over C."""
+    c = h.shape[-1]
+    g = gamma[:, None, :]
+    xhat = (h - mean) * rstd
+    f = (xhat * s + t) * (1.0 + g) + beta[:, None, :]
+    sig = torch.sigmoid(f)
+    df = dy + sig * (1.0 + f * (1.0 - sig)) * (dy @ w)
+    dxhat = df * (1.0 + g) * s
+    m1 = m2 = torch.zeros_like(mean)
+    for k0, k1 in fb.cluster_split(c):
+        m1 = m1 + dxhat[..., k0:k1].sum(dim=-1, keepdim=True)
+        m2 = m2 + (dxhat * xhat)[..., k0:k1].sum(dim=-1, keepdim=True)
+    return rstd * (dxhat - m1 / c - xhat * (m2 / c))
+
+
+@pytest.mark.parametrize("n", [70, 129])
+@pytest.mark.parametrize("c", [640, 1024, 1152, 2048])
+def test_cluster_dh_matches_reference_and_jax(jax_fb, c, n):
+    # dh from the cluster kernel's partial row sums (each rank's columns,
+    # added in rank order) against the plain backward's dh and against
+    # jax.vjp of the JAX kernel's plain reference, within 1e-4 of its max
+    jax, jnp, jfb = jax_fb
+    a = _inputs(c + n, n=n, c=c)
+    dy = np.random.RandomState(c).randn(2, n, c).astype(np.float32)
+    h, s, t, gamma, beta, w, b = _port_args(a)
+    _, mean, rstd = fb.film_block_reference_forward(h, s, t, gamma, beta, w,
+                                                    b)
+    dyt = torch.from_numpy(dy)
+    got = _cluster_dh(dyt, h, s, t, gamma, beta, w, mean, rstd)
+    want = fb.film_block_reference_backward(dyt, h, s, t, gamma, beta, w,
+                                            mean, rstd)[0]
+    _grad_close(got.numpy(), want.numpy(), 1e-4, "dh vs plain")
+    jargs = [jnp.asarray(a[k]) for k in _NAMES]
+    _, vjp = jax.vjp(lambda x: jfb.film_block_reference(x, *jargs[1:]),
+                     jargs[0])
+    _grad_close(got.numpy(), np.asarray(vjp(jnp.asarray(dy))[0]), 1e-4,
+                "dh vs JAX")
+
+
 def test_kernel_limit_is_named():
     # the wrappers refuse a width above MAX_C (2048) before any launch
     assert fb.MAX_C == fb.MAX_C_BWD == 2048
@@ -220,7 +292,7 @@ def test_kernel_forward_matches_plain_version(cuda, dtype, tol, b, n, c):
 @pytest.mark.parametrize("b,n", [(1, 1), (2, 65), (3, 129), (2, 300)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_backward_matches_plain_version(cuda, dtype, b, n, c):
-    # C > 512 takes the wide path (dy pack, streamed dp, wide rows kernel);
+    # C > 512 takes the wide path (dy pack, cluster kernel, dW pass);
     # all seven gradients within 2e-2 of each one's max, two calls bitwise
     # equal
     args = _bwd_case(cuda, dtype, b, n, c, 20)
@@ -234,6 +306,37 @@ def test_kernel_backward_matches_plain_version(cuda, dtype, b, n, c):
         assert g.dtype == w.dtype and g.shape == w.shape, name
         assert torch.equal(g, g2), name
         _grad_close(g.float().cpu(), w.float().cpu(), 2e-2, name)
+
+
+@pytest.mark.gpu
+def test_kernel_backward_twice_is_bitwise_equal_at_1024(cuda):
+    # the cluster kernel adds the ranks' row sums in rank order and the
+    # tile sums in a fixed order: two launches give the same bits
+    args = _bwd_case(cuda, torch.bfloat16, 8, 2000, 1024, 23)
+    got = fb.film_block_backward(*args)
+    again = fb.film_block_backward(*args)
+    torch.cuda.synchronize()
+    for name, g, g2 in zip(_NAMES, got, again):
+        assert torch.equal(g, g2), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_kernel_backward_clusters_fit_and_workspace_holds_no_dp(cuda,
+                                                                dtype):
+    # every wide width's cluster fits on the card, and the workspace (fp32
+    # floats) holds packed p and dy (bf16: one float an element of the
+    # tiles' rows) and small sums, but no fp32 dp, which alone would be
+    # another float an element
+    lib = fb._lib()
+    for c in _CLUSTER_CTAS:
+        assert fb.bwd_max_clusters(c, dtype == torch.bfloat16,
+                                   cuda.index or 0) >= 1
+    for b, n in [(8, 20000), (3, 5000)]:
+        for c in _CLUSTER_CTAS:
+            elems = b * -(-n // 64) * 64 * c
+            got = lib.pcfm_film_block_bwd_workspace(b, n, c)
+            assert elems <= got < 1.5 * elems, (b, n, c, got / elems)
 
 
 @pytest.mark.gpu
