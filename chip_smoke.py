@@ -2,7 +2,7 @@
 """On-card smoke run of the PyTorch / CUDA port (pcfm_torch) on one GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --only voxel   # phases 1 and 10 alone
+    python3 chip_smoke.py --only voxel   # phases 1, 10 and 31 alone
     python3 chip_smoke.py --only chamfer # phases 1 and 14 alone
     python3 chip_smoke.py --only hybrid_train  # phases 1 and 17-20 alone
     python3 chip_smoke.py --only distill # phases 1 and 21-23 alone
@@ -186,7 +186,15 @@ failure:
    each kernel, its plain version and torch.matmul of each product alone
    at C = 640, 1024, 2048 beside the bounds, each kernel's parts
    profiled, the backward's workspace bytes and the clusters the card
-   holds at once; C = 2176 stopped by the wrappers' named limit;
+   holds at once; the forward alone above the backward's limit, to each
+   dtype's (MAX_C_BF16 = 4608, MAX_C_F32 = 4352, the JAX kernel's): at
+   (8, 20 000, C) for C = 2176, 2560, 3200, 4096, 4608 bf16 and 2176, 4352
+   fp32 and the edges (N = 1, 129, 300 at 4608 bf16 and 4352 fp32) within
+   KERNEL_TOL, bitwise equal across two launches, timed at C = 2560 and
+   4608 bf16 and 4352 fp32 beside the bound and torch.matmul of the
+   product alone, its parts profiled; the forward stopped at 4736 (bf16)
+   and 4480 (fp32), the backward at 2176, each by its wrappers' named
+   limit;
 27. the mlp at ``pf_width 1024`` with the kernel trunk at bench.py's
    workload: the training CLI (8 steps, 5 forward and 5 backward launches
    a step, validation, a checkpoint, a rerun with nothing to do), the train
@@ -194,8 +202,12 @@ failure:
    CLI (Heun x 50, 500 launches) and ms/shape with both trunks, the
    distill step (25 forward + 5 backward launches a step) and its ms/step;
    then ``pf_width 2048`` (both wide paths): the sampling CLI and train
-   steps with exact launches, finite losses and peak memory (``--only
-   wide`` also runs phase 23's wide distill step);
+   steps with exact launches, finite losses and peak memory; then
+   ``pf_width 4608`` (MAX_C_BF16, the forward's widest; a run from freshly
+   initialised weights, since the backward stops at 2048): the sampling
+   CLI (Heun x 50, exactly 500 forward launches, finite clouds), ms/shape
+   and peak memory (``--only wide`` also runs phase 23's wide distill
+   step);
 28. the PointNet++ modules (plain PyTorch): set abstraction from 8 x 20 000
    points to 1024 centers, then feature propagation back, on the card and
    on the CPU with the same weights and lattice coordinates, within
@@ -219,7 +231,15 @@ failure:
    kernels (their formula hooks) and with the plain trunk and plain voxel
    ops (the counter sees their products), equal exactly; MFU against the
    dense bf16 peak beside each kernel step's host-clock and device-busy
-   ms.
+   ms;
+31. the voxel kernels at channel counts that are not multiples of 8 (C =
+   36, 100 and 37 at R = 32, 8 clouds x 20 000 points, K = 1 and 8, bf16
+   and fp32) against their plain versions as phase 10 holds them, bitwise
+   equal across two launches, timed; then the hybrid with
+   ``ctx_stage_channels 100 200 200`` (its R = 32 stage at C = 100) through
+   the sampling CLI (Heun x 50 at 8 x 20 000, launches as phase 11's, 8
+   finite clouds) and two bf16 train steps at 8 x 20 000 with exact
+   launches a step (HYB_STEP_LAUNCHES) and finite losses.
 
 A profile whose session holds kernel records for fewer than
 PROFILE_RECORDED of its kernel launches is taken again in new sessions
@@ -269,11 +289,13 @@ WARMUP_STEPS = 3
 # sessions lose most of a short session's records (PERF.md §6).  The
 # first retry follows at once: in scripts/torch_profile_probe.py's runs
 # on the card late sessions alternate short and whole, whatever their
-# trail.  The last holds 5 s: in those runs only a 5 s trail kept every record at
-# every point of the process.  (A 5 s trail as the only retry took 67
-# short profiles of a whole run, 335 s of its 1005 s.)
+# trail.  The later ones hold 5 s and more: in those runs only a 5 s trail
+# kept every record at every point of the process, and in one whole run a
+# profile of 6 launches kept 0, 0 and then 4 records in its three sessions
+# (0, 0 and 5 s), so two longer sessions follow.  (A 5 s trail as the only
+# retry took 67 short profiles of a whole run, 335 s of its 1005 s.)
 PROFILE_RECORDED = 0.99
-PROFILE_TRAILS_S = (0.0, 0.0, 5.0)
+PROFILE_TRAILS_S = (0.0, 0.0, 5.0, 5.0, 10.0)
 HYB_DIR = os.path.join(RUN_DIR, "hybrid")
 # the hybrid's ContextNet stages (Config defaults): (resolution, channels)
 VOXEL_STAGES = ((32, 128), (16, 256), (8, 256))
@@ -359,6 +381,12 @@ EVAL_BATCHES = 2
 # cdist's launch grid takes at most 2^31 - 1 (cloud x row x column)
 # entries a call, so the yardstick runs in calls of at most this many
 CDIST_MAX_ENTRIES = 2 ** 31 - 1
+# phase 31: the voxel kernels at channel counts that are not multiples of
+# 8, at the hybrid's R = 32 stage, and the hybrid whose first stage has
+# C = 100 (the Config's [128, 256, 256] otherwise)
+ODD_CS = (36, 100, 37)
+ODD_STAGE_CHANNELS = (100, 200, 200)
+HYB_ODD_DIR = os.path.join(RUN_DIR, "hybrid_odd")
 # the FiLM kernels' wide paths (phases 26-27): the widths held against the
 # plain versions, the widths timed, the mlp's point-flow width on the wide
 # path (forward one-kernel, backward wide), and the (clouds, points) of its
@@ -366,6 +394,15 @@ CDIST_MAX_ENTRIES = 2 ** 31 - 1
 WIDE_CS = (640, 768, 1024, 1536, 2048)
 WIDE_TIMED_CS = (640, 1024, 2048)
 WIDE_PF_WIDTH = 1024
+# the forward alone above the backward's limit (phase 26), up to each
+# dtype's (MAX_C_BF16, MAX_C_F32): the widths held against the plain
+# version at (8, 20 000, C) (NB = 1 at 2176 and 3200), the widths and
+# dtypes timed;
+# phase 27 samples the mlp at MAX_C_BF16
+WIDE_FWD_CS = (2176, 2560, 3200, 4096, 4608)
+WIDE_FWD_F32_CS = (2176, 4352)
+WIDE_FWD_TIMED = ((2560, "bfloat16"), (4608, "bfloat16"),
+                  (4352, "float32"))
 WIDE_DISTILL_POINTS = (2, 256)
 # its bound on the card's fp32 step against the CPU's fp32 step, between
 # the sound readings (4.72e-3 to 6.37e-3 at --seed 0, 1, 2: the kernels'
@@ -552,7 +589,12 @@ def check_spills(log: str) -> None:
         if "Compiling entry function" in line:
             name = line.split("'")[1] if "'" in line else line.strip()
         elif "registers" in line or "spill" in line:
-            print(f"[build] {name[:70]}: {line.split(':', 1)[-1].strip()}")
+            # the kernel and its template arguments, without the mangled
+            # anonymous namespace (one line for each instantiation)
+            short = re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}\d+",
+                           "", name)
+            print(f"[build] {short[:80]}: "
+                  f"{line.split(':', 1)[-1].strip()}")
             if any(k in name for k in ("film_block", "voxel", "chamfer")) \
                     and "spill" in line and any(
                     int(x) for x in re.findall(r"(\d+) bytes spill", line)):
@@ -1000,16 +1042,16 @@ def bound_ms(nbytes: float, flops: float, peak_flops: float) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def film_bounds(bsz: int, n: int, c: int) -> dict:
-    """Least times of the FiLM-block kernels at (bsz, n, c) bf16: each
-    input read once and each output written once; the products on the
-    bf16 tensor cores (forward silu(f) @ W^T; backward dy @ W and the dW
-    product)."""
-    act, rows = bsz * n * c * 2, bsz * n
-    fwd_bytes = (2 * act + c * c * 4 + 3 * c * 4 + 2 * bsz * c * 2
+def film_bounds(bsz: int, n: int, c: int, es: int = 2) -> dict:
+    """Least times of the FiLM-block kernels at (bsz, n, c), activations
+    of ``es`` bytes (2: bf16, 4: fp32): each input read once and each
+    output written once; the products on the bf16 tensor cores (forward
+    silu(f) @ W^T; backward dy @ W and the dW product)."""
+    act, rows = bsz * n * c * es, bsz * n
+    fwd_bytes = (2 * act + c * c * 4 + 3 * c * 4 + 2 * bsz * c * es
                  + 2 * rows * 4)
     bwd_bytes = (3 * act + 2 * c * c * 4 + 2 * rows * 4 + 2 * c * 4
-                 + 4 * bsz * c * 2 + 3 * c * 4)
+                 + 4 * bsz * c * es + 3 * c * 4)
     return {"fwd": bound_ms(fwd_bytes, 2 * rows * c * c, BF16_FLOPS),
             "bwd": bound_ms(bwd_bytes, 4 * rows * c * c, BF16_FLOPS)}
 
@@ -1045,21 +1087,24 @@ def timed_turns(fns: dict, rounds: int = 2, reps=10) -> dict:
     return {k: statistics.median(v) for k, v in times.items()}
 
 
-def voxel_vs_plain(tvs, torch):
+def voxel_vs_plain(tvs, torch, stages=VOXEL_STAGES, batches=(B, 2 * B),
+                   skewed: bool = True):
     """Phase 10: both voxel kernels against their plain versions at the
-    hybrid's stage shapes, then the skewed cases.  Returns two dicts
-    {(kernel, R, C, B, K, dtype): row}: the stages and the skewed cases."""
+    hybrid's stage shapes (``stages``: (R, C) pairs, for each batch of
+    ``batches``), then the skewed cases.  Returns two dicts
+    {(kernel, R, C, B, K, dtype): row}: the stages and the skewed cases
+    (empty unless ``skewed``)."""
     import torch.nn.functional as F
     from pcfm_torch.models.context import VOXEL_EPS
     out = {}
-    for bsz in (B, 2 * B):
+    for bsz in batches:
         g = torch.Generator(device=DEVICE).manual_seed(SEED + 4)
         pts = torch.randn(bsz, N, 3, device=DEVICE, generator=g)
         # the ContextNet's entry sort by the R = 32 voxel id
         perm, inv = tvs.sort_perm_by_voxel(pts, VOXEL_STAGES[0][0],
                                            eps=VOXEL_EPS)
         pts = tvs.permute_points(pts, perm, inv)
-        for r, c in VOXEL_STAGES:
+        for r, c in stages:
             cache = tvs.build_stage_cache(pts, r, eps=VOXEL_EPS)
             v = r ** 3
             ids8, w8 = cache["corners"]
@@ -1077,7 +1122,7 @@ def voxel_vs_plain(tvs, torch):
                 del grid, upd
             del cache, cases
         torch.cuda.empty_cache()
-    return out, voxel_skewed(tvs, torch, F)
+    return out, voxel_skewed(tvs, torch, F) if skewed else {}
 
 
 def voxel_skewed(tvs, torch, F) -> dict:
@@ -1227,23 +1272,26 @@ def write_hybrid_checkpoint(torch, out_dir: str = HYB_DIR,
     return path
 
 
-def hybrid_main_path(fb, tvs, torch, np):
-    """Phase 11: the sampling CLI on a full-width hybrid checkpoint.
-    Returns the launch counts of the plain (no CFG) run."""
+def hybrid_main_path(fb, tvs, torch, np, out_dir: str = HYB_DIR,
+                     runs=(("heun50", []),
+                           ("heun50_cfg0.25", ["--guidance_scale", "0.25"])),
+                     tag: str = "[hybrid]", **kw):
+    """Phase 11: the sampling CLI on a full-width hybrid checkpoint (``kw``:
+    Config changes), once for each of ``runs`` (name, extra flags).
+    Returns each run's launch counts and peak memory."""
     from pcfm_torch.sample import cli
 
-    write_hybrid_checkpoint(torch)
+    write_hybrid_checkpoint(torch, out_dir, **kw)
     want = {"film_block": FILM_BLOCKS * NFE,
             "voxel_gather": PVCONVS * NFE, "voxel_scatter": PVCONVS * NFE}
     result = {}
-    for name, extra in (("heun50", []),
-                        ("heun50_cfg0.25", ["--guidance_scale", "0.25"])):
-        save_dir = os.path.join(HYB_DIR, name)
+    for name, extra in runs:
+        save_dir = os.path.join(out_dir, name)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_counts(fb, tvs)
         t0 = time.perf_counter()
-        x = cli.main(["--out_dir", HYB_DIR, "--save_dir", save_dir,
+        x = cli.main(["--out_dir", out_dir, "--save_dir", save_dir,
                       "--num_samples", str(B), "--n_points", str(N),
                       "--seed", str(SEED), "--device", "cuda", *extra])
         torch.cuda.synchronize()
@@ -1252,7 +1300,7 @@ def hybrid_main_path(fb, tvs, torch, np):
         plys = sorted(os.listdir(save_dir))
         headers = {ply_vertices(os.path.join(save_dir, p)) for p in plys}
         peak = torch.cuda.max_memory_allocated() / 2**30
-        print(f"[hybrid] {name}: launches {got} (expected {want}: FiLM "
+        print(f"{tag} {name}: launches {got} (expected {want}: FiLM "
               f"{FILM_BLOCKS} blocks and {PVCONVS} PVConvs x one scatter + "
               f"one gather, x {NFE} evaluations), {len(plys)} PLYs, clouds "
               f"{x.shape}, finite {bool(np.isfinite(x).all())}, |x| max "
@@ -1267,6 +1315,62 @@ def hybrid_main_path(fb, tvs, torch, np):
         result[name] = dict(got, peak_gib=peak)
     return result
 
+
+
+def odd_channels(fb, tvs, torch, np) -> dict:
+    """Phase 31: the voxel kernels at channel counts that are not multiples
+    of 8 (ODD_CS: 8-byte bf16 slices at 36 and 100, one channel a slice at
+    37; fp32 rows in 16-byte slices at 36 and 100, 4-byte at 37), both
+    against their plain versions at R = 32, B = 8, N = 20 000, K = 1 and 8,
+    bf16 and fp32 (the fp32 cases are the transposes the backward runs),
+    as phase 10 holds them; then the hybrid with ctx_stage_channels
+    ODD_STAGE_CHANNELS (its R = 32 stage at C = 100, the rest the Config's)
+    through the sampling CLI, Heun x 50 at 8 x 20 000 with exact launches,
+    and two bf16 train steps at 8 x 20 000 with exact launches a step
+    (HYB_STEP_LAUNCHES), finite losses, the second step's ms and the peak
+    memory."""
+    from pcfm_torch.train.state import init_state
+    from pcfm_torch.train.step import train_step
+    rows, _ = voxel_vs_plain(tvs, torch, stages=[(32, c) for c in ODD_CS],
+                             batches=(B,), skewed=False)
+    channels = list(ODD_STAGE_CHANNELS)
+    sample = hybrid_main_path(fb, tvs, torch, np, HYB_ODD_DIR,
+                              (("heun50", []),), "[hybrid-odd]",
+                              ctx_stage_channels=channels)
+    state = init_state(hybrid_train_cfg(ctx_stage_channels=channels), DEVICE,
+                       STEPS_PER_EPOCH, torch.Generator().manual_seed(SEED))
+    batch = train_batch(torch)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    steps, times, losses, counted = 2, [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(steps):
+        reset_counts(fb, tvs)
+        t0 = time.perf_counter()
+        m = train_step(state, batch, gen, 1.0, 0.1)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+        counted.append({"film_block": fb.launches,
+                        "film_block_bwd": fb.bwd_launches, **tvs.launches})
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    at_c = 2 * state.bundle.cfg.ctx_stage_blocks[0]   # forward, backward
+    print(f"[hybrid-odd] train step at {B} x {N} bf16, ctx_stage_channels "
+          f"{channels}: {' '.join(f'{t:.3f}' for t in times)} ms (the "
+          f"first builds the stage caches), losses {losses}, launches a "
+          f"step {counted[-1]} (expected {HYB_STEP_LAUNCHES}; {at_c} of "
+          f"each voxel kernel at C = {channels[0]}), peak device memory "
+          f"{peak:.3f} GiB")
+    if any(c != HYB_STEP_LAUNCHES for c in counted) \
+            or not all(math.isfinite(v) for v in losses):
+        raise RuntimeError("hybrid train step at odd channels: launches or "
+                           "loss")
+    del state
+    torch.cuda.empty_cache()
+    return {"rows": rows, "sample": sample["heun50"],
+            "train_launches_per_step": counted[-1],
+            "train_step_ms": times[-1], "train_peak_gib": peak,
+            "launches_per_step_at_c100": at_c}
 
 def profile_kernels(torch, fn, calls: int, groups: dict,
                     trace: str) -> dict:
@@ -2548,6 +2652,15 @@ def wide_kernels_vs_plain(fb, torch) -> dict:
             fb, torch, backward_inputs(fb, torch, g, bsz, n, c, dtype))
         bwd_abs, bwd_rel = max(bwd_abs, e_abs), max(bwd_rel, e_rel)
         torch.cuda.empty_cache()
+    # the forward alone above the backward's limit, to each dtype's own
+    fcases = [(B, N, c, torch.bfloat16) for c in WIDE_FWD_CS]
+    fcases += [(B, N, c, torch.float32) for c in WIDE_FWD_F32_CS]
+    fcases += [(B, n, fb.MAX_C_BF16, torch.bfloat16) for n in (1, 129, 300)]
+    fcases += [(B, n, fb.MAX_C_F32, torch.float32) for n in (1, 129, 300)]
+    for bsz, n, c, dtype in fcases:
+        fwd_err = max(fwd_err, check_forward(
+            fb, torch, film_inputs(torch, g, bsz, n, c, dtype)))
+        torch.cuda.empty_cache()
     out = {"fwd_max_abs_err": fwd_err, "bwd_max_abs_err": bwd_abs,
            "bwd_max_err_over_grad_max": bwd_rel,
            "fp32_dy_err_over_grad_max": check_backward_fp32_dy(
@@ -2622,18 +2735,74 @@ def wide_kernels_vs_plain(fb, torch) -> dict:
                   "bwd_max_active_clusters": clusters}
         del args, bargs, a2d, wt, dy2d, w16, p2d
         torch.cuda.empty_cache()
-    # above the kernels' width: the wrappers stop with the named limit
-    c = fb.MAX_C + fb.N_TILE
-    try:
-        fb.film_block_forward(*film_inputs(torch, g, 1, 4, c, torch.bfloat16))
-    except ValueError as e:
-        said = str(e)
-    else:
-        said = ""
-    print(f"[wide] film_block at C = {c}: {said or 'no error'}")
-    if f"C <= {fb.MAX_C} (MAX_C)" not in said:
-        raise RuntimeError(f"C = {c}: the kernels' limit did not stop it")
+    out["fwd_wide"] = {c: wide_forward_times(fb, torch, g, c,
+                                             getattr(torch, dtype))
+                       for c, dtype in WIDE_FWD_TIMED}
+    # above each kernel's width: the wrappers stop with its named limit
+    for what, dtype, name in (("forward", torch.bfloat16, "MAX_C_BF16"),
+                              ("forward", torch.float32, "MAX_C_F32"),
+                              ("backward", torch.bfloat16, "MAX_C_BWD")):
+        limit = getattr(fb, name)
+        c = limit + fb.N_TILE
+        try:
+            if what == "forward":
+                fb.film_block_forward(*film_inputs(torch, g, 1, 4, c, dtype))
+            else:
+                fb.film_block_backward(*backward_inputs(fb, torch, g, 1, 4, c,
+                                                        dtype))
+        except ValueError as e:
+            said = str(e)
+        else:
+            said = ""
+        print(f"[wide] film_block {what} at C = {c} "
+              f"{str(dtype)[6:]}: {said or 'no error'}")
+        if f"C <= {limit} ({name})" not in said:
+            raise RuntimeError(f"{what} at C = {c}: the kernel's limit "
+                               f"{name} did not stop it")
     return out
+
+
+def wide_forward_times(fb, torch, g, c: int, dtype) -> dict:
+    """Phase 26, the forward above the backward's limit: at (8, 20 000, c)
+    in ``dtype``, CUDA-event times of the kernel, its plain version and
+    torch.matmul of the product alone in bf16, as the kernel multiplies (a
+    yardstick the port never calls), in turns, beside the bound; one
+    profile of its parts (the W pack, the statistics kernel, the product
+    and its epilogue); W's reads from L2, reckoned from the grid (every
+    pair of row tiles reads all of the packed W: not measured)."""
+    args = film_inputs(torch, g, B, N, c, dtype)
+    a2d = args[0].reshape(-1, c).bfloat16()
+    wt = args[5].T.contiguous().bfloat16()
+    t = timed_turns({"kernel": lambda: fb.film_block_forward(*args),
+                     "plain": lambda: fb.film_block_reference(*args),
+                     "gemm": lambda: torch.matmul(a2d, wt)},
+                    rounds=2, reps={"kernel": 5, "plain": 2, "gemm": 5})
+    prof = profile_kernels(
+        torch, lambda: fb.film_block_forward(*args), 3,
+        {"pack": ("pack_w",), "stats": ("wide_stats",),
+         "product": ("film_block_fwd",)},
+        os.path.join(RUN_DIR, f"wide_forward_c{c}_trace.json"))
+    parts = {k: prof[k][0] for k in ("pack", "stats", "product")}
+    es = torch.finfo(dtype).bits // 8
+    bound, by = film_bounds(B, N, c, es)["fwd"]
+    tiles = B * -(-N // 64)
+    pairs = -(-tiles // 2)
+    w_l2 = pairs * c * c * 2
+    print(f"[wide] film_block forward ({B}, {N}, {c}) {str(dtype)[6:]} "
+          f"(wide path, forward only): kernel {t['kernel']:.4f} ms, bound "
+          f"{bound:.4f} ms ({by}), plain fp32 {t['plain']:.4f} ms, torch.matmul "
+          f"({B * N}, {c}) x ({c}, {c}) bf16 alone {t['gemm']:.4f} ms "
+          f"(medians of 4 timings in turns); profiled, 3 calls (W pack, "
+          f"statistics and silu(f) pack, product and epilogue): "
+          f"{format_parts(parts)}; packed W {c * c * 2 / 1e6:.1f} MB, read "
+          f"{pairs} times a call ({w_l2 / 1e9:.1f} GB from L2 or device "
+          f"memory, reckoned from the grid, not measured)")
+    del args, a2d, wt
+    torch.cuda.empty_cache()
+    return {"dtype": str(dtype)[6:], "ms": t["kernel"],
+            "plain_ms": t["plain"], "gemm_ms": t["gemm"], "bound_ms": bound,
+            "bound_by": by, "profiled_ms": parts,
+            "w_reads_bytes_reckoned": w_l2}
 
 
 def wide_path(fb, tvs, torch, np) -> dict:
@@ -2677,19 +2846,20 @@ def wide_path(fb, tvs, torch, np) -> dict:
     return {"train_fwd_launches": fwd, "train_bwd_launches": bwd,
             "train_steps": steps, "step": step, "sample": sample,
             "sample_launches": FILM_BLOCKS * NFE, "distill": dist,
-            "max_width": wide_max_width(fb, torch, np)}
+            "max_width": wide_max_width(fb, torch, np),
+            "fwd_width": wide_forward_width(fb, torch, np)}
 
 
 def wide_max_width(fb, torch, np) -> dict:
-    """Phase 27, last part: the mlp at pf_width MAX_C (both kernels' wide
-    paths) with random weights from the seed: the sampling CLI (Heun x 50,
-    500 forward launches, 8 finite clouds) and train steps at bench.py's
+    """Phase 27, last part: the mlp at pf_width MAX_C_BWD (both kernels'
+    wide paths) with random weights from the seed: the sampling CLI (Heun x
+    50, 500 forward launches, 8 finite clouds) and train steps at bench.py's
     workload (5 forward and 5 backward launches a step, finite losses,
     ms/step and peak memory by kernel_step_ms)."""
     from pcfm_torch.sample import cli
     from pcfm_torch.train import checkpoint
     from pcfm_torch.train.state import ModelBundle
-    width = fb.MAX_C
+    width = fb.MAX_C_BWD
     src = os.path.join(RUN_DIR, f"wide{width}")
     shutil.rmtree(src, ignore_errors=True)
     checkpoint.save(src, 1, ModelBundle(bench_cfg(pf_width=width), DEVICE,
@@ -2729,6 +2899,64 @@ def wide_max_width(fb, torch, np) -> dict:
     torch.cuda.empty_cache()
     return {"sample_launches": sample_launches, "train_ms_per_step": ms,
             "train_launches_per_step": FILM_BLOCKS, "train_peak_gib": peak}
+
+
+def wide_forward_width(fb, torch, np) -> dict:
+    """Phase 27, the forward's widest: the mlp at pf_width MAX_C_BF16 with
+    the kernel trunk, a run written from freshly initialised weights (seed)
+    by the port's checkpoint.save (the backward stops at MAX_C_BWD, so no
+    trainer writes it): the sampling CLI, Heun x 50 at bench.py's 8 x 20
+    000 (exactly 500 forward launches, no backward, 8 finite clouds), then
+    Heun x 50 ms/shape (make_sample_fn, a warm-up and two timed runs) and
+    the peak device memory of the timed runs."""
+    from pcfm_torch.sample import cli
+    from pcfm_torch.sample.cli import load_run
+    from pcfm_torch.train import checkpoint
+    from pcfm_torch.train.evaluate import make_sample_fn
+    from pcfm_torch.train.state import ModelBundle
+    width = fb.MAX_C_BF16
+    src = os.path.join(RUN_DIR, f"wide{width}")
+    shutil.rmtree(src, ignore_errors=True)
+    checkpoint.save(src, 1, ModelBundle(bench_cfg(pf_width=width), DEVICE,
+                                        torch.Generator().manual_seed(SEED)))
+    fb.launches = fb.bwd_launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x = cli.main(["--out_dir", src, "--save_dir", os.path.join(src, "ply"),
+                  "--num_samples", str(B), "--n_points", str(N),
+                  "--seed", str(SEED)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, bwd = fb.launches, fb.bwd_launches
+    plys = sorted(os.listdir(os.path.join(src, "ply")))
+    print(f"[wide-{width}] sampling CLI, Heun x 50 at {B} x {N}: "
+          f"{launches} film_block launches, {bwd} backward, {len(plys)} "
+          f"PLYs, clouds {x.shape}, finite {bool(np.isfinite(x).all())}, "
+          f"CLI wall {wall:.3f} s incl. load and PLY writes")
+    if launches != FILM_BLOCKS * NFE or bwd or len(plys) != B \
+            or x.shape != (B, N, 6) or not np.isfinite(x).all():
+        raise RuntimeError(f"pf_width {width} sampling: launches or output")
+    _, bundle, _ = load_run(src, {"fused_trunk": "on"}, DEVICE)
+    sample = make_sample_fn(bundle)
+    times = []
+    for i in range(3):
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+        torch.cuda.synchronize()
+        if i == 1:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        sample(None, gen, B, N)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3 / B)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ms = statistics.median(times[1:])
+    print(f"[wide-{width}] Heun x 50 at {B} x {N}, kernel trunk: "
+          f"{' '.join(f'{t:.2f}' for t in times)} ms/shape (first is "
+          f"warm-up; median {ms:.2f}), peak device memory {peak:.3f} GiB")
+    del bundle, sample
+    torch.cuda.empty_cache()
+    return {"sample_launches": launches, "ms_per_shape": ms,
+            "peak_gib": peak}
 
 
 # the PointNet++ modules on the card (phase 28): SA from 8 x 20 000 points
@@ -3651,8 +3879,9 @@ def main() -> int:
     check_spills(info["log"])
 
     if args.only == "voxel":
-        # phases 1 and 10 alone, for work on the voxel kernels
+        # phases 1, 10 and 31 alone, for work on the voxel kernels
         voxel_vs_plain(tvs, torch)
+        odd_channels(fb, tvs, torch, np)
         return 0
     if args.only == "chamfer":
         # phases 1 and 14 alone, for work on the chamfer kernel
@@ -3716,6 +3945,7 @@ def main() -> int:
     inter = interop_import(fb, tvs, tc, torch, np)
     fl = flop_counts(fb, tvs, torch)
     print(json.dumps({"interop": inter, "flops": fl}))
+    odd = odd_channels(fb, tvs, torch, np)
 
     film = film_bounds(B, N, C)
     # the main path's shapes: R = 32 stage, 8 clouds, bf16 features;
@@ -3735,7 +3965,8 @@ def main() -> int:
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": hyb["heun50"][name],
                 "max_abs_err": max(r["max_abs_err"] for key, r in
-                                   (*vox.items(), *vox_skewed.items())
+                                   (*vox.items(), *vox_skewed.items(),
+                                    *odd["rows"].items())
                                    if key[0] == what),
                 "ms": row["ms"], "plain_ms": row["plain_ms"],
                 "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
@@ -3769,6 +4000,16 @@ def main() -> int:
                                                                      name),
                 "launches_imported_reference_sample": inter["hybrid"][
                     "launches"][name],
+                # phase 31: C % 8 != 0 at R = 32, and the hybrid with
+                # ctx_stage_channels ODD_STAGE_CHANNELS
+                "odd_channels": rows(odd["rows"], (
+                    "max_abs_err", "ms", "device_ms", "plain_ms",
+                    "library_ms", "bound_ms", "bound_by")),
+                "launches_hybrid_odd_channels_sample": odd["sample"][name],
+                "launches_hybrid_odd_channels_train_step": odd[
+                    "train_launches_per_step"][name],
+                "launches_per_train_step_at_c100": odd[
+                    "launches_per_step_at_c100"],
                 **extra}
 
     wk, wp = wide["kernels"], wide["path"]
@@ -3790,6 +4031,29 @@ def main() -> int:
                 "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
                 "library_ms": None, "shape": [B, N, c], "widths": rows,
                 "widths_checked": list(WIDE_CS), **extra}
+
+    def fwd_above_entry():
+        """The kernels line's entry of the forward above the backward's
+        limit: its time at (B, N, MAX_C_BF16), launches from the sampling
+        CLI at that pf_width, each timed width's row."""
+        rows = {str(c): r for c, r in wk["fwd_wide"].items()}
+        row, fw = rows[str(fb.MAX_C_BF16)], wp["fwd_width"]
+        return {"name": "film_block_fwd_wide_above_2048", "route": "cuda",
+                "source": "pcfm_torch/csrc/film_block.cu",
+                "replaces": "pcfm/ops/pallas/film_block.py:56",
+                "launches": fw["sample_launches"],
+                "launches_from": f"sampling CLI, Heun x 50, pf_width "
+                                 f"{fb.MAX_C_BF16}",
+                "max_abs_err": wk["fwd_max_abs_err"],
+                "ms": row["ms"], "plain_ms": row["plain_ms"],
+                "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+                "library_ms": None, "gemm_only_ms": row["gemm_ms"],
+                "profiled_ms": row["profiled_ms"],
+                "shape": [B, N, fb.MAX_C_BF16], "widths": rows,
+                "widths_checked": {"bf16": list(WIDE_FWD_CS),
+                                   "fp32": list(WIDE_FWD_F32_CS)},
+                "sample_heun50_ms_per_shape": fw["ms_per_shape"],
+                "sample_peak_gib": fw["peak_gib"]}
 
     # the card again, beside the numbers (the first line may scroll away)
     print(sh("nvidia-smi", "--query-gpu=name,power.limit",
@@ -3875,9 +4139,9 @@ def main() -> int:
         "train_knobs": dist["knobs"],
         "launches_parallel_step_per_rank": parallel_launches(
             par, "film_block_bwd")},
-        wide_entry("fwd", fb.MAX_C, wp["max_width"]["sample_launches"],
+        wide_entry("fwd", fb.MAX_C_BWD, wp["max_width"]["sample_launches"],
                    launches_from=f"sampling CLI, Heun x 50, pf_width "
-                                 f"{fb.MAX_C}",
+                                 f"{fb.MAX_C_BWD}",
                    launches_train_per_step_max_width=wp["max_width"][
                        "train_launches_per_step"],
                    train_ms_per_step_max_width=wp["max_width"][
@@ -3902,6 +4166,7 @@ def main() -> int:
                    distill_launches_per_step=wp["distill"][
                        "launches_per_step"],
                    distill_grad_rel_err=dist["knobs"]["wide_distill"]),
+        fwd_above_entry(),
         voxel_entry("voxel_gather", "pcfm_torch/csrc/voxel_gather.cu",
                     "pcfm/ops/pallas/voxel_sorted.py:150", gather, "gather",
                     hybrid_heun50_ms_per_shape=hyb_ms["ms_per_shape"],

@@ -364,25 +364,42 @@ __global__ void __launch_bounds__(Tile<WG>::THREADS, 1)
 
 // ------------------------------------------------------ the wide path
 //
-// For MAX_C < C <= WIDE_MAX_C the 64 x C bf16 silu(f) tile no longer fits
-// in shared memory (256 KB at C = 2048), so the forward runs in two
-// kernels (film_wide.cuh):
+// For MAX_C < C <= WIDE_MAX_C_FWD_BF16 (bf16; WIDE_MAX_C_FWD_F32 for fp32,
+// the JAX kernel's limits) the 64 x C bf16 silu(f) tile no longer fits in
+// shared memory (256 KB at C = 2048), so the forward runs in two kernels
+// (film_wide.cuh):
 //   * statistics and prologue: a block owns one 64-row tile of one cloud,
 //     a warp a row at a time (16-byte loads, the row in registers, the
 //     two-pass mean and variance as the one-kernel path takes them); it
 //     writes mean and rstd and silu(f) as bf16 into device memory, packed
-//     as the product's A (rows_packed_index), zeros past N;
+//     as the product's A (rows_packed_index), zeros past N. A lane holds
+//     GROUPS 8-value groups of the row, a constant of the instantiation:
+//     8 up to C = 2048 (STATS_GROUPS_NARROW), and for wider C the dtype's
+//     limit / 256 (18 in bf16, 17 in fp32: 136 fp32 values a lane), so
+//     that the widths up to 2048 keep their registers and their code;
 //   * the streamed product over A's and W's k stages, and the epilogue on
 //     the accumulators: f recomputed in fp32 from h and the saved
 //     statistics, y = f + acc + bias.
 // What bounds it: the product, 2 B N C^2 operations (1.357 ms at (8, 20000,
-// 2048) at 989 TFLOP/s dense bf16), against ~1.3 GB of h, y and the stats
-// (0.4 ms at 3.35 TB/s). What it adds to the one-kernel path's bytes:
-// silu(f) written and read back (2 x B x N x C bf16), and A read once for
-// each block of output chunks (from L2: the blocks that share a pair of
-// tiles run together). Its time beside the bound: PERF.md §6.
+// 2048) at 989 TFLOP/s dense bf16, 6.87 ms at C = 4608), against ~1.3 GB of
+// h, y and the stats at C = 2048 (0.4 ms at 3.35 TB/s). What it adds to the
+// one-kernel path's bytes: silu(f) written and read back (2 x B x N x C
+// bf16), and A read once for each block of output chunks (from L2: the
+// blocks that share a pair of tiles run together). The grid runs the chunk
+// fastest, so every pair of row tiles reads all of W: at C = 4608 the
+// packed bf16 W is 42.5 MB against the H100's 50 MB L2, and W's reads stay
+// on chip only while it stays there. Its time beside the bound: PERF.md §6.
 
+// 8-value groups a lane of the statistics kernel holds up to C = 2048
+constexpr int STATS_GROUPS_NARROW = 2048 / 256;
+
+// the widest C the forward takes in T: the JAX kernel's (film_wide.cuh)
 template <typename T>
+constexpr int fwd_max_c() {
+  return sizeof(T) == 2 ? WIDE_MAX_C_FWD_BF16 : WIDE_MAX_C_FWD_F32;
+}
+
+template <typename T, int GROUPS>
 __global__ void __launch_bounds__(WIDE_THREADS)
     film_block_fwd_wide_stats_kernel(const T* __restrict__ h,
                                      const float* __restrict__ s,
@@ -393,7 +410,6 @@ __global__ void __launch_bounds__(WIDE_THREADS)
                                      float* __restrict__ mean_out,
                                      float* __restrict__ rstd_out,
                                      int n_points, int c) {
-  constexpr int GROUPS = WIDE_MAX_C / 256;  // 8-value groups a lane holds
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int groups = c >> 3;
   const size_t tile = static_cast<size_t>(blockIdx.y) * gridDim.x +
@@ -601,7 +617,12 @@ int launch_wide(const void* h, const void* s, const void* t,
   auto* a_packed = const_cast<__nv_bfloat16*>(wp) +
                    static_cast<size_t>(c) * c;
   const dim3 grid((n + WIDE_ROWS - 1) / WIDE_ROWS, b);
-  film_block_fwd_wide_stats_kernel<T><<<grid, WIDE_THREADS, 0, stream>>>(
+  // the dtype's widest C over 256: every lane's share of the widest row
+  constexpr int WIDE_GROUPS = fwd_max_c<T>() / 256;
+  auto* stats = c <= 32 * 8 * STATS_GROUPS_NARROW
+                    ? film_block_fwd_wide_stats_kernel<T, STATS_GROUPS_NARROW>
+                    : film_block_fwd_wide_stats_kernel<T, WIDE_GROUPS>;
+  stats<<<grid, WIDE_THREADS, 0, stream>>>(
       static_cast<const T*>(h), static_cast<const float*>(s),
       static_cast<const float*>(t), static_cast<const T*>(gamma),
       static_cast<const T*>(beta), a_packed, static_cast<float*>(mean),
@@ -660,7 +681,12 @@ int launch_any(const void* h, const void* s, const void* t,
                       n, c, stream);
 }
 
-bool bad_c(int c) { return c <= 0 || c % N_TILE != 0 || c > WIDE_MAX_C; }
+// a width the forward does not take in bf16 (is_bf16) or fp32; W alone
+// (the pack, the workspace) takes the wider of the two limits
+bool bad_c(int c, bool is_bf16 = true) {
+  return c <= 0 || c % N_TILE != 0 ||
+         c > (is_bf16 ? WIDE_MAX_C_FWD_BF16 : WIDE_MAX_C_FWD_F32);
+}
 
 }  // namespace
 
@@ -676,8 +702,9 @@ extern "C" int pcfm_film_block_pack_w(const void* w, void* w_packed, int c,
 }
 
 // bf16 values of scratch that pcfm_film_block_fwd needs for (b, n, c): W
-// packed (c * c), and for c > MAX_C the packed silu(f) tiles; -1 for a
-// shape the kernel does not take.
+// packed (c * c), and for c > MAX_C the packed silu(f) tiles; the same in
+// both dtypes, so C up to the bf16 limit; -1 for a shape the kernel does
+// not take in either dtype.
 extern "C" long long pcfm_film_block_fwd_workspace(int b, int n, int c) {
   if (b <= 0 || n <= 0 || bad_c(c) || b > 65535) return -1;
   const long long w = static_cast<long long>(c) * c;
@@ -694,7 +721,7 @@ extern "C" int pcfm_film_block_fwd(const void* h, const void* s,
                                    const void* bias, void* w_packed, void* y,
                                    void* mean, void* rstd, int b, int n,
                                    int c, int is_bf16, void* stream) {
-  if (b <= 0 || n <= 0 || bad_c(c) || b > 65535)
+  if (b <= 0 || n <= 0 || bad_c(c, is_bf16 != 0) || b > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int err = launch_pack(w, w_packed, c, st);

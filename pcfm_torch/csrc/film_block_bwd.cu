@@ -83,8 +83,8 @@
 // cluster, a dW pass that reads dy through a tensor map instead of the
 // packed copy.
 //
-// The wide path, MAX_C < C <= WIDE_MAX_C: a 64-row tile's fp32 dp (256 KB
-// at C = 1024) no longer fits in one SM's registers, nor the tile's bf16 dy
+// The wide path, MAX_C < C <= WIDE_MAX_C_BWD: a 64-row tile's fp32 dp (256
+// KB at C = 1024) no longer fits in one SM's registers, nor the tile's bf16 dy
 // beside the Wᵀ ring in its shared memory. So a thread-block cluster shares
 // the rows, and dp never leaves the chip:
 //   * a pack kernel writes dy as bf16 in the rows pass's byte order (the
@@ -774,7 +774,8 @@ __host__ __device__ constexpr int cl_ring_bytes() {
 }
 
 // CTAs of a cluster at width c: ceil(c / 256), 3 at 640-768, 4 at 1024,
-// up to 8 (the portable cluster size) at 2048
+// up to 8 (the portable cluster size) at 2048 = WIDE_MAX_C_BWD (bad_shape
+// refuses wider C before any cluster is sized)
 int cluster_ctas(int c) { return cdiv(c / N_TILE, CL_MAX_CHUNKS); }
 
 template <typename T>
@@ -1543,9 +1544,9 @@ int launch(const void* dy, const void* h, const void* s, const void* t,
 }
 
 bool bad_shape(int b, int n, int c) {
-  return b <= 0 || n <= 0 || c <= 0 || c % N_TILE != 0 || c > WIDE_MAX_C ||
-         b > 65535 || static_cast<long long>(b) * cdiv(n, ROWS) * ROWS >
-                          0x7fffffffLL;
+  return b <= 0 || n <= 0 || c <= 0 || c % N_TILE != 0 ||
+         c > WIDE_MAX_C_BWD || b > 65535 ||
+         static_cast<long long>(b) * cdiv(n, ROWS) * ROWS > 0x7fffffffLL;
 }
 
 }  // namespace

@@ -1,5 +1,6 @@
-// The FiLM block's wide paths (forward C > 1024, backward C > 512, up to
-// WIDE_MAX_C): the packed row tiles both directions stream (wide_tiles,
+// The FiLM block's wide paths (forward 1024 < C <= WIDE_MAX_C_FWD_BF16 in
+// bf16 and WIDE_MAX_C_FWD_F32 in fp32, backward 512 < C <= WIDE_MAX_C_BWD):
+// the packed row tiles both directions stream (wide_tiles,
 // wide_a_offset) and the forward's streamed wgmma product. The backward's
 // cluster kernel (film_block_bwd.cu) streams the same operands in a loop of
 // its own: its chunk count differs between the CTAs of a cluster, and its
@@ -41,7 +42,15 @@
 
 namespace {
 
-constexpr int WIDE_MAX_C = 2048;
+// The widest C of each direction: the forward's are the JAX kernel's own
+// (pcfm/ops/pallas/film_block.py:_fwd_kernel compiles for a v5e up to C =
+// 4608 in bf16 and 4352 in fp32, W's (C, C) fp32 window filling VMEM;
+// scripts/film_jax_limits.py prints them); the backward's cluster kernel
+// takes ceil(C / 256) <= 8 CTAs, the portable cluster size. Neither the
+// ring, Wide<NB> nor wide_a_offset depends on C.
+constexpr int WIDE_MAX_C_FWD_BF16 = 4608;
+constexpr int WIDE_MAX_C_FWD_F32 = 4352;
+constexpr int WIDE_MAX_C_BWD = 2048;
 constexpr int WIDE_ROWS = 64;                          // rows of a tile
 constexpr int WIDE_STAGES = 4;
 constexpr int WIDE_THREADS = 256;

@@ -8,7 +8,7 @@
 //   out[b, n, c] = sum_k w[b, k, n] * grid[b, ids[b, k, n], c]
 //
 // grid (B, V, C) bf16 or fp32, ids (B, K, N) int32, w (B, K, N) fp32,
-// out (B, N, C) fp32, K = 1 or 8, C % 8 == 0, ids in any order.
+// out (B, N, C) fp32, K = 1 or 8, any C, ids in any order.
 //
 // The TPU kernel builds one-hot matrices over a window of grid rows and
 // multiplies them on the MXU, because the TPU has no vector gather. Hopper
@@ -18,10 +18,13 @@
 //     (16-byte loads, coalesced: each is a contiguous run of `ids` / `w`),
 //     in place of 2K strided words that every lane loaded for its point;
 //   * a group of G = 16 or 32 threads serves every (VOX_THREADS / G)-th
-//     point of the tile: each thread loads 16 bytes of all K grid rows of
-//     a point (8 bf16 or 4 fp32 channels) before any multiply-add, then
-//     accumulates w * row in fp32 in k order and writes its slice of the
-//     output row;
+//     point of the tile: each thread loads a slice of VEC channels of all
+//     K grid rows of a point before any multiply-add, then accumulates
+//     w * row in fp32 in k order and writes its slice of the output row.
+//     A slice is 16 bytes (8 bf16 or 4 fp32 channels) when C % 8 == 0,
+//     else the widest of 8, 4 or 2 bytes whose channel count divides C
+//     (vec_for: at C = 100, 4 channels; at an odd C, one), one
+//     instantiation each, chosen at launch;
 //   * ids outside [0, V) contribute nothing (never read out of bounds).
 // Sums are taken in a fixed order: two launches give bitwise-equal output.
 //
@@ -54,13 +57,12 @@ struct Tile {
   static constexpr int MIN_BLOCKS = K == 8 ? 4 : 1;
 };
 
-template <typename T, int K, int G>
+template <typename T, int K, int G, int VEC>
 __global__ void __launch_bounds__(VOX_THREADS, Tile<K>::MIN_BLOCKS)
     voxel_gather_kernel(const T* __restrict__ grid,
                         const int* __restrict__ ids,
                         const float* __restrict__ w, float* __restrict__ out,
                         int n, int v, int c, int aligned) {
-  constexpr int VEC = Vec<T>::N;
   constexpr int TILE = Tile<K>::POINTS;
   __shared__ __align__(16) int s_id[K * TILE];
   __shared__ __align__(16) float s_w[K * TILE];
@@ -97,12 +99,12 @@ __global__ void __launch_bounds__(VOX_THREADS, Tile<K>::MIN_BLOCKS)
   for (int q = threadIdx.x / G; q < tp; q += VOX_THREADS / G) {
     for (int j = l; j < cvec; j += G) {
       const T* gj = gb + j * VEC;  // this lane's channels; v * c < 2^31
-      typename Raw<T>::type row[K];
+      typename Raw<T, VEC>::type row[K];
 #pragma unroll
       for (int k = 0; k < K; ++k) {
         const int id = s_id[k * TILE + q];
         if (static_cast<unsigned>(id) < static_cast<unsigned>(v))
-          row[k] = load_raw(gj + id * c);
+          row[k] = load_raw<T, VEC>(gj + id * c);
       }
       float acc[VEC];
 #pragma unroll
@@ -117,29 +119,44 @@ __global__ void __launch_bounds__(VOX_THREADS, Tile<K>::MIN_BLOCKS)
   }
 }
 
-template <typename T, int K, int G>
+template <typename T, int K, int G, int VEC>
 int launch(const void* grid, const void* ids, const void* w, void* out,
            int b, int n, int v, int c, cudaStream_t stream) {
   const int aligned = n % 4 == 0 &&
                       reinterpret_cast<uintptr_t>(ids) % 16 == 0 &&
                       reinterpret_cast<uintptr_t>(w) % 16 == 0;
   const dim3 blocks((n + Tile<K>::POINTS - 1) / Tile<K>::POINTS, b);
-  voxel_gather_kernel<T, K, G><<<blocks, VOX_THREADS, 0, stream>>>(
+  voxel_gather_kernel<T, K, G, VEC><<<blocks, VOX_THREADS, 0, stream>>>(
       static_cast<const T*>(grid), static_cast<const int*>(ids),
       static_cast<const float*>(w), static_cast<float*>(out), n, v, c,
       aligned);
   return static_cast<int>(cudaGetLastError());
 }
 
-// G = the lanes that cover a row's 16-byte vectors (lanes_for), 16 or 32
-// (narrower rows leave lanes idle): as a constant it frees the registers
-// that let bf16 fit 64 at K = 8 without a spill
+// G = the lanes that cover a row's slices (lanes_for), 16 or 32 (narrower
+// rows leave lanes idle): as a constant it frees the registers that let
+// bf16 fit 64 at K = 8 without a spill
+template <typename T, int K, int VEC>
+int launch_vec(const void* grid, const void* ids, const void* w, void* out,
+               int b, int n, int v, int c, cudaStream_t stream) {
+  if (lanes_for(c / VEC) >= 32)
+    return launch<T, K, 32, VEC>(grid, ids, w, out, b, n, v, c, stream);
+  return launch<T, K, 16, VEC>(grid, ids, w, out, b, n, v, c, stream);
+}
+
+// VEC = vec_for<T>(c): 16-byte slices for C % 8 == 0, narrower otherwise
 template <typename T, int K>
 int launch_k(const void* grid, const void* ids, const void* w, void* out,
              int b, int n, int v, int c, cudaStream_t stream) {
-  if (lanes_for(c / Vec<T>::N) >= 32)
-    return launch<T, K, 32>(grid, ids, w, out, b, n, v, c, stream);
-  return launch<T, K, 16>(grid, ids, w, out, b, n, v, c, stream);
+  const int vec = vec_for<T>(c);
+  if (vec == Vec<T>::N)  // 16-byte slices: every C % 8 == 0
+    return launch_vec<T, K, Vec<T>::N>(grid, ids, w, out, b, n, v, c,
+                                       stream);
+  if (vec == 4)  // 8-byte bf16 slices (fp32's 4 is its 16 bytes, above)
+    return launch_vec<T, K, 4>(grid, ids, w, out, b, n, v, c, stream);
+  if (vec == 2)
+    return launch_vec<T, K, 2>(grid, ids, w, out, b, n, v, c, stream);
+  return launch_vec<T, K, 1>(grid, ids, w, out, b, n, v, c, stream);
 }
 
 }  // namespace
@@ -152,7 +169,7 @@ extern "C" int pcfm_voxel_gather(const void* grid, const void* ids,
                                  const void* w, void* out, int b, int n,
                                  int k, int v, int c, int is_bf16,
                                  void* stream) {
-  if (b <= 0 || b > 65535 || n <= 0 || v <= 0 || c <= 0 || c % 8 != 0 ||
+  if (b <= 0 || b > 65535 || n <= 0 || v <= 0 || c <= 0 ||
       (k != 1 && k != 8) || static_cast<long long>(v) * c > INT_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);

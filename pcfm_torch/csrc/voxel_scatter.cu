@@ -9,7 +9,7 @@
 //   out[b, v, c] = sum_{n, k: ids[b, k, n] = v} w[b, k, n] * upd[b, n, c]
 //
 // upd (B, N, C) bf16 or fp32, w (B, K, N) fp32, out (B, V, C) fp32,
-// K = 1 or 8, C % 8 == 0, ids in any order.
+// K = 1 or 8, any C, ids in any order.
 //
 // The TPU kernel adds one-hot window products into a grid block that stays
 // in VMEM across its sequential grid. On Hopper blocks run in no order, and
@@ -35,11 +35,14 @@
 //     chunk order, writes the output row, and sets the counter back to 0;
 //   * the other blocks own one voxel a group and write the rows of the
 //     short runs (summed directly) and of the empty voxels (0).
-// A group's lanes each hold 16 bytes of channels and sum w * upd in fp32 in
-// `order`'s order, IN_FLIGHT rows loaded before they are summed; at K = 1
-// the entry is the point itself. Every output row is written exactly once
-// with 16-byte stores, and every sum is taken in a fixed order: two
-// launches give bitwise-equal output.
+// A group's lanes each hold a slice of VEC channels and sum w * upd in fp32
+// in `order`'s order, in_flight() rows loaded before they are summed; at
+// K = 1 the entry is the point itself. A slice is 16 bytes of the updates when
+// C % 8 == 0, else the widest of 8, 4 or 2 bytes whose channel count
+// divides C (vec_for, voxel_common.cuh), one instantiation each, chosen at
+// launch; the fp32 partial and output rows are stored and read in slices of
+// min(VEC, 4) channels. Every output row is written exactly once, and every
+// sum is taken in a fixed order: two launches give bitwise-equal output.
 //
 // Most runs are a few entries long (R = 32: under one on average), where
 // the work is a chain of dependent loads per voxel that only occupancy
@@ -64,6 +67,14 @@ namespace {
 // rows in flight, and two launches against one (PERF.md §6).
 constexpr int SCATTER_CHUNK = 64;  // = ops/voxel_sorted.py SCATTER_CHUNK
 constexpr int IN_FLIGHT = 4;       // rows loaded before they are summed
+// the same for the narrower slices of C % 8 != 0: at 4, ptxas spilled a
+// few bytes in three of their instantiations (K = 8)
+constexpr int IN_FLIGHT_NARROW = 2;
+
+template <typename T, int VEC>
+__host__ __device__ constexpr int in_flight() {
+  return VEC == Vec<T>::N ? IN_FLIGHT : IN_FLIGHT_NARROW;
+}
 
 // The mask of this thread's group of G lanes (G a power of two <= 32).
 template <int G>
@@ -73,40 +84,57 @@ __device__ __forceinline__ unsigned group_mask() {
 }
 
 // acc += sum over e in [beg, end) of w[order[e]] * upd[order[e] % n] at this
-// lane's channels j * VEC .. + VEC, in that order: IN_FLIGHT entries, then
-// their rows, loaded before they are summed.
-template <typename T, int K>
-__device__ __forceinline__ void sum_entries(float (&acc)[Vec<T>::N],
+// lane's channels j * VEC .. + VEC, in that order: in_flight() entries,
+// then their rows, loaded before they are summed.
+template <typename T, int K, int VEC>
+__device__ __forceinline__ void sum_entries(float (&acc)[VEC],
                                             const T* __restrict__ uj,
                                             const int* __restrict__ ob,
                                             const float* __restrict__ wb,
                                             int n, int c, int beg, int end) {
+  constexpr int F = in_flight<T, VEC>();
   int e = beg;
 #pragma unroll 1  // unrolled further, ptxas spills at a low register count
-  for (; e + IN_FLIGHT <= end; e += IN_FLIGHT) {
-    int pt[IN_FLIGHT];
-    float wt[IN_FLIGHT];
+  for (; e + F <= end; e += F) {
+    int pt[F];
+    float wt[F];
 #pragma unroll
-    for (int u = 0; u < IN_FLIGHT; ++u) {
+    for (int u = 0; u < F; ++u) {
       const int ent = ob[e + u];
       pt[u] = K == 1 ? ent : ent % n;
       wt[u] = wb[ent];
     }
 #pragma unroll
-    for (int u = 0; u < IN_FLIGHT; ++u)
-      fma_raw(acc, wt[u], load_raw(uj + static_cast<size_t>(pt[u]) * c));
+    for (int u = 0; u < F; ++u)
+      fma_raw(acc, wt[u],
+              load_raw<T, VEC>(uj + static_cast<size_t>(pt[u]) * c));
   }
 #pragma unroll 1
   for (; e < end; ++e) {
     const int ent = ob[e];
-    fma_raw(acc, wb[ent],
-            load_raw(uj + static_cast<size_t>(K == 1 ? ent : ent % n) * c));
+    const int pt = K == 1 ? ent : ent % n;
+    fma_raw(acc, wb[ent], load_raw<T, VEC>(uj + static_cast<size_t>(pt) * c));
   }
+}
+
+// acc += a partial row's fp32 slice, in channel order
+__device__ __forceinline__ void add_raw(float (&acc)[4], const float4& v) {
+  acc[0] += v.x;
+  acc[1] += v.y;
+  acc[2] += v.z;
+  acc[3] += v.w;
+}
+__device__ __forceinline__ void add_raw(float (&acc)[2], const float2& v) {
+  acc[0] += v.x;
+  acc[1] += v.y;
+}
+__device__ __forceinline__ void add_raw(float (&acc)[1], float v) {
+  acc[0] += v;
 }
 
 // Blocks [0, split_blocks) of a cloud: the chunks of long runs; the rest:
 // one voxel a group (see the note at the top).
-template <typename T, int K, int G>
+template <typename T, int K, int G, int VEC>
 __global__ void __launch_bounds__(VOX_THREADS)
     voxel_scatter_kernel(const T* __restrict__ upd,
                          const float* __restrict__ w,
@@ -117,7 +145,8 @@ __global__ void __launch_bounds__(VOX_THREADS)
                          float* __restrict__ work, int* __restrict__ done,
                          float* __restrict__ out, int n, int v, int c,
                          int max_chunks, int split_blocks) {
-  constexpr int VEC = Vec<T>::N;
+  // the partial and output rows' fp32 slices: 16 bytes at most
+  constexpr int OV = VEC < 4 ? VEC : 4;
   const int b = blockIdx.y;
   const int l = threadIdx.x % G;
   const int* rp = rowptr + static_cast<size_t>(b) * (v + 1);
@@ -140,7 +169,7 @@ __global__ void __launch_bounds__(VOX_THREADS)
       float acc[VEC];
 #pragma unroll
       for (int i = 0; i < VEC; ++i) acc[i] = 0.0f;
-      sum_entries<T, K>(acc, ub + j * VEC, ob, wb, n, c, beg, end);
+      sum_entries<T, K, VEC>(acc, ub + j * VEC, ob, wb, n, c, beg, end);
       store_vec(wk + static_cast<size_t>(chunk) * c + j * VEC, acc);
     }
     const unsigned mask = group_mask<G>();
@@ -153,26 +182,25 @@ __global__ void __launch_bounds__(VOX_THREADS)
     __threadfence();  // the other chunks' partial rows, after the count
     const float* parts = wk + static_cast<size_t>(first) * c;
     float* orow = out + (static_cast<size_t>(b) * v + voxel) * c;
-    for (int j = l; j < c / 4; j += G) {
-      float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    constexpr int F = in_flight<T, VEC>();
+    for (int j = l; j < c / OV; j += G) {
+      float acc[OV];
+#pragma unroll
+      for (int i = 0; i < OV; ++i) acc[i] = 0.0f;
 #pragma unroll 1
-      for (int i0 = 0; i0 < chunks; i0 += IN_FLIGHT) {
-        float4 row[IN_FLIGHT];
+      for (int i0 = 0; i0 < chunks; i0 += F) {
+        using Slice = typename Raw<float, OV>::type;
+        Slice row[F];
 #pragma unroll
-        for (int u = 0; u < IN_FLIGHT; ++u)
+        for (int u = 0; u < F; ++u)
           if (i0 + u < chunks)  // through L2: other SMs wrote them
-            row[u] = __ldcg(reinterpret_cast<const float4*>(
-                parts + static_cast<size_t>(i0 + u) * c + j * 4));
+            row[u] = __ldcg(reinterpret_cast<const Slice*>(
+                parts + static_cast<size_t>(i0 + u) * c + j * OV));
 #pragma unroll
-        for (int u = 0; u < IN_FLIGHT; ++u)
-          if (i0 + u < chunks) {
-            acc[0] += row[u].x;
-            acc[1] += row[u].y;
-            acc[2] += row[u].z;
-            acc[3] += row[u].w;
-          }
+        for (int u = 0; u < F; ++u)
+          if (i0 + u < chunks) add_raw(acc, row[u]);
       }
-      store_vec(orow + j * 4, acc);
+      store_vec(orow + j * OV, acc);
     }
     if (l == 0) *count = 0;  // ready for the next launch
     return;
@@ -188,12 +216,12 @@ __global__ void __launch_bounds__(VOX_THREADS)
     float acc[VEC];
 #pragma unroll
     for (int i = 0; i < VEC; ++i) acc[i] = 0.0f;
-    sum_entries<T, K>(acc, ub + j * VEC, ob, wb, n, c, beg, end);
+    sum_entries<T, K, VEC>(acc, ub + j * VEC, ob, wb, n, c, beg, end);
     store_vec(orow + j * VEC, acc);
   }
 }
 
-template <typename T, int K, int G>
+template <typename T, int K, int G, int VEC>
 int launch(const void* upd, const void* w, const void* order,
            const void* rowptr, const void* chunkptr, const void* chunk_voxel,
            void* out, void* work, void* done, int b, int n, int v, int c,
@@ -201,7 +229,7 @@ int launch(const void* upd, const void* w, const void* order,
   constexpr int per_block = VOX_THREADS / G;
   const int split_blocks = (max_chunks + per_block - 1) / per_block;
   const int rows_blocks = (v + per_block - 1) / per_block;
-  voxel_scatter_kernel<T, K, G>
+  voxel_scatter_kernel<T, K, G, VEC>
       <<<dim3(split_blocks + rows_blocks, b), VOX_THREADS, 0, stream>>>(
           static_cast<const T*>(upd), static_cast<const float*>(w),
           static_cast<const int*>(order), static_cast<const int*>(rowptr),
@@ -212,19 +240,45 @@ int launch(const void* upd, const void* w, const void* order,
   return static_cast<int>(cudaGetLastError());
 }
 
-// G = the lanes that cover a row's 16-byte vectors (lanes_for), 16 or 32:
-// two instantiations, and the wider rows' 16 or 32 lanes are all busy
+// G = the lanes that cover a row's slices (lanes_for), 16 or 32: two
+// instantiations, and the wider rows' 16 or 32 lanes are all busy
+template <typename T, int K, int VEC>
+int launch_vec(const void* upd, const void* w, const void* order,
+               const void* rowptr, const void* chunkptr,
+               const void* chunk_voxel, void* out, void* work, void* done,
+               int b, int n, int v, int c, int max_chunks,
+               cudaStream_t stream) {
+  if (lanes_for(c / VEC) >= 32)
+    return launch<T, K, 32, VEC>(upd, w, order, rowptr, chunkptr,
+                                 chunk_voxel, out, work, done, b, n, v, c,
+                                 max_chunks, stream);
+  return launch<T, K, 16, VEC>(upd, w, order, rowptr, chunkptr, chunk_voxel,
+                               out, work, done, b, n, v, c, max_chunks,
+                               stream);
+}
+
+// VEC = vec_for<T>(c): 16-byte slices for C % 8 == 0, narrower otherwise
 template <typename T, int K>
 int launch_k(const void* upd, const void* w, const void* order,
              const void* rowptr, const void* chunkptr,
              const void* chunk_voxel, void* out, void* work, void* done,
              int b, int n, int v, int c, int max_chunks,
              cudaStream_t stream) {
-  if (lanes_for(c / Vec<T>::N) >= 32)
-    return launch<T, K, 32>(upd, w, order, rowptr, chunkptr, chunk_voxel, out,
-                            work, done, b, n, v, c, max_chunks, stream);
-  return launch<T, K, 16>(upd, w, order, rowptr, chunkptr, chunk_voxel, out,
-                          work, done, b, n, v, c, max_chunks, stream);
+  const int vec = vec_for<T>(c);
+  if (vec == Vec<T>::N)  // 16-byte slices: every C % 8 == 0
+    return launch_vec<T, K, Vec<T>::N>(upd, w, order, rowptr, chunkptr,
+                                       chunk_voxel, out, work, done, b, n, v,
+                                       c, max_chunks, stream);
+  if (vec == 4)  // 8-byte bf16 slices (fp32's 4 is its 16 bytes, above)
+    return launch_vec<T, K, 4>(upd, w, order, rowptr, chunkptr, chunk_voxel,
+                               out, work, done, b, n, v, c, max_chunks,
+                               stream);
+  if (vec == 2)
+    return launch_vec<T, K, 2>(upd, w, order, rowptr, chunkptr, chunk_voxel,
+                               out, work, done, b, n, v, c, max_chunks,
+                               stream);
+  return launch_vec<T, K, 1>(upd, w, order, rowptr, chunkptr, chunk_voxel,
+                             out, work, done, b, n, v, c, max_chunks, stream);
 }
 
 }  // namespace
@@ -244,7 +298,7 @@ extern "C" int pcfm_voxel_scatter(const void* upd, const void* w,
                                   void* work, void* done, int b, int n, int k,
                                   int v, int c, int max_chunks, int chunk,
                                   int is_bf16, void* stream) {
-  if (b <= 0 || b > 65535 || n <= 0 || v <= 0 || c <= 0 || c % 8 != 0 ||
+  if (b <= 0 || b > 65535 || n <= 0 || v <= 0 || c <= 0 ||
       (k != 1 && k != 8) || max_chunks < 0 || chunk != SCATTER_CHUNK)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -20,18 +20,24 @@ the plain-torch versions that the CPU tests and the on-card comparison use.
 Each direction has two paths in its C entry point, chosen by C.  The
 forward keeps a 64- or 128-row tile's whole bf16 silu(f) in shared memory
 up to ``NARROW_C``; the backward keeps a 64-row tile's fp32 dp in
-registers up to ``NARROW_C_BWD``.  Above those, up to ``MAX_C`` (both
-directions; the JAX kernel takes any C % 128 == 0 that fits its VMEM
-budget), the forward packs silu(f) in ``rows_packed_index`` order and
+registers up to ``NARROW_C_BWD``.  Above those the forward takes every
+C % 128 == 0 that the JAX kernel compiles for (its (C, C) fp32 W window
+fits the TPU's VMEM; scripts/film_jax_limits.py finds the limits): up to
+``MAX_C_BF16`` = 4608 for bf16 h and ``MAX_C_F32`` = 4352 for fp32
+(``kernel_max_c``).  It packs silu(f) in ``rows_packed_index`` order and
 streams both operands of its product through shared memory
-(pcfm_torch/csrc/film_wide.cuh).  The backward packs dy the same way (and
-sums each tile's dy over its rows for db), then a thread-block cluster
-shares each pair of 64-row tiles: each CTA keeps dp = dy @ W for its slice
-of the columns in registers (``cluster_split``: at most 256 columns a
-CTA), and the rows' sums of dxhat and dxhat * xhat meet in distributed
-shared memory, added in rank order, so that dh comes from df that never
-left the chip.  The wide backward moves ~16 bytes an element through device
-memory (the bound: 6) and its workspace holds no dp.
+(pcfm_torch/csrc/film_wide.cuh).  The backward takes C up to
+``MAX_C_BWD`` = 2048, where its cluster's ceil(C / 256) CTAs reach the
+portable cluster size of 8 (the JAX kernel compiles up to 2688); above
+that it raises, naming the limit, and never falls back.  It packs dy the
+same way (and sums each tile's dy over its rows for db), then a
+thread-block cluster shares each pair of 64-row tiles: each CTA keeps
+dp = dy @ W for its slice of the columns in registers (``cluster_split``:
+at most 256 columns a CTA), and the rows' sums of dxhat and dxhat * xhat
+meet in distributed shared memory, added in rank order, so that dh comes
+from df that never left the chip.  The wide backward moves ~16 bytes an
+element through device memory (the bound: 6) and its workspace holds no
+dp.
 
 The forward kernel reads W as bf16 in the byte order of its wgmma B
 operand; ``pack_w`` makes that copy (a small kernel that the forward's C
@@ -59,12 +65,16 @@ from pcfm_torch.ops.build import check_launch, load_library, use_kernel
 from pcfm_torch.utils.flops import kernel_flops
 
 LN_EPS = 1e-5
-MAX_C = 2048          # both directions' kernels (their wide paths)
+# the forward kernel's widest C for bf16 / fp32 h: the JAX kernel's limits
+# (csrc/film_wide.cuh WIDE_MAX_C_FWD_BF16 / _F32 must be equal)
+MAX_C_BF16 = 4608
+MAX_C_F32 = 4352
 NARROW_C = 1024       # the forward's one-kernel path: the 64 x C bf16 A
                       # operand fits in shared memory
 N_TILE = 128          # output rows of W in one packed tile (wgmma n)
 K_TILE = 64           # k of one packed tile: one 128-byte swizzle row
-MAX_C_BWD = MAX_C
+MAX_C_BWD = 2048      # the backward kernel's widest C (WIDE_MAX_C_BWD): a
+                      # cluster of at most 8 CTAs of <= 256 columns
 NARROW_C_BWD = 512    # the backward's register path: a 64-row tile's fp32
                       # dp in two warpgroups' registers
 ROWS_BWD = 64         # rows of one cloud in a backward tile
@@ -74,6 +84,16 @@ CLUSTER_MAX_CHUNKS = 2  # the backward's wide path: 128-column chunks a
 
 launches = 0
 bwd_launches = 0
+
+
+def kernel_max_c(dtype: torch.dtype, backward: bool = False) -> tuple:
+    """(widest C, the constant's name) of one direction's kernel for h of
+    ``dtype``: the forward's depends on the dtype, the backward's not."""
+    if backward:
+        return MAX_C_BWD, "MAX_C_BWD"
+    if dtype == torch.bfloat16:
+        return MAX_C_BF16, "MAX_C_BF16"
+    return MAX_C_F32, "MAX_C_F32"
 
 
 def _stats(h32: torch.Tensor):
@@ -222,11 +242,11 @@ def pack_w(w: torch.Tensor) -> torch.Tensor:
     if not use_kernel(w, "pack_w"):
         return pack_w_reference(w)
     c = w.shape[0]
-    if w.dtype != torch.float32 or not w.is_contiguous() or c > MAX_C \
-            or c % N_TILE or w.data_ptr() % 16:
+    if w.dtype != torch.float32 or not w.is_contiguous() \
+            or c > MAX_C_BF16 or c % N_TILE or w.data_ptr() % 16:
         raise ValueError(f"pack_w takes a contiguous, 16-byte aligned fp32 "
-                         f"(C, C), C % {N_TILE} == 0, C <= {MAX_C}; got "
-                         f"{w.dtype} {tuple(w.shape)}")
+                         f"(C, C), C % {N_TILE} == 0, C <= {MAX_C_BF16}; "
+                         f"got {w.dtype} {tuple(w.shape)}")
     out = torch.empty(c * c, dtype=torch.bfloat16, device=w.device)
     with torch.cuda.device(w.device):
         stream = torch.cuda.current_stream(w.device).cuda_stream
@@ -289,9 +309,10 @@ def bwd_max_clusters(c: int, is_bf16: bool, device_index: int) -> int:
     return got
 
 
-def _check_operands(h, args: dict, max_c: int):
+def _check_operands(h, args: dict, backward: bool = False):
     """What both kernels need of their operands: one device, contiguous,
-    h's dtype for the per-row and per-cloud tensors, fp32 for the rest."""
+    h's dtype for the per-row and per-cloud tensors, fp32 for the rest, and
+    C up to the direction's limit for h's dtype (``kernel_max_c``)."""
     for name, x in args.items():
         if x.device != h.device:
             raise ValueError(f"film_block: {name} is on {x.device}, h on "
@@ -307,9 +328,12 @@ def _check_operands(h, args: dict, max_c: int):
             raise TypeError(f"film_block: {name} must be {want}, got "
                             f"{x.dtype}")
     bsz, n, c = h.shape
+    max_c, limit = kernel_max_c(h.dtype, backward)
     if c > max_c or bsz > 65535 or n == 0:
-        raise ValueError(f"film_block kernel takes C <= {max_c} (MAX_C), "
-                         f"B <= 65535, N > 0; got {tuple(h.shape)}")
+        dtype = str(h.dtype).replace("torch.", "")
+        raise ValueError(f"film_block kernel takes C <= {max_c} ({limit}) "
+                         f"for {dtype} h, B <= 65535, N > 0; got "
+                         f"{tuple(h.shape)}")
     for name, x in args.items():       # the kernels' 16-byte loads
         if x.data_ptr() % 16:
             raise ValueError(f"film_block: {name} must be 16-byte aligned")
@@ -330,7 +354,7 @@ def film_block_bwd_flops(dy, *_) -> int:
 def _launch(h, s, t, gamma, beta, w, b):
     global launches
     _check_operands(h, {"h": h, "s": s, "t": t, "gamma": gamma,
-                        "beta": beta, "w": w, "b": b}, MAX_C)
+                        "beta": beta, "w": w, "b": b})
     bsz, n, c = h.shape
     y = torch.empty_like(h)
     mean = torch.empty((bsz, n, 1), dtype=torch.float32, device=h.device)
@@ -358,7 +382,7 @@ def _launch_bwd(dy, h, s, t, gamma, beta, w, mean, rstd):
     global bwd_launches
     _check_operands(h, {"dy": dy, "h": h, "s": s, "t": t, "gamma": gamma,
                         "beta": beta, "w": w, "mean": mean, "rstd": rstd},
-                    MAX_C_BWD)
+                    backward=True)
     bsz, n, c = h.shape
     if dy.shape != h.shape or mean.shape != (bsz, n, 1) \
             or rstd.shape != (bsz, n, 1):

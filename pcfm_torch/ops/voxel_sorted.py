@@ -10,9 +10,10 @@ compute what the TPU kernels compute, with the same general contract
     voxel_scatter:  out[b, v, c] = sum_{n, k: ids[b, k, n] = v}
                                        w[b, k, n] * upd[b, n, c]
 
-grid (B, V, C) and upd (B, N, C) in bf16 or fp32, ids (B, K, N) int32 in
-[0, V), w (B, K, N) fp32; both return fp32.  The TPU's one-hot MXU windows
-(``pick_window``, ``ALIGN``, ``TR``, ``FUSE_TR``, ``GATHER_OUT_BF16``) are
+grid (B, V, C) and upd (B, N, C) in bf16 or fp32 with any C (as the TPU
+kernels, whose channel block is the whole row up to C = 256), ids
+(B, K, N) int32 in [0, V), w (B, K, N) fp32; both return fp32.  The
+TPU's one-hot MXU windows (``pick_window``, ``ALIGN``, ``TR``, ``FUSE_TR``, ``GATHER_OUT_BF16``) are
 its way around having no vector gather; Hopper gathers with indexed loads
 (pcfm_torch/csrc/voxel_gather.cu, one block per tile of points).  The
 scatter is deterministic, with no float atomics (PARITY.md deviation 1): a
@@ -255,18 +256,19 @@ def _lib():
 
 def _check(what: str, dense: torch.Tensor, ids: torch.Tensor,
            w: torch.Tensor, extra: dict):
-    """The kernels' operand contract: one CUDA device, contiguous,
-    16-byte-aligned bf16 / fp32 rows with C % 8 == 0, int32 ids / plan,
-    fp32 weights, K in (1, 8)."""
+    """The kernels' operand contract: one CUDA device, contiguous bf16 /
+    fp32 rows of any C > 0 from a 16-byte-aligned base (the kernels move a
+    row in slices of 16 bytes when C % 8 == 0, else of the widest of 8, 4
+    or 2 bytes that C's rows keep aligned), int32 ids / plan, fp32
+    weights, K in (1, 8)."""
     if dense.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"{what}: features must be bf16 or fp32, got "
                         f"{dense.dtype}")
     if ids.dtype != torch.int32 or w.dtype != torch.float32:
         raise TypeError(f"{what}: ids must be int32 and weights fp32, got "
                         f"{ids.dtype} / {w.dtype}")
-    c = dense.shape[-1]
-    if c % 8 or c == 0:
-        raise ValueError(f"{what} kernel takes C % 8 == 0, got C={c}")
+    if dense.shape[-1] == 0:
+        raise ValueError(f"{what} kernel takes C > 0")
     dev = dense.get_device()
     for name, x in {"features": dense, "ids": ids, "weights": w,
                     **extra}.items():
@@ -292,7 +294,8 @@ def _check_shapes(what: str, ids: torch.Tensor, w: torch.Tensor, b: int,
 
 def voxel_gather(grid: torch.Tensor, ids: torch.Tensor,
                  w: torch.Tensor) -> torch.Tensor:
-    """out (B, N, C) fp32 = sum_k w[:, k, n] * grid[:, ids[:, k, n], :]."""
+    """out (B, N, C) fp32 = sum_k w[:, k, n] * grid[:, ids[:, k, n], :],
+    any C."""
     if grid.dim() != 3:
         raise ValueError(f"voxel_gather: grid must be (B, V, C), got "
                          f"{tuple(grid.shape)}")
@@ -318,7 +321,7 @@ def voxel_gather(grid: torch.Tensor, ids: torch.Tensor,
 def voxel_scatter(upd: torch.Tensor, w: torch.Tensor,
                   plan: ScatterPlan) -> torch.Tensor:
     """out (B, V, C) fp32: each voxel's weighted sum of the rows of ``upd``
-    that ``plan.ids`` sends to it (0 where none does)."""
+    that ``plan.ids`` sends to it (0 where none does), any C."""
     if upd.dim() != 3:
         raise ValueError(f"voxel_scatter: updates must be (B, N, C), got "
                          f"{tuple(upd.shape)}")

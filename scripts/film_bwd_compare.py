@@ -1,9 +1,12 @@
 #!/usr/bin/env python3
-"""The FiLM block's backward at its wide widths, for several source trees
-on one card, in turns.
+"""The FiLM block's backward at its wide widths (and, by ``--parts``, its
+forward and the voxel kernels), for several source trees on one card, in
+turns.
 
     python3 scripts/film_bwd_compare.py --tree tree_check/parent --tree . \\
         --tree . --tree tree_check/parent
+    python3 scripts/film_bwd_compare.py --parts fwd,voxel \\
+        --tree tree_check/parent --tree . --tree . --tree tree_check/parent
 
 Each ``--tree`` (a checkout of this repository, e.g. the parent commit
 unpacked with ``git archive``) is measured in a process of its own, in the
@@ -21,7 +24,19 @@ change, change, parent to compare two commits within one call.  For each tree:
   at bench.py's workload, timed as chip_smoke.py's phase 27 times it
   (``kernel_step_ms``: ms/step on the host clock, the median of runs of
   synchronised steps after warm-up steps) with the peak device memory of
-  the timed steps (not with ``--kernel_only``).
+  the timed steps (``step``);
+* ``fwd``: the forward at (8, 20 000, C) bf16 for C = 512 (the one-kernel
+  path) and 2048 (the wide path): ms a call as the backward's, and a
+  SHA-1 of its output bits (y, mean, rstd), so that equal digests show
+  the same output from both trees;
+* ``voxel``: the gather and the scatter at the hybrid's stage shapes
+  (chip_smoke.py VOXEL_STAGES, 8 clouds, the R = 32 entry sort): the main
+  path's cases (K = 8 gather and K = 1 scatter of bf16 rows) and the
+  backward's (K = 1 gather and K = 8 scatter of fp32 rows), each one's
+  device time (chip_smoke.py ``queued_ms``) and output digest.
+
+``--parts`` takes a comma list of ``bwd``, ``step``, ``fwd`` and ``voxel``
+(default ``bwd,step``; ``--parts bwd``: the backward's times alone).
 
 Prints the card, one JSON line per tree, then a table.  Needs a CUDA
 device; imports nothing of JAX.
@@ -29,6 +44,7 @@ device; imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import importlib.util
 import json
 import os
@@ -40,9 +56,72 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BSZ, POINTS = 8, 20000
 WIDTHS = (640, 1024, 2048)
 STEP_WIDTHS = (1024, 2048)
+FWD_WIDTHS = (512, 2048)
 
 
-def measure(tree: str, steps: bool) -> dict:
+def digest(tensors) -> str:
+    """SHA-1 of the tensors' bits, in order."""
+    import torch
+    h = hashlib.sha1()
+    for t in tensors:
+        h.update(t.detach().contiguous().view(-1).view(torch.uint8).cpu()
+                 .numpy().tobytes())
+    return h.hexdigest()
+
+
+def measure_fwd(cs, fb, torch) -> dict:
+    out = {}
+    g = torch.Generator(device="cuda").manual_seed(cs.SEED + 11)
+    for c in FWD_WIDTHS:
+        args = cs.film_inputs(torch, g, BSZ, POINTS, c, torch.bfloat16)
+        got = fb.film_block_forward(*args)
+        ms = statistics.median(
+            cs.cuda_ms(lambda: fb.film_block_forward(*args), 10)
+            for _ in range(5))
+        out[c] = {"ms": ms, "digest": digest(got)}
+        del args, got
+        torch.cuda.empty_cache()
+    return out
+
+
+def measure_voxel(cs, tvs, torch) -> dict:
+    from pcfm_torch.models.context import VOXEL_EPS
+    out = {}
+    g = torch.Generator(device="cuda").manual_seed(cs.SEED + 4)
+    pts = torch.randn(BSZ, POINTS, 3, device="cuda", generator=g)
+    perm, inv = tvs.sort_perm_by_voxel(pts, cs.VOXEL_STAGES[0][0],
+                                       eps=VOXEL_EPS)
+    pts = tvs.permute_points(pts, perm, inv)
+    for r, c in cs.VOXEL_STAGES:
+        cache = tvs.build_stage_cache(pts, r, eps=VOXEL_EPS)
+        ids8, w8 = cache["corners"]
+        plan1, plan8 = cache["plan"], tvs.corner_plan(cache)
+        w1 = cache["inv_pt"][:, None, :]
+        for dtype in (torch.bfloat16, torch.float32):
+            grid = torch.randn(BSZ, r ** 3, c, device="cuda",
+                               generator=g).to(dtype)
+            upd = torch.randn(BSZ, POINTS, c, device="cuda",
+                              generator=g).to(dtype)
+            # bf16: the main path's forward; fp32: the backward's transposes
+            k_gather, k_scatter = (8, 1) if dtype == torch.bfloat16 \
+                else (1, 8)
+            cases = {
+                f"gather K={k_gather}": lambda: tvs.voxel_gather(
+                    grid, *((ids8, w8) if k_gather == 8
+                            else (plan1.ids, w1))),
+                f"scatter K={k_scatter}": lambda: tvs.voxel_scatter(
+                    upd, *((w1, plan1) if k_scatter == 1 else (w8, plan8)))}
+            for name, fn in cases.items():
+                key = f"R={r} C={c} {str(dtype)[6:]} {name}"
+                out[key] = {"device_ms": cs.queued_ms(torch, fn),
+                            "digest": digest([fn()])}
+            del grid, upd
+        del cache
+        torch.cuda.empty_cache()
+    return out
+
+
+def measure(tree: str, parts: tuple) -> dict:
     """One tree's numbers (runs in a process of its own)."""
     sys.path.insert(0, os.path.abspath(tree))
     import torch
@@ -52,6 +131,7 @@ def measure(tree: str, steps: bool) -> dict:
     spec.loader.exec_module(cs)
     from pcfm_torch.ops import build
     from pcfm_torch.ops import film_block as fb
+    from pcfm_torch.ops import voxel_sorted as tvs
     if not build.LIB_PATH.startswith(os.path.abspath(tree)):
         raise RuntimeError(f"pcfm_torch came from {build.LIB_PATH}, not "
                            f"{tree}")
@@ -59,8 +139,12 @@ def measure(tree: str, steps: bool) -> dict:
     built = build.build()
     out = {"tree": tree, "build_s": built["seconds"], "bwd": {},
            "step": {}}
+    if "fwd" in parts:
+        out["fwd"] = measure_fwd(cs, fb, torch)
+    if "voxel" in parts:
+        out["voxel"] = measure_voxel(cs, tvs, torch)
     g = torch.Generator(device="cuda").manual_seed(cs.SEED + 11)
-    for c in WIDTHS:
+    for c in WIDTHS if "bwd" in parts else ():
         args = cs.backward_inputs(fb, torch, g, BSZ, POINTS, c,
                                   torch.bfloat16)
         fb.film_block_backward(*args)
@@ -79,7 +163,7 @@ def measure(tree: str, steps: bool) -> dict:
         del args
         torch.cuda.empty_cache()
     batch = cs.train_batch(torch)
-    for width in STEP_WIDTHS if steps else ():
+    for width in STEP_WIDTHS if "step" in parts else ():
         state = cs.train_state(torch, "on", pf_width=width)
         gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
         out["step"][width] = cs.kernel_step_ms(torch, state, batch, gen)
@@ -92,12 +176,13 @@ def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--tree", action="append", required=True,
                    help="a checkout of this repository (repeat, in turns)")
-    p.add_argument("--kernel_only", action="store_true",
-                   help="the backward's times alone, no train steps")
+    p.add_argument("--parts", default="bwd,step",
+                   help="comma list of bwd, step, fwd, voxel")
     p.add_argument("--one", help=argparse.SUPPRESS)
     args = p.parse_args()
+    parts = tuple(args.parts.split(","))
     if args.one:
-        print(json.dumps(measure(args.one, not args.kernel_only)))
+        print(json.dumps(measure(args.one, parts)))
         return 0
     import torch
     if not torch.cuda.is_available():
@@ -108,9 +193,8 @@ def main() -> int:
     rows = []
     for tree in args.tree:
         got = subprocess.run([sys.executable, __file__, "--tree", tree,
-                              "--one", tree,
-                              *(["--kernel_only"] if args.kernel_only
-                                else [])], capture_output=True, text=True)
+                              "--one", tree, "--parts", ",".join(parts)],
+                             capture_output=True, text=True)
         if got.returncode:
             sys.stderr.write(got.stdout[-4000:] + got.stderr[-4000:])
             raise SystemExit(f"film_bwd_compare: {tree} failed")
@@ -123,7 +207,15 @@ def main() -> int:
         step = ", ".join(f"pf_width {w}: {v['ms']:.3f} ms, peak "
                          f"{v['peak_gib']:.3f} GiB"
                          for w, v in r["step"].items())
-        print(f"[compare] {r['tree']}: backward {bwd}; train step {step}")
+        if bwd or step:
+            print(f"[compare] {r['tree']}: backward {bwd}; train step "
+                  f"{step}")
+        for c, v in r.get("fwd", {}).items():
+            print(f"[compare] {r['tree']}: forward C {c}: {v['ms']:.4f} ms, "
+                  f"output {v['digest'][:12]}")
+        for key, v in r.get("voxel", {}).items():
+            print(f"[compare] {r['tree']}: {key}: {v['device_ms']:.4f} ms "
+                  f"device, output {v['digest'][:12]}")
     return 0
 
 

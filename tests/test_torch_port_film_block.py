@@ -215,11 +215,11 @@ def test_kernel_checks_refuse_bad_w(bad):
     if bad == "strided":
         args["w"] = w.T
         with pytest.raises(ValueError, match="contiguous"):
-            fb._check_operands(h, args, fb.MAX_C)
+            fb._check_operands(h, args)
     elif bad == "bf16":
         args["w"] = w.bfloat16()
         with pytest.raises(TypeError, match="w must be"):
-            fb._check_operands(h, args, fb.MAX_C)
+            fb._check_operands(h, args)
     else:
         with pytest.raises(ValueError, match="w must be"):
             fb.film_block(h, s, t, gamma, beta, w[:, :64].contiguous(), b)

@@ -1,5 +1,6 @@
-"""The FiLM block at the widths of its wide paths (forward C > 1024,
-backward C > 512, up to ``MAX_C`` = 2048), against the JAX package's kernel
+"""The FiLM block at the widths of its wide paths (forward C > 1024 up to
+``MAX_C_BF16`` = 4608 / ``MAX_C_F32`` = 4352, backward C > 512 up to
+``MAX_C_BWD`` = 2048), against the JAX package's kernel
 (pcfm/ops/pallas/film_block.py, interpret mode) on the CPU, and the CUDA
 kernels against their plain versions on the card.
 
@@ -226,21 +227,68 @@ def test_cluster_dh_matches_reference_and_jax(jax_fb, c, n):
                 "dh vs JAX")
 
 
+def _limit_args(c, dtype, backward=False):
+    """Zero operands at width c for the wrappers' checks (no arithmetic)."""
+    f32 = torch.float32
+    args = {"h": torch.zeros(1, 4, c, dtype=dtype),
+            "s": torch.zeros(c), "t": torch.zeros(c),
+            "gamma": torch.zeros(1, c, dtype=dtype),
+            "beta": torch.zeros(1, c, dtype=dtype),
+            "w": torch.zeros(c, c, dtype=f32)}
+    if backward:
+        args.update(dy=args["h"], mean=torch.zeros(1, 4, 1),
+                    rstd=torch.zeros(1, 4, 1))
+    else:
+        args["b"] = torch.zeros(c)
+    return args
+
+
 def test_kernel_limit_is_named():
-    # the wrappers refuse a width above MAX_C (2048) before any launch
-    assert fb.MAX_C == fb.MAX_C_BWD == 2048
+    # the wrappers refuse a width above each direction's limit before any
+    # launch: the forward's MAX_C_BF16 = 4608 for bf16 h and MAX_C_F32 =
+    # 4352 for fp32 (the JAX kernel's), the backward's MAX_C_BWD = 2048 in
+    # both dtypes; each message names its limit and the dtype
+    assert (fb.MAX_C_BF16, fb.MAX_C_F32, fb.MAX_C_BWD) == (4608, 4352, 2048)
     assert fb.NARROW_C == 1024 and fb.NARROW_C_BWD == 512
-    h, s, t, gamma, beta, w, b = _port_args(_inputs(1, b=1, n=4, c=2176))
-    args = {"h": h, "s": s, "t": t, "gamma": gamma, "beta": beta, "w": w,
-            "b": b}
-    with pytest.raises(ValueError, match=r"C <= 2048 \(MAX_C\)"):
-        fb._check_operands(h, args, fb.MAX_C)
-    with pytest.raises(ValueError, match=r"C <= 2048 \(MAX_C\)"):
-        fb._check_operands(h, dict(args, dy=h), fb.MAX_C_BWD)
-    # at the limit the checks pass
-    h, s, t, gamma, beta, w, b = _port_args(_inputs(1, b=1, n=4, c=2048))
-    fb._check_operands(h, {"h": h, "s": s, "t": t, "gamma": gamma,
-                           "beta": beta, "w": w, "b": b}, fb.MAX_C)
+    for dtype, name, limit in ((torch.bfloat16, "bfloat16", 4608),
+                               (torch.float32, "float32", 4352)):
+        assert fb.kernel_max_c(dtype) == (limit, "MAX_C_" + (
+            "BF16" if dtype == torch.bfloat16 else "F32"))
+        assert fb.kernel_max_c(dtype, backward=True) == (2048, "MAX_C_BWD")
+        args = _limit_args(limit + 128, dtype)
+        with pytest.raises(ValueError, match=rf"C <= {limit} \(MAX_C_"
+                                             rf"(BF16|F32)\) for {name} h"):
+            fb._check_operands(args["h"], args)
+        args = _limit_args(2176, dtype, backward=True)
+        with pytest.raises(ValueError, match=rf"C <= 2048 \(MAX_C_BWD\) "
+                                             rf"for {name} h"):
+            fb._check_operands(args["h"], args, backward=True)
+        # at each limit the checks pass
+        args = _limit_args(limit, dtype)
+        fb._check_operands(args["h"], args)
+        args = _limit_args(2048, dtype, backward=True)
+        fb._check_operands(args["h"], args, backward=True)
+
+
+@pytest.mark.parametrize("c,dtype", [(4608, "bfloat16"), (4352, "float32")])
+def test_plain_forward_matches_jax_kernel_at_the_forward_limit(jax_fb, c,
+                                                               dtype):
+    # the widest C the forward kernel takes in each dtype, the JAX
+    # kernel's own limit: the port's plain forward (what the card's kernel
+    # is held against) against the JAX kernel in interpret mode, B = 1 and
+    # a few rows; y within 1e-4 of its max (fp32) or within one bf16
+    # rounding of it (bf16: both round the same fp32 sums to bf16)
+    jax, jnp, jfb = jax_fb
+    a = _inputs(c, b=1, n=9, c=c)
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    jargs = [jnp.asarray(a[k]) for k in _NAMES]
+    for i in (0, 3, 4):                               # h, gamma, beta
+        jargs[i] = jargs[i].astype(jdt)
+    want = np.asarray(jfb.film_block(*jargs, True).astype(jnp.float32))
+    got = fb.film_block(*_port_args(a, dtype=tdt))
+    assert got.dtype == tdt and got.shape == (1, 9, c)
+    _grad_close(got.float().numpy(), want,
+                1e-4 if dtype == "float32" else 2 ** -7, "y")
 
 
 # ------------------------------------------------------------ on the card
@@ -357,6 +405,59 @@ def test_kernel_backward_fp32_takes_dy_in_fp32(cuda, c):
 
 @pytest.mark.gpu
 def test_kernel_refuses_above_max_c(cuda):
-    args = _port_args(_inputs(1, b=1, n=4, c=2176), cuda)
-    with pytest.raises(ValueError, match=r"C <= 2048 \(MAX_C\)"):
-        fb.film_block_forward(*args)
+    # the forward stops at 4736 (bf16) and 4480 (fp32), the backward at
+    # 2176, each by its named limit and before any launch
+    for dtype, c, name in ((torch.bfloat16, 4736, r"4608 \(MAX_C_BF16\)"),
+                           (torch.float32, 4480, r"4352 \(MAX_C_F32\)")):
+        args = [x.to(cuda) for x in _limit_args(c, dtype).values()]
+        before = fb.launches
+        with pytest.raises(ValueError, match="C <= " + name):
+            fb.film_block_forward(*args)
+        assert fb.launches == before
+    a = {k: x.to(cuda) for k, x in _limit_args(2176, torch.bfloat16,
+                                                 backward=True).items()}
+    before = fb.bwd_launches
+    with pytest.raises(ValueError, match=r"C <= 2048 \(MAX_C_BWD\)"):
+        fb.film_block_backward(*(a[k] for k in (
+            "dy", "h", "s", "t", "gamma", "beta", "w", "mean", "rstd")))
+    assert fb.bwd_launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c,dtype", [(2176, torch.bfloat16),
+                                     (2560, torch.bfloat16),
+                                     (4608, torch.bfloat16),
+                                     (2176, torch.float32),
+                                     (4352, torch.float32)])
+@pytest.mark.parametrize("b,n", [(1, 1), (2, 129), (1, 300)])
+def test_kernel_forward_matches_plain_version_above_2048(cuda, c, dtype, b,
+                                                        n):
+    # the wide forward's statistics kernel with a lane's share of the
+    # widest row (18 groups in bf16, 17 in fp32), NB = 1 (2176) and 2;
+    # within the phase-2 tolerances of its plain version, two calls
+    # bitwise equal
+    tol = 3e-2 if dtype == torch.float32 else 6e-2
+    args = _port_args(_inputs(7, b=b, n=n, c=c), cuda, dtype)
+    y, mean, rstd = fb.film_block_forward(*args)
+    again = fb.film_block_forward(*args)
+    torch.cuda.synchronize()
+    want, mean_r, rstd_r = fb.film_block_reference_forward(*args)
+    torch.testing.assert_close(y.float(), want.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(mean, mean_r, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(rstd, rstd_r, atol=1e-4, rtol=1e-4)
+    for x, x2 in zip((y, mean, rstd), again):
+        assert torch.equal(x, x2)
+
+
+@pytest.mark.gpu
+def test_function_above_2048_runs_forward_and_refuses_backward(cuda):
+    # the autograd Function at C = 2560: the forward kernel runs, the
+    # backward stops by its named limit (no plain-version fallback)
+    args = [x.requires_grad_(True) for x in _port_args(
+        _inputs(8, b=1, n=70, c=2560), cuda, torch.bfloat16)]
+    before = fb.launches, fb.bwd_launches
+    y = fb.film_block(*args)
+    assert fb.launches == before[0] + 1
+    with pytest.raises(ValueError, match=r"C <= 2048 \(MAX_C_BWD\)"):
+        y.float().sum().backward()
+    assert fb.bwd_launches == before[1]

@@ -102,9 +102,13 @@ def test_plain_voxel_ops_match_jax(jx):
 # ------------------------------------------------------------ the kernels'
 # plain versions against the TPU kernels
 
+# C = 36 and 100: widths that are not multiples of 8, which the TPU
+# kernels take with the whole row as one channel block, and the CUDA
+# kernels in narrower slices
+@pytest.mark.parametrize("c", [64, 36, 100])
 @pytest.mark.parametrize("k", [1, 8])
-def test_plain_gather_matches_gather_windows(jx, k):
-    b, n, c, r = 2, 500, 64, 8
+def test_plain_gather_matches_gather_windows(jx, k, c):
+    b, n, r = 2, 500, 8
     ids1, nc = _sorted_ids(_points(b, n, seed=4), r)
     rng = np.random.RandomState(5)
     grid = rng.randn(b, r ** 3, c).astype(np.float32)
@@ -130,9 +134,10 @@ def test_plain_gather_matches_gather_windows(jx, k):
         atol=ATOL)
 
 
+@pytest.mark.parametrize("c", [64, 36, 100])
 @pytest.mark.parametrize("k", [1, 8])
-def test_plain_scatter_matches_scatter_windows(jx, k):
-    b, n, c, r = 2, 500, 64, 8
+def test_plain_scatter_matches_scatter_windows(jx, k, c):
+    b, n, r = 2, 500, 8
     ids1, nc = _sorted_ids(_points(b, n, seed=6), r)
     rng = np.random.RandomState(7)
     upd = rng.randn(b, n, c).astype(np.float32)
@@ -409,7 +414,9 @@ def _card_case(dev, k, n, c, dtype, r=8, seed=0):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("c", [64, 256])
+# 64, 256: 16-byte slices; 12, 36, 100: 8-byte bf16 slices (fp32: 16);
+# 37: one channel a slice
+@pytest.mark.parametrize("c", [64, 256, 12, 36, 37, 100])
 @pytest.mark.parametrize("k", [1, 8])
 def test_kernels_match_plain_versions(cuda, k, c, dtype):
     ids, w, grid, upd = _card_case(cuda, k, 300, c, dtype)
@@ -435,8 +442,17 @@ def test_kernels_match_plain_versions(cuda, k, c, dtype):
 @pytest.mark.gpu
 def test_kernels_refuse_what_they_do_not_take(cuda):
     ids, w, grid, upd = _card_case(cuda, 8, 300, 64, torch.float32)
-    with pytest.raises(ValueError, match="C % 8"):
-        tvs.voxel_gather(grid[..., :12].contiguous(), ids, w)
+    # any C runs: C = 12 (no multiple of 8) launches the kernel
+    narrow = grid[..., :12].contiguous()
+    before = tvs.launches["voxel_gather"]
+    got = tvs.voxel_gather(narrow, ids, w)
+    torch.cuda.synchronize()
+    assert tvs.launches["voxel_gather"] == before + 1
+    torch.testing.assert_close(
+        got, tvs.voxel_gather_reference(narrow, ids, w), atol=1e-5,
+        rtol=1e-5)
+    with pytest.raises(ValueError, match="C > 0"):
+        tvs.voxel_gather(grid[..., :0].contiguous(), ids, w)
     with pytest.raises(TypeError, match="int32"):
         tvs.voxel_gather(grid, ids.long(), w)
     with pytest.raises(ValueError, match="contiguous"):
