@@ -179,21 +179,24 @@ failure:
 26. the FiLM-block kernels at the widths of their wide paths (forward
    C > 1024: statistics and a packed silu(f), then a streamed product;
    backward C > 512: packed dy, then a thread-block cluster a 64-row tile
-   that keeps dp on chip) against their plain versions: (8, 20 000, C)
-   bf16 for C = 640, 768, 1024, 1536, 2048 and the edges (N = 1, 129, 300;
-   fp32 inputs), within KERNEL_TOL / GRAD_REL_TOL, bitwise equal across
-   two launches, fp32 with W = 0 within FP32_DY_TOL; CUDA-event times of
-   each kernel, its plain version and torch.matmul of each product alone
-   at C = 640, 1024, 2048 beside the bounds, each kernel's parts
-   profiled, the backward's workspace bytes and the clusters the card
-   holds at once; the forward alone above the backward's limit, to each
-   dtype's (MAX_C_BF16 = 4608, MAX_C_F32 = 4352, the JAX kernel's): at
-   (8, 20 000, C) for C = 2176, 2560, 3200, 4096, 4608 bf16 and 2176, 4352
-   fp32 and the edges (N = 1, 129, 300 at 4608 bf16 and 4352 fp32) within
-   KERNEL_TOL, bitwise equal across two launches, timed at C = 2560 and
-   4608 bf16 and 4352 fp32 beside the bound and torch.matmul of the
-   product alone, its parts profiled; the forward stopped at 4736 (bf16)
-   and 4480 (fp32), the backward at 2176, each by its wrappers' named
+   that keeps dp on chip, 9 / 10 / 11 CTAs a cluster at C = 2176 / 2432 /
+   2688) against their plain versions: (8, 20 000, C) bf16 for C = 640,
+   768, 1024, 1536, 2048, 2176, 2432, 2688 and the edges (N = 1, 129,
+   300; fp32 inputs), within KERNEL_TOL / GRAD_REL_TOL, bitwise equal
+   across two launches, fp32 with W = 0 within FP32_DY_TOL; CUDA-event
+   times of each kernel, its plain version and torch.matmul of each
+   product alone at C = 640, 1024, 2048, 2688 beside the bounds, each
+   kernel's parts profiled, the backward's workspace bytes and the
+   clusters the card holds at once (also at 2176 and 2432); the forward
+   above 2048 (its statistics kernel's wider instantiation), to each
+   dtype's limit (MAX_C_BF16 = 4608, MAX_C_F32 = 4352, the JAX kernel's):
+   at (8, 20 000, C) for C = 2176, 2560, 3200, 4096, 4608 bf16 and 2176,
+   4352 fp32 and the edges (N = 1, 129, 300 at 4608 bf16 and 4352 fp32)
+   within KERNEL_TOL, bitwise equal across two launches, timed at C =
+   2560 and 4608 bf16 and 4352 fp32 beside the bound and torch.matmul of
+   the product alone, its parts profiled; the forward stopped at 4736
+   (bf16) and 4480 (fp32), the backward at 2816 (MAX_C_BWD = 2688, the
+   JAX kernel's limit in both dtypes), each by its wrappers' named
    limit;
 27. the mlp at ``pf_width 1024`` with the kernel trunk at bench.py's
    workload: the training CLI (8 steps, 5 forward and 5 backward launches
@@ -201,13 +204,17 @@ failure:
    step's ms/step with both trunks and the kernels' share, the sampling
    CLI (Heun x 50, 500 launches) and ms/shape with both trunks, the
    distill step (25 forward + 5 backward launches a step) and its ms/step;
-   then ``pf_width 2048`` (both wide paths): the sampling CLI and train
-   steps with exact launches, finite losses and peak memory; then
-   ``pf_width 4608`` (MAX_C_BF16, the forward's widest; a run from freshly
-   initialised weights, since the backward stops at 2048): the sampling
-   CLI (Heun x 50, exactly 500 forward launches, finite clouds), ms/shape
-   and peak memory (``--only wide`` also runs phase 23's wide distill
-   step);
+   then ``pf_width 2048`` (both wide paths): train steps with exact
+   launches, finite losses and peak memory; then ``pf_width 2688``
+   (MAX_C_BWD, the backward's widest): the training CLI as at 1024, the
+   sampling CLI on its checkpoint (Heun x 50, exactly 500 forward and no
+   backward launches, 8 finite clouds), train steps as at 2048, and one
+   train step at WIDE_DISTILL_POINTS on the card against the CPU (bf16
+   and fp32, phase 23's mlp legs and bounds); then ``pf_width 4608``
+   (MAX_C_BF16, the forward's widest; a run from freshly initialised
+   weights, since the backward stops at 2688): the sampling CLI (Heun x
+   50, exactly 500 forward launches, finite clouds), ms/shape and peak
+   memory (``--only wide`` also runs phase 23's wide distill step);
 28. the PointNet++ modules (plain PyTorch): set abstraction from 8 x 20 000
    points to 1024 centers, then feature propagation back, on the card and
    on the CPU with the same weights and lattice coordinates, within
@@ -388,16 +395,20 @@ ODD_CS = (36, 100, 37)
 ODD_STAGE_CHANNELS = (100, 200, 200)
 HYB_ODD_DIR = os.path.join(RUN_DIR, "hybrid_odd")
 # the FiLM kernels' wide paths (phases 26-27): the widths held against the
-# plain versions, the widths timed, the mlp's point-flow width on the wide
-# path (forward one-kernel, backward wide), and the (clouds, points) of its
-# distill step against the CPU
-WIDE_CS = (640, 768, 1024, 1536, 2048)
-WIDE_TIMED_CS = (640, 1024, 2048)
+# plain versions (above 2048 the backward's non-portable clusters of 9 /
+# 10 / 11 CTAs, each with its edges), the widths timed, the mlp's
+# point-flow width on the wide path (forward one-kernel, backward wide),
+# and the (clouds, points) of its distill step and of the pf_width
+# MAX_C_BWD train step against the CPU
+WIDE_CS = (640, 768, 1024, 1536, 2048, 2176, 2432, 2688)
+WIDE_EDGE_CS = (640, 1536, 2048, 2176, 2432, 2688)
+WIDE_F32_CS = (640, 2048, 2176, 2432, 2688)
+WIDE_TIMED_CS = (640, 1024, 2048, 2688)
 WIDE_PF_WIDTH = 1024
-# the forward alone above the backward's limit (phase 26), up to each
-# dtype's (MAX_C_BF16, MAX_C_F32): the widths held against the plain
-# version at (8, 20 000, C) (NB = 1 at 2176 and 3200), the widths and
-# dtypes timed;
+# the forward alone above 2048 (phase 26; its statistics kernel's wider
+# instantiation), up to each dtype's limit (MAX_C_BF16, MAX_C_F32): the
+# widths held against the plain version at (8, 20 000, C) (NB = 1 at 2176
+# and 3200), the widths and dtypes timed;
 # phase 27 samples the mlp at MAX_C_BF16
 WIDE_FWD_CS = (2176, 2560, 3200, 4096, 4608)
 WIDE_FWD_F32_CS = (2176, 4352)
@@ -2411,6 +2422,36 @@ def distill_step_time(fb, tvs, torch, kind: str, src: str, over=None,
             "profiled_ms": {g: prof[g][0] for g in groups}}
 
 
+def check_legs(tag: str, what: str, points, out: dict, checks) -> tuple:
+    """Each check (leg, reference leg, bound, control: (leg, reference
+    leg)[, control required]) of the card's steps against the CPU's:
+    every leg's gradients finite, the leg's worst gradient error over the
+    reference's max within the bound, the control's beyond it where it is
+    required, both losses within DISTILL_LOSS_REL_TOL; each printed.
+    Returns ({name: grad_errors}, all held)."""
+    b, n = points
+    res, ok = {}, all(grad_errors(out[leg], out["cpu_fp32"])["finite"]
+                      for leg in out)
+    for leg, ref, tol, control, *required in checks:
+        must = not required or required[0]
+        e = res[f"{leg}_vs_{ref}"] = grad_errors(out[leg], out[ref])
+        c = res[f"{control[0]}_vs_{control[1]}"] = grad_errors(
+            out[control[0]], out[control[1]])
+        ok = (ok and e["worst_rel"] <= tol
+              and (c["worst_rel"] > tol or not must)
+              and max(e["loss_rel"], c["loss_rel"]) <= DISTILL_LOSS_REL_TOL)
+        print(f"{tag} card {leg} vs {ref}, one {what} at ({b}, {n}): "
+              f"loss rel {e['loss_rel']:.3g}, grad norm rel "
+              f"{e['norm_rel']:.3g}; {len(out[ref][2])} gradients, max abs "
+              f"err / max |grad|: worst {e['worst_rel']:.4g}, median "
+              f"{e['median_rel']:.3g} (bound {tol}); control {control[0]} "
+              f"vs {control[1]}: worst {c['worst_rel']:.4g}, median "
+              f"{c['median_rel']:.3g} ("
+              + (f"must exceed {tol}" if must else "printed") + "); worst: "
+              + ", ".join(f"{k} {v:.3g}" for k, v in e["worst"]))
+    return res, ok
+
+
 def distill_card_vs_cpu(fb, tvs, torch, kind: str, src: str = "",
                         points=HYB_E2E_POINTS, label: str = "",
                         mlp_checks=None):
@@ -2510,25 +2551,7 @@ def distill_card_vs_cpu(fb, tvs, torch, kind: str, src: str = "",
               f"{time.perf_counter() - t0:.1f} s"
               + ("" if pinned else f", kinks {rec[leg].counts()}"))
     torch.cuda.empty_cache()
-    res, ok = {}, all(grad_errors(out[leg], out["cpu_fp32"])["finite"]
-                      for leg in out)
-    for leg, ref, tol, control, *required in checks:
-        must = not required or required[0]
-        e = res[f"{leg}_vs_{ref}"] = grad_errors(out[leg], out[ref])
-        c = res[f"{control[0]}_vs_{control[1]}"] = grad_errors(
-            out[control[0]], out[control[1]])
-        ok = (ok and e["worst_rel"] <= tol
-              and (c["worst_rel"] > tol or not must)
-              and max(e["loss_rel"], c["loss_rel"]) <= DISTILL_LOSS_REL_TOL)
-        print(f"{tag} card {leg} vs {ref}, one distill step at ({b}, {n}): "
-              f"loss rel {e['loss_rel']:.3g}, grad norm rel "
-              f"{e['norm_rel']:.3g}; {len(out[ref][2])} gradients, max abs "
-              f"err / max |grad|: worst {e['worst_rel']:.4g}, median "
-              f"{e['median_rel']:.3g} (bound {tol}); control {control[0]} "
-              f"vs {control[1]}: worst {c['worst_rel']:.4g}, median "
-              f"{c['median_rel']:.3g} ("
-              + (f"must exceed {tol}" if must else "printed") + "); worst: "
-              + ", ".join(f"{k} {v:.3g}" for k, v in e["worst"]))
+    res, ok = check_legs(tag, "distill step", points, out, checks)
     if kind == "hybrid" and rec["bf16"].sites:
         print(f"{tag} unpinned card bf16 step: flips against the CPU's "
               f"choices (elements, of) "
@@ -2630,20 +2653,21 @@ def wide_kernels_vs_plain(fb, torch) -> dict:
     """Phase 26: the FiLM-block kernels at the widths of their wide paths
     (forward C > NARROW_C, backward C > NARROW_C_BWD) against their plain
     versions: at (8, 20 000, C) bf16 for every C of WIDE_CS and the edges
-    (N = 1, 129, 300 at C = 640, 1536, 2048 bf16; fp32 inputs at C = 640
-    and 2048), the forward within KERNEL_TOL and every backward gradient
-    within GRAD_REL_TOL of its max, two launches bitwise equal; fp32 with
-    W = 0 within FP32_DY_TOL; then for each C of WIDE_TIMED_CS CUDA-event
-    times of both kernels, their plain versions and torch.matmul of each
-    product alone (yardsticks the port never calls), beside the bounds,
-    one profile of each kernel's parts, the backward's workspace bytes and
-    the clusters of its cluster kernel that the card holds at once."""
+    (N = 1, 129, 300 at each C of WIDE_EDGE_CS bf16; fp32 inputs at each C
+    of WIDE_F32_CS), the forward within KERNEL_TOL and every backward
+    gradient within GRAD_REL_TOL of its max, two launches bitwise equal;
+    fp32 with W = 0 within FP32_DY_TOL; the clusters of the backward's
+    cluster kernel that the card holds at once above 2048; then for each
+    C of WIDE_TIMED_CS CUDA-event times of both kernels, their plain
+    versions and torch.matmul of each product alone (yardsticks the port
+    never calls), beside the bounds, one profile of each kernel's parts,
+    the backward's workspace bytes and its clusters at once."""
     g = torch.Generator(device=DEVICE).manual_seed(SEED + 11)
     fwd_err, bwd_abs, bwd_rel = 0.0, 0.0, 0.0
     cases = [(B, N, c, torch.bfloat16) for c in WIDE_CS]
-    cases += [(B, n, c, torch.bfloat16) for c in (640, 1536, 2048)
+    cases += [(B, n, c, torch.bfloat16) for c in WIDE_EDGE_CS
               for n in (1, 129, 300)]
-    cases += [(B, n, c, torch.float32) for c in (640, 2048)
+    cases += [(B, n, c, torch.float32) for c in WIDE_F32_CS
               for n in (129, 300)]
     for bsz, n, c, dtype in cases:
         fwd_err = max(fwd_err, check_forward(
@@ -2652,7 +2676,8 @@ def wide_kernels_vs_plain(fb, torch) -> dict:
             fb, torch, backward_inputs(fb, torch, g, bsz, n, c, dtype))
         bwd_abs, bwd_rel = max(bwd_abs, e_abs), max(bwd_rel, e_rel)
         torch.cuda.empty_cache()
-    # the forward alone above the backward's limit, to each dtype's own
+    # the forward alone above 2048 (its statistics kernel's wider
+    # instantiation), to each dtype's own limit
     fcases = [(B, N, c, torch.bfloat16) for c in WIDE_FWD_CS]
     fcases += [(B, N, c, torch.float32) for c in WIDE_FWD_F32_CS]
     fcases += [(B, n, fb.MAX_C_BF16, torch.bfloat16) for n in (1, 129, 300)]
@@ -2664,8 +2689,22 @@ def wide_kernels_vs_plain(fb, torch) -> dict:
     out = {"fwd_max_abs_err": fwd_err, "bwd_max_abs_err": bwd_abs,
            "bwd_max_err_over_grad_max": bwd_rel,
            "fp32_dy_err_over_grad_max": check_backward_fp32_dy(
-               fb, torch, g, ((2, 300, 640), (2, 300, 2048),
-                              (B, 1000, 1024)))}
+               fb, torch, g, [(2, 300, c) for c in WIDE_F32_CS]
+               + [(B, 1000, 1024)]),
+           "bwd_clusters": {}}
+    # the backward's clusters above the portable size of 8 CTAs
+    for c in WIDE_CS:
+        if c > 2048:
+            ctas = len(fb.cluster_split(c))
+            held = {dt: fb.bwd_max_clusters(c, dt == "bf16",
+                                            torch.cuda.current_device())
+                    for dt in ("bf16", "fp32")}
+            print(f"[wide] film_block backward at C = {c}: {ctas} CTAs a "
+                  f"cluster (non-portable), clusters at once: bf16 "
+                  f"{held['bf16']}, fp32 {held['fp32']} ({ctas * held['bf16']}"
+                  f" of {torch.cuda.get_device_properties(0).multi_processor_count}"
+                  f" SMs in bf16)")
+            out["bwd_clusters"][c] = {"ctas": ctas, **held}
     for c in WIDE_TIMED_CS:
         args = film_inputs(torch, g, B, N, c, torch.bfloat16)
         bargs = backward_inputs(fb, torch, g, B, N, c, torch.bfloat16)
@@ -2763,7 +2802,7 @@ def wide_kernels_vs_plain(fb, torch) -> dict:
 
 
 def wide_forward_times(fb, torch, g, c: int, dtype) -> dict:
-    """Phase 26, the forward above the backward's limit: at (8, 20 000, c)
+    """Phase 26, the forward above 2048: at (8, 20 000, c)
     in ``dtype``, CUDA-event times of the kernel, its plain version and
     torch.matmul of the product alone in bf16, as the kernel multiplies (a
     yardstick the port never calls), in turns, beside the bound; one
@@ -2850,36 +2889,10 @@ def wide_path(fb, tvs, torch, np) -> dict:
             "fwd_width": wide_forward_width(fb, torch, np)}
 
 
-def wide_max_width(fb, torch, np) -> dict:
-    """Phase 27, last part: the mlp at pf_width MAX_C_BWD (both kernels'
-    wide paths) with random weights from the seed: the sampling CLI (Heun x
-    50, 500 forward launches, 8 finite clouds) and train steps at bench.py's
-    workload (5 forward and 5 backward launches a step, finite losses,
-    ms/step and peak memory by kernel_step_ms)."""
-    from pcfm_torch.sample import cli
-    from pcfm_torch.train import checkpoint
-    from pcfm_torch.train.state import ModelBundle
-    width = fb.MAX_C_BWD
-    src = os.path.join(RUN_DIR, f"wide{width}")
-    shutil.rmtree(src, ignore_errors=True)
-    checkpoint.save(src, 1, ModelBundle(bench_cfg(pf_width=width), DEVICE,
-                                        torch.Generator().manual_seed(SEED)))
-    fb.launches = fb.bwd_launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    x = cli.main(["--out_dir", src, "--save_dir", os.path.join(src, "ply"),
-                  "--num_samples", str(B), "--n_points", str(N),
-                  "--seed", str(SEED)])
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    sample_launches = fb.launches
-    print(f"[wide-{width}] sampling CLI, Heun x 50 at {B} x {N}: "
-          f"{sample_launches} film_block launches, clouds {x.shape}, finite "
-          f"{bool(np.isfinite(x).all())}, CLI wall {wall:.3f} s incl. load "
-          f"and PLY writes")
-    if sample_launches != FILM_BLOCKS * NFE or fb.bwd_launches \
-            or x.shape != (B, N, 6) or not np.isfinite(x).all():
-        raise RuntimeError(f"pf_width {width} sampling: launches or output")
+def wide_train_steps(fb, torch, width: int) -> dict:
+    """Train steps of the mlp at ``width`` with the kernel trunk at
+    bench.py's workload by kernel_step_ms (5 forward and 5 backward
+    launches a step, finite losses), with their peak device memory."""
     state = train_state(torch, "on", pf_width=width)
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     fb.launches = fb.bwd_launches = 0
@@ -2897,8 +2910,113 @@ def wide_max_width(fb, torch, np) -> dict:
         raise RuntimeError(f"pf_width {width} train step: launches or loss")
     del state
     torch.cuda.empty_cache()
-    return {"sample_launches": sample_launches, "train_ms_per_step": ms,
+    return {"train_ms_per_step": ms, "train_runs_ms": step["runs_ms"],
             "train_launches_per_step": FILM_BLOCKS, "train_peak_gib": peak}
+
+
+def wide_max_width(fb, torch, np) -> dict:
+    """Phase 27, last part: the mlp with the kernel trunk at pf_width 2048
+    (train steps, wide_train_steps) and at pf_width MAX_C_BWD, the
+    backward's widest (its clusters of 11 CTAs): the training CLI (8
+    steps, 5 forward and 5 backward launches a step, validation, a
+    checkpoint, a rerun with nothing to do), the sampling CLI on that
+    run's checkpoint (Heun x 50 at bench.py's 8 x 20 000: exactly 500
+    forward launches, no backward, 8 finite clouds), train steps as at
+    2048 and one train step on the card against the CPU
+    (wide_train_card_vs_cpu)."""
+    from pcfm_torch.sample import cli
+    out = {2048: wide_train_steps(fb, torch, 2048)}
+    width = fb.MAX_C_BWD
+    name, tag = f"train_wide{width}", f"[wide-{width}]"
+    fwd, bwd, steps = train_cli(fb, torch, name, ["--pf_width", str(width)],
+                                tag)
+    src = os.path.join(RUN_DIR, name)
+    save_dir = os.path.join(src, "ply")
+    fb.launches = fb.bwd_launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x = cli.main(["--out_dir", src, "--save_dir", save_dir, "--num_samples",
+                  str(B), "--n_points", str(N), "--sample_steps", "50",
+                  "--seed", str(SEED)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, bwd_s = fb.launches, fb.bwd_launches
+    plys = sorted(os.listdir(save_dir))
+    print(f"{tag} sampling CLI on the training CLI's checkpoint, Heun x 50 "
+          f"at {B} x {N}: {launches} film_block launches, {bwd_s} backward, "
+          f"{len(plys)} PLYs, clouds {x.shape}, finite "
+          f"{bool(np.isfinite(x).all())}, CLI wall {wall:.3f} s incl. load "
+          f"and PLY writes")
+    if launches != FILM_BLOCKS * NFE or bwd_s or len(plys) != B \
+            or x.shape != (B, N, 6) or not np.isfinite(x).all():
+        raise RuntimeError(f"pf_width {width} sampling: launches or output")
+    out[width] = dict(wide_train_steps(fb, torch, width),
+                      train_cli_fwd_launches=fwd, train_cli_bwd_launches=bwd,
+                      train_steps=steps, sample_launches=launches,
+                      sample_cli_wall_s=wall,
+                      card_vs_cpu=wide_train_card_vs_cpu(fb, torch, src))
+    return out
+
+
+def wide_train_card_vs_cpu(fb, torch, src: str) -> dict:
+    """Phase 27: one mlp train step at pf_width MAX_C_BWD with the kernel
+    trunk at WIDE_DISTILL_POINTS, from the training CLI's checkpoint
+    ``src`` and the same draws, on the CPU (plain versions) and on the
+    card (kernels), legs and bounds as phase 23's wide distill step: the
+    card's bf16 step within MLP_DISTILL_GRAD_REL_TOL_BF16 of the CPU's
+    bf16 step (its control, the card's bf16 step against the CPU's fp32
+    step, printed), the card's fp32 step (fp32 inputs to the kernels)
+    within WIDE_DISTILL_GRAD_REL_TOL_FP32 of the CPU's fp32 step (the same
+    control, which must exceed it); 5 forward and 5 backward launches a
+    card step, none on the CPU."""
+    from pcfm_torch.train import checkpoint
+    from pcfm_torch.train.state import clip_by_global_norm_
+    from pcfm_torch.train.step import compute_loss, make_draws
+    tag = f"[wide-{fb.MAX_C_BWD}]"
+    b, n = WIDE_DISTILL_POINTS
+    path, _ = checkpoint.find_latest(src)
+    g = torch.Generator().manual_seed(SEED + 10)
+    batch = {"pts": torch.randn(b, n, 3, generator=g) * 0.5,
+             "rgb": torch.rand(b, n, 3, generator=g),
+             "cond": torch.rand(b, 1, generator=g)}
+    fp32 = {"amp": False, "ctx_dtype": "fp32"}
+    legs = {"cpu_fp32": ("cpu", fp32), "cpu_bf16": ("cpu", {}),
+            "bf16": (DEVICE, {}), "fp32": (DEVICE, fp32)}
+    out, draws = {}, None
+    for leg, (dev, over) in legs.items():
+        t0 = time.perf_counter()
+        cfg, bundle, _ = checkpoint.load(path, dev, over)
+        if draws is None:
+            draws = make_draws(cfg, batch, g, 0.5)
+        before = (fb.launches, fb.bwd_launches)
+        loss, _ = compute_loss(bundle,
+                               {k: v.to(dev) for k, v in batch.items()},
+                               {k: v.to(dev) for k, v in draws.items()}, 1.0)
+        loss.backward()
+        launched = (fb.launches - before[0], fb.bwd_launches - before[1])
+        if launched != ((0, 0) if dev == "cpu" else (FILM_BLOCKS,) * 2):
+            raise RuntimeError(f"pf_width {fb.MAX_C_BWD} train step, {leg}: "
+                               f"launches {launched}")
+        params = [(f"{gname}/{name}", p) for gname in ("enc", "pf", "lf")
+                  for name, p in getattr(bundle, gname).named_parameters()
+                  if p.grad is not None]
+        gnorm = clip_by_global_norm_([p.grad for _, p in params], 0.0)
+        out[leg] = (float(loss.detach()), float(gnorm),
+                    {k: p.grad.float().cpu() for k, p in params})
+        del bundle, params, loss
+        print(f"{tag} step {leg} at ({b}, {n}): "
+              f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    checks = (("bf16", "cpu_bf16", MLP_DISTILL_GRAD_REL_TOL_BF16,
+               ("bf16", "cpu_fp32"), False),
+              ("fp32", "cpu_fp32", WIDE_DISTILL_GRAD_REL_TOL_FP32,
+               ("bf16", "cpu_fp32")))
+    res, ok = check_legs(tag, "train step", (b, n), out, checks)
+    if not ok:
+        raise RuntimeError(f"pf_width {fb.MAX_C_BWD} train step: card and "
+                           "CPU disagree, or a control is within its bound")
+    return {k: {"worst": e["worst_rel"], "median": e["median_rel"],
+                "loss_rel": e["loss_rel"]} for k, e in res.items()}
 
 
 def wide_forward_width(fb, torch, np) -> dict:
@@ -4032,9 +4150,34 @@ def main() -> int:
                 "library_ms": None, "shape": [B, N, c], "widths": rows,
                 "widths_checked": list(WIDE_CS), **extra}
 
+    mw = wp["max_width"]
+
+    def bwd_max_width():
+        """The backward's fields at its widest, pf_width MAX_C_BWD: time
+        and bound at (B, N, MAX_C_BWD), clusters, the training CLI's
+        launches, train ms/step, the step against the CPU."""
+        row, top = wk[fb.MAX_C_BWD], mw[fb.MAX_C_BWD]
+        return {"C": fb.MAX_C_BWD, "ms": row["bwd_ms"],
+                "plain_ms": row["bwd_plain_ms"],
+                "bound_ms": row["bwd_bound_ms"],
+                "bound_by": row["bwd_bound_by"],
+                "gemm_dp_ms": row["bwd_gemm_dp_ms"],
+                "gemm_dw_ms": row["bwd_gemm_dw_ms"],
+                "profiled_ms": row["bwd_profiled_ms"],
+                "workspace_bytes": row["bwd_workspace_bytes"],
+                "clusters": {str(c): v for c, v in wk["bwd_clusters"].items()},
+                "launches": top["train_cli_bwd_launches"],
+                "launches_from": f"training CLI, pf_width {fb.MAX_C_BWD}",
+                "train_steps": top["train_steps"],
+                "train_ms_per_step": top["train_ms_per_step"],
+                "train_peak_gib": top["train_peak_gib"],
+                "train_ms_per_step_2048": mw[2048]["train_ms_per_step"],
+                "train_grad_rel_err": top["card_vs_cpu"]}
+
     def fwd_above_entry():
-        """The kernels line's entry of the forward above the backward's
-        limit: its time at (B, N, MAX_C_BF16), launches from the sampling
+        """The kernels line's entry of the forward above 2048 (its
+        statistics kernel's wider instantiation): its time at (B, N,
+        MAX_C_BF16), launches from the sampling
         CLI at that pf_width, each timed width's row."""
         rows = {str(c): r for c, r in wk["fwd_wide"].items()}
         row, fw = rows[str(fb.MAX_C_BF16)], wp["fwd_width"]
@@ -4139,19 +4282,21 @@ def main() -> int:
         "train_knobs": dist["knobs"],
         "launches_parallel_step_per_rank": parallel_launches(
             par, "film_block_bwd")},
-        wide_entry("fwd", fb.MAX_C_BWD, wp["max_width"]["sample_launches"],
+        wide_entry("fwd", fb.MAX_C_BWD, mw[fb.MAX_C_BWD]["sample_launches"],
                    launches_from=f"sampling CLI, Heun x 50, pf_width "
-                                 f"{fb.MAX_C_BWD}",
-                   launches_train_per_step_max_width=wp["max_width"][
+                                 f"{fb.MAX_C_BWD}, on its training CLI's "
+                                 f"checkpoint",
+                   launches_train_cli_max_width=mw[fb.MAX_C_BWD][
+                       "train_cli_fwd_launches"],
+                   launches_train_per_step_max_width=mw[fb.MAX_C_BWD][
                        "train_launches_per_step"],
-                   train_ms_per_step_max_width=wp["max_width"][
-                       "train_ms_per_step"],
-                   train_peak_gib_max_width=wp["max_width"][
-                       "train_peak_gib"],
+                   train_ms_per_step_2048=mw[2048]["train_ms_per_step"],
+                   train_peak_gib_2048=mw[2048]["train_peak_gib"],
                    pointnet_card_vs_cpu_rel_errs=wide["pointnet"][
                        "rel_errs"]),
         wide_entry("bwd", WIDE_PF_WIDTH, wp["train_bwd_launches"],
                    launches_from=f"training CLI, pf_width {WIDE_PF_WIDTH}",
+                   max_width=bwd_max_width(),
                    train_steps=wp["train_steps"],
                    fp32_dy_err_over_grad_max=wk["fp32_dy_err_over_grad_max"],
                    max_err_over_grad_max=wk["bwd_max_err_over_grad_max"],

@@ -92,7 +92,8 @@
 //     an even count) and each tile's column sums of dy (db), over the
 //     tile's rows in order;
 //   * the cluster kernel: the ncta = ceil(C / 256) CTAs of a cluster (3 at
-//     640-768, 4 at 1024, up to 8, the portable cluster size, at 2048)
+//     640-768, 4 at 1024, 8 at 2048, up to 11 at 2688; above 8 a
+//     non-portable cluster size, which Hopper allows up to 16)
 //     take a pair of 64-row tiles; rank q owns the 128-column chunks
 //     [q nch / ncta, (q + 1) nch / ncta) of the nch = C / 128, at most 2.
 //     Warpgroup g computes dp = dy @ W for tile g of the pair over the
@@ -116,7 +117,8 @@
 //     fp32 h rows fit the same ring, so both dtypes split alike;
 //   * the dW pass and the reductions are the narrow path's.
 // What bounds it: the two products, 4 B N C^2 operations (0.679 ms at (8,
-// 20000, 1024), 2.714 at C = 2048, at 989 TFLOP/s dense bf16). Bytes an
+// 20000, 1024), 2.714 at C = 2048, 4.676 at 2688, at 989 TFLOP/s dense
+// bf16). Bytes an
 // element in device memory: dy read and packed (2 + 2), the packed dy read
 // by the cluster kernel (2; its re-reads by the cluster's CTAs and the
 // slices come from L2), h read (2), dh and p written (2 + 2), the dW
@@ -774,8 +776,9 @@ __host__ __device__ constexpr int cl_ring_bytes() {
 }
 
 // CTAs of a cluster at width c: ceil(c / 256), 3 at 640-768, 4 at 1024,
-// up to 8 (the portable cluster size) at 2048 = WIDE_MAX_C_BWD (bad_shape
-// refuses wider C before any cluster is sized)
+// 8 (the portable cluster size) at 2048, 9 / 10 / 11 at 2176 / 2432 /
+// 2688 = WIDE_MAX_C_BWD (bad_shape refuses wider C before any cluster is
+// sized; cluster_config allows the non-portable sizes)
 int cluster_ctas(int c) { return cdiv(c / N_TILE, CL_MAX_CHUNKS); }
 
 template <typename T>
@@ -1325,16 +1328,22 @@ __global__ void __launch_bounds__(THREADS, 1)
   cluster_wait();
 }
 
-// the cluster kernel's launch: its shared memory allowed, the grid and the
-// cluster shape; `cfg` points into `attr`
+// the cluster kernel's launch: its shared memory allowed, clusters of more
+// than 8 CTAs allowed (C > 2048; without the attribute both the occupancy
+// query and the launch refuse them), the grid and the cluster shape; `cfg`
+// points into `attr`
 template <typename T>
 cudaError_t cluster_config(int b, int n, int c, cudaStream_t stream,
                            cudaLaunchConfig_t& cfg,
                            cudaLaunchAttribute& attr) {
   const size_t smem = cluster_smem_bytes<T>();
-  const cudaError_t err = cudaFuncSetAttribute(
+  cudaError_t err = cudaFuncSetAttribute(
       film_block_bwd_cluster_kernel<T>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(film_block_bwd_cluster_kernel<T>,
+                             cudaFuncAttributeNonPortableClusterSizeAllowed,
+                             1);
   if (err != cudaSuccess) return err;
   const int ncta = cluster_ctas(c);
   cfg = cudaLaunchConfig_t{};

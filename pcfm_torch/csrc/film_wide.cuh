@@ -45,12 +45,13 @@ namespace {
 // The widest C of each direction: the forward's are the JAX kernel's own
 // (pcfm/ops/pallas/film_block.py:_fwd_kernel compiles for a v5e up to C =
 // 4608 in bf16 and 4352 in fp32, W's (C, C) fp32 window filling VMEM;
-// scripts/film_jax_limits.py prints them); the backward's cluster kernel
-// takes ceil(C / 256) <= 8 CTAs, the portable cluster size. Neither the
-// ring, Wide<NB> nor wide_a_offset depends on C.
+// scripts/film_jax_limits.py prints them); the backward's is the JAX
+// kernel's limit in both dtypes (_bwd_kernel compiles up to C = 2688), where
+// its cluster kernel takes ceil(C / 256) <= 11 CTAs, a non-portable cluster
+// above 2048. Neither the ring, Wide<NB> nor wide_a_offset depends on C.
 constexpr int WIDE_MAX_C_FWD_BF16 = 4608;
 constexpr int WIDE_MAX_C_FWD_F32 = 4352;
-constexpr int WIDE_MAX_C_BWD = 2048;
+constexpr int WIDE_MAX_C_BWD = 2688;
 constexpr int WIDE_ROWS = 64;                          // rows of a tile
 constexpr int WIDE_STAGES = 4;
 constexpr int WIDE_THREADS = 256;

@@ -27,9 +27,10 @@ fits the TPU's VMEM; scripts/film_jax_limits.py finds the limits): up to
 (``kernel_max_c``).  It packs silu(f) in ``rows_packed_index`` order and
 streams both operands of its product through shared memory
 (pcfm_torch/csrc/film_wide.cuh).  The backward takes C up to
-``MAX_C_BWD`` = 2048, where its cluster's ceil(C / 256) CTAs reach the
-portable cluster size of 8 (the JAX kernel compiles up to 2688); above
-that it raises, naming the limit, and never falls back.  It packs dy the
+``MAX_C_BWD`` = 2688, the JAX kernel's limit in both dtypes, where its
+cluster has ceil(C / 256) = 11 CTAs (above 2048 more than the portable
+cluster size of 8, which the kernel allows); above that it raises, naming
+the limit, and never falls back.  It packs dy the
 same way (and sums each tile's dy over its rows for db), then a
 thread-block cluster shares each pair of 64-row tiles: each CTA keeps
 dp = dy @ W for its slice of the columns in registers (``cluster_split``:
@@ -73,8 +74,9 @@ NARROW_C = 1024       # the forward's one-kernel path: the 64 x C bf16 A
                       # operand fits in shared memory
 N_TILE = 128          # output rows of W in one packed tile (wgmma n)
 K_TILE = 64           # k of one packed tile: one 128-byte swizzle row
-MAX_C_BWD = 2048      # the backward kernel's widest C (WIDE_MAX_C_BWD): a
-                      # cluster of at most 8 CTAs of <= 256 columns
+MAX_C_BWD = 2688      # the backward kernel's widest C (WIDE_MAX_C_BWD), the
+                      # JAX kernel's: a cluster of at most 11 CTAs of <= 256
+                      # columns (non-portable above 8)
 NARROW_C_BWD = 512    # the backward's register path: a 64-row tile's fp32
                       # dp in two warpgroups' registers
 ROWS_BWD = 64         # rows of one cloud in a backward tile

@@ -16,10 +16,10 @@ of the ``chip_smoke.py`` beside this script for every tree; give parent,
 change, change, parent to compare two commits within one call.  For each tree:
 
 * the backward at (8, 20 000, C) bf16 for C = 640, 1024, 2048: CUDA-event
-  ms a call (median of 5 timings of 10 calls, after a warm-up), its
-  workspace bytes (``pcfm_film_block_bwd_workspace``) and the device
-  memory one call takes beyond its inputs (peak over the allocated
-  before);
+  ms a call (median of 5 timings of 10 calls, after a warm-up), a SHA-1
+  of its seven gradients' bits, its workspace bytes
+  (``pcfm_film_block_bwd_workspace``) and the device memory one call
+  takes beyond its inputs (peak over the allocated before);
 * the mlp train step at ``pf_width`` 1024 and 2048 with the kernel trunk
   at bench.py's workload, timed as chip_smoke.py's phase 27 times it
   (``kernel_step_ms``: ms/step on the host clock, the median of runs of
@@ -147,7 +147,7 @@ def measure(tree: str, parts: tuple) -> dict:
     for c in WIDTHS if "bwd" in parts else ():
         args = cs.backward_inputs(fb, torch, g, BSZ, POINTS, c,
                                   torch.bfloat16)
-        fb.film_block_backward(*args)
+        out_digest = digest(fb.film_block_backward(*args))
         ms = statistics.median(
             cs.cuda_ms(lambda: fb.film_block_backward(*args), 10)
             for _ in range(5))
@@ -157,7 +157,8 @@ def measure(tree: str, parts: tuple) -> dict:
         fb.film_block_backward(*args)
         torch.cuda.synchronize()
         extra = torch.cuda.max_memory_allocated() - before
-        out["bwd"][c] = {"ms": ms, "workspace_bytes": 4 * fb._lib()
+        out["bwd"][c] = {"ms": ms, "digest": out_digest,
+                         "workspace_bytes": 4 * fb._lib()
                          .pcfm_film_block_bwd_workspace(BSZ, POINTS, c),
                          "call_bytes_beyond_inputs": extra}
         del args
@@ -201,7 +202,8 @@ def main() -> int:
         rows.append(json.loads(got.stdout.strip().splitlines()[-1]))
         print(json.dumps(rows[-1]))
     for r in rows:
-        bwd = ", ".join(f"C {c}: {v['ms']:.4f} ms, workspace "
+        bwd = ", ".join(f"C {c}: {v['ms']:.4f} ms, output "
+                        f"{v['digest'][:12]}, workspace "
                         f"{v['workspace_bytes'] / 1e9:.3f} GB"
                         for c, v in r["bwd"].items())
         step = ", ".join(f"pf_width {w}: {v['ms']:.3f} ms, peak "

@@ -1,6 +1,6 @@
 """The FiLM block at the widths of its wide paths (forward C > 1024 up to
 ``MAX_C_BF16`` = 4608 / ``MAX_C_F32`` = 4352, backward C > 512 up to
-``MAX_C_BWD`` = 2048), against the JAX package's kernel
+``MAX_C_BWD`` = 2688: the JAX kernel's limits), against the JAX package's kernel
 (pcfm/ops/pallas/film_block.py, interpret mode) on the CPU, and the CUDA
 kernels against their plain versions on the card.
 
@@ -61,12 +61,13 @@ def jax_fb():
     return jax, jnp, film_block
 
 
-@pytest.mark.parametrize("c", [640, 1024])
-@pytest.mark.parametrize("n", [77, 300])
+@pytest.mark.parametrize("n,c", [(77, 640), (77, 1024), (300, 640),
+                                 (300, 1024), (77, 2688)])
 def test_plain_forward_and_backward_match_jax_kernel(jax_fb, c, n):
     # y and the seven gradients of the port's Function (its plain versions
     # on the CPU) against the JAX kernel and jax.grad through its
-    # custom_vjp, both in interpret mode: within 1e-4 of each one's max
+    # custom_vjp, both in interpret mode: within 1e-4 of each one's max;
+    # C = 2688 is the backward kernel's widest, in both dtypes
     jax, jnp, jfb = jax_fb
     a = _inputs(c + n, n=n, c=c)
     dy = np.random.RandomState(n).randn(2, n, c).astype(np.float32)
@@ -87,16 +88,16 @@ def test_plain_forward_and_backward_match_jax_kernel(jax_fb, c, n):
         _grad_close(g.numpy(), w, 1e-4, name)
 
 
-def test_velocity_net_fused_at_width_640_matches_jax(jax_fb):
-    # the port's VelocityNet with the fused trunk at pf_width 640 (a width
-    # only the backward's wide path takes on the card) against JAX's, with
-    # JAX's weights carried over by interop: the velocity and the
-    # gradients of its sum with respect to every parameter
+def _velocity_net_matches_jax(jax_fb, width, depth, n):
+    """The port's VelocityNet with the fused trunk at ``width`` against
+    JAX's, with JAX's weights carried over by interop, on (2, n) points:
+    the velocity and the gradients of its sum with respect to every
+    parameter, within 1e-4 of each one's max."""
     jax, jnp, _ = jax_fb
     from pcfm import models as jm
     from pcfm_torch import interop
     from pcfm_torch.models import VelocityNet
-    kw = dict(cond_dim=3, width=640, depth=3, emb_dim=32, point_dim=6,
+    kw = dict(cond_dim=3, width=width, depth=depth, emb_dim=32, point_dim=6,
               fused_trunk="on", film_every=1)
     jnet = jm.VelocityNet(**kw)
     rng = np.random.RandomState(3)
@@ -107,7 +108,7 @@ def test_velocity_net_fused_at_width_640_matches_jax(jax_fb):
         + 0.05 * rng.randn(*np.shape(p)).astype(np.float32), params)
     net = VelocityNet(**kw, generator=torch.Generator().manual_seed(0))
     net.load_state_dict(interop.velocity_net_to_sd(params))
-    x = rng.randn(2, 64, 6).astype(np.float32)
+    x = rng.randn(2, n, 6).astype(np.float32)
     t = rng.rand(2).astype(np.float32)
     c = rng.randn(2, 3).astype(np.float32)
 
@@ -124,6 +125,17 @@ def test_velocity_net_fused_at_width_640_matches_jax(jax_fb):
     assert set(grads) == set(want_g)
     for name, g in grads.items():
         _grad_close(g.numpy(), want_g[name].numpy(), 1e-4, name)
+
+
+def test_velocity_net_fused_at_width_640_matches_jax(jax_fb):
+    # pf_width 640: a width only the backward's wide path takes on the card
+    _velocity_net_matches_jax(jax_fb, 640, 3, 64)
+
+
+def test_velocity_net_fused_at_width_2688_matches_jax(jax_fb):
+    # pf_width 2688, the backward's widest (an 11-CTA cluster on the
+    # card): one FiLM block on a few points
+    _velocity_net_matches_jax(jax_fb, 2688, 2, 16)
 
 
 @pytest.mark.parametrize("c", [1024, 2048])
@@ -157,16 +169,18 @@ def test_rows_packed_index_matches_swizzle_formula_at_2048(b, n, k, want):
 
 # the wide backward's cluster split: CTAs of a cluster at each width,
 # ceil(C / 256)
-_CLUSTER_CTAS = {640: 3, 768: 3, 1024: 4, 1152: 5, 1536: 6, 2048: 8}
+_CLUSTER_CTAS = {640: 3, 768: 3, 1024: 4, 1152: 5, 1536: 6, 2048: 8,
+                 2176: 9, 2432: 10, 2688: 11}
 
 
 @pytest.mark.parametrize("c", sorted(_CLUSTER_CTAS))
 def test_cluster_split_covers_the_columns_in_rank_order(c):
     # the ranks' column ranges follow each other from 0 to C in 128-column
     # chunks, at most CLUSTER_MAX_CHUNKS a CTA, balanced to one chunk, in
-    # clusters of at most 8 (the portable size)
+    # clusters of at most 8 (the portable size) up to C = 2048 and at most
+    # 11 above (Hopper allows non-portable clusters of up to 16)
     split = fb.cluster_split(c)
-    assert len(split) == _CLUSTER_CTAS[c] <= 8
+    assert len(split) == _CLUSTER_CTAS[c] <= (8 if c <= 2048 else 11)
     assert split[0][0] == 0 and split[-1][1] == c
     assert all(a[1] == b[0] for a, b in zip(split, split[1:]))
     widths = [k1 - k0 for k0, k1 in split]
@@ -180,7 +194,10 @@ def test_cluster_split_at_640_and_its_limits():
     assert fb.cluster_split(640) == [(0, 128), (128, 384), (384, 640)]
     assert fb.cluster_split(2048) == [(k, k + 256) for k in range(0, 2048,
                                                                   256)]
-    for c in (512, 2176, 700):      # the register path, above MAX_C, odd
+    # 21 chunks over 11 CTAs: rank 0 takes one, every other rank two
+    assert fb.cluster_split(2688) == [(0, 128)] + [
+        (k, k + 256) for k in range(128, 2688, 256)]
+    for c in (512, 2816, 700):      # the register path, above MAX_C, odd
         with pytest.raises(ValueError, match="cluster_split"):
             fb.cluster_split(c)
 
@@ -204,7 +221,7 @@ def _cluster_dh(dy, h, s, t, gamma, beta, w, mean, rstd):
 
 
 @pytest.mark.parametrize("n", [70, 129])
-@pytest.mark.parametrize("c", [640, 1024, 1152, 2048])
+@pytest.mark.parametrize("c", [640, 1024, 1152, 2048, 2176, 2432, 2688])
 def test_cluster_dh_matches_reference_and_jax(jax_fb, c, n):
     # dh from the cluster kernel's partial row sums (each rank's columns,
     # added in rank order) against the plain backward's dh and against
@@ -246,27 +263,27 @@ def _limit_args(c, dtype, backward=False):
 def test_kernel_limit_is_named():
     # the wrappers refuse a width above each direction's limit before any
     # launch: the forward's MAX_C_BF16 = 4608 for bf16 h and MAX_C_F32 =
-    # 4352 for fp32 (the JAX kernel's), the backward's MAX_C_BWD = 2048 in
-    # both dtypes; each message names its limit and the dtype
-    assert (fb.MAX_C_BF16, fb.MAX_C_F32, fb.MAX_C_BWD) == (4608, 4352, 2048)
+    # 4352 for fp32 and the backward's MAX_C_BWD = 2688 in both dtypes (the
+    # JAX kernel's); each message names its limit and the dtype
+    assert (fb.MAX_C_BF16, fb.MAX_C_F32, fb.MAX_C_BWD) == (4608, 4352, 2688)
     assert fb.NARROW_C == 1024 and fb.NARROW_C_BWD == 512
     for dtype, name, limit in ((torch.bfloat16, "bfloat16", 4608),
                                (torch.float32, "float32", 4352)):
         assert fb.kernel_max_c(dtype) == (limit, "MAX_C_" + (
             "BF16" if dtype == torch.bfloat16 else "F32"))
-        assert fb.kernel_max_c(dtype, backward=True) == (2048, "MAX_C_BWD")
+        assert fb.kernel_max_c(dtype, backward=True) == (2688, "MAX_C_BWD")
         args = _limit_args(limit + 128, dtype)
         with pytest.raises(ValueError, match=rf"C <= {limit} \(MAX_C_"
                                              rf"(BF16|F32)\) for {name} h"):
             fb._check_operands(args["h"], args)
-        args = _limit_args(2176, dtype, backward=True)
-        with pytest.raises(ValueError, match=rf"C <= 2048 \(MAX_C_BWD\) "
+        args = _limit_args(2816, dtype, backward=True)
+        with pytest.raises(ValueError, match=rf"C <= 2688 \(MAX_C_BWD\) "
                                              rf"for {name} h"):
             fb._check_operands(args["h"], args, backward=True)
         # at each limit the checks pass
         args = _limit_args(limit, dtype)
         fb._check_operands(args["h"], args)
-        args = _limit_args(2048, dtype, backward=True)
+        args = _limit_args(2688, dtype, backward=True)
         fb._check_operands(args["h"], args, backward=True)
 
 
@@ -336,13 +353,14 @@ def test_kernel_forward_matches_plain_version(cuda, dtype, tol, b, n, c):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("c", [640, 1024, 1152, 2048])
+@pytest.mark.parametrize("c", [640, 1024, 1152, 2048, 2176, 2432, 2688])
 @pytest.mark.parametrize("b,n", [(1, 1), (2, 65), (3, 129), (2, 300)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_backward_matches_plain_version(cuda, dtype, b, n, c):
-    # C > 512 takes the wide path (dy pack, cluster kernel, dW pass);
-    # all seven gradients within 2e-2 of each one's max, two calls bitwise
-    # equal
+    # C > 512 takes the wide path (dy pack, cluster kernel, dW pass), with
+    # a non-portable cluster of 9 / 10 / 11 CTAs above 2048 and the dW
+    # pass's 128-column tiles where C % 256 != 0; all seven gradients
+    # within 2e-2 of each one's max, two calls bitwise equal
     args = _bwd_case(cuda, dtype, b, n, c, 20)
     before = fb.bwd_launches
     got = fb.film_block_backward(*args)
@@ -357,10 +375,12 @@ def test_kernel_backward_matches_plain_version(cuda, dtype, b, n, c):
 
 
 @pytest.mark.gpu
-def test_kernel_backward_twice_is_bitwise_equal_at_1024(cuda):
+@pytest.mark.parametrize("c", [1024, 2688])
+def test_kernel_backward_twice_is_bitwise_equal(cuda, c):
     # the cluster kernel adds the ranks' row sums in rank order and the
-    # tile sums in a fixed order: two launches give the same bits
-    args = _bwd_case(cuda, torch.bfloat16, 8, 2000, 1024, 23)
+    # tile sums in a fixed order: two launches give the same bits, with 4
+    # CTAs a cluster and with 11
+    args = _bwd_case(cuda, torch.bfloat16, 8, 2000, c, 23)
     got = fb.film_block_backward(*args)
     again = fb.film_block_backward(*args)
     torch.cuda.synchronize()
@@ -388,7 +408,7 @@ def test_kernel_backward_clusters_fit_and_workspace_holds_no_dp(cuda,
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("c", [640, 2048])
+@pytest.mark.parametrize("c", [640, 2048, 2688])
 def test_kernel_backward_fp32_takes_dy_in_fp32(cuda, c):
     # W = 0, so df = dy: every gradient but dW (a bf16 product) follows
     # from dy alone, within 1e-4 of its max
@@ -406,7 +426,7 @@ def test_kernel_backward_fp32_takes_dy_in_fp32(cuda, c):
 @pytest.mark.gpu
 def test_kernel_refuses_above_max_c(cuda):
     # the forward stops at 4736 (bf16) and 4480 (fp32), the backward at
-    # 2176, each by its named limit and before any launch
+    # 2816, each by its named limit and before any launch
     for dtype, c, name in ((torch.bfloat16, 4736, r"4608 \(MAX_C_BF16\)"),
                            (torch.float32, 4480, r"4352 \(MAX_C_F32\)")):
         args = [x.to(cuda) for x in _limit_args(c, dtype).values()]
@@ -414,10 +434,10 @@ def test_kernel_refuses_above_max_c(cuda):
         with pytest.raises(ValueError, match="C <= " + name):
             fb.film_block_forward(*args)
         assert fb.launches == before
-    a = {k: x.to(cuda) for k, x in _limit_args(2176, torch.bfloat16,
+    a = {k: x.to(cuda) for k, x in _limit_args(2816, torch.bfloat16,
                                                  backward=True).items()}
     before = fb.bwd_launches
-    with pytest.raises(ValueError, match=r"C <= 2048 \(MAX_C_BWD\)"):
+    with pytest.raises(ValueError, match=r"C <= 2688 \(MAX_C_BWD\)"):
         fb.film_block_backward(*(a[k] for k in (
             "dy", "h", "s", "t", "gamma", "beta", "w", "mean", "rstd")))
     assert fb.bwd_launches == before
@@ -450,14 +470,14 @@ def test_kernel_forward_matches_plain_version_above_2048(cuda, c, dtype, b,
 
 
 @pytest.mark.gpu
-def test_function_above_2048_runs_forward_and_refuses_backward(cuda):
-    # the autograd Function at C = 2560: the forward kernel runs, the
+def test_function_above_max_c_bwd_runs_forward_and_refuses_backward(cuda):
+    # the autograd Function at C = 2816: the forward kernel runs, the
     # backward stops by its named limit (no plain-version fallback)
     args = [x.requires_grad_(True) for x in _port_args(
-        _inputs(8, b=1, n=70, c=2560), cuda, torch.bfloat16)]
+        _inputs(8, b=1, n=70, c=2816), cuda, torch.bfloat16)]
     before = fb.launches, fb.bwd_launches
     y = fb.film_block(*args)
     assert fb.launches == before[0] + 1
-    with pytest.raises(ValueError, match=r"C <= 2048 \(MAX_C_BWD\)"):
+    with pytest.raises(ValueError, match=r"C <= 2688 \(MAX_C_BWD\)"):
         y.float().sum().backward()
     assert fb.bwd_launches == before[1]
