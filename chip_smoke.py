@@ -405,10 +405,10 @@ WIDE_EDGE_CS = (640, 1536, 2048, 2176, 2432, 2688)
 WIDE_F32_CS = (640, 2048, 2176, 2432, 2688)
 WIDE_TIMED_CS = (640, 1024, 2048, 2688)
 WIDE_PF_WIDTH = 1024
-# the forward alone above 2048 (phase 26; its statistics kernel's wider
-# instantiation), up to each dtype's limit (MAX_C_BF16, MAX_C_F32): the
-# widths held against the plain version at (8, 20 000, C) (NB = 1 at 2176
-# and 3200), the widths and dtypes timed;
+# the forward alone above 2048 (phase 26), up to each dtype's limit
+# (MAX_C_BF16, MAX_C_F32): the widths held against the plain version at
+# (8, 20 000, C) (a last chunk of 128 columns at 2176 and 3200), the
+# widths and dtypes timed;
 # phase 27 samples the mlp at MAX_C_BF16
 WIDE_FWD_CS = (2176, 2560, 3200, 4096, 4608)
 WIDE_FWD_F32_CS = (2176, 4352)
@@ -1065,6 +1065,61 @@ def film_bounds(bsz: int, n: int, c: int, es: int = 2) -> dict:
                  + 4 * bsz * c * es + 3 * c * 4)
     return {"fwd": bound_ms(fwd_bytes, 2 * rows * c * c, BF16_FLOPS),
             "bwd": bound_ms(bwd_bytes, 4 * rows * c * c, BF16_FLOPS)}
+
+
+def stats_bound_ms(bsz: int, n: int, c: int, es: int = 2) -> float:
+    """Least time of the wide forward's statistics kernel at (bsz, n, c),
+    h of ``es`` bytes: h read once, silu(f) written once as the packed bf16
+    A (the pairs' padding rows included), mean and rstd written, s, t,
+    gamma and beta read, at the HBM rate (it does no product)."""
+    tiles = -(-bsz * -(-n // 64) // 2) * 2
+    nbytes = (bsz * n * c * es + tiles * 64 * c * 2 + 2 * bsz * n * 4
+              + 2 * c * 4 + 2 * bsz * c * es)
+    return nbytes / HBM_BPS * 1e3
+
+
+def wide_forward_build(fb, torch, build_log: str) -> dict:
+    """Phase 26: the wide forward's kernels as ptxas built them (phase 1's
+    log: registers at launch, stack, spill bytes, one line an
+    instantiation) and how they launch at (B, N, C) for each timed width
+    and dtype (fwd_wide_config): the product's producer and consumer
+    registers after setmaxnreg, its stages, shared memory and CTAs, the
+    statistics kernel's threads, shared memory and blocks. Fails on a
+    spill."""
+    name, kernels = "", {}
+    for line in build_log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1] if "'" in line else line.strip()
+        elif "film_block_fwd_wide" in name and ("registers" in line
+                                                or "spill" in line):
+            short = re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}\d+", "",
+                           name)
+            kernels.setdefault(short[:70], []).append(
+                line.split(":", 1)[-1].strip())
+    spilled = [k for k, v in kernels.items()
+               if any(int(x) for line in v
+                      for x in re.findall(r"(\d+) bytes spill", line))]
+    for k, v in kernels.items():
+        print(f"[wide] ptxas {k}: {'; '.join(v)}")
+    configs = {}
+    for c, dtype in ((2048, "bfloat16"),) + WIDE_FWD_TIMED:
+        cfg = fb.fwd_wide_config(B, N, c, getattr(torch, dtype),
+                                 torch.cuda.current_device())
+        configs[f"{c} {dtype}"] = cfg
+        print(f"[wide] film_block forward ({B}, {N}, {c}) {dtype} launch: "
+              f"product {cfg['product_ctas']} CTAs of "
+              f"{cfg['product_threads']} threads (producer warpgroup "
+              f"{cfg['producer_regs']} registers a thread after setmaxnreg, "
+              f"two consumer warpgroups {cfg['consumer_regs']}), "
+              f"{cfg['stages']} stages, "
+              f"{cfg['product_smem_bytes']} bytes of shared memory a CTA; "
+              f"statistics {cfg['stats_blocks']} blocks of "
+              f"{cfg['stats_threads']} threads, {cfg['stats_smem_bytes']} "
+              f"bytes of shared memory a block")
+    if not kernels or spilled:
+        raise RuntimeError(f"wide forward: ptxas report {sorted(kernels)}, "
+                           f"spills in {spilled}")
+    return {"ptxas": kernels, "launch": configs}
 
 
 def voxel_bounds(torch, ids, w, dense, out_rows: int, what: str) -> tuple:
@@ -2649,7 +2704,7 @@ def format_parts(parts: dict) -> str:
     return " / ".join(f"{v:.4f}" for v in parts.values()) + " ms a call"
 
 
-def wide_kernels_vs_plain(fb, torch) -> dict:
+def wide_kernels_vs_plain(fb, torch, build_log: str) -> dict:
     """Phase 26: the FiLM-block kernels at the widths of their wide paths
     (forward C > NARROW_C, backward C > NARROW_C_BWD) against their plain
     versions: at (8, 20 000, C) bf16 for every C of WIDE_CS and the edges
@@ -2661,7 +2716,8 @@ def wide_kernels_vs_plain(fb, torch) -> dict:
     C of WIDE_TIMED_CS CUDA-event times of both kernels, their plain
     versions and torch.matmul of each product alone (yardsticks the port
     never calls), beside the bounds, one profile of each kernel's parts,
-    the backward's workspace bytes and its clusters at once."""
+    the backward's workspace bytes and its clusters at once; the wide
+    forward's ptxas report (``build_log``) and launch."""
     g = torch.Generator(device=DEVICE).manual_seed(SEED + 11)
     fwd_err, bwd_abs, bwd_rel = 0.0, 0.0, 0.0
     cases = [(B, N, c, torch.bfloat16) for c in WIDE_CS]
@@ -2744,6 +2800,10 @@ def wide_kernels_vs_plain(fb, torch) -> dict:
                                            "reduce")}
         work = fb._lib().pcfm_film_block_bwd_workspace(B, N, c) * 4
         clusters = fb.bwd_max_clusters(c, True, torch.cuda.current_device())
+        sbound = stats_bound_ms(B, N, c)
+        stats_share = (f"; the statistics kernel's bound {sbound:.4f} ms "
+                       f"(bytes), {sbound / fparts['stats']:.0%} of its time"
+                       if c > fb.NARROW_C and fparts["stats"] else "")
         print(f"[wide] film_block forward ({B}, {N}, {c}) bf16 ({fpath} "
               f"path): kernel {tf['kernel']:.4f} ms, bound "
               f"{bounds['fwd'][0]:.4f} ms ({bounds['fwd'][1]}), plain fp32 "
@@ -2751,7 +2811,7 @@ def wide_kernels_vs_plain(fb, torch) -> dict:
               f"{c}) bf16 alone {tf['gemm']:.4f} ms (medians of 4 timings "
               f"in turns); profiled, 3 calls (W pack, statistics and "
               f"silu(f) pack, product and epilogue): "
-              f"{format_parts(fparts)}")
+              f"{format_parts(fparts)}{stats_share}")
         print(f"[wide] film_block backward ({B}, {N}, {c}) bf16 ({bpath} "
               f"path): kernel {tb['kernel']:.4f} ms, bound "
               f"{bounds['bwd'][0]:.4f} ms ({bounds['bwd'][1]}), plain fp32 "
@@ -2765,6 +2825,7 @@ def wide_kernels_vs_plain(fb, torch) -> dict:
                   "fwd_gemm_ms": tf["gemm"], "fwd_bound_ms": bounds["fwd"][0],
                   "fwd_bound_by": bounds["fwd"][1],
                   "fwd_profiled_ms": fparts,
+                  "fwd_stats_bound_ms": sbound if c > fb.NARROW_C else None,
                   "bwd_ms": tb["kernel"], "bwd_plain_ms": tb["plain"],
                   "bwd_gemm_dp_ms": tb["gemm_dp"],
                   "bwd_gemm_dw_ms": tb["gemm_dw"],
@@ -2777,6 +2838,7 @@ def wide_kernels_vs_plain(fb, torch) -> dict:
     out["fwd_wide"] = {c: wide_forward_times(fb, torch, g, c,
                                              getattr(torch, dtype))
                        for c, dtype in WIDE_FWD_TIMED}
+    out["fwd_wide_build"] = wide_forward_build(fb, torch, build_log)
     # above each kernel's width: the wrappers stop with its named limit
     for what, dtype, name in (("forward", torch.bfloat16, "MAX_C_BF16"),
                               ("forward", torch.float32, "MAX_C_F32"),
@@ -2824,23 +2886,30 @@ def wide_forward_times(fb, torch, g, c: int, dtype) -> dict:
     parts = {k: prof[k][0] for k in ("pack", "stats", "product")}
     es = torch.finfo(dtype).bits // 8
     bound, by = film_bounds(B, N, c, es)["fwd"]
+    sbound = stats_bound_ms(B, N, c, es)
     tiles = B * -(-N // 64)
     pairs = -(-tiles // 2)
     w_l2 = pairs * c * c * 2
     print(f"[wide] film_block forward ({B}, {N}, {c}) {str(dtype)[6:]} "
           f"(wide path, forward only): kernel {t['kernel']:.4f} ms, bound "
-          f"{bound:.4f} ms ({by}), plain fp32 {t['plain']:.4f} ms, torch.matmul "
+          f"{bound:.4f} ms ({by}, {bound / t['kernel']:.0%} of the call), "
+          f"plain fp32 {t['plain']:.4f} ms, torch.matmul "
           f"({B * N}, {c}) x ({c}, {c}) bf16 alone {t['gemm']:.4f} ms "
           f"(medians of 4 timings in turns); profiled, 3 calls (W pack, "
           f"statistics and silu(f) pack, product and epilogue): "
-          f"{format_parts(parts)}; packed W {c * c * 2 / 1e6:.1f} MB, read "
-          f"{pairs} times a call ({w_l2 / 1e9:.1f} GB from L2 or device "
-          f"memory, reckoned from the grid, not measured)")
+          f"{format_parts(parts)}; the statistics kernel's bound "
+          f"{sbound:.4f} ms (bytes: h read, the packed silu(f) written), "
+          f"{sbound / parts['stats']:.0%} of its time; packed W "
+          f"{c * c * 2 / 1e6:.1f} MB, read {pairs} times a call "
+          f"({w_l2 / 1e9:.1f} GB from L2 or device memory, reckoned from "
+          f"the grid, not measured)")
     del args, a2d, wt
     torch.cuda.empty_cache()
     return {"dtype": str(dtype)[6:], "ms": t["kernel"],
             "plain_ms": t["plain"], "gemm_ms": t["gemm"], "bound_ms": bound,
             "bound_by": by, "profiled_ms": parts,
+            "stats_bound_ms": sbound,
+            "stats_bound_share": sbound / parts["stats"],
             "w_reads_bytes_reckoned": w_l2}
 
 
@@ -3133,11 +3202,13 @@ def pointnet_on_card(torch) -> dict:
     return {"rel_errs": errs, "card_ms_first_call": ms}
 
 
-def wide_phases(fb, tvs, torch, np, distill_check: bool) -> dict:
+def wide_phases(fb, tvs, torch, np, distill_check: bool,
+                build_log: str) -> dict:
     """Phases 26-28 (``distill_check``: phase 23's distill step at the wide
-    width against the CPU as well)."""
+    width against the CPU as well; ``build_log``: phase 1's nvcc output,
+    whose ptxas report phase 26 prints for the wide forward)."""
     t0 = time.perf_counter()
-    kernels = wide_kernels_vs_plain(fb, torch)
+    kernels = wide_kernels_vs_plain(fb, torch, build_log)
     print(f"[wide] phase 26: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     path = wide_path(fb, tvs, torch, np)
@@ -4018,7 +4089,8 @@ def main() -> int:
     if args.only == "wide":
         # phase 1 and phases 26-28, for work on the FiLM kernels' wide
         # paths and the PointNet++ modules
-        wide_phases(fb, tvs, torch, np, distill_check=True)
+        wide_phases(fb, tvs, torch, np, distill_check=True,
+                    build_log=info["log"])
         return 0
     if args.only == "interop":
         # phase 1 and phases 29-30, for work on checkpoint import and the
@@ -4059,7 +4131,8 @@ def main() -> int:
                           hyb_ms["ms_per_shape"])
     dm, dh = dist["mlp"]["step"], dist["hybrid"]["step"]
     par = parallel_phases(fb, tvs, torch)
-    wide = wide_phases(fb, tvs, torch, np, distill_check=False)
+    wide = wide_phases(fb, tvs, torch, np, distill_check=False,
+                       build_log=info["log"])
     inter = interop_import(fb, tvs, tc, torch, np)
     fl = flop_counts(fb, tvs, torch)
     print(json.dumps({"interop": inter, "flops": fl}))
@@ -4196,7 +4269,8 @@ def main() -> int:
                 "widths_checked": {"bf16": list(WIDE_FWD_CS),
                                    "fp32": list(WIDE_FWD_F32_CS)},
                 "sample_heun50_ms_per_shape": fw["ms_per_shape"],
-                "sample_peak_gib": fw["peak_gib"]}
+                "sample_peak_gib": fw["peak_gib"],
+                "launch": wk["fwd_wide_build"]["launch"]}
 
     # the card again, beside the numbers (the first line may scroll away)
     print(sh("nvidia-smi", "--query-gpu=name,power.limit",

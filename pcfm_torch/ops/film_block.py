@@ -24,9 +24,12 @@ registers up to ``NARROW_C_BWD``.  Above those the forward takes every
 C % 128 == 0 that the JAX kernel compiles for (its (C, C) fp32 W window
 fits the TPU's VMEM; scripts/film_jax_limits.py finds the limits): up to
 ``MAX_C_BF16`` = 4608 for bf16 h and ``MAX_C_F32`` = 4352 for fp32
-(``kernel_max_c``).  It packs silu(f) in ``rows_packed_index`` order and
-streams both operands of its product through shared memory
-(pcfm_torch/csrc/film_wide.cuh).  The backward takes C up to
+(``kernel_max_c``).  Its statistics kernel packs silu(f) in
+``rows_packed_index`` order (pcfm_torch/csrc/film_wide.cuh); its product
+is persistent and warp-specialised: one CTA an SM walks the output tiles
+in the order ``fwd_raster`` gives, a producer warpgroup streams both
+operands through shared memory while two consumer warpgroups multiply and
+run the epilogue.  The backward takes C up to
 ``MAX_C_BWD`` = 2688, the JAX kernel's limit in both dtypes, where its
 cluster has ceil(C / 256) = 11 CTAs (above 2048 more than the portable
 cluster size of 8, which the kernel allows); above that it raises, naming
@@ -83,6 +86,8 @@ ROWS_BWD = 64         # rows of one cloud in a backward tile
 CLUSTER_MAX_CHUNKS = 2  # the backward's wide path: 128-column chunks a
                         # cluster CTA owns at most (128 fp32 accumulators
                         # a thread)
+FWD_BAND_PAIRS = 16   # the wide forward's product: pairs of 64-row tiles in
+                      # a band of its raster (csrc/film_block.cu BAND_PAIRS)
 
 launches = 0
 bwd_launches = 0
@@ -159,6 +164,30 @@ def cluster_split(c: int) -> list:
     ncta = -(-nch // CLUSTER_MAX_CHUNKS)
     return [(q * nch // ncta * N_TILE, (q + 1) * nch // ncta * N_TILE)
             for q in range(ncta)]
+
+
+def fwd_raster(pairs: int, chunks: int, ctas: int) -> list:
+    """The wide forward's persistent product, as its kernel walks it: for
+    each of ``ctas`` CTAs (one an SM), the (pair, chunk) output tiles it
+    takes, in order.  A tile is a pair of 64-row tiles x one chunk of
+    256 columns (the last of 128 where C % 256 != 0); the tiles run in bands of FWD_BAND_PAIRS pairs, the pair
+    fastest within a band, then the chunk (back from the last in odd
+    bands), so that the CTAs at work at once share a band of W's chunks,
+    also across two bands; CTA i takes tiles i, i + ctas, ..."""
+    band = FWD_BAND_PAIRS
+    out = []
+    for i in range(ctas):
+        tiles = []
+        for u in range(i, pairs * chunks, ctas):
+            start = u // (band * chunks) * band
+            rows = min(band, pairs - start)
+            within = u - start * chunks
+            pair, chunk = start + within % rows, within // rows
+            if start // band % 2:          # odd bands walk the chunks back
+                chunk = chunks - 1 - chunk
+            tiles.append((pair, chunk))
+        out.append(tiles)
+    return out
 
 
 def packed_index(c: int, n_tile: int = N_TILE) -> torch.Tensor:
@@ -290,7 +319,29 @@ def _lib():
     lib.pcfm_film_block_bwd_workspace.restype = ctypes.c_longlong
     lib.pcfm_film_block_bwd_max_clusters.argtypes = [ctypes.c_int] * 2
     lib.pcfm_film_block_bwd_max_clusters.restype = ctypes.c_int
+    lib.pcfm_film_block_fwd_wide_config.argtypes = [ctypes.c_int] * 4 + [ptr]
+    lib.pcfm_film_block_fwd_wide_config.restype = ctypes.c_int
     return lib
+
+
+FWD_WIDE_CONFIG = ("product_threads", "producer_regs", "consumer_regs",
+                   "stages", "product_smem_bytes", "product_ctas",
+                   "stats_threads", "stats_smem_bytes", "stats_blocks")
+
+
+def fwd_wide_config(bsz: int, n: int, c: int, dtype: torch.dtype,
+                    device_index: int) -> dict:
+    """How the wide forward launches at (bsz, n, c) for h of ``dtype`` on
+    a card (``pcfm_film_block_fwd_wide_config``), for reports: the
+    product's threads, its producer's and consumers' registers a thread
+    after setmaxnreg, its ring stages, shared memory and CTAs, and
+    the statistics kernel's threads, shared memory and blocks."""
+    out = (ctypes.c_longlong * len(FWD_WIDE_CONFIG))()
+    with torch.cuda.device(device_index):
+        err = _lib().pcfm_film_block_fwd_wide_config(
+            bsz, n, c, int(dtype == torch.bfloat16), out)
+    check_launch(err, "film_block wide forward config")
+    return dict(zip(FWD_WIDE_CONFIG, list(out)))
 
 
 @functools.lru_cache(maxsize=None)

@@ -5,7 +5,7 @@ turns.
 
     python3 scripts/film_bwd_compare.py --tree tree_check/parent --tree . \\
         --tree . --tree tree_check/parent
-    python3 scripts/film_bwd_compare.py --parts fwd,voxel \\
+    python3 scripts/film_bwd_compare.py --parts fwd,bwd,step \\
         --tree tree_check/parent --tree . --tree . --tree tree_check/parent
 
 Each ``--tree`` (a checkout of this repository, e.g. the parent commit
@@ -24,11 +24,14 @@ change, change, parent to compare two commits within one call.  For each tree:
   at bench.py's workload, timed as chip_smoke.py's phase 27 times it
   (``kernel_step_ms``: ms/step on the host clock, the median of runs of
   synchronised steps after warm-up steps) with the peak device memory of
-  the timed steps (``step``);
-* ``fwd``: the forward at (8, 20 000, C) bf16 for C = 512 (the one-kernel
-  path) and 2048 (the wide path): ms a call as the backward's, and a
-  SHA-1 of its output bits (y, mean, rstd), so that equal digests show
-  the same output from both trees;
+  the timed steps and each run's last loss (equal losses: the same bits
+  through the step) (``step``);
+* ``fwd``: the forward at (8, 20 000, C) for C = 512 and 1024 (the
+  one-kernel path) and 2048, 2560, 4608 in bf16 and 4352 in fp32 (the
+  wide path): ms a call as the backward's, a SHA-1 of its output bits (y,
+  mean, rstd), so that equal digests show the same output from both
+  trees, and on the wide path one profile of its kernels (the W pack,
+  the statistics kernel, the product with its epilogue);
 * ``voxel``: the gather and the scatter at the hybrid's stage shapes
   (chip_smoke.py VOXEL_STAGES, 8 clouds, the R = 32 entry sort): the main
   path's cases (K = 8 gather and K = 1 scatter of bf16 rows) and the
@@ -56,7 +59,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BSZ, POINTS = 8, 20000
 WIDTHS = (640, 1024, 2048)
 STEP_WIDTHS = (1024, 2048)
-FWD_WIDTHS = (512, 2048)
+FWD_WIDTHS = ((512, "bfloat16"), (1024, "bfloat16"), (2048, "bfloat16"),
+              (2560, "bfloat16"), (4608, "bfloat16"), (4352, "float32"))
 
 
 def digest(tensors) -> str:
@@ -72,13 +76,23 @@ def digest(tensors) -> str:
 def measure_fwd(cs, fb, torch) -> dict:
     out = {}
     g = torch.Generator(device="cuda").manual_seed(cs.SEED + 11)
-    for c in FWD_WIDTHS:
-        args = cs.film_inputs(torch, g, BSZ, POINTS, c, torch.bfloat16)
+    for c, dtype in FWD_WIDTHS:
+        args = cs.film_inputs(torch, g, BSZ, POINTS, c, getattr(torch, dtype))
         got = fb.film_block_forward(*args)
         ms = statistics.median(
             cs.cuda_ms(lambda: fb.film_block_forward(*args), 10)
             for _ in range(5))
-        out[c] = {"ms": ms, "digest": digest(got)}
+        key = f"{c} {dtype}"
+        out[key] = {"ms": ms, "digest": digest(got)}
+        if c > fb.NARROW_C:
+            prof = cs.profile_kernels(
+                torch, lambda: fb.film_block_forward(*args), 3,
+                {"pack": ("pack_w",), "stats": ("wide_stats",),
+                 "product": ("film_block_fwd",)},
+                os.path.join(ROOT, "chiprun_out", "compare",
+                             f"fwd_c{c}_{dtype}_trace.json"))
+            out[key]["parts_ms"] = {k: prof[k][0] for k in
+                                    ("pack", "stats", "product")}
         del args, got
         torch.cuda.empty_cache()
     return out
@@ -207,14 +221,18 @@ def main() -> int:
                         f"{v['workspace_bytes'] / 1e9:.3f} GB"
                         for c, v in r["bwd"].items())
         step = ", ".join(f"pf_width {w}: {v['ms']:.3f} ms, peak "
-                         f"{v['peak_gib']:.3f} GiB"
+                         f"{v['peak_gib']:.3f} GiB, losses {v['losses']}"
                          for w, v in r["step"].items())
         if bwd or step:
             print(f"[compare] {r['tree']}: backward {bwd}; train step "
                   f"{step}")
         for c, v in r.get("fwd", {}).items():
+            parts = "; profiled (W pack, statistics, product and " \
+                "epilogue) " + " / ".join(f"{x:.4f}" for x in
+                                          v["parts_ms"].values()) + \
+                " ms" if "parts_ms" in v else ""
             print(f"[compare] {r['tree']}: forward C {c}: {v['ms']:.4f} ms, "
-                  f"output {v['digest'][:12]}")
+                  f"output {v['digest'][:12]}{parts}")
         for key, v in r.get("voxel", {}).items():
             print(f"[compare] {r['tree']}: {key}: {v['device_ms']:.4f} ms "
                   f"device, output {v['digest'][:12]}")

@@ -202,6 +202,63 @@ def test_cluster_split_at_640_and_its_limits():
             fb.cluster_split(c)
 
 
+# the wide forward's persistent product: one CTA an SM of an H100 SXM (132)
+# or PCIe (114)
+_H100_SMS = 132
+
+
+def _fwd_grid(b, n, c):
+    """(pairs of 64-row tiles, chunks of 256 columns, the last of 128 where
+    C % 256 != 0) of the wide forward's product at (b, n, c)."""
+    return -(-b * -(-n // 64) // 2), -(-c // 256)
+
+
+@pytest.mark.parametrize("ctas", [132, 114])
+@pytest.mark.parametrize("b,n,c", [(8, 20000, 4608), (8, 20000, 2048),
+                                   (3, 2000, 2560), (1, 1, 2176),
+                                   (2, 129, 4352), (5, 700, 1152)])
+def test_fwd_raster_takes_every_tile_once(b, n, c, ctas):
+    # every (pair, chunk) output tile is taken exactly once, and the CTAs'
+    # counts of tiles differ by at most one
+    pairs, chunks = _fwd_grid(b, n, c)
+    got = fb.fwd_raster(pairs, chunks, ctas)
+    assert len(got) == ctas
+    taken = sorted(t for cta in got for t in cta)
+    assert taken == [(p, q) for p in range(pairs) for q in range(chunks)]
+    counts = [len(cta) for cta in got]
+    assert max(counts) - min(counts) <= 1
+
+
+def test_fwd_raster_unequal_counts_at_3x2000x2560():
+    # the gpu case below: 48 pairs x 10 chunks = 480 tiles over 132 CTAs,
+    # so the CTAs take 3 or 4 tiles
+    pairs, chunks = _fwd_grid(3, 2000, 2560)
+    counts = [len(cta) for cta in fb.fwd_raster(pairs, chunks, _H100_SMS)]
+    assert pairs * chunks == 480 and sorted(set(counts)) == [3, 4]
+
+
+def test_fwd_raster_keeps_a_band_of_w_in_l2_at_4608():
+    # at (8, 20000, 4608) bf16 on 132 SMs: every wave (the w-th tile of
+    # each CTA, at work at once) outside the last band takes at most 9 of
+    # W's 18 chunks of 256 columns (2.36 MB each): that band of W beside a
+    # band's A (FWD_BAND_PAIRS pairs of 128 rows) stays under the H100's
+    # 50 MB L2; the earlier chunk-fastest grid took all 18 in every wave
+    c = 4608
+    pairs, chunks = _fwd_grid(8, 20000, c)
+    got = fb.fwd_raster(pairs, chunks, _H100_SMS)
+    last_band = (pairs - 1) // fb.FWD_BAND_PAIRS * fb.FWD_BAND_PAIRS
+    waves = 0
+    for w in range(max(len(cta) for cta in got)):
+        wave = [cta[w] for cta in got if len(cta) > w]
+        if any(p >= last_band for p, _ in wave):
+            continue
+        waves += 1
+        band = len({q for _, q in wave})
+        assert band <= 9, w
+        assert band * 256 * c * 2 + fb.FWD_BAND_PAIRS * 128 * c * 2 < 50e6
+    assert waves > 150
+
+
 def _cluster_dh(dy, h, s, t, gamma, beta, w, mean, rstd):
     """dh as the backward's cluster kernel sums it, in plain torch (fp32
     math): each CTA's partial row sums of dxhat and dxhat * xhat over its
@@ -452,15 +509,36 @@ def test_kernel_refuses_above_max_c(cuda):
 @pytest.mark.parametrize("b,n", [(1, 1), (2, 129), (1, 300)])
 def test_kernel_forward_matches_plain_version_above_2048(cuda, c, dtype, b,
                                                         n):
-    # the wide forward's statistics kernel with a lane's share of the
-    # widest row (18 groups in bf16, 17 in fp32), NB = 1 (2176) and 2;
-    # within the phase-2 tolerances of its plain version, two calls
-    # bitwise equal
+    # the wide forward above the backward's widths: the statistics kernel
+    # at the dtype's widest row, the product with a last chunk of 128
+    # columns (2176) or of 256; within the phase-2 tolerances of its plain
+    # version, two calls bitwise equal
     tol = 3e-2 if dtype == torch.float32 else 6e-2
     args = _port_args(_inputs(7, b=b, n=n, c=c), cuda, dtype)
     y, mean, rstd = fb.film_block_forward(*args)
     again = fb.film_block_forward(*args)
     torch.cuda.synchronize()
+    want, mean_r, rstd_r = fb.film_block_reference_forward(*args)
+    torch.testing.assert_close(y.float(), want.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(mean, mean_r, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(rstd, rstd_r, atol=1e-4, rtol=1e-4)
+    for x, x2 in zip((y, mean, rstd), again):
+        assert torch.equal(x, x2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_kernel_forward_with_unequal_persistent_tiles(cuda, dtype):
+    # (3, 2000, 2560): 480 output tiles over the card's persistent CTAs,
+    # which take unequal numbers of them (3 or 4 on 132 SMs); against the
+    # plain version within the phase-2 tolerances, two calls bitwise equal
+    tol = 3e-2 if dtype == torch.float32 else 6e-2
+    args = _port_args(_inputs(9, b=3, n=2000, c=2560), cuda, dtype)
+    before = fb.launches
+    y, mean, rstd = fb.film_block_forward(*args)
+    again = fb.film_block_forward(*args)
+    torch.cuda.synchronize()
+    assert fb.launches == before + 2
     want, mean_r, rstd_r = fb.film_block_reference_forward(*args)
     torch.testing.assert_close(y.float(), want.float(), atol=tol, rtol=tol)
     torch.testing.assert_close(mean, mean_r, atol=1e-5, rtol=1e-5)
