@@ -179,15 +179,18 @@ failure:
 26. the FiLM-block kernels at the widths of their wide paths (forward
    C > 1024: statistics and a packed silu(f), then a streamed product;
    backward C > 512: packed dy, then a thread-block cluster a 64-row tile
-   that keeps dp on chip, 9 / 10 / 11 CTAs a cluster at C = 2176 / 2432 /
-   2688) against their plain versions: (8, 20 000, C) bf16 for C = 640,
-   768, 1024, 1536, 2048, 2176, 2432, 2688 and the edges (N = 1, 129,
-   300; fp32 inputs), within KERNEL_TOL / GRAD_REL_TOL, bitwise equal
-   across two launches, fp32 with W = 0 within FP32_DY_TOL; CUDA-event
-   times of each kernel, its plain version and torch.matmul of each
-   product alone at C = 640, 1024, 2048, 2688 beside the bounds, each
-   kernel's parts profiled, the backward's workspace bytes and the
-   clusters the card holds at once (also at 2176 and 2432); the forward
+   that keeps dp on chip, 9 / 9 / 10 / 10 / 11 CTAs a cluster at C =
+   2176 / 2304 / 2432 / 2560 / 2688, where the rows pass runs in chunks
+   beside the dW pass) against their plain versions: (8, 20 000, C) bf16
+   for C = 640, 768, 1024, 1536, 2048, 2176, 2304, 2432, 2560, 2688 and
+   the edges (N = 1, 129, 300; fp32 inputs), within KERNEL_TOL /
+   GRAD_REL_TOL, bitwise equal across two launches, fp32 with W = 0
+   within FP32_DY_TOL; CUDA-event times of each kernel, its plain version
+   and torch.matmul of each product alone at C = 640, 1024, 2048, 2304,
+   2560, 2688 beside the bounds, each kernel's parts profiled (above
+   2048 also the time the cluster kernel and the dW pass run at once),
+   the backward's plan, workspace bytes and the clusters the card holds
+   at once (at every C above 2048); the forward
    above 2048 (its statistics kernel's wider instantiation), to each
    dtype's limit (MAX_C_BF16 = 4608, MAX_C_F32 = 4352, the JAX kernel's):
    at (8, 20 000, C) for C = 2176, 2560, 3200, 4096, 4608 bf16 and 2176,
@@ -400,10 +403,10 @@ HYB_ODD_DIR = os.path.join(RUN_DIR, "hybrid_odd")
 # point-flow width on the wide path (forward one-kernel, backward wide),
 # and the (clouds, points) of its distill step and of the pf_width
 # MAX_C_BWD train step against the CPU
-WIDE_CS = (640, 768, 1024, 1536, 2048, 2176, 2432, 2688)
-WIDE_EDGE_CS = (640, 1536, 2048, 2176, 2432, 2688)
-WIDE_F32_CS = (640, 2048, 2176, 2432, 2688)
-WIDE_TIMED_CS = (640, 1024, 2048, 2688)
+WIDE_CS = (640, 768, 1024, 1536, 2048, 2176, 2304, 2432, 2560, 2688)
+WIDE_EDGE_CS = (640, 1536, 2048, 2176, 2304, 2432, 2560, 2688)
+WIDE_F32_CS = (640, 2048, 2176, 2304, 2432, 2560, 2688)
+WIDE_TIMED_CS = (640, 1024, 2048, 2304, 2560, 2688)
 WIDE_PF_WIDTH = 1024
 # the forward alone above 2048 (phase 26), up to each dtype's limit
 # (MAX_C_BF16, MAX_C_F32): the widths held against the plain version at
@@ -1491,6 +1494,33 @@ def profile_kernels(torch, fn, calls: int, groups: dict,
                       sum(count[k] for k in names) // calls)
         out[f"{group}_kernels"] = sorted({k[:60] for k in names})
     return out
+
+
+def kernel_overlap_ms(trace: str, words_a: tuple, words_b: tuple,
+                      calls: int) -> float:
+    """From a trace of profile_kernels: the device time a call in which a
+    kernel whose name holds one of ``words_a`` and one that holds one of
+    ``words_b`` ran at once (the two groups' unions of intervals,
+    intersected)."""
+    with open(trace) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("cat") == "kernel"]
+
+    def union(words):
+        spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                       if any(w in e["name"].lower() for w in words))
+        out = []
+        for a, b in spans:
+            if out and a <= out[-1][1]:
+                out[-1][1] = max(out[-1][1], b)
+            else:
+                out.append([a, b])
+        return out
+    both, ua, ub = 0.0, union(words_a), union(words_b)
+    for a0, a1 in ua:
+        for b0, b1 in ub:
+            both += max(0.0, min(a1, b1) - max(a0, b0))
+    return both / 1e3 / calls
 
 
 def hybrid_ms_per_shape(torch):
@@ -2787,11 +2817,14 @@ def wide_kernels_vs_plain(fb, torch, build_log: str) -> dict:
             {"pack": ("pack_w",), "stats": ("wide_stats",),
              "product": ("film_block_fwd",)},
             os.path.join(RUN_DIR, f"wide_forward_c{c}_trace.json"))
+        btrace = os.path.join(RUN_DIR, f"wide_backward_c{c}_trace.json")
         bprof = profile_kernels(
             torch, lambda: fb.film_block_backward(*bargs), 3,
             {"pack": ("bwd_pack", "wide_pack"), "cluster": ("cluster",),
              "dw": ("bwd_dw",), "reduce": ("bwd_sum", "bwd_finalize")},
-            os.path.join(RUN_DIR, f"wide_backward_c{c}_trace.json"))
+            btrace)
+        overlap = kernel_overlap_ms(btrace, ("cluster",), ("bwd_dw",),
+                                    bprof["calls_run"])
         bounds = film_bounds(B, N, c)
         fpath = "wide" if c > fb.NARROW_C else "one-kernel"
         bpath = "wide" if c > fb.NARROW_C_BWD else "register"
@@ -2800,6 +2833,11 @@ def wide_kernels_vs_plain(fb, torch, build_log: str) -> dict:
                                            "reduce")}
         work = fb._lib().pcfm_film_block_bwd_workspace(B, N, c) * 4
         clusters = fb.bwd_max_clusters(c, True, torch.cuda.current_device())
+        plan = fb.bwd_plan_of_kernel(B, N, c)
+        if plan != fb.bwd_plan(B, N, c):
+            raise RuntimeError(f"backward plan at C = {c}: the kernel's "
+                               f"{plan}, bwd_plan's {fb.bwd_plan(B, N, c)}")
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
         sbound = stats_bound_ms(B, N, c)
         stats_share = (f"; the statistics kernel's bound {sbound:.4f} ms "
                        f"(bytes), {sbound / fparts['stats']:.0%} of its time"
@@ -2818,9 +2856,14 @@ def wide_kernels_vs_plain(fb, torch, build_log: str) -> dict:
               f"{tb['plain']:.4f} ms; torch.matmul alone (bf16): dy @ W "
               f"{tb['gemm_dp']:.4f} ms, dyᵀ @ p {tb['gemm_dw']:.4f} ms; "
               f"profiled, 3 calls (packs, cluster kernel, dW, "
-              f"reductions): {format_parts(bparts)}; workspace "
-              f"{work} bytes; {len(fb.cluster_split(c))} "
-              f"CTAs a cluster, {clusters} clusters at once")
+              f"reductions): {format_parts(bparts)}, the cluster kernel "
+              f"and dW at once {overlap:.4f} ms a call; workspace "
+              f"{work} bytes; {plan['cluster_ctas']} CTAs a cluster, "
+              f"{clusters} clusters at once ({clusters * plan['cluster_ctas']}"
+              f" of {sms} SMs); {plan['chunks']} row chunk(s), the dW "
+              f"pass's {plan['dw_blocks']} blocks a chunk ({plan['dw_nb']} x"
+              f" 128 columns, {plan['dw_slices']} slice(s)): "
+              f"{plan['dw_blocks'] / sms:.2f} waves of {sms}")
         out[c] = {"fwd_ms": tf["kernel"], "fwd_plain_ms": tf["plain"],
                   "fwd_gemm_ms": tf["gemm"], "fwd_bound_ms": bounds["fwd"][0],
                   "fwd_bound_by": bounds["fwd"][1],
@@ -2832,7 +2875,8 @@ def wide_kernels_vs_plain(fb, torch, build_log: str) -> dict:
                   "bwd_bound_ms": bounds["bwd"][0],
                   "bwd_bound_by": bounds["bwd"][1],
                   "bwd_profiled_ms": bparts, "bwd_workspace_bytes": work,
-                  "bwd_max_active_clusters": clusters}
+                  "bwd_max_active_clusters": clusters,
+                  "bwd_cluster_dw_overlap_ms": overlap, "bwd_plan": plan}
         del args, bargs, a2d, wt, dy2d, w16, p2d
         torch.cuda.empty_cache()
     out["fwd_wide"] = {c: wide_forward_times(fb, torch, g, c,
@@ -4237,6 +4281,8 @@ def main() -> int:
                 "gemm_dp_ms": row["bwd_gemm_dp_ms"],
                 "gemm_dw_ms": row["bwd_gemm_dw_ms"],
                 "profiled_ms": row["bwd_profiled_ms"],
+                "cluster_dw_overlap_ms": row["bwd_cluster_dw_overlap_ms"],
+                "plan": row["bwd_plan"],
                 "workspace_bytes": row["bwd_workspace_bytes"],
                 "clusters": {str(c): v for c, v in wk["bwd_clusters"].items()},
                 "launches": top["train_cli_bwd_launches"],

@@ -60,12 +60,12 @@
 //     kernels. No float atomics: two launches are bitwise equal.
 //
 // Workspace (one fp32 buffer, sized by pcfm_film_block_bwd_workspace):
-// the slices' dW tiles
-// (16 x C x C at C = 512), the tile sums B x ceil(N / 64) x 5 x C, the
-// cloud sums B x 5 x C, packed p and packed dy (each B x ceil(N / 64) x
-// 64 x C bf16: 164 MB at (8, 20000, 512)) and the packed Wᵀ; the same
-// regions at every width (the wide path keeps dp on chip too, and pads the
-// row tiles to an even count).
+// the slices' dW tiles (16 x C x C at C = 512; one above 2048), the tile
+// sums B x ceil(N / 64) x 5 x C, the cloud sums B x 5 x C, packed p and
+// packed dy (each B x ceil(N / 64) x 64 x C bf16: 164 MB at (8, 20000,
+// 512)) and the packed Wᵀ; the same regions at every width (the wide path
+// keeps dp on chip too, and pads the row tiles to an even count; above
+// 2048 it adds a pair counter a row chunk).
 //
 // What bounds it at (B, N, C) = (8, 20000, 512) (chip_smoke.py's
 // film_bounds): the two C x C products over 160k rows, 168 GFLOP, take
@@ -116,6 +116,35 @@
 //     the register path's second pass (dy - bf16(dy) from device memory);
 //     fp32 h rows fit the same ring, so both dtypes split alike;
 //   * the dW pass and the reductions are the narrow path's.
+// Above PORTABLE_C = 2048 the clusters have 9-11 CTAs, and a cluster must
+// fit in one GPC: the H100 holds 9 / 7 clusters at once at 2176 / 2688
+// (81 / 77 of its 132 SMs; cudaOccupancyMaxActiveClusters). Clusters of
+// one 64-row tile x 512 columns a CTA (5-6 CTAs) would fill 110 / 102
+// SMs, but each CTA then reads 1.5x the L2 bytes a flop from a ring of
+// two 72 KB stages (no third fits beside the epilogue's buffers), and
+// their product alone was slower than this shape's on fewer SMs
+// (scripts/film_bwd_cluster_probe.py). So this path keeps the cluster
+// kernel and runs the dW pass on the SMs it leaves (launch_overlapped):
+// the pairs go in BWD_CHUNKS chunks, each chunk's cluster kernel on a
+// side stream of the greatest priority, persistent (as many clusters as
+// the card holds at once, which take the pairs in turn: while a kernel of
+// a higher priority has blocks waiting, the block scheduler places none
+// of a lower one, so a grid of one cluster a pair kept the dW blocks
+// waiting for its tail), each chunk's dW pass on the caller's stream
+// beside the next chunk's rows pass, once that has begun (a one-thread
+// gate kernel; else the dW blocks took the SMs of the next clusters); the
+// dy packs of the later chunks run beside the first chunk's rows pass.
+// Each pass of the persistent kernel starts its
+// product with wgmma_m64n128k16_first: the accumulators hold the last
+// pair's df from the epilogue, and a first wgmma that read them had
+// ptxas serialize every wgmma of the kernel (16 % slower). The dW pass
+// takes 128 x 256 tiles at every C (the last column tile stores its 128
+// columns where C % 256 != 0), one block a tile and chunk (231 at 2688),
+// each adding to the chunks before. What stays outside
+// the overlap: the Wᵀ pack, the first chunk's dy pack, the last chunk's
+// dW and the reductions. What it leaves: the cluster kernel's own time
+// (its product, loads and epilogues in series) and the L2 bandwidth the
+// two passes share.
 // What bounds it: the two products, 4 B N C^2 operations (0.679 ms at (8,
 // 20000, 1024), 2.714 at C = 2048, 4.676 at 2688, at 989 TFLOP/s dense
 // bf16). Bytes an
@@ -135,6 +164,7 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <mutex>
 #include <type_traits>
 
 #include "film_common.cuh"
@@ -154,6 +184,10 @@ constexpr int ROWS_STAGES = 4;      // Wᵀ ring, a tile pair a stage
 constexpr int DW_STAGES = 4;
 constexpr int DW_M = 128;           // dW rows (out) a block
 constexpr int DW_BLOCKS = 132;      // aim: one wave of dW blocks (H100 SXM)
+constexpr int PORTABLE_C = 2048;    // the widest C whose cluster has at most
+                                    // 8 CTAs (the portable size); wider C
+                                    // overlaps dW with the rows pass
+constexpr int BWD_CHUNKS = 6;       // row chunks of the overlapped path
 constexpr int RED_THREADS = 256;
 
 int cdiv(long long a, long long b) { return static_cast<int>((a + b - 1) / b); }
@@ -642,38 +676,47 @@ __global__ void __launch_bounds__(THREADS, 1)
 }
 
 // dW pass: a DW_M x (128 NB) tile of dW = dy^T p (out x in) over one slice
-// of row tiles. Grid ((C / 128) * (C / (128 NB)), slices); writes
-// ws_dw[slice] (C x C).
-template <int NB>
+// of the row tiles [tile_begin, tile_end). Grid ((C / 128) * (C / (128
+// NB)), slices); writes ws_dw[slice] (C x C). kChunked (the wide path
+// above PORTABLE_C, NB = 2): the grid takes ceil(C / 256) column tiles,
+// and where C % 256 != 0 the last copies only its 128 columns of p (the
+// second half of its product reads a stale tile and is not stored); where
+// `accumulate` is set the block adds its sums to what ws_dw[slice] holds
+// (a later row chunk's to the chunks before it, in chunk order).
+template <int NB, bool kChunked>
 __global__ void __launch_bounds__(THREADS, 1)
     film_block_bwd_dw_kernel(const __nv_bfloat16* __restrict__ dy_packed,
                              const __nv_bfloat16* __restrict__ p_packed,
-                             float* __restrict__ ws_dw, int tiles, int c,
-                             int tiles_per_slice) {
+                             float* __restrict__ ws_dw, int tile_begin,
+                             int tile_end, int c, int tiles_per_slice,
+                             int accumulate) {
   constexpr int STAGE = TILE_BYTES * (1 + NB);
   extern __shared__ uint8_t smem_raw[];
   uint8_t* ring = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint64_t* full = reinterpret_cast<uint64_t*>(ring + DW_STAGES * STAGE);
   uint64_t* empty = full + DW_STAGES;
 
-  const int i_tiles = c / (N_TILE * NB);
+  const int i_tiles = kChunked ? (c + N_TILE * NB - 1) / (N_TILE * NB)
+                               : c / (N_TILE * NB);
   const int o0 = (blockIdx.x / i_tiles) * DW_M;
   const int i0 = (blockIdx.x % i_tiles) * N_TILE * NB;
-  const int t0 = blockIdx.y * tiles_per_slice;
-  const int count = min(tiles - t0, tiles_per_slice);
+  // p's chunks copied and stored
+  const int nb = kChunked ? min(NB, (c - i0) / N_TILE) : NB;
+  const int t0 = tile_begin + blockIdx.y * tiles_per_slice;
+  const int count = min(tile_end - t0, tiles_per_slice);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int wg = warp >> 2, tid = threadIdx.x & 127;
 
   // stage i: row tile t0 + i, dy's columns o0 .. o0 + 127 (two 64-column
-  // regions, adjacent) and p's columns i0 .. i0 + 128 NB - 1
+  // regions, adjacent) and p's columns i0 .. i0 + 128 nb - 1
   auto load_stage = [&](int i) {
     const int st = i % DW_STAGES;
     const size_t base = static_cast<size_t>(t0 + i) * ROWS * c;
-    mbar_arrive_expect_tx(&full[st], STAGE);
+    mbar_arrive_expect_tx(&full[st], TILE_BYTES * (1 + nb));
     bulk_copy_g2s(ring + st * STAGE, dy_packed + base + (o0 / 64) * ROWS * 64,
                   TILE_BYTES, &full[st]);
     bulk_copy_g2s(ring + st * STAGE + TILE_BYTES,
-                  p_packed + base + (i0 / 64) * ROWS * 64, NB * TILE_BYTES,
+                  p_packed + base + (i0 / 64) * ROWS * 64, nb * TILE_BYTES,
                   &full[st]);
   };
   if (threadIdx.x == 0) {
@@ -736,14 +779,23 @@ __global__ void __launch_bounds__(THREADS, 1)
   float* out = ws_dw + static_cast<size_t>(blockIdx.y) * c * c;
   const int orow = o0 + wg * 64 + (warp & 3) * 16 + (lane >> 2);
 #pragma unroll
-  for (int q = 0; q < NB; ++q)
+  for (int q = 0; q < NB; ++q) {
+    if (q >= nb) break;
 #pragma unroll
     for (int j = 0; j < N_TILE / 8; ++j)
 #pragma unroll
-      for (int hr = 0; hr < 2; ++hr)
-        store2(out + static_cast<size_t>(orow + 8 * hr) * c + i0 +
-                   q * N_TILE + 8 * j + 2 * (lane & 3),
-               acc[q][4 * j + 2 * hr], acc[q][4 * j + 2 * hr + 1]);
+      for (int hr = 0; hr < 2; ++hr) {
+        float* o = out + static_cast<size_t>(orow + 8 * hr) * c + i0 +
+                   q * N_TILE + 8 * j + 2 * (lane & 3);
+        float v0 = acc[q][4 * j + 2 * hr], v1 = acc[q][4 * j + 2 * hr + 1];
+        if (kChunked && accumulate) {
+          const float2 before = ld2(o);
+          v0 = before.x + v0;
+          v1 = before.y + v1;
+        }
+        store2(o, v0, v1);
+      }
+  }
 }
 
 // ------------------------------------------------------ the wide path
@@ -790,7 +842,8 @@ size_t cluster_smem_bytes() {
          CL_ROWS * 2 * 4 +                          // the rows' means
          2 * CL_ROWS * 4 +                          // mean, rstd
          2 * CL_MAXW * 16 +                         // s, t, 1 + g, beta
-         (2 * CL_STAGES + 1) * 8;                   // full, empty, inputs
+         (2 * CL_STAGES + 1) * 8 +                  // full, empty, inputs
+         8;                                         // the next pairs
 }
 
 __device__ __forceinline__ uint32_t cluster_ctarank() {
@@ -818,6 +871,20 @@ __device__ __forceinline__ float2 ld_cluster(const float* p, uint32_t rank) {
   float2 v;
   asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];\n"
                : "=f"(v.x), "=f"(v.y)
+               : "r"(remote)
+               : "memory");
+  return v;
+}
+
+// the int at p's shared-memory offset in CTA `rank` of the cluster
+__device__ __forceinline__ int ld_cluster_int(const int* p, uint32_t rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(smem_u32(p)), "r"(rank));
+  int v;
+  asm volatile("ld.shared::cluster.s32 %0, [%1];\n"
+               : "=r"(v)
                : "r"(remote)
                : "memory");
   return v;
@@ -864,18 +931,20 @@ struct RowTile {
 
 // dy (b, n, c) -> bf16 tiles laid out as rows_packed_index (zeros past N
 // and in the padding tile), and each tile's column sums of dy over its
-// rows in order (db: part's first slot). One thread a tile's 8 columns
+// rows in order (db: part's first slot), for the `items` / (c / 8) tiles
+// from tile0. One thread a tile's 8 columns
 template <typename T>
 __global__ void __launch_bounds__(RED_THREADS)
     film_block_bwd_wide_pack_dy_kernel(const T* __restrict__ dy,
                                        __nv_bfloat16* __restrict__ packed,
                                        float* __restrict__ part, int bsz,
-                                       int n_points, int c, long long items) {
+                                       int n_points, int c, long long tile0,
+                                       long long items) {
   const long long idx =
       static_cast<long long>(blockIdx.x) * RED_THREADS + threadIdx.x;
   if (idx >= items) return;
   const int groups = c / 8, gi = static_cast<int>(idx % groups);
-  const size_t tile = static_cast<size_t>(idx / groups);
+  const size_t tile = static_cast<size_t>(tile0 + idx / groups);
   const RowTile rt(tile, bsz, n_points);
   const T* src = dy + rt.row0 * c + gi * 8;
   constexpr int U = 8;  // rows' loads in flight
@@ -908,23 +977,49 @@ __global__ void __launch_bounds__(RED_THREADS)
 
 // The cluster kernel's product: acc[q] (64 x 128 a warpgroup) = the rows
 // of warpgroup wg's tile times the CTA's chunk q < NB, over the k stages
-// of the ring (load_stage(kt) asks for stage kt). Returns with every stage
-// released and the accumulators final.
-template <int NB, typename LoadStage>
+// of the ring (load_stage(kt) asks for stage kt). The ring's uses are
+// counted from g0 (a persistent CTA's earlier pairs took g0 of them), so
+// that k stage kt is use g0 + kt of slot (g0 + kt) % CL_STAGES. Returns
+// with every stage released and the accumulators final. kFirst: k tile 0
+// goes first, its first step through wgmma_m64n128k16_first (the
+// persistent kernel's accumulators hold the last pair's df until then).
+template <int NB, bool kFirst, typename LoadStage>
 __device__ __forceinline__ void cluster_product(
     uint32_t ring_base, uint64_t* full, uint64_t* empty, int k_tiles, int wg,
-    const LoadStage& load_stage, float (&acc)[CL_MAX_CHUNKS][64]) {
+    int g0, const LoadStage& load_stage, float (&acc)[CL_MAX_CHUNKS][64]) {
   const int tid = threadIdx.x & 127;
   auto release = [&](int i) {
-    if (tid == 0) mbar_arrive(&empty[i % CL_STAGES]);
+    const int g = g0 + i;
+    if (tid == 0) mbar_arrive(&empty[g % CL_STAGES]);
     if (threadIdx.x == 0 && i + CL_STAGES < k_tiles) {
-      mbar_wait(&empty[i % CL_STAGES], (i / CL_STAGES) & 1);
+      mbar_wait(&empty[g % CL_STAGES], (g / CL_STAGES) & 1);
       load_stage(i + CL_STAGES);
     }
   };
-  for (int kt = 0; kt < k_tiles; ++kt) {
-    const int st = kt % CL_STAGES;
-    mbar_wait(&full[st], (kt / CL_STAGES) & 1);
+  int kt = 0;
+  if (kFirst) {
+    const int st = g0 % CL_STAGES;
+    mbar_wait(&full[st], (g0 / CL_STAGES) & 1);
+    wgmma_fence();
+    const uint32_t sb = ring_base + st * CL_STAGE;
+    const uint64_t da = desc_sw128(sb + wg * WIDE_A_BYTES);
+#pragma unroll
+    for (int kk = 0; kk < K_TILE / 16; ++kk)
+#pragma unroll
+      for (int q = 0; q < NB; ++q) {
+        const uint64_t db =
+            desc_sw128(sb + 2 * WIDE_A_BYTES + q * TILE_BYTES) + 2 * kk;
+        if (kk == 0)
+          wgmma_m64n128k16_first(acc[q], da, db);
+        else
+          wgmma_m64n128k16(acc[q], da + 2 * kk, db, 1);
+      }
+    wgmma_commit();
+    kt = 1;
+  }
+  for (; kt < k_tiles; ++kt) {
+    const int st = (g0 + kt) % CL_STAGES;
+    mbar_wait(&full[st], ((g0 + kt) / CL_STAGES) & 1);
 #pragma unroll
     for (int q = 0; q < NB; ++q)
 #pragma unroll
@@ -954,13 +1049,19 @@ __device__ __forceinline__ void cluster_product(
   release(k_tiles - 1);
 }
 
-// The cluster kernel: grid (ncta x tile pairs) in clusters of ncta CTAs.
-// The CTAs of a cluster share a pair of 64-row tiles; rank q owns the
-// 128-column chunks [q nch / ncta, (q + 1) nch / ncta) of the nch = C / 128
-// and keeps that slice of dp in registers (warpgroup g: tile 2 pair + g).
+// The cluster kernel: grid (ncta x tile pairs) in clusters of ncta CTAs,
+// over the pairs from pair0. The CTAs of a cluster share a pair of 64-row
+// tiles; rank q owns the 128-column chunks [q nch / ncta, (q + 1) nch /
+// ncta) of the nch = C / 128 and keeps that slice of dp in registers
+// (warpgroup g: tile 2 pair + g).
 // The rows' sums of dxhat and dxhat * xhat meet in distributed shared
-// memory, added in rank order.
-template <typename T>
+// memory, added in rank order. kPersistent (above PORTABLE_C): the grid
+// holds only the clusters the card runs at once, and each cluster takes
+// pairs pair0 + *next_pair (its rank 0 counts them out) until pair_end,
+// one after the other, so that no cluster waits to be placed and the
+// block scheduler gives the SMs the clusters leave to the dW pass. Each
+// pair's results do not depend on which cluster took it.
+template <typename T, bool kPersistent>
 __global__ void __launch_bounds__(THREADS, 1)
     film_block_bwd_cluster_kernel(const T* __restrict__ dy,
                                   const T* __restrict__ h,
@@ -975,7 +1076,9 @@ __global__ void __launch_bounds__(THREADS, 1)
                                   T* __restrict__ dh,
                                   __nv_bfloat16* __restrict__ p_packed,
                                   float* __restrict__ part, int bsz,
-                                  int n_points, int c, int ncta) {
+                                  int n_points, int c, int ncta,
+                                  int pair0, int pair_end,
+                                  int* __restrict__ next_pair) {
   constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
   extern __shared__ uint8_t smem_raw[];
   // the ring on a 1024-byte boundary (the swizzle repeats every 1024 bytes)
@@ -989,9 +1092,9 @@ __global__ void __launch_bounds__(THREADS, 1)
   uint64_t* full = reinterpret_cast<uint64_t*>(prm + 2 * CL_MAXW);
   uint64_t* empty = full + CL_STAGES;
   uint64_t* in_bar = empty + CL_STAGES;
+  int* s_next = reinterpret_cast<int*>(in_bar + 1);  // rank 0's next pairs
 
   const int rank = static_cast<int>(cluster_ctarank());
-  const size_t pair = blockIdx.x / ncta;
   const int nch = c / N_TILE;
   const int ch0 = rank * nch / ncta;
   const int m = (rank + 1) * nch / ncta - ch0;  // this CTA's chunks
@@ -999,31 +1102,6 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int wg = warp >> 2;
   const int k_tiles = c / K_TILE;
-  const RowTile rt0(2 * pair, bsz, n_points), rt1(2 * pair + 1, bsz, n_points);
-  // this warpgroup's tile, by reference: the two tiles then stay in local
-  // memory and no register holds them through the product (copied into
-  // registers, the kernel ran slower)
-  const RowTile& mine = wg ? rt1 : rt0;
-  // the pair's packed dy: two adjacent tiles
-  const __nv_bfloat16* a_pair = dy_packed + 2 * pair * ROWS * c;
-
-  // stage kt holds k block kt of both tiles of A and of the CTA's m
-  // chunks of Wᵀ
-  auto load_stage = [&](int kt) {
-    const int st = kt % CL_STAGES;
-    uint8_t* dst = ring + st * CL_STAGE;
-    mbar_arrive_expect_tx(&full[st], 2 * WIDE_A_BYTES + m * TILE_BYTES);
-    for (int g = 0; g < 2; ++g)
-      bulk_copy_g2s(dst + g * WIDE_A_BYTES,
-                    a_pair + static_cast<size_t>(g) * ROWS * c +
-                        static_cast<size_t>(kt) * ROWS * K_TILE,
-                    WIDE_A_BYTES, &full[st]);
-    for (int q = 0; q < m; ++q)
-      bulk_copy_g2s(dst + 2 * WIDE_A_BYTES + q * TILE_BYTES,
-                    wt_packed + (static_cast<size_t>(ch0 + q) * k_tiles +
-                                 kt) * N_TILE * K_TILE,
-                    TILE_BYTES, &full[st]);
-  };
   if (threadIdx.x == 0) {
     for (int i = 0; i < CL_STAGES; ++i) {
       mbar_init(&full[i], 1);
@@ -1031,323 +1109,385 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
     mbar_init(in_bar, 1);
     mbar_fence_init();
+    if (kPersistent && rank == 0) s_next[0] = atomicAdd(next_pair, 1);
   }
-  // the epilogue's h (the CTA's columns of the pair's rows): in L2 by the
-  // time the product is done
-  if (warp == 1)
-    for (int q = 0; q < 2; ++q) {
-      const RowTile& rt = q ? rt1 : rt0;
-      for (int r = lane; r < rt.n_valid; r += 32)
-        prefetch_l2(h + (rt.row0 + r) * c + k0,
-                    static_cast<uint32_t>(cw * sizeof(T)));
-    }
-  __syncthreads();
-  if (threadIdx.x == 0)
-    for (int i = 0; i < CL_STAGES && i < k_tiles; ++i) load_stage(i);
-  if (threadIdx.x < CL_ROWS) {
-    const RowTile& rt = threadIdx.x < ROWS ? rt0 : rt1;
-    const int r = threadIdx.x % ROWS;
-    s_mean[threadIdx.x] = r < rt.n_valid ? mean_in[rt.row0 + r] : 0.0f;
-    s_rstd[threadIdx.x] = r < rt.n_valid ? rstd_in[rt.row0 + r] : 0.0f;
+  if (kPersistent) {  // rank 0's first pair, seen by the cluster
+    cluster_arrive();
+    cluster_wait();
   }
-  for (int i = threadIdx.x; i < 2 * cw; i += THREADS) {
-    const int q = i / cw, k = i % cw;
-    const size_t pk = static_cast<size_t>((q ? rt1 : rt0).cloud) * c + k0 + k;
-    // f = xhat (s (1 + g)) + (t (1 + g) + beta); s kept for dgamma
-    const float g1 = 1.0f + to_f32(gamma[pk]);
-    prm[q * CL_MAXW + k] = make_float4(s[k0 + k] * g1,
-                                       t[k0 + k] * g1 + to_f32(beta[pk]),
-                                       g1, s[k0 + k]);
-  }
-
-  // ---- dp = dy @ W: warpgroup wg computes its tile's rows of the CTA's
-  // chunks (the chunk count a template argument: no branch between the
-  // wgmma instructions)
-  float acc[CL_MAX_CHUNKS][64];
-  if (m == CL_MAX_CHUNKS)
-    cluster_product<CL_MAX_CHUNKS>(smem_u32(ring), full, empty, k_tiles, wg,
-                                   load_stage, acc);
-  else
-    cluster_product<1>(smem_u32(ring), full, empty, k_tiles, wg, load_stage,
-                       acc);
-
-  // ---- the CTA's slices of the pair's packed dy (bf16, the dW pass's
-  // byte order: one contiguous block a tile) and its columns of the pair's
-  // h rows (one bulk copy a row, the row stride padded) into the ring, now
-  // free; rows past N are zeros, so that the epilogues need no branch on
-  // them
-  __syncthreads();  // both warpgroups' products have read the ring
-  const uint32_t dy_bytes = static_cast<uint32_t>(cw * ROWS * 2);
-  uint8_t* dys = ring;  // tile q's packed dy at q dy_bytes, then p there
-  T* hd = reinterpret_cast<T*>(ring + 2 * static_cast<size_t>(dy_bytes));
-  const int h_ld = cw + CL_H_LD;
-  if (warp == 0) {
-    const uint32_t row_bytes = static_cast<uint32_t>(cw * sizeof(T));
-    if (lane == 0) {
-      mbar_arrive_expect_tx(
-          in_bar, (rt0.n_valid + rt1.n_valid) * row_bytes + 2 * dy_bytes);
-      for (int q = 0; q < 2; ++q)
-        bulk_copy_g2s(dys + q * dy_bytes,
-                      a_pair + static_cast<size_t>(q) * ROWS * c +
-                          static_cast<size_t>(k0) * ROWS,
-                      dy_bytes, in_bar);
-    }
-    __syncwarp();
-    for (int q = 0; q < 2; ++q) {
-      const RowTile& rt = q ? rt1 : rt0;
-      for (int r = lane; r < rt.n_valid; r += 32)
-        bulk_copy_g2s(hd + (q * ROWS + r) * h_ld, h + (rt.row0 + r) * c + k0,
-                      row_bytes, in_bar);
-    }
-  }
-  {
-    const int per_row = cw * static_cast<int>(sizeof(T)) / 16;
-    for (int idx = threadIdx.x; idx < CL_ROWS * per_row; idx += THREADS) {
-      const int row = idx / per_row;
-      if (row % ROWS >= (row < ROWS ? rt0 : rt1).n_valid)
-        reinterpret_cast<uint4*>(hd + row * h_ld)[idx % per_row] =
-            make_uint4(0u, 0u, 0u, 0u);
-    }
-  }
-  __syncthreads();
-  mbar_wait(in_bar, 0);
-
-  // ---- epilogue 1: df in place of dp, p (in place of dy), the row and
-  // column sums; a loop over the accumulators' quarters (rotate_acc32),
-  // straight-line code within one (the shuffles need a converged warp).
-  // Thread (warp, lane) holds rows lr and lr + 8 of its warpgroup's tile
-  // (the CTA's rows er, er + 8), the CTA's columns 8 j + ec, +1 of each
-  // of its chunks
-  const int lr = (warp & 3) * 16 + (lane >> 2);
-  const int er = wg * ROWS + lr;
-  const int ec = 2 * (lane & 3);
-  float nm[2], rs[2];  // xhat = x rs + nm
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    rs[hr] = s_rstd[er + 8 * hr];
-    nm[hr] = -s_mean[er + 8 * hr] * rs[hr];
-  }
-  __nv_bfloat16* a16 =
-      reinterpret_cast<__nv_bfloat16*>(dys + wg * dy_bytes);
-  const float4* prm_t = prm + wg * CL_MAXW;
-  float m1[2] = {0.0f, 0.0f}, m2[2] = {0.0f, 0.0f};
-  float* colred_w = colred + warp * 2 * CL_MAXW;
-#pragma unroll 1
-  for (int it = 0; it < 4; ++it) {  // quarter it: chunk it / 2's column
-    const int ch = it >> 1, jb = 8 * (it & 1);  // groups jb .. jb + 7
-    if (ch < m) {
-#pragma unroll
-    for (int j0 = 0; j0 < 8; j0 += 2) {
-      hoist_barrier();
-      // the sums of df and df * xhat over this thread's two rows, for
-      // column groups j0 and j0 + 1: v[4 jj + 2 q + e], q 0 df, 1 df * xhat
-      float v[8] = {};
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj) {
-        const int j = j0 + jj;
-        const int k = ch * N_TILE + 8 * (jb + j) + ec;
-        const float4 p0 = prm_t[k], p1 = prm_t[k + 1];
-        const float ak[2] = {p0.x, p1.x}, bk[2] = {p0.y, p1.y};
-#pragma unroll
-        for (int hr = 0; hr < 2; ++hr) {
-          const int r = lr + 8 * hr;
-          const float2 xv = ld2(hd + (er + 8 * hr) * h_ld + k);
-          // dy from the packed slice: exact for bf16 inputs, rounded to
-          // bf16 for fp32 ones (the fp32 pass below adds what it took)
-          __nv_bfloat16* a_rk = a16 + tile_offset(r, k);
-          const float2 dv = ld2(a_rk);
-          const float x[2] = {xv.x, xv.y}, d[2] = {dv.x, dv.y};
-          float pv[2];
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const float xhat = fmaf(x[e], rs[hr], nm[hr]);
-            const float f = fmaf(xhat, ak[e], bk[e]);
-            const float sig = __fdividef(1.0f, 1.0f + __expf(-f));
-            const float pf = f * sig;
-            pv[e] = r < mine.n_valid ? pf : 0.0f;  // past N: nothing
-            float& a = acc[0][4 * j + 2 * hr + e];
-            // sig (1 + f (1 - sig)) = sig + p (1 - sig)
-            const float df = fmaf(fmaf(-pf, sig, pf) + sig, a, d[e]);
-            a = df;
-            const float dx = df * ak[e];
-            m1[hr] += dx;
-            m2[hr] += dx * xhat;
-            v[4 * jj + e] += df;
-            v[4 * jj + 2 + e] += df * xhat;
-          }
-          store2(a_rk, pv[0], pv[1]);
-        }
+  // a persistent cluster's it-th pair: one of the chunk's counter
+  // (*next_pair), which rank 0 takes a pair ahead, into s_next[it % 2],
+  // and the cluster reads from there (the cluster barrier in the middle
+  // of each pair publishes the next); the ring's uses before it, g0
+  for (int it = 0;; ++it) {
+    long long pair_at = static_cast<long long>(pair0) + blockIdx.x / ncta;
+    if (kPersistent) {
+      pair_at = pair0 + ld_cluster_int(s_next + (it & 1), 0);
+      if (pair_at >= pair_end) {  // every CTA has read rank 0's before it
+        cluster_arrive();         // leaves
+        cluster_wait();
+        break;
       }
-      colred_w[cl_col_index(lane, ch, jb + j0, ec)] = lane_col_sum(v, lane);
+      if (rank == 0 && threadIdx.x == 0)
+        s_next[(it + 1) & 1] = atomicAdd(next_pair, 1);
     }
+    const size_t pair = static_cast<size_t>(pair_at);
+    const int g0 = it * k_tiles;
+    const RowTile rt0(2 * pair, bsz, n_points);
+    const RowTile rt1(2 * pair + 1, bsz, n_points);
+    // this warpgroup's tile, by reference: the two tiles then stay in local
+    // memory and no register holds them through the product (copied into
+    // registers, the kernel ran slower)
+    const RowTile& mine = wg ? rt1 : rt0;
+    // the pair's packed dy: two adjacent tiles
+    const __nv_bfloat16* a_pair = dy_packed + 2 * pair * ROWS * c;
+
+    // stage kt holds k block kt of both tiles of A and of the CTA's m
+    // chunks of Wᵀ
+    auto load_stage = [&](int kt) {
+      const int st = (g0 + kt) % CL_STAGES;
+      uint8_t* dst = ring + st * CL_STAGE;
+      mbar_arrive_expect_tx(&full[st], 2 * WIDE_A_BYTES + m * TILE_BYTES);
+      for (int g = 0; g < 2; ++g)
+        bulk_copy_g2s(dst + g * WIDE_A_BYTES,
+                      a_pair + static_cast<size_t>(g) * ROWS * c +
+                          static_cast<size_t>(kt) * ROWS * K_TILE,
+                      WIDE_A_BYTES, &full[st]);
+      for (int q = 0; q < m; ++q)
+        bulk_copy_g2s(dst + 2 * WIDE_A_BYTES + q * TILE_BYTES,
+                      wt_packed + (static_cast<size_t>(ch0 + q) * k_tiles +
+                                   kt) * N_TILE * K_TILE,
+                      TILE_BYTES, &full[st]);
+    };
+    // the epilogue's h (the CTA's columns of the pair's rows): in L2 by the
+    // time the product is done
+    if (warp == 1)
+      for (int q = 0; q < 2; ++q) {
+        const RowTile& rt = q ? rt1 : rt0;
+        for (int r = lane; r < rt.n_valid; r += 32)
+          prefetch_l2(h + (rt.row0 + r) * c + k0,
+                      static_cast<uint32_t>(cw * sizeof(T)));
+      }
+    __syncthreads();
+    if (threadIdx.x == 0)
+      for (int i = 0; i < CL_STAGES && i < k_tiles; ++i) load_stage(i);
+    if (threadIdx.x < CL_ROWS) {
+      const RowTile& rt = threadIdx.x < ROWS ? rt0 : rt1;
+      const int r = threadIdx.x % ROWS;
+      s_mean[threadIdx.x] = r < rt.n_valid ? mean_in[rt.row0 + r] : 0.0f;
+      s_rstd[threadIdx.x] = r < rt.n_valid ? rstd_in[rt.row0 + r] : 0.0f;
     }
-    rotate_acc32(acc);
-  }
-  // fp32 inputs: add dy - bf16(dy), from device memory, to df and to its
-  // row and column sums, as the register path's second pass does
-  if constexpr (!kBf16) {
-#pragma unroll 1
-    for (int it = 0; it < 4; ++it) {
-      const int ch = it >> 1, jb = 8 * (it & 1);
+    for (int i = threadIdx.x; i < 2 * cw; i += THREADS) {
+      const int q = i / cw, k = i % cw;
+      const size_t pk = static_cast<size_t>((q ? rt1 : rt0).cloud) * c + k0 + k;
+      // f = xhat (s (1 + g)) + (t (1 + g) + beta); s kept for dgamma
+      const float g1 = 1.0f + to_f32(gamma[pk]);
+      prm[q * CL_MAXW + k] = make_float4(s[k0 + k] * g1,
+                                         t[k0 + k] * g1 + to_f32(beta[pk]),
+                                         g1, s[k0 + k]);
+    }
+
+    // ---- dp = dy @ W: warpgroup wg computes its tile's rows of the CTA's
+    // chunks (the chunk count a template argument: no branch between the
+    // wgmma instructions)
+    float acc[CL_MAX_CHUNKS][64];
+    if (m == CL_MAX_CHUNKS)
+      cluster_product<CL_MAX_CHUNKS, kPersistent>(
+          smem_u32(ring), full, empty, k_tiles, wg, g0, load_stage, acc);
+    else
+      cluster_product<1, kPersistent>(smem_u32(ring), full, empty, k_tiles,
+                                      wg, g0, load_stage, acc);
+
+    // ---- the CTA's slices of the pair's packed dy (bf16, the dW pass's
+    // byte order: one contiguous block a tile) and its columns of the pair's
+    // h rows (one bulk copy a row, the row stride padded) into the ring, now
+    // free; rows past N are zeros, so that the epilogues need no branch on
+    // them
+    __syncthreads();  // both warpgroups' products have read the ring
+    const uint32_t dy_bytes = static_cast<uint32_t>(cw * ROWS * 2);
+    uint8_t* dys = ring;  // tile q's packed dy at q dy_bytes, then p there
+    T* hd = reinterpret_cast<T*>(ring + 2 * static_cast<size_t>(dy_bytes));
+    const int h_ld = cw + CL_H_LD;
+    if (warp == 0) {
+      const uint32_t row_bytes = static_cast<uint32_t>(cw * sizeof(T));
+      if (lane == 0) {
+        mbar_arrive_expect_tx(
+            in_bar, (rt0.n_valid + rt1.n_valid) * row_bytes + 2 * dy_bytes);
+        for (int q = 0; q < 2; ++q)
+          bulk_copy_g2s(dys + q * dy_bytes,
+                        a_pair + static_cast<size_t>(q) * ROWS * c +
+                            static_cast<size_t>(k0) * ROWS,
+                        dy_bytes, in_bar);
+      }
+      __syncwarp();
+      for (int q = 0; q < 2; ++q) {
+        const RowTile& rt = q ? rt1 : rt0;
+        for (int r = lane; r < rt.n_valid; r += 32)
+          bulk_copy_g2s(hd + (q * ROWS + r) * h_ld, h + (rt.row0 + r) * c + k0,
+                        row_bytes, in_bar);
+      }
+    }
+    {
+      const int per_row = cw * static_cast<int>(sizeof(T)) / 16;
+      for (int idx = threadIdx.x; idx < CL_ROWS * per_row; idx += THREADS) {
+        const int row = idx / per_row;
+        if (row % ROWS >= (row < ROWS ? rt0 : rt1).n_valid)
+          reinterpret_cast<uint4*>(hd + row * h_ld)[idx % per_row] =
+              make_uint4(0u, 0u, 0u, 0u);
+      }
+    }
+    __syncthreads();
+    mbar_wait(in_bar, it & 1);
+
+    // ---- epilogue 1: df in place of dp, p (in place of dy), the row and
+    // column sums; a loop over the accumulators' quarters (rotate_acc32),
+    // straight-line code within one (the shuffles need a converged warp).
+    // Thread (warp, lane) holds rows lr and lr + 8 of its warpgroup's tile
+    // (the CTA's rows er, er + 8), the CTA's columns 8 j + ec, +1 of each
+    // of its chunks
+    const int lr = (warp & 3) * 16 + (lane >> 2);
+    const int er = wg * ROWS + lr;
+    const int ec = 2 * (lane & 3);
+    float nm[2], rs[2];  // xhat = x rs + nm
+  #pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      rs[hr] = s_rstd[er + 8 * hr];
+      nm[hr] = -s_mean[er + 8 * hr] * rs[hr];
+    }
+    __nv_bfloat16* a16 =
+        reinterpret_cast<__nv_bfloat16*>(dys + wg * dy_bytes);
+    const float4* prm_t = prm + wg * CL_MAXW;
+    float m1[2] = {0.0f, 0.0f}, m2[2] = {0.0f, 0.0f};
+    float* colred_w = colred + warp * 2 * CL_MAXW;
+  #pragma unroll 1
+    for (int it = 0; it < 4; ++it) {  // quarter it: chunk it / 2's column
+      const int ch = it >> 1, jb = 8 * (it & 1);  // groups jb .. jb + 7
       if (ch < m) {
-#pragma unroll
+  #pragma unroll
       for (int j0 = 0; j0 < 8; j0 += 2) {
+        hoist_barrier();
+        // the sums of df and df * xhat over this thread's two rows, for
+        // column groups j0 and j0 + 1: v[4 jj + 2 q + e], q 0 df, 1 df * xhat
         float v[8] = {};
-#pragma unroll
+  #pragma unroll
         for (int jj = 0; jj < 2; ++jj) {
           const int j = j0 + jj;
           const int k = ch * N_TILE + 8 * (jb + j) + ec;
-          const float gs[2] = {prm_t[k].x, prm_t[k + 1].x};
-#pragma unroll
+          const float4 p0 = prm_t[k], p1 = prm_t[k + 1];
+          const float ak[2] = {p0.x, p1.x}, bk[2] = {p0.y, p1.y};
+  #pragma unroll
           for (int hr = 0; hr < 2; ++hr) {
             const int r = lr + 8 * hr;
             const float2 xv = ld2(hd + (er + 8 * hr) * h_ld + k);
-            const float2 dv = r < mine.n_valid
-                                  ? ld2(dy + (mine.row0 + r) * c + k0 + k)
-                                  : make_float2(0.0f, 0.0f);
+            // dy from the packed slice: exact for bf16 inputs, rounded to
+            // bf16 for fp32 ones (the fp32 pass below adds what it took)
+            __nv_bfloat16* a_rk = a16 + tile_offset(r, k);
+            const float2 dv = ld2(a_rk);
             const float x[2] = {xv.x, xv.y}, d[2] = {dv.x, dv.y};
-#pragma unroll
+            float pv[2];
+  #pragma unroll
             for (int e = 0; e < 2; ++e) {
               const float xhat = fmaf(x[e], rs[hr], nm[hr]);
-              const float rem =
-                  d[e] - __bfloat162float(__float2bfloat16_rn(d[e]));
-              acc[0][4 * j + 2 * hr + e] += rem;
-              const float dx = rem * gs[e];
+              const float f = fmaf(xhat, ak[e], bk[e]);
+              const float sig = __fdividef(1.0f, 1.0f + __expf(-f));
+              const float pf = f * sig;
+              pv[e] = r < mine.n_valid ? pf : 0.0f;  // past N: nothing
+              float& a = acc[0][4 * j + 2 * hr + e];
+              // sig (1 + f (1 - sig)) = sig + p (1 - sig)
+              const float df = fmaf(fmaf(-pf, sig, pf) + sig, a, d[e]);
+              a = df;
+              const float dx = df * ak[e];
               m1[hr] += dx;
               m2[hr] += dx * xhat;
-              v[4 * jj + e] += rem;
-              v[4 * jj + 2 + e] += rem * xhat;
+              v[4 * jj + e] += df;
+              v[4 * jj + 2 + e] += df * xhat;
             }
+            store2(a_rk, pv[0], pv[1]);
           }
         }
-        colred_w[cl_col_index(lane, ch, jb + j0, ec)] +=
-            lane_col_sum(v, lane);
+        colred_w[cl_col_index(lane, ch, jb + j0, ec)] = lane_col_sum(v, lane);
       }
       }
       rotate_acc32(acc);
     }
-  }
-  // the rows' sums over the CTA's columns
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-#pragma unroll
-    for (int o = 1; o < 4; o <<= 1) {
-      m1[hr] += __shfl_xor_sync(0xffffffffu, m1[hr], o);
-      m2[hr] += __shfl_xor_sync(0xffffffffu, m2[hr], o);
-    }
-    if ((lane & 3) == 0)
-      *reinterpret_cast<float2*>(xsum + (er + 8 * hr) * 2) =
-          make_float2(m1[hr], m2[hr]);
-  }
-  fence_proxy_async();  // p in place of dy: generic stores before the store
-  __syncthreads();
-  if (threadIdx.x == 0)
-    for (int q = 0; q < 2; ++q)
-      bulk_copy_s2g(p_packed + (2 * pair + q) * ROWS * c +
-                        static_cast<size_t>(k0) * ROWS,
-                    dys + q * dy_bytes, dy_bytes);
-  // ---- the whole rows' sums: every CTA's, in rank order (the same order
-  // in every CTA of the cluster, so that they agree to the bit)
-  cluster_arrive();
-  cluster_wait();
-  if (threadIdx.x < CL_ROWS) {
-    float s1 = 0.0f, s2 = 0.0f;
-    for (int q = 0; q < ncta; ++q) {
-      const float2 v = ld_cluster(xsum + threadIdx.x * 2, q);
-      s1 += v.x;
-      s2 += v.y;
-    }
-    *reinterpret_cast<float2*>(rmean + threadIdx.x * 2) =
-        make_float2(s1 / c, s2 / c);
-  }
-  // this CTA has read the others' sums; no CTA leaves before the wait at
-  // the end, so that its shared memory stays while another may read it
-  cluster_arrive();
-
-  // ---- each tile's sums of the CTA's columns: its 4 warps' in order (db
-  // came from the dy pack)
-  for (int i = threadIdx.x; i < 2 * cw; i += THREADS) {
-    const int q = i / cw, k = i % cw;
-    const float* cr = colred + 4 * q * 2 * CL_MAXW + k;
-    float sq[2];
-#pragma unroll
-    for (int e = 0; e < 2; ++e)
-      sq[e] = ((cr[e * CL_MAXW] + cr[(2 + e) * CL_MAXW]) +
-               cr[(4 + e) * CL_MAXW]) +
-              cr[(6 + e) * CL_MAXW];
-    const float4 pk = prm[q * CL_MAXW + k];
-    const float g1 = pk.z;
-    float* part_t = part + (2 * pair + q) * NQ * c + k0 + k;
-    part_t[c] = pk.w * sq[1] + t[k0 + k] * sq[0];  // dgamma: df * u
-    part_t[2 * c] = sq[0];                    // dbeta
-    part_t[3 * c] = g1 * sq[1];               // ds: du * xhat
-    part_t[4 * c] = g1 * sq[0];               // dt: du
-  }
-  __syncthreads();  // the rows' means
-
-  // ---- epilogue 2: dh from the registers, in place of h in shared
-  // memory, then one bulk store a row
-  float rm1[2], rm2[2];
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    rm1[hr] = rmean[(er + 8 * hr) * 2];
-    rm2[hr] = rmean[(er + 8 * hr) * 2 + 1];
-  }
-#pragma unroll 1
-  for (int it = 0; it < 4; ++it) {
-    const int ch = it >> 1, jb = 8 * (it & 1);
-    if (ch < m) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int k = ch * N_TILE + 8 * (jb + j) + ec;
-      const float a0 = prm_t[k].x, a1 = prm_t[k + 1].x;
-#pragma unroll
-      for (int hr = 0; hr < 2; ++hr) {
-        T* hp = hd + (er + 8 * hr) * h_ld + k;
-        const float2 x = ld2(hp);
-        const float x0 = fmaf(x.x, rs[hr], nm[hr]);
-        const float x1 = fmaf(x.y, rs[hr], nm[hr]);
-        const float dx0 = acc[0][4 * j + 2 * hr] * a0;
-        const float dx1 = acc[0][4 * j + 2 * hr + 1] * a1;
-        store2(hp, rs[hr] * (dx0 - rm1[hr] - x0 * rm2[hr]),
-               rs[hr] * (dx1 - rm1[hr] - x1 * rm2[hr]));
+    // fp32 inputs: add dy - bf16(dy), from device memory, to df and to its
+    // row and column sums, as the register path's second pass does
+    if constexpr (!kBf16) {
+  #pragma unroll 1
+      for (int it = 0; it < 4; ++it) {
+        const int ch = it >> 1, jb = 8 * (it & 1);
+        if (ch < m) {
+  #pragma unroll
+        for (int j0 = 0; j0 < 8; j0 += 2) {
+          float v[8] = {};
+  #pragma unroll
+          for (int jj = 0; jj < 2; ++jj) {
+            const int j = j0 + jj;
+            const int k = ch * N_TILE + 8 * (jb + j) + ec;
+            const float gs[2] = {prm_t[k].x, prm_t[k + 1].x};
+  #pragma unroll
+            for (int hr = 0; hr < 2; ++hr) {
+              const int r = lr + 8 * hr;
+              const float2 xv = ld2(hd + (er + 8 * hr) * h_ld + k);
+              const float2 dv = r < mine.n_valid
+                                    ? ld2(dy + (mine.row0 + r) * c + k0 + k)
+                                    : make_float2(0.0f, 0.0f);
+              const float x[2] = {xv.x, xv.y}, d[2] = {dv.x, dv.y};
+  #pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const float xhat = fmaf(x[e], rs[hr], nm[hr]);
+                const float rem =
+                    d[e] - __bfloat162float(__float2bfloat16_rn(d[e]));
+                acc[0][4 * j + 2 * hr + e] += rem;
+                const float dx = rem * gs[e];
+                m1[hr] += dx;
+                m2[hr] += dx * xhat;
+                v[4 * jj + e] += rem;
+                v[4 * jj + 2 + e] += rem * xhat;
+              }
+            }
+          }
+          colred_w[cl_col_index(lane, ch, jb + j0, ec)] +=
+              lane_col_sum(v, lane);
+        }
+        }
+        rotate_acc32(acc);
       }
     }
+    // the rows' sums over the CTA's columns
+  #pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+  #pragma unroll
+      for (int o = 1; o < 4; o <<= 1) {
+        m1[hr] += __shfl_xor_sync(0xffffffffu, m1[hr], o);
+        m2[hr] += __shfl_xor_sync(0xffffffffu, m2[hr], o);
+      }
+      if ((lane & 3) == 0)
+        *reinterpret_cast<float2*>(xsum + (er + 8 * hr) * 2) =
+            make_float2(m1[hr], m2[hr]);
     }
-    rotate_acc32(acc);
+    fence_proxy_async();  // p in place of dy: generic stores before the store
+    __syncthreads();
+    if (threadIdx.x == 0)
+      for (int q = 0; q < 2; ++q)
+        bulk_copy_s2g(p_packed + (2 * pair + q) * ROWS * c +
+                          static_cast<size_t>(k0) * ROWS,
+                      dys + q * dy_bytes, dy_bytes);
+    // ---- the whole rows' sums: every CTA's, in rank order (the same order
+    // in every CTA of the cluster, so that they agree to the bit)
+    cluster_arrive();
+    cluster_wait();
+    if (threadIdx.x < CL_ROWS) {
+      float s1 = 0.0f, s2 = 0.0f;
+      for (int q = 0; q < ncta; ++q) {
+        const float2 v = ld_cluster(xsum + threadIdx.x * 2, q);
+        s1 += v.x;
+        s2 += v.y;
+      }
+      *reinterpret_cast<float2*>(rmean + threadIdx.x * 2) =
+          make_float2(s1 / c, s2 / c);
+    }
+    // this CTA has read the others' sums; no CTA leaves before the wait at
+    // the end, so that its shared memory stays while another may read it
+    cluster_arrive();
+
+    // ---- each tile's sums of the CTA's columns: its 4 warps' in order (db
+    // came from the dy pack)
+    for (int i = threadIdx.x; i < 2 * cw; i += THREADS) {
+      const int q = i / cw, k = i % cw;
+      const float* cr = colred + 4 * q * 2 * CL_MAXW + k;
+      float sq[2];
+  #pragma unroll
+      for (int e = 0; e < 2; ++e)
+        sq[e] = ((cr[e * CL_MAXW] + cr[(2 + e) * CL_MAXW]) +
+                 cr[(4 + e) * CL_MAXW]) +
+                cr[(6 + e) * CL_MAXW];
+      const float4 pk = prm[q * CL_MAXW + k];
+      const float g1 = pk.z;
+      float* part_t = part + (2 * pair + q) * NQ * c + k0 + k;
+      part_t[c] = pk.w * sq[1] + t[k0 + k] * sq[0];  // dgamma: df * u
+      part_t[2 * c] = sq[0];                    // dbeta
+      part_t[3 * c] = g1 * sq[1];               // ds: du * xhat
+      part_t[4 * c] = g1 * sq[0];               // dt: du
+    }
+    __syncthreads();  // the rows' means
+
+    // ---- epilogue 2: dh from the registers, in place of h in shared
+    // memory, then one bulk store a row
+    float rm1[2], rm2[2];
+  #pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      rm1[hr] = rmean[(er + 8 * hr) * 2];
+      rm2[hr] = rmean[(er + 8 * hr) * 2 + 1];
+    }
+  #pragma unroll 1
+    for (int it = 0; it < 4; ++it) {
+      const int ch = it >> 1, jb = 8 * (it & 1);
+      if (ch < m) {
+  #pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int k = ch * N_TILE + 8 * (jb + j) + ec;
+        const float a0 = prm_t[k].x, a1 = prm_t[k + 1].x;
+  #pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          T* hp = hd + (er + 8 * hr) * h_ld + k;
+          const float2 x = ld2(hp);
+          const float x0 = fmaf(x.x, rs[hr], nm[hr]);
+          const float x1 = fmaf(x.y, rs[hr], nm[hr]);
+          const float dx0 = acc[0][4 * j + 2 * hr] * a0;
+          const float dx1 = acc[0][4 * j + 2 * hr + 1] * a1;
+          store2(hp, rs[hr] * (dx0 - rm1[hr] - x0 * rm2[hr]),
+                 rs[hr] * (dx1 - rm1[hr] - x1 * rm2[hr]));
+        }
+      }
+      }
+      rotate_acc32(acc);
+    }
+    fence_proxy_async();  // dh in shared memory before the bulk stores
+    __syncthreads();
+    if ((warp & 3) == 0) {  // warp 0 stores tile 0's rows, warp 4 tile 1's
+      for (int r = lane; r < mine.n_valid; r += 32)
+        bulk_copy_s2g(dh + (mine.row0 + r) * c + k0, hd + (er - lr + r) * h_ld,
+                      static_cast<uint32_t>(cw * sizeof(T)));
+      // the bulk stores (p, dh) have read shared memory before it is freed
+      bulk_store_wait_read();
+    }
+    cluster_wait();
+    if (!kPersistent) break;
   }
-  fence_proxy_async();  // dh in shared memory before the bulk stores
-  __syncthreads();
-  if ((warp & 3) == 0) {  // warp 0 stores tile 0's rows, warp 4 tile 1's
-    for (int r = lane; r < mine.n_valid; r += 32)
-      bulk_copy_s2g(dh + (mine.row0 + r) * c + k0, hd + (er - lr + r) * h_ld,
-                    static_cast<uint32_t>(cw * sizeof(T)));
-    // the bulk stores (p, dh) have read shared memory before it is freed
-    bulk_store_wait_read();
-  }
-  cluster_wait();
 }
 
-// the cluster kernel's launch: its shared memory allowed, clusters of more
-// than 8 CTAs allowed (C > 2048; without the attribute both the occupancy
-// query and the launch refuse them), the grid and the cluster shape; `cfg`
-// points into `attr`
-template <typename T>
-cudaError_t cluster_config(int b, int n, int c, cudaStream_t stream,
+// Holds its stream until *next_pair is set: the overlapped path's dW pass
+// of a chunk waits behind it for the next chunk's rows pass to begin, so
+// that the dW blocks, launched when the SMs of the chunk's clusters come
+// free, do not take them before the next clusters are placed (a cluster
+// kernel with clusters still to place goes first: its stream's priority
+// is greater).
+__global__ void film_block_bwd_gate_kernel(const int* next_pair) {
+  while (*reinterpret_cast<const volatile int*>(next_pair) == 0)
+    __nanosleep(256);
+}
+
+// the cluster kernel's launch in `clusters` clusters: its shared memory
+// allowed, clusters of more than 8 CTAs allowed (C > 2048; without the
+// attribute both the occupancy query and the launch refuse them), the grid
+// and the cluster shape; `cfg` points into `attr`
+template <typename T, bool kPersistent>
+cudaError_t cluster_config(int c, long long clusters, cudaStream_t stream,
                            cudaLaunchConfig_t& cfg,
                            cudaLaunchAttribute& attr) {
+  auto* kernel = film_block_bwd_cluster_kernel<T, kPersistent>;
   const size_t smem = cluster_smem_bytes<T>();
   cudaError_t err = cudaFuncSetAttribute(
-      film_block_bwd_cluster_kernel<T>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(film_block_bwd_cluster_kernel<T>,
-                             cudaFuncAttributeNonPortableClusterSizeAllowed,
-                             1);
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err != cudaSuccess) return err;
   const int ncta = cluster_ctas(c);
   cfg = cudaLaunchConfig_t{};
-  cfg.gridDim = dim3(static_cast<unsigned>(ncta * (wide_tiles(b, n) / 2)));
+  cfg.gridDim = dim3(static_cast<unsigned>(ncta * clusters));
   cfg.blockDim = dim3(THREADS);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -1360,34 +1500,63 @@ cudaError_t cluster_config(int b, int n, int c, cudaStream_t stream,
   return cudaSuccess;
 }
 
-// the dy pack (with db's tile sums), then the cluster kernel
-template <typename T>
-int launch_wide(const void* dy, const void* h, const void* s, const void* t,
-                const void* gamma, const void* beta,
-                const __nv_bfloat16* wt_packed, const void* mean,
-                const void* rstd, void* dh, __nv_bfloat16* p_packed,
-                __nv_bfloat16* dy_packed, float* part, int b, int n, int c,
-                cudaStream_t stream) {
-  const long long items = wide_tiles(b, n) * (c / 8);
-  film_block_bwd_wide_pack_dy_kernel<T>
-      <<<cdiv(items, RED_THREADS), RED_THREADS, 0, stream>>>(
-          static_cast<const T*>(dy), dy_packed, part, b, n, c, items);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+// clusters of the kernel at width c that the current device holds at once
+template <typename T, bool kPersistent>
+cudaError_t cluster_capacity(int c, int* clusters) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  if ((err = cluster_config<T>(b, n, c, stream, cfg, attr)) != cudaSuccess)
-    return static_cast<int>(err);
-  auto* kernel = film_block_bwd_cluster_kernel<T>;
+  cudaError_t err = cluster_config<T, kPersistent>(c, 1, nullptr, cfg, attr);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveClusters(
+      clusters, film_block_bwd_cluster_kernel<T, kPersistent>, &cfg);
+}
+
+// a call's operands, its workspace's regions and its shape
+struct BwdCall {
+  const void *dy, *h, *s, *t, *gamma, *beta, *mean, *rstd;
+  void* dh;
+  const __nv_bfloat16* wt_packed;
+  __nv_bfloat16 *p_packed, *dy_packed;
+  float *part, *ws_dw;
+  int* next_pair;  // a pair counter a row chunk (the overlapped path)
+  int b, n, c;
+};
+
+// the dy pack (with db's tile sums) of `tiles` row tiles from tile0
+template <typename T>
+cudaError_t launch_pack_dy(const BwdCall& a, long long tile0,
+                           long long tiles, cudaStream_t stream) {
+  const long long items = tiles * (a.c / 8);
+  film_block_bwd_wide_pack_dy_kernel<T>
+      <<<cdiv(items, RED_THREADS), RED_THREADS, 0, stream>>>(
+          static_cast<const T*>(a.dy), a.dy_packed, a.part, a.b, a.n, a.c,
+          tile0, items);
+  return cudaGetLastError();
+}
+
+// the cluster kernel over the pairs [pair0, pair_end): one cluster a
+// pair, or (kPersistent) `clusters` clusters that take them in turn
+template <typename T, bool kPersistent>
+cudaError_t launch_cluster(const BwdCall& a, long long pair0,
+                           long long pair_end, long long clusters,
+                           int* next_pair, cudaStream_t stream) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = cluster_config<T, kPersistent>(
+      a.c, kPersistent ? clusters : pair_end - pair0, stream, cfg, attr);
+  if (err != cudaSuccess) return err;
+  auto* kernel = film_block_bwd_cluster_kernel<T, kPersistent>;
   err = cudaLaunchKernelEx(
-      &cfg, kernel, static_cast<const T*>(dy), static_cast<const T*>(h),
-      static_cast<const float*>(s), static_cast<const float*>(t),
-      static_cast<const T*>(gamma), static_cast<const T*>(beta), wt_packed,
-      static_cast<const __nv_bfloat16*>(dy_packed),
-      static_cast<const float*>(mean), static_cast<const float*>(rstd),
-      static_cast<T*>(dh), p_packed, part, b, n, c, cluster_ctas(c));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+      &cfg, kernel, static_cast<const T*>(a.dy), static_cast<const T*>(a.h),
+      static_cast<const float*>(a.s), static_cast<const float*>(a.t),
+      static_cast<const T*>(a.gamma), static_cast<const T*>(a.beta),
+      a.wt_packed, static_cast<const __nv_bfloat16*>(a.dy_packed),
+      static_cast<const float*>(a.mean), static_cast<const float*>(a.rstd),
+      static_cast<T*>(a.dh), a.p_packed, a.part, a.b, a.n, a.c,
+      cluster_ctas(a.c), static_cast<int>(pair0),
+      static_cast<int>(pair_end), next_pair);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 // out[y, j] = sum_{i < n} in[y * in_stride + i * m + j], i in order
@@ -1428,27 +1597,50 @@ __global__ void __launch_bounds__(RED_THREADS)
   dt[k] = a_dt;
 }
 
-// the dW pass's shape: row tiles a slice and slices, fixed by (b, n, c)
+// The dW pass's shape, fixed by (b, n, c): p's chunks a block (nb), its
+// output tiles, and its slices of the row tiles.
+// Up to PORTABLE_C: 128 x 256 tiles where C % 256 == 0, else 128 x 128,
+// sliced into about DW_BLOCKS blocks (per_slice row tiles a slice). Above
+// PORTABLE_C the rows pass runs in `chunks` chunks of its pairs, each
+// chunk's dW beside the next chunk's rows (launch_overlapped): 128 x 256
+// tiles at every C (the last column tile stores 128 columns where C % 256
+// != 0), one block a tile over the chunk's row tiles, adding to the
+// chunks before it (one slice): beside the clusters the dW blocks run on
+// the SMs those leave, where waves of DW_BLOCKS mean nothing, and 4
+// slices a chunk (924 blocks at 2688, 7 whole waves when the last chunk
+// runs alone) were slower than one.
 struct DwSplit {
-  int nb, out_tiles, per_slice, slices;
+  int nb, out_tiles, per_slice, slices, chunks;
 };
 
 DwSplit dw_split(int b, int n, int c) {
   DwSplit d;
-  d.nb = c % (2 * N_TILE) == 0 ? 2 : 1;
-  d.out_tiles = (c / DW_M) * (c / (N_TILE * d.nb));
-  const int tiles = b * cdiv(n, ROWS);
-  const int want = DW_BLOCKS / d.out_tiles > 1 ? DW_BLOCKS / d.out_tiles : 1;
-  d.per_slice = cdiv(tiles, want < tiles ? want : tiles);
-  d.slices = cdiv(tiles, d.per_slice);
+  if (c <= PORTABLE_C) {
+    d.nb = c % (2 * N_TILE) == 0 ? 2 : 1;
+    d.out_tiles = (c / DW_M) * (c / (N_TILE * d.nb));
+    const int tiles = b * cdiv(n, ROWS);
+    const int want =
+        DW_BLOCKS / d.out_tiles > 1 ? DW_BLOCKS / d.out_tiles : 1;
+    d.per_slice = cdiv(tiles, want < tiles ? want : tiles);
+    d.slices = cdiv(tiles, d.per_slice);
+    d.chunks = 1;
+    return d;
+  }
+  d.nb = 2;
+  d.out_tiles = (c / DW_M) * cdiv(c, 2 * N_TILE);
+  d.per_slice = 0;  // a chunk's row tiles
+  d.slices = 1;
+  const long long pairs = wide_tiles(b, n) / 2;
+  d.chunks = static_cast<int>(pairs < BWD_CHUNKS ? pairs : BWD_CHUNKS);
   return d;
 }
 
 // region offsets in floats: the slices' dW, the tile sums, the cloud sums,
-// packed p, packed dy, packed Wᵀ, and the end. Every region is a multiple
+// packed p, packed dy, packed Wᵀ, the overlapped path's flags (above
+// PORTABLE_C), and the end. Every region is a multiple
 // of 4 floats, so each starts 16-byte aligned. The wide path pads its row
 // tiles to an even count (the cluster kernel's pairs).
-enum { R_DW, R_PART, R_CLOUD, R_P, R_DY, R_WT, R_END };
+enum { R_DW, R_PART, R_CLOUD, R_P, R_DY, R_WT, R_GATE, R_END };
 
 void regions(int b, int n, int c, long long (&off)[R_END + 1]) {
   const long long tiles = c > MAX_C ? wide_tiles(b, n)
@@ -1461,7 +1653,158 @@ void regions(int b, int n, int c, long long (&off)[R_END + 1]) {
   off[R_P] = off[R_CLOUD] + static_cast<long long>(b) * NQ * c;
   off[R_DY] = off[R_P] + packed;
   off[R_WT] = off[R_DY] + packed;
-  off[R_END] = off[R_WT] + static_cast<long long>(c) * c / 2;
+  off[R_GATE] = off[R_WT] + static_cast<long long>(c) * c / 2;
+  // above PORTABLE_C: the chunks' pair counters (ints), padded to 16 bytes
+  off[R_END] = off[R_GATE] + (c > PORTABLE_C ? (BWD_CHUNKS + 3) / 4 * 4 : 0);
+}
+
+// the dW pass over the row tiles [tile_begin, tile_end) in d.slices
+// slices of per_slice tiles (grid (out_tiles, slices)); above PORTABLE_C
+// adding to the sums in ws_dw where `accumulate` is set
+template <int NB, bool kChunked>
+cudaError_t launch_dw_kernel(const BwdCall& a, const DwSplit& d,
+                             int tile_begin, int tile_end, int per_slice,
+                             int accumulate, cudaStream_t stream) {
+  auto* kernel = film_block_bwd_dw_kernel<NB, kChunked>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(dw_smem_bytes<NB>()));
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(d.out_tiles, d.slices), THREADS, dw_smem_bytes<NB>(),
+           stream>>>(a.dy_packed, a.p_packed, a.ws_dw, tile_begin, tile_end,
+                     a.c, per_slice, accumulate);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_dw(const BwdCall& a, const DwSplit& d, int tile_begin,
+                      int tile_end, int per_slice, int accumulate,
+                      cudaStream_t stream) {
+  if (a.c > PORTABLE_C)
+    return launch_dw_kernel<2, true>(a, d, tile_begin, tile_end, per_slice,
+                                     accumulate, stream);
+  if (d.nb == 2)
+    return launch_dw_kernel<2, false>(a, d, tile_begin, tile_end, per_slice,
+                                      0, stream);
+  return launch_dw_kernel<1, false>(a, d, tile_begin, tile_end, per_slice, 0,
+                                    stream);
+}
+
+// The overlapped wide path's side stream on each device, created once at
+// the greatest priority for the rows pass; the events that order it and
+// the caller's stream; and the clusters the card holds at once, by dtype
+// and width (asked once). One call enqueues at a time.
+struct Overlap {
+  cudaStream_t side;
+  cudaEvent_t packed[BWD_CHUNKS], rows[BWD_CHUNKS];
+  int clusters[2][WIDE_MAX_C_BWD / N_TILE + 1];
+};
+constexpr int MAX_DEVICES = 64;
+
+std::mutex& overlap_mutex() {
+  static std::mutex mu;
+  return mu;
+}
+
+cudaError_t overlap_for_device(Overlap** out) {
+  static Overlap per[MAX_DEVICES];
+  static bool made[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  Overlap& o = per[dev];
+  if (!made[dev]) {
+    int least = 0, greatest = 0;
+    if ((err = cudaDeviceGetStreamPriorityRange(&least, &greatest)) !=
+            cudaSuccess ||
+        (err = cudaStreamCreateWithPriority(&o.side, cudaStreamNonBlocking,
+                                            greatest)) != cudaSuccess)
+      return err;
+    for (int i = 0; i < BWD_CHUNKS; ++i) {
+      if ((err = cudaEventCreateWithFlags(&o.packed[i],
+                                          cudaEventDisableTiming)) !=
+              cudaSuccess ||
+          (err = cudaEventCreateWithFlags(&o.rows[i],
+                                          cudaEventDisableTiming)) !=
+              cudaSuccess)
+        return err;
+    }
+    for (auto& by_dtype : o.clusters)
+      for (int& n : by_dtype) n = 0;
+    made[dev] = true;
+  }
+  *out = &o;
+  return cudaSuccess;
+}
+
+// The wide path above PORTABLE_C. The card holds only 7-9 clusters of its
+// 9-11 CTAs at once, which leaves 51-62 of its 132 SMs without a cluster,
+// so the pairs run in d.chunks chunks: `stream` packs each chunk's dy
+// (the later packs beside the first chunk's rows pass), the side stream
+// runs chunk i's rows pass once its dy is packed, as a persistent
+// cluster kernel of as many clusters as the card holds at once (the
+// block scheduler places no waiting block of a lower priority while one
+// of a higher waits, so a cluster kernel with clusters still to place
+// kept the dW pass from the SMs it left), and `stream` runs chunk i's dW
+// pass once its rows are done and chunk i + 1's rows pass has begun
+// (film_block_bwd_gate_kernel), beside it on the SMs the clusters leave.
+// Chunk i's dW adds to chunk i - 1's (the same order in every launch, so
+// two launches are bitwise equal).
+// `stream` waits for the side stream's last chunk before it returns to
+// the caller's work.
+template <typename T>
+cudaError_t launch_overlapped(const BwdCall& a, const DwSplit& d,
+                              cudaStream_t stream) {
+  std::lock_guard<std::mutex> lock(overlap_mutex());
+  Overlap* o = nullptr;
+  cudaError_t err = overlap_for_device(&o);
+  if (err != cudaSuccess) return err;
+  int& held = o->clusters[std::is_same<T, float>::value][a.c / N_TILE];
+  if (held == 0 &&
+      (err = cluster_capacity<T, true>(a.c, &held)) != cudaSuccess)
+    return err;
+  if (held <= 0) return cudaErrorInvalidConfiguration;
+  const long long pairs = wide_tiles(a.b, a.n) / 2;
+  const long long tiles = static_cast<long long>(a.b) * cdiv(a.n, ROWS);
+  auto first_pair = [&](int i) { return pairs * i / d.chunks; };
+  if ((err = cudaMemsetAsync(a.next_pair, 0, d.chunks * sizeof(int),
+                             stream)) != cudaSuccess)
+    return err;
+  for (int i = 0; i < d.chunks; ++i) {
+    const long long p0 = first_pair(i), p1 = first_pair(i + 1);
+    if ((err = launch_pack_dy<T>(a, 2 * p0, 2 * (p1 - p0), stream)) !=
+            cudaSuccess ||
+        (err = cudaEventRecord(o->packed[i], stream)) != cudaSuccess)
+      return err;
+  }
+  for (int i = 0; i < d.chunks; ++i) {
+    const long long p0 = first_pair(i), p1 = first_pair(i + 1);
+    const long long clusters = p1 - p0 < held ? p1 - p0 : held;
+    if ((err = cudaStreamWaitEvent(o->side, o->packed[i], 0)) !=
+            cudaSuccess ||
+        (err = launch_cluster<T, true>(a, p0, p1, clusters, a.next_pair + i,
+                                       o->side)) != cudaSuccess ||
+        (err = cudaEventRecord(o->rows[i], o->side)) != cudaSuccess)
+      return err;
+  }
+  for (int i = 0; i < d.chunks; ++i) {
+    const long long t0 = 2 * first_pair(i) < tiles ? 2 * first_pair(i)
+                                                   : tiles;
+    const long long t1 = 2 * first_pair(i + 1) < tiles
+                             ? 2 * first_pair(i + 1)
+                             : tiles;
+    if ((err = cudaStreamWaitEvent(stream, o->rows[i], 0)) != cudaSuccess)
+      return err;
+    if (i + 1 < d.chunks) {
+      film_block_bwd_gate_kernel<<<1, 1, 0, stream>>>(a.next_pair + i + 1);
+      if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    }
+    if ((err = launch_dw(a, d, static_cast<int>(t0), static_cast<int>(t1),
+                         cdiv(t1 - t0, d.slices), i > 0, stream)) !=
+        cudaSuccess)
+      return err;
+  }
+  return cudaSuccess;
 }
 
 template <typename T>
@@ -1473,13 +1816,16 @@ int launch(const void* dy, const void* h, const void* s, const void* t,
   long long off[R_END + 1];
   regions(b, n, c, off);
   float* base = static_cast<float*>(workspace);
-  float* ws_dw = base + off[R_DW];
-  float* part = base + off[R_PART];
   float* per_cloud = base + off[R_CLOUD];
-  auto* p_packed = reinterpret_cast<__nv_bfloat16*>(base + off[R_P]);
-  auto* dy_packed = reinterpret_cast<__nv_bfloat16*>(base + off[R_DY]);
+  BwdCall a{dy, h, s, t, gamma, beta, mean, rstd, dh,
+            reinterpret_cast<__nv_bfloat16*>(base + off[R_WT]),
+            reinterpret_cast<__nv_bfloat16*>(base + off[R_P]),
+            reinterpret_cast<__nv_bfloat16*>(base + off[R_DY]),
+            base + off[R_PART], base + off[R_DW],
+            reinterpret_cast<int*>(base + off[R_GATE]), b, n, c};
   auto* wt_packed = reinterpret_cast<__nv_bfloat16*>(base + off[R_WT]);
   const int tiles = cdiv(n, ROWS);
+  const DwSplit d = dw_split(b, n, c);
 
   film_block_bwd_pack_wt_kernel<<<cdiv(static_cast<long long>(c) * (c / 8),
                                        RED_THREADS),
@@ -1488,60 +1834,50 @@ int launch(const void* dy, const void* h, const void* s, const void* t,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  if (c > MAX_C) {
-    const int werr =
-        launch_wide<T>(dy, h, s, t, gamma, beta, wt_packed, mean, rstd, dh,
-                       p_packed, dy_packed, part, b, n, c, stream);
-    if (werr != 0) return werr;
+  if (c > PORTABLE_C) {
+    if ((err = launch_overlapped<T>(a, d, stream)) != cudaSuccess)
+      return static_cast<int>(err);
   } else {
-    auto* rows_kernel = (c / N_TILE) % 2 == 0
-                            ? film_block_bwd_rows_kernel<T, true>
-                            : film_block_bwd_rows_kernel<T, false>;
-    const size_t smem = rows_smem_bytes(c);
-    err = cudaFuncSetAttribute(rows_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    rows_kernel<<<dim3(tiles, b), THREADS, smem, stream>>>(
-        static_cast<const T*>(dy), static_cast<const T*>(h),
-        static_cast<const float*>(s), static_cast<const float*>(t),
-        static_cast<const T*>(gamma), static_cast<const T*>(beta), wt_packed,
-        static_cast<const float*>(mean), static_cast<const float*>(rstd),
-        static_cast<T*>(dh), p_packed, dy_packed, part, n, c);
-    if ((err = cudaGetLastError()) != cudaSuccess)
+    if (c > MAX_C) {
+      // the dy pack (with db's tile sums), then the cluster kernel
+      if ((err = launch_pack_dy<T>(a, 0, wide_tiles(b, n), stream)) !=
+              cudaSuccess ||
+          (err = launch_cluster<T, false>(a, 0, wide_tiles(b, n) / 2, 0,
+                                          nullptr, stream)) != cudaSuccess)
+        return static_cast<int>(err);
+    } else {
+      auto* rows_kernel = (c / N_TILE) % 2 == 0
+                              ? film_block_bwd_rows_kernel<T, true>
+                              : film_block_bwd_rows_kernel<T, false>;
+      const size_t smem = rows_smem_bytes(c);
+      err = cudaFuncSetAttribute(rows_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(smem));
+      if (err != cudaSuccess) return static_cast<int>(err);
+      rows_kernel<<<dim3(tiles, b), THREADS, smem, stream>>>(
+          static_cast<const T*>(dy), static_cast<const T*>(h),
+          static_cast<const float*>(s), static_cast<const float*>(t),
+          static_cast<const T*>(gamma), static_cast<const T*>(beta),
+          wt_packed, static_cast<const float*>(mean),
+          static_cast<const float*>(rstd), static_cast<T*>(dh), a.p_packed,
+          a.dy_packed, a.part, n, c);
+      if ((err = cudaGetLastError()) != cudaSuccess)
+        return static_cast<int>(err);
+    }
+    if ((err = launch_dw(a, d, 0, b * tiles, d.per_slice, 0, stream)) !=
+        cudaSuccess)
       return static_cast<int>(err);
   }
 
-  const DwSplit d = dw_split(b, n, c);
-  const dim3 dw_grid(d.out_tiles, d.slices);
-  if (d.nb == 2) {
-    err = cudaFuncSetAttribute(film_block_bwd_dw_kernel<2>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(dw_smem_bytes<2>()));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    film_block_bwd_dw_kernel<2><<<dw_grid, THREADS, dw_smem_bytes<2>(),
-                                  stream>>>(dy_packed, p_packed, ws_dw,
-                                            b * tiles, c, d.per_slice);
-  } else {
-    err = cudaFuncSetAttribute(film_block_bwd_dw_kernel<1>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(dw_smem_bytes<1>()));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    film_block_bwd_dw_kernel<1><<<dw_grid, THREADS, dw_smem_bytes<1>(),
-                                  stream>>>(dy_packed, p_packed, ws_dw,
-                                            b * tiles, c, d.per_slice);
-  }
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-
   film_block_bwd_sum_kernel<<<
       dim3(cdiv(static_cast<long long>(c) * c, RED_THREADS), 1), RED_THREADS,
-      0, stream>>>(ws_dw, static_cast<float*>(dw), d.slices, c * c, 0, 0);
+      0, stream>>>(a.ws_dw, static_cast<float*>(dw), d.slices, c * c, 0, 0);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
 
   film_block_bwd_sum_kernel<<<dim3(cdiv(NQ * c, RED_THREADS), b),
                               RED_THREADS, 0, stream>>>(
-      part, per_cloud, tiles, NQ * c, static_cast<long long>(tiles) * NQ * c,
-      static_cast<long long>(NQ) * c);
+      a.part, per_cloud, tiles, NQ * c,
+      static_cast<long long>(tiles) * NQ * c, static_cast<long long>(NQ) * c);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
 
   film_block_bwd_finalize_kernel<T>
@@ -1569,6 +1905,24 @@ extern "C" long long pcfm_film_block_bwd_workspace(int b, int n, int c) {
   return off[R_END];
 }
 
+// How pcfm_film_block_bwd runs (b, n, c), for reports and tests: out[0..5]
+// = the cluster kernel's CTAs a cluster (0 on the register path), the row
+// chunks, and the dW pass's p chunks a block, output tiles, slices and
+// blocks (each row chunk's). Returns
+// -1 for a shape the kernel does not take, else 0.
+extern "C" int pcfm_film_block_bwd_plan(int b, int n, int c,
+                                        long long* out) {
+  if (bad_shape(b, n, c)) return -1;
+  const DwSplit d = dw_split(b, n, c);
+  out[0] = c > MAX_C ? cluster_ctas(c) : 0;
+  out[1] = d.chunks;
+  out[2] = d.nb;
+  out[3] = d.out_tiles;
+  out[4] = d.slices;
+  out[5] = static_cast<long long>(d.out_tiles) * d.slices;
+  return 0;
+}
+
 // Clusters of the wide path's cluster kernel at width c that the current
 // device can hold at once (cudaOccupancyMaxActiveClusters); 0 where it
 // holds none, and for c <= MAX_C (no cluster); minus a cudaError_t code on
@@ -1576,21 +1930,10 @@ extern "C" long long pcfm_film_block_bwd_workspace(int b, int n, int c) {
 extern "C" int pcfm_film_block_bwd_max_clusters(int c, int is_bf16) {
   if (bad_shape(1, 1, c)) return -static_cast<int>(cudaErrorInvalidValue);
   if (c <= MAX_C) return 0;
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr;
   int clusters = 0;
-  cudaError_t err;
-  if (is_bf16) {
-    auto* kernel = film_block_bwd_cluster_kernel<__nv_bfloat16>;
-    err = cluster_config<__nv_bfloat16>(1, 1, c, nullptr, cfg, attr);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
-  } else {
-    auto* kernel = film_block_bwd_cluster_kernel<float>;
-    err = cluster_config<float>(1, 1, c, nullptr, cfg, attr);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
-  }
+  const cudaError_t err =
+      is_bf16 ? cluster_capacity<__nv_bfloat16, false>(c, &clusters)
+              : cluster_capacity<float, false>(c, &clusters);
   return err == cudaSuccess ? clusters : -static_cast<int>(err);
 }
 
@@ -1599,8 +1942,9 @@ extern "C" int pcfm_film_block_bwd_max_clusters(int c, int is_bf16) {
 // bf16 when is_bf16 else fp32; s, t (c,), w (c, c) (out x in), mean, rstd
 // (b, n), dw (c, c), db, ds, dt (c,) and the workspace in fp32. Launches the
 // Wᵀ pack, the rows pass (C > MAX_C: the dy pack and the cluster kernel),
-// the dW pass and three fixed-order reductions on `stream`, does not
-// synchronise, returns a cudaError_t code.
+// the dW pass and three fixed-order reductions on `stream` (C > 2048: the
+// cluster kernel's chunks on a side stream of this device, which `stream`
+// waits for), does not synchronise, returns a cudaError_t code.
 extern "C" int pcfm_film_block_bwd(const void* dy, const void* h,
                                    const void* s, const void* t,
                                    const void* gamma, const void* beta,

@@ -41,7 +41,10 @@ at most 256 columns a CTA), and the rows' sums of dxhat and dxhat * xhat
 meet in distributed shared memory, added in rank order, so that dh comes
 from df that never left the chip.  The wide backward moves ~16 bytes an
 element through device memory (the bound: 6) and its workspace holds no
-dp.
+dp.  Above ``PORTABLE_C_BWD`` = 2048 the card holds too few of those
+9-11-CTA clusters to fill its SMs, so the rows pass runs in chunks on a
+side stream and each chunk's dW pass runs beside the next chunk's rows
+pass on the SMs the clusters leave (``bwd_plan``).
 
 The forward kernel reads W as bf16 in the byte order of its wgmma B
 operand; ``pack_w`` makes that copy (a small kernel that the forward's C
@@ -88,6 +91,13 @@ CLUSTER_MAX_CHUNKS = 2  # the backward's wide path: 128-column chunks a
                         # a thread)
 FWD_BAND_PAIRS = 16   # the wide forward's product: pairs of 64-row tiles in
                       # a band of its raster (csrc/film_block.cu BAND_PAIRS)
+# the backward's dW split up to PORTABLE_C_BWD: about DW_BLOCKS blocks;
+# above it the rows pass in BWD_CHUNKS chunks, each chunk's dW pass beside
+# the next chunk's rows pass (csrc/film_block_bwd.cu PORTABLE_C,
+# BWD_CHUNKS, DW_BLOCKS)
+PORTABLE_C_BWD = 2048
+BWD_CHUNKS = 6
+DW_BLOCKS = 132
 
 launches = 0
 bwd_launches = 0
@@ -164,6 +174,35 @@ def cluster_split(c: int) -> list:
     ncta = -(-nch // CLUSTER_MAX_CHUNKS)
     return [(q * nch // ncta * N_TILE, (q + 1) * nch // ncta * N_TILE)
             for q in range(ncta)]
+
+
+BWD_PLAN = ("cluster_ctas", "chunks", "dw_nb", "dw_out_tiles", "dw_slices",
+            "dw_blocks")
+
+
+def bwd_plan(bsz: int, n: int, c: int) -> dict:
+    """How the backward's C entry point runs (bsz, n, c), as
+    ``pcfm_film_block_bwd_plan`` reports it: the cluster kernel's CTAs a
+    cluster (0 on the register path, C <= NARROW_C_BWD), the row chunks
+    (above PORTABLE_C_BWD: min(BWD_CHUNKS, pairs of 64-row tiles), each
+    chunk's dW pass beside the next chunk's rows pass; else 1), and the dW
+    pass's p chunks of 128 columns a block, output tiles (128 rows x 128
+    nb columns, the last column tile of 128 where C % 256 != 0 above
+    PORTABLE_C_BWD), slices of the row tiles (above PORTABLE_C_BWD one,
+    each chunk adding to the chunks before it) and blocks a chunk."""
+    tiles = bsz * -(-n // ROWS_BWD)
+    if c <= PORTABLE_C_BWD:
+        nb = 2 if c % (2 * N_TILE) == 0 else 1
+        out_tiles = (c // 128) * (c // (N_TILE * nb))
+        want = max(DW_BLOCKS // out_tiles, 1)
+        per_slice = -(-tiles // min(want, tiles))
+        slices, chunks = -(-tiles // per_slice), 1
+    else:
+        nb, out_tiles = 2, (c // 128) * -(-c // (2 * N_TILE))
+        slices, chunks = 1, min(BWD_CHUNKS, -(-tiles // 2))
+    ctas = len(cluster_split(c)) if c > NARROW_C_BWD else 0
+    return dict(zip(BWD_PLAN, (ctas, chunks, nb, out_tiles, slices,
+                               out_tiles * slices)))
 
 
 def fwd_raster(pairs: int, chunks: int, ctas: int) -> list:
@@ -319,6 +358,8 @@ def _lib():
     lib.pcfm_film_block_bwd_workspace.restype = ctypes.c_longlong
     lib.pcfm_film_block_bwd_max_clusters.argtypes = [ctypes.c_int] * 2
     lib.pcfm_film_block_bwd_max_clusters.restype = ctypes.c_int
+    lib.pcfm_film_block_bwd_plan.argtypes = [ctypes.c_int] * 3 + [ptr]
+    lib.pcfm_film_block_bwd_plan.restype = ctypes.c_int
     lib.pcfm_film_block_fwd_wide_config.argtypes = [ctypes.c_int] * 4 + [ptr]
     lib.pcfm_film_block_fwd_wide_config.restype = ctypes.c_int
     return lib
@@ -342,6 +383,16 @@ def fwd_wide_config(bsz: int, n: int, c: int, dtype: torch.dtype,
             bsz, n, c, int(dtype == torch.bfloat16), out)
     check_launch(err, "film_block wide forward config")
     return dict(zip(FWD_WIDE_CONFIG, list(out)))
+
+
+def bwd_plan_of_kernel(bsz: int, n: int, c: int) -> dict:
+    """``bwd_plan``'s keys as the backward's C entry point reports them
+    (``pcfm_film_block_bwd_plan``; no launch, no device)."""
+    out = (ctypes.c_longlong * len(BWD_PLAN))()
+    if _lib().pcfm_film_block_bwd_plan(bsz, n, c, out) != 0:
+        raise ValueError(f"film_block backward kernel does not take "
+                         f"{(bsz, n, c)}")
+    return dict(zip(BWD_PLAN, list(out)))
 
 
 @functools.lru_cache(maxsize=None)

@@ -15,12 +15,19 @@ tree (into the tree's own ``pcfm_torch/_build``), measured by the helpers
 of the ``chip_smoke.py`` beside this script for every tree; give parent,
 change, change, parent to compare two commits within one call.  For each tree:
 
-* the backward at (8, 20 000, C) bf16 for C = 640, 1024, 2048: CUDA-event
-  ms a call (median of 5 timings of 10 calls, after a warm-up), a SHA-1
-  of its seven gradients' bits, its workspace bytes
-  (``pcfm_film_block_bwd_workspace``) and the device memory one call
-  takes beyond its inputs (peak over the allocated before);
-* the mlp train step at ``pf_width`` 1024 and 2048 with the kernel trunk
+* the backward at (8, 20 000, C) bf16 for C = 512 (the register path),
+  640, 1024, 2048 and the widths above 2048, 2176, 2304, 2432, 2560,
+  2688, and in fp32 at 2688: CUDA-event ms a call (median of 5 timings
+  of 10 calls, after a warm-up), a SHA-1 of its seven gradients' bits,
+  its workspace bytes (``pcfm_film_block_bwd_workspace``) and the device
+  memory one call takes beyond its inputs (peak over the allocated
+  before); on the wide path one profile of 3 calls: each part's device
+  time a call (the W and dy packs, the rows pass's cluster kernel, the
+  dW pass, the reductions), the time the cluster kernel and the dW pass
+  ran at once, the clusters the card holds at once and, where the tree
+  has it, its plan (``bwd_plan``: row chunks, the dW pass's blocks);
+* the mlp train step at ``pf_width`` 1024, 2048 and 2688 with the kernel
+  trunk
   at bench.py's workload, timed as chip_smoke.py's phase 27 times it
   (``kernel_step_ms``: ms/step on the host clock, the median of runs of
   synchronised steps after warm-up steps) with the peak device memory of
@@ -57,8 +64,11 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BSZ, POINTS = 8, 20000
-WIDTHS = (640, 1024, 2048)
-STEP_WIDTHS = (1024, 2048)
+WIDTHS = ((512, "bfloat16"), (640, "bfloat16"), (1024, "bfloat16"),
+          (2048, "bfloat16"), (2176, "bfloat16"), (2304, "bfloat16"),
+          (2432, "bfloat16"), (2560, "bfloat16"), (2688, "bfloat16"),
+          (2688, "float32"))
+STEP_WIDTHS = (1024, 2048, 2688)
 FWD_WIDTHS = ((512, "bfloat16"), (1024, "bfloat16"), (2048, "bfloat16"),
               (2560, "bfloat16"), (4608, "bfloat16"), (4352, "float32"))
 
@@ -153,14 +163,17 @@ def measure(tree: str, parts: tuple) -> dict:
     built = build.build()
     out = {"tree": tree, "build_s": built["seconds"], "bwd": {},
            "step": {}}
+    # the tree's traces apart from the other trees'
+    tag = "".join(ch if ch.isalnum() else "_" for ch in tree).strip("_") \
+        or "here"
     if "fwd" in parts:
         out["fwd"] = measure_fwd(cs, fb, torch)
     if "voxel" in parts:
         out["voxel"] = measure_voxel(cs, tvs, torch)
     g = torch.Generator(device="cuda").manual_seed(cs.SEED + 11)
-    for c in WIDTHS if "bwd" in parts else ():
+    for c, dtype in WIDTHS if "bwd" in parts else ():
         args = cs.backward_inputs(fb, torch, g, BSZ, POINTS, c,
-                                  torch.bfloat16)
+                                  getattr(torch, dtype))
         out_digest = digest(fb.film_block_backward(*args))
         ms = statistics.median(
             cs.cuda_ms(lambda: fb.film_block_backward(*args), 10)
@@ -171,10 +184,29 @@ def measure(tree: str, parts: tuple) -> dict:
         fb.film_block_backward(*args)
         torch.cuda.synchronize()
         extra = torch.cuda.max_memory_allocated() - before
-        out["bwd"][c] = {"ms": ms, "digest": out_digest,
-                         "workspace_bytes": 4 * fb._lib()
-                         .pcfm_film_block_bwd_workspace(BSZ, POINTS, c),
-                         "call_bytes_beyond_inputs": extra}
+        key = f"{c} {dtype}"
+        out["bwd"][key] = {"ms": ms, "digest": out_digest,
+                           "workspace_bytes": 4 * fb._lib()
+                           .pcfm_film_block_bwd_workspace(BSZ, POINTS, c),
+                           "call_bytes_beyond_inputs": extra}
+        if c > fb.NARROW_C_BWD:
+            trace = os.path.join(cs.RUN_DIR, "compare",
+                                 f"bwd_{tag}_c{c}_{dtype}_trace.json")
+            prof = cs.profile_kernels(
+                torch, lambda: fb.film_block_backward(*args), 3,
+                {"pack": ("bwd_pack", "wide_pack"), "cluster": ("cluster",),
+                 "dw": ("bwd_dw",), "reduce": ("bwd_sum", "bwd_finalize")},
+                trace)
+            out["bwd"][key].update(
+                parts_ms={k: prof[k][0] for k in
+                          ("pack", "cluster", "dw", "reduce")},
+                cluster_dw_overlap_ms=cs.kernel_overlap_ms(
+                    trace, ("cluster",), ("bwd_dw",), prof["calls_run"]),
+                clusters_at_once=fb.bwd_max_clusters(
+                    c, dtype == "bfloat16", torch.cuda.current_device()),
+                cluster_ctas=len(fb.cluster_split(c)),
+                plan=fb.bwd_plan(BSZ, POINTS, c)
+                if hasattr(fb, "bwd_plan") else None)
         del args
         torch.cuda.empty_cache()
     batch = cs.train_batch(torch)
@@ -215,17 +247,32 @@ def main() -> int:
             raise SystemExit(f"film_bwd_compare: {tree} failed")
         rows.append(json.loads(got.stdout.strip().splitlines()[-1]))
         print(json.dumps(rows[-1]))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for r in rows:
-        bwd = ", ".join(f"C {c}: {v['ms']:.4f} ms, output "
-                        f"{v['digest'][:12]}, workspace "
-                        f"{v['workspace_bytes'] / 1e9:.3f} GB"
-                        for c, v in r["bwd"].items())
-        step = ", ".join(f"pf_width {w}: {v['ms']:.3f} ms, peak "
-                         f"{v['peak_gib']:.3f} GiB, losses {v['losses']}"
-                         for w, v in r["step"].items())
-        if bwd or step:
-            print(f"[compare] {r['tree']}: backward {bwd}; train step "
-                  f"{step}")
+        for c, v in r["bwd"].items():
+            parts = ""
+            if "parts_ms" in v:
+                busy = v["clusters_at_once"] * v["cluster_ctas"]
+                parts = ("; profiled (packs, cluster kernel, dW, "
+                         "reductions) " + " / ".join(
+                             f"{x:.4f}" for x in v["parts_ms"].values())
+                         + f" ms, cluster kernel and dW at once "
+                         f"{v['cluster_dw_overlap_ms']:.4f} ms; "
+                         f"{v['clusters_at_once']} clusters of "
+                         f"{v['cluster_ctas']} at once ({busy} of {sms} "
+                         f"SMs)")
+                if v["plan"]:
+                    p = v["plan"]
+                    parts += (f"; {p['chunks']} row chunk(s), the dW "
+                              f"pass's {p['dw_blocks']} blocks a chunk: "
+                              f"{p['dw_blocks'] / sms:.2f} waves")
+            print(f"[compare] {r['tree']}: backward C {c}: "
+                  f"{v['ms']:.4f} ms, output {v['digest'][:12]}, workspace "
+                  f"{v['workspace_bytes'] / 1e9:.3f} GB{parts}")
+        for w, v in r["step"].items():
+            print(f"[compare] {r['tree']}: train step pf_width {w}: "
+                  f"{v['ms']:.3f} ms, peak {v['peak_gib']:.3f} GiB, losses "
+                  f"{v['losses']}")
         for c, v in r.get("fwd", {}).items():
             parts = "; profiled (W pack, statistics, product and " \
                 "epilogue) " + " / ".join(f"{x:.4f}" for x in

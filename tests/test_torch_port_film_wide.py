@@ -170,7 +170,7 @@ def test_rows_packed_index_matches_swizzle_formula_at_2048(b, n, k, want):
 # the wide backward's cluster split: CTAs of a cluster at each width,
 # ceil(C / 256)
 _CLUSTER_CTAS = {640: 3, 768: 3, 1024: 4, 1152: 5, 1536: 6, 2048: 8,
-                 2176: 9, 2432: 10, 2688: 11}
+                 2176: 9, 2304: 9, 2432: 10, 2560: 10, 2688: 11}
 
 
 @pytest.mark.parametrize("c", sorted(_CLUSTER_CTAS))
@@ -200,6 +200,48 @@ def test_cluster_split_at_640_and_its_limits():
     for c in (512, 2816, 700):      # the register path, above MAX_C, odd
         with pytest.raises(ValueError, match="cluster_split"):
             fb.cluster_split(c)
+
+
+# the backward's plan up to 2048: the dW split of about 132 blocks, one
+# row chunk: (nb, output tiles, slices) at (8, 20000, C)
+_PLAN_UP_TO_2048 = {640: (1, 25, 5), 1024: (2, 32, 4), 1152: (1, 81, 1),
+                    2048: (2, 128, 1)}
+
+
+@pytest.mark.parametrize("c", sorted(_PLAN_UP_TO_2048))
+def test_bwd_plan_keeps_the_split_up_to_2048(c):
+    # C <= 2048 keeps its launches: the rows pass in one chunk, the dW
+    # pass's 128 x 128 tiles where C % 256 != 0, about 132 blocks
+    plan = fb.bwd_plan(8, 20000, c)
+    nb, out_tiles, slices = _PLAN_UP_TO_2048[c]
+    assert (plan["chunks"], plan["dw_nb"], plan["dw_out_tiles"],
+            plan["dw_slices"]) == (1, nb, out_tiles, slices)
+    assert plan["cluster_ctas"] == _CLUSTER_CTAS[c]
+
+
+def test_bwd_plan_takes_full_width_dw_tiles_at_2688():
+    # 21 x 11 output tiles of 128 x 256 (the last column tile stores 128
+    # columns), one block a tile and row chunk, where one slice of 128 x
+    # 128 tiles took 441; the rows pass in 6 chunks beside the dW pass
+    assert fb.bwd_plan(8, 20000, 2688) == {
+        "cluster_ctas": 11, "chunks": 6, "dw_nb": 2, "dw_out_tiles": 231,
+        "dw_slices": 1, "dw_blocks": 231}
+
+
+@pytest.mark.parametrize("c", [2176, 2304, 2432, 2560, 2688])
+@pytest.mark.parametrize("b,n", [(8, 20000), (3, 5000), (8, 2000), (2, 300),
+                                 (1, 1)])
+def test_bwd_plan_above_2048_chunks_whole_pairs(b, n, c):
+    # above 2048: at most BWD_CHUNKS chunks of whole pairs of row tiles (so
+    # one chunk at (1, 1)), 128 x 256 dW tiles at every C in one slice,
+    # each chunk adding to the chunks before it
+    plan = fb.bwd_plan(b, n, c)
+    pairs = -(-(b * -(-n // 64)) // 2)
+    assert plan["chunks"] == min(fb.BWD_CHUNKS, pairs) >= 1
+    assert plan["cluster_ctas"] == _CLUSTER_CTAS[c]
+    assert (plan["dw_nb"], plan["dw_slices"]) == (2, 1)
+    assert plan["dw_out_tiles"] == plan["dw_blocks"] == \
+        (c // 128) * -(-c // 256)
 
 
 # the wide forward's persistent product: one CTA an SM of an H100 SXM (132)
@@ -410,12 +452,15 @@ def test_kernel_forward_matches_plain_version(cuda, dtype, tol, b, n, c):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("c", [640, 1024, 1152, 2048, 2176, 2432, 2688])
+@pytest.mark.parametrize("c", [640, 1024, 1152, 2048, 2176, 2304, 2432,
+                               2560, 2688])
 @pytest.mark.parametrize("b,n", [(1, 1), (2, 65), (3, 129), (2, 300)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_backward_matches_plain_version(cuda, dtype, b, n, c):
     # C > 512 takes the wide path (dy pack, cluster kernel, dW pass), with
-    # a non-portable cluster of 9 / 10 / 11 CTAs above 2048 and the dW
+    # a non-portable cluster of 9 / 10 / 11 CTAs above 2048, where the
+    # rows pass runs in chunks beside the dW pass (128 x 256 tiles, the
+    # last column tile of 128 at C % 256 != 0), and up to 2048 the dW
     # pass's 128-column tiles where C % 256 != 0; all seven gradients
     # within 2e-2 of each one's max, two calls bitwise equal
     args = _bwd_case(cuda, dtype, b, n, c, 20)
@@ -432,12 +477,18 @@ def test_kernel_backward_matches_plain_version(cuda, dtype, b, n, c):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("c", [1024, 2688])
-def test_kernel_backward_twice_is_bitwise_equal(cuda, c):
+@pytest.mark.parametrize("c,dtype,n", [(1024, torch.bfloat16, 2000),
+                                       (2688, torch.bfloat16, 2000),
+                                       (2688, torch.float32, 2000),
+                                       (2432, torch.bfloat16, 2000),
+                                       (2560, torch.bfloat16, 5000)])
+def test_kernel_backward_twice_is_bitwise_equal(cuda, c, dtype, n):
     # the cluster kernel adds the ranks' row sums in rank order and the
-    # tile sums in a fixed order: two launches give the same bits, with 4
-    # CTAs a cluster and with 11
-    args = _bwd_case(cuda, torch.bfloat16, 8, 2000, c, 23)
+    # tile sums in a fixed order, and above 2048 each row chunk's dW adds
+    # to the chunks before it in order: two launches give the same bits,
+    # with 4 CTAs a cluster and with 10 or 11 in 6 chunks beside the dW
+    # pass, whose persistent clusters take the pairs in any order
+    args = _bwd_case(cuda, dtype, 8, n, c, 23)
     got = fb.film_block_backward(*args)
     again = fb.film_block_backward(*args)
     torch.cuda.synchronize()
@@ -462,6 +513,15 @@ def test_kernel_backward_clusters_fit_and_workspace_holds_no_dp(cuda,
             elems = b * -(-n // 64) * 64 * c
             got = lib.pcfm_film_block_bwd_workspace(b, n, c)
             assert elems <= got < 1.5 * elems, (b, n, c, got / elems)
+
+
+@pytest.mark.gpu
+def test_kernel_backward_plan_matches_its_mirror(cuda):
+    # the C entry point's plan (chunks, dW tiles and slices) is bwd_plan's
+    for b, n in [(8, 20000), (3, 5000), (8, 2000), (2, 300), (1, 1)]:
+        for c in (512, 640, 1152, 2048, 2176, 2304, 2432, 2560, 2688):
+            assert fb.bwd_plan_of_kernel(b, n, c) == fb.bwd_plan(b, n, c), \
+                (b, n, c)
 
 
 @pytest.mark.gpu
