@@ -10,6 +10,7 @@
     python3 chip_smoke.py --only parallel # phases 1 and 24-25 alone
     python3 chip_smoke.py --only wide    # phases 1 and 26-28 alone
     python3 chip_smoke.py --only interop # phases 1 and 29-30 alone
+    python3 chip_smoke.py --only data    # phases 1 and 32 alone
 
 Needs one CUDA device (an H100: the kernels are built for sm_90a) and the
 CUDA toolkit's nvcc; imports nothing of JAX.  Phases, each fatal on
@@ -250,6 +251,22 @@ failure:
    the sampling CLI (Heun x 50 at 8 x 20 000, launches as phase 11's, 8
    finite clouds) and two bf16 train steps at 8 x 20 000 with exact
    launches a step (HYB_STEP_LAUNCHES) and finite losses.
+32. the input pipeline (the card's machine has no h5py, so the packer
+   and the H5 dataset are held by the CPU tests alone): a pose tree as
+   make_dataset.py lays it out (16 models x 4 poses of 30 000 RGB points,
+   ``angles.json``, ASCII and binary PLYs) read back through the port's
+   ``load_ply`` with its native parser built and required (one native
+   parse an ASCII cloud, each equal to the numpy path's bit for bit);
+   the training CLI at bench.py's width through the worker-process
+   backend (``--loader_backend grain --num_workers 8``, synthetic, 8
+   steps, validation, a checkpoint; 5 forward and 5 backward launches a
+   step, finite losses, a rerun with nothing to do); its first 6 batches
+   equal the thread backend's bit for bit; 3-step CLI runs on each backend
+   from one seed with bitwise-equal losses, weights and optimizer state;
+   printed, not gated: ms a batch at 8 x 20 000 of the thread backend at
+   0 / 8 workers and the process backend at 8 / 16 (30 batches after
+   warm-up, from 96 clouds of 30 000 points) and the CLI's ms a step with
+   each backend beside phase 8's train step.
 
 A profile whose session holds kernel records for fewer than
 PROFILE_RECORDED of its kernel launches is taken again in new sessions
@@ -426,6 +443,15 @@ WIDE_DISTILL_POINTS = (2, 256)
 # reaches its control's, so that leg keeps phase 23's bound with its
 # control printed, not required
 WIDE_DISTILL_GRAD_REL_TOL_FP32 = 9e-3
+# phase 32: the input pipeline.  PLY poses as make_dataset.py lays them
+# out (DATA_MODELS x DATA_POSES clouds of DATA_POINTS RGB points); the
+# training CLI's worker processes; the batches held equal across the
+# backends; the loaders timed over LOADER_CLOUDS such clouds
+DATA_MODELS, DATA_POSES, DATA_POINTS = 16, 4, 30000
+DATA_WORKERS = 8
+DATA_SAME_BATCHES = 6
+LOADER_CLOUDS = 96
+LOADER_TIMED_BATCHES, LOADER_WARMUP_BATCHES = 30, 6
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, dense bf16 tensor-core
 # and fp32 (non-tensor) FLOP/s
 HBM_BPS = 3.35e12
@@ -4076,12 +4102,316 @@ def flop_counts(fb, tvs, torch) -> dict:
     return res
 
 
+def write_pose_tree(np, root: str) -> dict:
+    """Phase 32's PLY poses, laid out as make_dataset.py writes them:
+    {model}/joint.json and {model}/pose_XXX/{pointcloud.ply, angles.json},
+    DATA_MODELS x DATA_POSES hinge clouds of DATA_POINTS RGB points from
+    the seed; the even models' PLYs ASCII (the port's writer), the odd
+    models' binary little-endian.  Returns {path: (xyz, rgb uint8,
+    ascii)} as written."""
+    from pcfm_torch.data.ply import save_point_cloud_ply_rgb
+    from pcfm_torch.data.synthetic import hinge_shape
+    rng = np.random.RandomState(SEED + 32)
+    written = {}
+    for m in range(DATA_MODELS):
+        model = os.path.join(root, f"model_{m:02d}")
+        os.makedirs(model, exist_ok=True)
+        with open(os.path.join(model, "joint.json"), "w") as f:
+            json.dump({"anno_id": f"model_{m:02d}", "category": "Hinge",
+                       "joints": [{"index": 0, "name": "joint_0",
+                                   "type": "revolute", "lower": 0.1,
+                                   "upper": 2.5}]}, f)
+        for pose in range(DATA_POSES):
+            d = os.path.join(model, f"pose_{pose:03d}")
+            os.makedirs(d, exist_ok=True)
+            theta = float(rng.uniform(0.1, 2.5))
+            xyz, rgb = hinge_shape(rng, DATA_POINTS, theta)
+            xyz = xyz * np.float32(rng.uniform(0.5, 3.0))
+            rgb = np.clip(rgb + rng.uniform(-0.1, 0.1, rgb.shape), 0, 1)
+            rgb8 = (rgb * 255.0 + 0.5).astype(np.uint8)
+            path = os.path.join(d, "pointcloud.ply")
+            if m % 2 == 0:
+                save_point_cloud_ply_rgb(xyz, rgb, path)
+            else:
+                rec = np.empty(len(xyz), [("x", "<f4"), ("y", "<f4"),
+                                          ("z", "<f4"), ("red", "u1"),
+                                          ("green", "u1"), ("blue", "u1")])
+                for i, k in enumerate("xyz"):
+                    rec[k] = xyz[:, i]
+                for i, k in enumerate(("red", "green", "blue")):
+                    rec[k] = rgb8[:, i]
+                header = ("ply\nformat binary_little_endian 1.0\n"
+                          f"element vertex {len(xyz)}\n"
+                          + "".join(f"property float {k}\n" for k in "xyz")
+                          + "".join(f"property uchar {k}\n"
+                                    for k in ("red", "green", "blue"))
+                          + "end_header\n")
+                with open(path, "wb") as f:
+                    f.write(header.encode())
+                    f.write(rec.tobytes())
+            with open(os.path.join(d, "angles.json"), "w") as f:
+                json.dump({"angles": [theta]}, f)
+            written[path] = (xyz, rgb8, m % 2 == 0)
+    return written
+
+
+def read_pose_tree(np, written: dict) -> dict:
+    """Phase 32, step 1: every PLY back through the port's ``load_ply``
+    with the native parser required (built here, its count of parses
+    checked), each ASCII read equal to the numpy path's bit for bit and
+    within the writer's 6 decimals of what was written, each binary read
+    equal to what was written; host ms a cloud for both paths."""
+    from unittest import mock
+
+    from pcfm_torch.data.ply import load_ply
+    from pcfm_torch.native import build as nb
+    t0 = time.perf_counter()
+    nb.build(force=True)
+    build_s = time.perf_counter() - t0
+    if not nb.available():
+        raise RuntimeError("the native PLY library did not load")
+    ascii_paths = [p for p, (_, _, a) in written.items() if a]
+    before = nb.parses
+    t0 = time.perf_counter()
+    native = {p: load_ply(p) for p in written}
+    native_s = time.perf_counter() - t0
+    parsed = nb.parses - before
+    with mock.patch.object(nb, "get_lib", lambda: None):
+        t0 = time.perf_counter()
+        plain = {p: load_ply(p) for p in ascii_paths}
+        plain_s = time.perf_counter() - t0
+    ascii_err, bad, bound = 0.0, [], 0.0
+    for path, (xyz, rgb8, is_ascii) in written.items():
+        got_xyz, got_rgb = native[path]
+        if got_xyz.shape != xyz.shape or got_xyz.dtype != np.float32 \
+                or not np.array_equal(got_rgb, rgb8):
+            bad.append(path)
+        elif is_ascii:
+            # %.6f rounds by at most 5e-7, float32 by half an ulp
+            ascii_err = max(ascii_err, float(np.abs(got_xyz - xyz).max()))
+            bound = max(bound, 5e-7 + float(np.abs(xyz).max())
+                        * float(np.finfo(np.float32).eps))
+            if not (np.array_equal(got_xyz, plain[path][0])
+                    and np.array_equal(got_rgb, plain[path][1])):
+                bad.append(path)
+        elif not np.array_equal(got_xyz, xyz):
+            bad.append(path)
+    n_ascii = len(ascii_paths)
+    out = {"clouds": len(written), "ascii": n_ascii,
+           "native_parses": parsed, "build_s": build_s,
+           "ascii_max_abs_err": ascii_err,
+           "native_ms_per_cloud_all": native_s * 1e3 / len(written),
+           "numpy_ms_per_ascii_cloud": plain_s * 1e3 / n_ascii}
+    print(f"[data] PLY poses: {DATA_MODELS} models x {DATA_POSES} poses x "
+          f"{DATA_POINTS} RGB points ({n_ascii} ASCII, "
+          f"{len(written) - n_ascii} binary); native library built in "
+          f"{build_s:.2f} s, {parsed} native parses; host ms a cloud: "
+          f"{out['native_ms_per_cloud_all']:.3f} (all, native), numpy "
+          f"path {out['numpy_ms_per_ascii_cloud']:.3f} (ASCII); ASCII max "
+          f"|read - written| {ascii_err:.3g} (bound {bound:.3g}); wrong "
+          f"reads: "
+          f"{len(bad)}")
+    if bad or parsed != n_ascii or ascii_err > bound:
+        raise RuntimeError(f"PLY read-back: {len(bad)} wrong, {parsed} of "
+                           f"{n_ascii} ASCII clouds parsed natively")
+    return out
+
+
+def loader_ms(torch, loader, feed, batches: int, warmup: int) -> tuple:
+    """Host ms a batch of ``loader`` over ``batches`` batches after
+    ``warmup`` (epochs in turn), not counting ``feed``: the train loop's
+    host work on each batch, timed apart (then synchronised); and the
+    first batch's ms (a process loader's worker start)."""
+    t0 = time.perf_counter()
+    first, times, fed, ep = None, [], [], 0
+    while len(times) < batches:
+        t = time.perf_counter()
+        for batch in loader.epoch_batches(ep):
+            now = time.perf_counter()
+            feed(batch)
+            done = time.perf_counter()
+            torch.cuda.synchronize()
+            if first is None:
+                first = (now - t0) * 1e3
+            elif warmup > 0:
+                warmup -= 1
+            else:
+                times.append((now - t) * 1e3)
+                fed.append((done - now) * 1e3)
+            if len(times) == batches:
+                break
+            t = time.perf_counter()
+        ep += 1
+    return statistics.mean(times), statistics.mean(fed), first
+
+
+def data_cli_run(fb, torch, name: str, backend: str, extra=()) -> dict:
+    """One training CLI run from scratch at bench.py's width on the
+    synthetic set (no h5py on the card's machine), with ``backend``'s
+    train loader: its result, launches, metrics rows and checkpoint."""
+    from pcfm_torch.train import cli
+    run = os.path.join(RUN_DIR, "data", name)
+    shutil.rmtree(run, ignore_errors=True)
+    fb.launches = fb.bwd_launches = 0
+    out = cli.main(["--dataset_type", "synthetic", "--batch_size", str(B),
+                    "--tr_max_sample_points", str(N),
+                    "--te_max_sample_points", str(N), "--latent_dim", "128",
+                    "--fused_trunk", "on", "--warmup_steps", "0",
+                    "--sample_steps", str(TRAIN_SAMPLE_STEPS),
+                    "--loader_backend", backend, "--num_workers",
+                    str(DATA_WORKERS), "--out_dir", run, *extra])
+    torch.cuda.synchronize()
+    with open(os.path.join(run, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    ckpts = sorted(os.listdir(os.path.join(run, "ckpts")))
+    sd = torch.load(os.path.join(run, "ckpts", ckpts[-1]),
+                    map_location="cpu", weights_only=True)
+    return {"out": out, "rows": rows, "fwd": fb.launches,
+            "bwd": fb.bwd_launches, "sd": sd}
+
+
+def same_tree(torch, a, b) -> bool:
+    """Bitwise equality of two nested checkpoint values."""
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and a.dtype == b.dtype and \
+            torch.equal(a, b)
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(
+            same_tree(torch, a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(same_tree(torch, x, y)
+                                        for x, y in zip(a, b))
+    return a == b or (isinstance(a, float) and math.isnan(a)
+                      and math.isnan(b))
+
+
+def data_pipeline(fb, torch, np, step_ms=None) -> dict:
+    """Phase 32: the input pipeline on the card's host (this machine has no
+    h5py, so no packing or H5 shards here: the CPU tests hold them).  PLY
+    poses written and read back natively (step 1); the training CLI at
+    bench.py's width through the worker-process backend (``--loader_backend
+    grain --num_workers DATA_WORKERS``, 8 steps, validation, a checkpoint)
+    with exact launches; its first DATA_SAME_BATCHES batches equal the
+    thread backend's bit for bit; 3-step CLI runs on each backend from one
+    seed with bitwise-equal losses and weights; then, printed and not
+    gated, ms a batch of both backends and the CLI's ms a step with each
+    beside phase 8's train step."""
+    from pcfm_torch.data.grain_loader import ProcessLoader
+    from pcfm_torch.data.loader import DataLoader, to_model_batch
+    from pcfm_torch.data.synthetic import SyntheticDataset
+    from pcfm_torch.train.loop import to_device
+    root = os.path.join(RUN_DIR, "data")
+    shutil.rmtree(root, ignore_errors=True)
+    out = {"ply": read_pose_tree(np, write_pose_tree(
+        np, os.path.join(root, "poses")))}
+
+    fwd, bwd, steps = train_cli(fb, torch, name="data/train_grain",
+                                extra=("--loader_backend", "grain",
+                                       "--num_workers", str(DATA_WORKERS)),
+                                tag="[data]")
+    out["train_cli"] = {"fwd": fwd, "bwd": bwd, "steps": steps}
+
+    # the CLI's train set and loader arguments (synthetic, seed 123)
+    ds = SyntheticDataset(split="train", tr_sample_size=N, te_sample_size=N)
+    kw = dict(shuffle=True, drop_last=True, seed=bench_cfg().seed)
+    proc = ProcessLoader(ds, B, num_workers=DATA_WORKERS, **kw)
+    try:
+        got = [b for _, b in zip(range(DATA_SAME_BATCHES),
+                                 proc.epoch_batches(1))]
+    finally:
+        proc.close()
+    want = [b for _, b in zip(range(DATA_SAME_BATCHES), DataLoader(
+        ds, B, num_workers=DATA_WORKERS, **kw).epoch_batches(1))]
+    same = len(got) == len(want) == DATA_SAME_BATCHES and all(
+        x.keys() == y.keys() and all(np.array_equal(x[k], y[k]) and
+                                     x[k].dtype == y[k].dtype for k in x)
+        for x, y in zip(got, want))
+    print(f"[data] first {DATA_SAME_BATCHES} batches of epoch 1 at {B} x "
+          f"{N}: process backend ({DATA_WORKERS} workers) and thread "
+          f"backend bitwise equal: {same}")
+    if not same:
+        raise RuntimeError("process and thread backends' batches differ")
+
+    short = ("--epochs", "1", "--train_count", str(3 * B))
+    runs = {b: data_cli_run(fb, torch, f"three_{b}", b, short)
+            for b in ("grain", "thread")}
+    g, t = runs["grain"], runs["thread"]
+    args = [{k: v for k, v in r["sd"].pop("args").items()
+             if k not in ("out_dir", "loader_backend")} for r in (g, t)]
+    equal = same_tree(torch, g["sd"], t["sd"]) and args[0] == args[1] \
+        and g["out"] == t["out"] and g["fwd"] == t["fwd"]
+    print(f"[data] 3-step CLI runs, grain / thread: loss "
+          f"{g['out']['loss']!r} / {t['out']['loss']!r}; checkpoints "
+          f"(weights, EMA, optimizer) bitwise equal: {equal}; launches "
+          f"{g['fwd']} / {t['fwd']} forward, {g['bwd']} / {t['bwd']} "
+          f"backward")
+    if not equal or g["bwd"] != 3 * FILM_BLOCKS or \
+            not math.isfinite(g["out"]["loss"]):
+        raise RuntimeError("3-step runs differ between backends")
+    out["three_step_loss"] = g["out"]["loss"]
+
+    # printed, not gated: the loaders alone on 30 000-point clouds (as
+    # PartNet shards hold them), then the CLI's epochs of 8 steps
+    big = SyntheticDataset(split="train", size=LOADER_CLOUDS,
+                           n_points=DATA_POINTS, tr_sample_size=N,
+                           te_sample_size=N)
+    cfg = bench_cfg()
+
+    def feed(batch):                  # the loop's device_prefetch, one batch
+        to_device(to_model_batch(batch, train=True, has_rgb=True,
+                                 cond_dim=1), torch.device(DEVICE))
+
+    ms, fed, first = {}, {}, {}
+    for name, kind, workers in (("thread_0", DataLoader, 0),
+                                ("thread_8", DataLoader, 8),
+                                ("process_8", ProcessLoader, 8),
+                                ("process_16", ProcessLoader, 16)):
+        loader = kind(big, B, num_workers=workers, seed=cfg.seed)
+        ms[name], fed[name], first[name] = loader_ms(
+            torch, loader, feed, LOADER_TIMED_BATCHES, LOADER_WARMUP_BATCHES)
+        if kind is ProcessLoader:
+            loader.close()
+    del big
+    timed = ("--epochs", "3", "--save_every", "3")
+    cli_ms = {b: [row["sec"] * 1e3 / 8 for row in data_cli_run(
+        fb, torch, f"timed_{b}", b, timed)["rows"][1:]]
+        for b in ("thread", "grain")}
+    if step_ms is None:               # --only data: phase 8's method
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+        step_ms = kernel_step_ms(torch, train_state(torch, "on"),
+                                 train_batch(torch), gen)["ms"]
+    card = sh("nvidia-smi", "--query-gpu=name,power.limit",
+              "--format=csv,noheader")
+    print(f"[data] loaders at {B} x {N} from {LOADER_CLOUDS} clouds of "
+          f"{DATA_POINTS} points (in memory; {LOADER_TIMED_BATCHES} "
+          f"batches after {LOADER_WARMUP_BATCHES}), host ms a batch: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
+          + "; the loop's host work on each batch (to_model_batch + "
+          "pinned to_device): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in fed.items())
+          + "; first batch (worker start) "
+          + ", ".join(f"{k} {v:.1f}" for k, v in first.items())
+          + f" ({card})")
+    print(f"[data] training CLI, epochs 2-3 of 8 steps, ms a step: "
+          + ", ".join(f"{b} {' '.join(f'{x:.2f}' for x in v)} (median "
+                      f"{statistics.median(v):.2f})"
+                      for b, v in cli_ms.items())
+          + f"; train step alone (phase 8's method) {step_ms:.3f} ms "
+          f"({card})")
+    out.update(loader_ms_per_batch=ms, loop_feed_ms_per_batch=fed,
+               first_batch_ms=first, cli_ms_per_step={
+        b: statistics.median(v) for b, v in cli_ms.items()},
+        step_ms=step_ms, card=card)
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     global SEED
     p = argparse.ArgumentParser(description="on-card smoke run of pcfm_torch")
     p.add_argument("--only", choices=("voxel", "chamfer", "hybrid_train",
                                       "distill", "parallel", "wide",
-                                      "interop"),
+                                      "interop", "data"),
                    help="phase 1 and one group of phases alone")
     p.add_argument("--seed", type=int, default=SEED,
                    help="seed of every random weight, cloud and draw")
@@ -4143,6 +4473,10 @@ def main() -> int:
         fl = flop_counts(fb, tvs, torch)
         print(json.dumps({"interop": inter, "flops": fl}))
         return 0
+    if args.only == "data":
+        # phase 1 and phase 32, for work on the input pipeline
+        print(json.dumps({"data": data_pipeline(fb, torch, np)}))
+        return 0
     if args.only == "hybrid_train":
         # phase 1, phase 11's checkpoint and phases 17-20 alone, for work
         # on hybrid training
@@ -4181,6 +4515,7 @@ def main() -> int:
     fl = flop_counts(fb, tvs, torch)
     print(json.dumps({"interop": inter, "flops": fl}))
     odd = odd_channels(fb, tvs, torch, np)
+    print(json.dumps({"data": data_pipeline(fb, torch, np, step["ms_on"])}))
 
     film = film_bounds(B, N, C)
     # the main path's shapes: R = 32 stage, 8 clouds, bf16 features;

@@ -10,7 +10,8 @@ asks for the CPU (``pcfm_torch.device``).
 
 Layout (the ``mlp`` and ``hybrid`` sampling, training and distillation
 paths, with every train-step option and data and point-axis parallel
-training, evaluation, checkpoint import and the FLOP counter):
+training, evaluation, checkpoint import, the FLOP counter and the input
+pipeline from dataset generation to the loaders):
   pcfm_torch.nn       inits, FiLMBlock, FiLM1d, GroupNorm / BatchNorm,
                       SharedMLP, SE3d, PVConv
   pcfm_torch.models   timestep embedding, VelocityNet(WithContext),
@@ -26,7 +27,13 @@ training, evaluation, checkpoint import and the FLOP counter):
   pcfm_torch.eval     CD / EMD / F-score, the generative suite, eval CLI
   pcfm_torch.parallel process group, (data, points) grid, differentiable
                       collectives, the voxel ops over split clouds
-  pcfm_torch.data     datasets, host loader, PLY IO
+  pcfm_torch.data     datasets, host loaders (threads; worker processes
+                      for ``--loader_backend grain``), PLY IO, the PLY ->
+                      H5 packer (``python -m pcfm_torch.data.pack_h5``)
+  pcfm_torch.native   the C++ ASCII-PLY parser and subsample-gather (host
+                      code, built with g++ at first use)
+  pcfm_torch.datagen  URDF -> posed coloured PLY dataset generation
+                      (``python -m pcfm_torch.datagen.cli``)
   pcfm_torch.utils    runtime helpers, the model-FLOP counter and MFU
   pcfm_torch.interop  JAX param trees -> port state_dicts; reference
                       checkpoints -> port runs (``python -m

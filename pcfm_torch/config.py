@@ -145,7 +145,7 @@ class Config:
     lambda_adv: float = 0.0
 
     # ========== System / I/O ==========
-    loader_backend: str = "thread"        # thread | grain (pcfm/data/grain_loader.py)
+    loader_backend: str = "thread"        # thread | grain (pcfm_torch/data/grain_loader.py)
     out_dir: str = "./runs/hybrid"
     save_every: int = 10
     keep_last_ckpts: int = 0              # GC to newest K checkpoints (0=all)

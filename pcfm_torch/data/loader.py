@@ -49,6 +49,14 @@ def collate(items) -> Dict[str, np.ndarray]:
     return out
 
 
+def load_item(ds, seed: int, epoch: int, idx: int):
+    """One item of an epoch: ``ds.get`` with a numpy RNG derived from
+    (seed, epoch, index), so it does not depend on which worker loads it."""
+    rng = np.random.RandomState(
+        (seed * 1000003 + epoch * 10007 + idx * 31 + 7) % (2**31))
+    return ds.get(int(idx), rng)
+
+
 class DataLoader:
     """Iterable over epoch batches; call ``epoch_batches(ep)`` per epoch
     (the set_epoch analogue)."""
@@ -94,19 +102,23 @@ class DataLoader:
         return order
 
     def _load_one(self, epoch: int, idx: int):
-        rng = np.random.RandomState(
-            (self.seed * 1000003 + epoch * 10007 + idx * 31 + 7) % (2**31))
-        return self.ds.get(int(idx), rng)
+        return load_item(self.ds, self.seed, epoch, idx)
 
-    def epoch_batches(self, epoch: int) -> Iterator[Dict[str, np.ndarray]]:
+    def _epoch_chunks(self, epoch: int) -> list:
+        """The epoch's batches as index arrays, in order (the last one
+        partial when not ``drop_last``)."""
         order = self._epoch_indices(epoch)
         nb = len(order) // self.batch_size if self.drop_last \
             else -(-len(order) // self.batch_size)
-        if nb == 0:
+        return [order[b * self.batch_size:(b + 1) * self.batch_size]
+                for b in range(nb)]
+
+    def epoch_batches(self, epoch: int) -> Iterator[Dict[str, np.ndarray]]:
+        chunks = self._epoch_chunks(epoch)
+        if not chunks:
             return
         if self.num_workers == 0:
-            for b in range(nb):
-                chunk = order[b * self.batch_size:(b + 1) * self.batch_size]
+            for chunk in chunks:
                 yield collate([self._load_one(epoch, i) for i in chunk])
             return
 
@@ -128,11 +140,9 @@ class DataLoader:
         def producer():
             try:
                 with ThreadPoolExecutor(max_workers=self.num_workers) as ex:
-                    for b in range(nb):
+                    for chunk in chunks:
                         if stop.is_set():
                             return
-                        chunk = order[b * self.batch_size:
-                                      (b + 1) * self.batch_size]
                         items = list(ex.map(
                             lambda i: self._load_one(epoch, i), chunk))
                         if not _put(collate(items)):

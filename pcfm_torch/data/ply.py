@@ -1,5 +1,6 @@
-"""PLY point-cloud IO (numpy, no deps) — a copy of pcfm/data/ply.py whose
-ASCII reader takes the numpy path only (no native parser).
+"""PLY point-cloud IO — a copy of pcfm/data/ply.py.  The ASCII reader
+parses with the port's native library (``pcfm_torch.native``) and falls back
+to numpy where it is not built (``pcfm_torch.native.available()``).
 
 Writers match the reference's ASCII formats byte-for-byte
 (util.py:35-64, 124-158); the reader additionally handles binary
@@ -8,10 +9,13 @@ consume `make_dataset.py` output.
 """
 from __future__ import annotations
 
+import io
 import os
 from typing import Optional, Tuple
 
 import numpy as np
+
+from pcfm_torch.native import parse_ascii_rows
 
 _PLY_DTYPES = {
     "char": "i1", "uchar": "u1", "short": "i2", "ushort": "u2",
@@ -107,8 +111,11 @@ def load_ply(path: str) -> Tuple[np.ndarray, Optional[np.ndarray]]:
 
         names = [p[0] for p in props]
         if fmt == "ascii":
-            data = np.atleast_2d(
-                np.loadtxt(f, max_rows=n_vertex, dtype=np.float64))
+            body = f.read()
+            data = parse_ascii_rows(body, len(props), n_vertex)
+            if data is None or data.shape[0] != n_vertex:
+                data = np.atleast_2d(np.loadtxt(
+                    io.BytesIO(body), max_rows=n_vertex, dtype=np.float64))
             rec = {name: data[:, i] for i, (name, _) in enumerate(props)}
         elif fmt == "binary_little_endian":
             dt = np.dtype([(name, "<" + d) for name, d in props])

@@ -1,7 +1,9 @@
 """The training loop — port of pcfm/train/loop.py.
 
   * data from pcfm_torch.data (the port's copy of the framework-free
-    pcfm.data: datasets, host loader)
+    pcfm.data: datasets, host loader); the train loader's backend is
+    ``cfg.loader_backend`` (threads, or worker processes for ``grain``),
+    the val loader's the thread loader, as in JAX
   * ModelBundle + AdamW (3 groups) + EMA, auto-resume from ckpts/*.pt
   * per epoch: geometry-warmup and CFG-warmup scalars, then the steps
   * per save_every: checkpoint + validation recon / sample PLY dumps + CD
@@ -37,6 +39,7 @@ import torch.distributed as dist
 
 from pcfm_torch.config import Config
 from pcfm_torch.data import DataLoader, get_datasets, to_model_batch
+from pcfm_torch.data.grain_loader import make_loader
 from pcfm_torch.device import resolve_device
 from pcfm_torch.parallel import sp_context
 from pcfm_torch.parallel.distributed import cuda_device
@@ -48,14 +51,6 @@ from pcfm_torch.train.state import (broadcast_state, count_parameters,
                                     init_state)
 from pcfm_torch.train.step import train_step
 from pcfm_torch.utils import MetricEMA, seed_all
-
-
-def check_single_device(cfg: Config) -> None:
-    """What the port's loop does not run: ``loader_backend='grain'``
-    (grain_loader.py is not copied)."""
-    if cfg.loader_backend == "grain":
-        raise NotImplementedError("loader_backend='grain': not yet ported "
-                                  "to pcfm_torch (thread loader)")
 
 
 def to_device(arrays: dict, device: torch.device) -> dict:
@@ -107,7 +102,6 @@ def _progress(total: int, desc: str):
 def train(cfg: Config, verbose: bool = True, device="cuda") -> dict:
     """Run training to cfg.epochs on ``device`` ("cuda": this rank's card,
     or "cpu" when asked); returns summary metrics (every rank's mean)."""
-    check_single_device(cfg)
     device = resolve_device(device)
     if device.type == "cuda":
         device = cuda_device(device)
@@ -137,10 +131,10 @@ def _train(cfg: Config, verbose: bool, device: torch.device, grid) -> dict:
     # ---- data (sets cfg.cond_dim / cfg.has_rgb) ----
     tr_ds, te_ds = get_datasets(cfg)
     d_rank, d_world = data_axis_shard(grid)
-    train_loader = DataLoader(tr_ds, cfg.batch_size, shuffle=True,
-                              drop_last=True, seed=cfg.seed,
-                              num_workers=cfg.num_workers, rank=d_rank,
-                              world_size=d_world)
+    train_loader = make_loader(cfg.loader_backend, tr_ds, cfg.batch_size,
+                               shuffle=True, drop_last=True, seed=cfg.seed,
+                               num_workers=cfg.num_workers, rank=d_rank,
+                               world_size=d_world)
     val_loader = DataLoader(te_ds, cfg.batch_size, shuffle=False,
                             drop_last=False, seed=cfg.seed,
                             num_workers=max(1, cfg.num_workers // 2),

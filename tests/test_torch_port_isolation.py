@@ -5,6 +5,7 @@ import argparse
 import contextlib
 import dataclasses
 import io
+import os
 import re
 import subprocess
 import sys
@@ -41,7 +42,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "'pcfm_torch.parallel.collectives', 'pcfm_torch.parallel.sp_ops', "
         "'pcfm_torch.ops.ball_query', 'pcfm_torch.ops.interpolate', "
         "'pcfm_torch.ops.losses', 'pcfm_torch.nn.pointnet', "
-        "'pcfm_torch.interop', 'pcfm_torch.utils.flops'} "
+        "'pcfm_torch.interop', 'pcfm_torch.utils.flops', "
+        "'pcfm_torch.data.grain_loader', 'pcfm_torch.data.pack_h5', "
+        "'pcfm_torch.native', 'pcfm_torch.native.build', "
+        "'pcfm_torch.datagen', 'pcfm_torch.datagen.core', "
+        "'pcfm_torch.datagen.glb', 'pcfm_torch.datagen.meshio', "
+        "'pcfm_torch.datagen.bullet_kin', 'pcfm_torch.datagen.simulate', "
+        "'pcfm_torch.datagen.cli'} "
         "<= set(names), names\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'flax', "
         "'optax', 'orbax') or m == 'pcfm' or m.startswith('pcfm.') "
@@ -97,12 +104,41 @@ def test_parallel_imports_neither_jax_nor_the_jax_package():
     assert set(port) - set(_options(jax_parser())) == {("--device",)}
 
 
-def test_check_single_device_rejects_only_grain():
-    from pcfm_torch.train.loop import check_single_device
-    with pytest.raises(NotImplementedError,
-                       match="loader_backend='grain': not yet ported"):
-        check_single_device(Config(loader_backend="grain"))
-    check_single_device(Config(dp=4, sp=2))      # the grid checks the sizes
+def test_loop_accepts_grain_and_builds_the_process_backend(monkeypatch,
+                                                          tmp_path):
+    """``loader_backend='grain'`` trains: the loop builds its train loader
+    through ``make_loader``, the process backend for ``grain``, the thread
+    loader for ``thread``, and refuses a backend it does not know."""
+    from pcfm_torch.data.grain_loader import ProcessLoader, make_loader
+    from pcfm_torch.data.loader import DataLoader
+    from pcfm_torch.train import loop
+
+    built = []
+
+    class Stop(Exception):
+        pass
+
+    def spy(backend, *args, **kwargs):
+        built.append(make_loader(backend, *args, **kwargs))
+        return built[-1]
+
+    def stop(*args, **kwargs):
+        raise Stop
+
+    monkeypatch.setattr(loop, "make_loader", spy)
+    monkeypatch.setattr(loop, "init_state", stop)
+    for backend, kind in (("grain", ProcessLoader), ("thread", DataLoader)):
+        cfg = Config(dataset_type="synthetic", loader_backend=backend,
+                     num_workers=2, batch_size=4, tr_max_sample_points=16,
+                     te_max_sample_points=16, out_dir=str(tmp_path))
+        with pytest.raises(Stop):
+            loop.train(cfg, verbose=False, device="cpu")
+        assert type(built[-1]) is kind
+        assert built[-1].num_workers == 2 and built[-1].drop_last
+    with pytest.raises(ValueError, match="loader_backend"):
+        loop.train(Config(dataset_type="synthetic", loader_backend="x",
+                          out_dir=str(tmp_path)), verbose=False,
+                   device="cpu")
 
 
 def _help_options(main) -> set:
@@ -162,6 +198,25 @@ def _grab_parser(monkeypatch, main, argv) -> argparse.ArgumentParser:
         with pytest.raises(Parsed):
             main(argv)
     return seen["parser"]
+
+
+def test_pack_and_datagen_cli_options_are_the_jax_options(monkeypatch):
+    """``python -m pcfm_torch.data.pack_h5`` takes scripts/pack_h5.py's
+    options (its parser is built under ``__main__``: taken at parse), and
+    ``python -m pcfm_torch.datagen.cli`` pcfm/datagen/cli.py's."""
+    import runpy
+    from pcfm.datagen.cli import build_parser as jax_datagen_parser
+    from pcfm_torch.data import pack_h5
+    from pcfm_torch.datagen.cli import build_parser as datagen_parser
+    script = os.path.join(os.path.dirname(__file__), "..", "scripts",
+                          "pack_h5.py")
+    jax = _grab_parser(monkeypatch, lambda argv: runpy.run_path(
+        script, run_name="__main__"), [])
+    port = pack_h5.build_parser()
+    assert _options(port) == _options(jax)
+    assert ("--val_fraction",) in _options(port)
+    assert _options(datagen_parser()) == _options(jax_datagen_parser())
+    assert ("--ply-ascii",) in _options(datagen_parser())
 
 
 def test_interop_cli_options_are_the_jax_options_and_device(monkeypatch):

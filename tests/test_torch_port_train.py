@@ -285,12 +285,15 @@ def test_draws_shapes_and_beta():
 
 
 def test_unported_parallelism_raises(tmp_path):
-    # the grain loader is not ported; dp / sp run (one process per rank,
+    # the grain backend runs (worker processes,
+    # tests/test_torch_port_grain_loader.py) and a backend it does not know
+    # is an error; dp / sp run (one process per rank,
     # tests/test_torch_port_parallel.py), and a layout the world cannot
     # hold is an error, not an idle rank
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        cli.main(["--dataset_type", "synthetic", "--loader_backend",
-                  "grain", "--out_dir", str(tmp_path), "--device", "cpu"])
+    from pcfm_torch.train.loop import train
+    with pytest.raises(ValueError, match="loader_backend 'threads'"):
+        train(Config(dataset_type="synthetic", loader_backend="threads",
+                     out_dir=str(tmp_path)), verbose=False, device="cpu")
     with pytest.raises(ValueError, match="WORLD_SIZE"):
         cli.main(["--dataset_type", "synthetic", "--dp", "2",
                   "--out_dir", str(tmp_path), "--device", "cpu"])
