@@ -11,6 +11,7 @@
     python3 chip_smoke.py --only wide    # phases 1 and 26-28 alone
     python3 chip_smoke.py --only interop # phases 1 and 29-30 alone
     python3 chip_smoke.py --only data    # phases 1 and 32 alone
+    python3 chip_smoke.py --only learning  # phases 1 and 33 alone
 
 Needs one CUDA device (an H100: the kernels are built for sm_90a) and the
 CUDA toolkit's nvcc; imports nothing of JAX.  Phases, each fatal on
@@ -267,6 +268,22 @@ failure:
    0 / 8 workers and the process backend at 8 / 16 (30 batches after
    warm-up, from 96 clouds of 30 000 points) and the CLI's ms a step with
    each backend beside phase 8's train step.
+33. learning: the mlp (400 steps) and the hybrid (100 steps) at bench.py's
+   width (8 x 20 000 RGB points, latent 128), each trained twice side by
+   side from the same weights on the same device-resident batches
+   (LEARN_CLOUDS synthetic clouds) with the same draws each step: in bf16
+   with the kernel trunk and in fp32 with the plain trunk (TF32 off);
+   exact launches (the kernel run's FiLM blocks; the voxel kernels in
+   both hybrid runs); every loss finite; each run's mean over its last
+   LEARN_LATE_SHARE of steps below the mean of its first LEARN_EARLY
+   steps; bf16 against fp32 on those late means within LEARN_REL_TOL
+   (loss_point 10 %, loss_latent 20 %); both curves' summaries printed.
+
+The CPU legs of phases 20 and 23 (the plain versions' steps that the
+card's are held against) run in a child process, ``--cpu_legs``, beside
+the card's phases after phases 11 and 22; phase 20's card legs wait for
+it in place, phase 23's run after phase 31.  ``[time]`` lines give the
+run's time after each group of phases.
 
 A profile whose session holds kernel records for fewer than
 PROFILE_RECORDED of its kernel launches is taken again in new sessions
@@ -452,6 +469,15 @@ DATA_WORKERS = 8
 DATA_SAME_BATCHES = 6
 LOADER_CLOUDS = 96
 LOADER_TIMED_BATCHES, LOADER_WARMUP_BATCHES = 30, 6
+# phase 33: learning over many steps.  Train steps a backbone, the
+# device-resident synthetic clouds the batches are gathered from, the LR
+# warmup, the late window (a share of the steps) and the early one (steps),
+# and the bf16 run's late means against the fp32 run's
+LEARN_STEPS = {"mlp": 400, "hybrid": 100}
+LEARN_CLOUDS = 64
+LEARN_WARMUP = 20
+LEARN_LATE_SHARE, LEARN_EARLY = 0.2, 10
+LEARN_REL_TOL = {"loss_point": 0.10, "loss_latent": 0.20}
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, dense bf16 tensor-core
 # and fp32 (non-tensor) FLOP/s
 HBM_BPS = 3.35e12
@@ -2163,26 +2189,11 @@ def grad_errors(got: dict, ref: dict) -> dict:
             and all(bool(v.isfinite().all()) for v in g_got.values())}
 
 
-def hybrid_grads_card_vs_cpu(fb, tvs, torch):
-    """Phase 20: one hybrid step at HYB_E2E_POINTS from phase 11's
-    checkpoint and the same draws, on the CPU (plain versions) and on the
-    card through the kernels.  The CPU's fp32 step records its choices at
-    the kinks (pcfm_torch.kinks); the pinned steps replay them, so that
-    only rounding separates them: the card's bf16 step (the main path)
-    against the CPU's bf16 step (HYB_GRAD_REL_TOL_BF16) and fp32 step
-    (HYB_GRAD_REL_TOL), and the card's fp32 step with the plain trunk (the
-    voxel kernels its only kernels) against the CPU's fp32 step
-    (HYB_GRAD_REL_TOL_FP32); each bound's control must exceed it.  Every
-    card step's loss and grad norm within HYB_LOSS_REL_TOL.  Printed: the
-    CPU's bf16 step with the prior's xyz moved by one bf16 ulp against its
-    own (what a bf16 change of the input does), and the unpinned card
-    steps with their flips against the CPU's choices."""
-    from pcfm_torch import kinks
-    from pcfm_torch.train import checkpoint
-    from pcfm_torch.train.state import clip_by_global_norm_, init_state
-    from pcfm_torch.train.step import compute_loss, make_draws
+def hybrid_step_legs(torch) -> tuple:
+    """Phase 20's inputs: the batch and its draws at HYB_E2E_POINTS, and
+    the legs {name: (device, config, pinned, TF32, draws, launches)}."""
+    from pcfm_torch.train.step import make_draws
     b, n = HYB_E2E_POINTS
-    path, _ = checkpoint.find_latest(HYB_DIR)
     g = torch.Generator().manual_seed(SEED + 8)
     batch = {"pts": torch.randn(b, n, 3, generator=g) * 0.5,
              "rgb": torch.rand(b, n, 3, generator=g),
@@ -2196,7 +2207,6 @@ def hybrid_grads_card_vs_cpu(fb, tvs, torch):
     plain_trunk = dict(fp32, fused_trunk="off")
     voxels = {k: HYB_STEP_LAUNCHES[k] for k in ("voxel_gather",
                                                 "voxel_scatter")}
-    # leg: (device, config, pinned, TF32, draws, launches)
     legs = {"cpu_fp32": ("cpu", fp32, False, False, draws, {}),
             "cpu_bf16": ("cpu", {}, True, False, draws, {}),
             "cpu_bf16_moved": ("cpu", {}, True, False, moved, {}),
@@ -2209,8 +2219,22 @@ def hybrid_grads_card_vs_cpu(fb, tvs, torch):
                                         draws, voxels),
             "fp32_plain_trunk_pinned_tf32": (DEVICE, plain_trunk, True,
                                              True, draws, voxels)}
-    out, rec = {}, {}
-    for leg, (dev, over, pinned, tf32, dr, want) in legs.items():
+    return batch, legs
+
+
+def run_hybrid_step_legs(fb, tvs, torch, names, out: dict,
+                         rec: dict) -> None:
+    """Phase 20's legs ``names`` into ``out`` (loss, grad norm, gradients)
+    and ``rec`` (their kinks; the pinned legs replay rec["cpu_fp32"])."""
+    from pcfm_torch import kinks
+    from pcfm_torch.train import checkpoint
+    from pcfm_torch.train.state import clip_by_global_norm_, init_state
+    from pcfm_torch.train.step import compute_loss
+    b, n = HYB_E2E_POINTS
+    path, _ = checkpoint.find_latest(HYB_DIR)
+    batch, legs = hybrid_step_legs(torch)
+    for leg in names:
+        dev, over, pinned, tf32, dr, want = legs[leg]
         t0 = time.perf_counter()
         state = init_state(hybrid_train_cfg(**over), dev, 1,
                            torch.Generator().manual_seed(SEED))
@@ -2246,7 +2270,33 @@ def hybrid_grads_card_vs_cpu(fb, tvs, torch):
         del state, params, loss
         print(f"[hybrid-train] step {leg} at ({b}, {n}): "
               f"{time.perf_counter() - t0:.1f} s"
-              + ("" if pinned else f", kinks {rec[leg].counts()}"))
+              + ("" if pinned else f", kinks {rec[leg].counts()}"),
+              flush=True)
+
+
+def hybrid_grads_card_vs_cpu(fb, tvs, torch, cpu=None):
+    """Phase 20: one hybrid step at HYB_E2E_POINTS from phase 11's
+    checkpoint and the same draws, on the CPU (plain versions) and on the
+    card through the kernels.  The CPU's fp32 step records its choices at
+    the kinks (pcfm_torch.kinks); the pinned steps replay them, so that
+    only rounding separates them: the card's bf16 step (the main path)
+    against the CPU's bf16 step (HYB_GRAD_REL_TOL_BF16) and fp32 step
+    (HYB_GRAD_REL_TOL), and the card's fp32 step with the plain trunk (the
+    voxel kernels its only kernels) against the CPU's fp32 step
+    (HYB_GRAD_REL_TOL_FP32); each bound's control must exceed it.  Every
+    card step's loss and grad norm within HYB_LOSS_REL_TOL.  Printed: the
+    CPU's bf16 step with the prior's xyz moved by one bf16 ulp against its
+    own (what a bf16 change of the input does), and the unpinned card
+    steps with their flips against the CPU's choices.  The CPU legs come
+    from ``cpu`` (a CpuLegs child started after phase 11) or a child
+    started here."""
+    from pcfm_torch import kinks
+    b, n = HYB_E2E_POINTS
+    _, legs = hybrid_step_legs(torch)
+    out, rec = (cpu or CpuLegs(torch, "hybrid_train")).result()
+    run_hybrid_step_legs(fb, tvs, torch,
+                         [k for k in legs if not k.startswith("cpu_")],
+                         out, rec)
     torch.cuda.empty_cache()
     # (leg, reference leg, bound, control: (leg, reference leg))
     checks = (("bf16_pinned", "cpu_bf16", HYB_GRAD_REL_TOL_BF16,
@@ -2565,7 +2615,7 @@ def check_legs(tag: str, what: str, points, out: dict, checks) -> tuple:
 
 def distill_card_vs_cpu(fb, tvs, torch, kind: str, src: str = "",
                         points=HYB_E2E_POINTS, label: str = "",
-                        mlp_checks=None):
+                        mlp_checks=None, cpu=None, legs_only=None):
     """Phase 23, first part: one distill step (phase 0: guided, N_p 25)
     at HYB_E2E_POINTS from phase 21's or 22's input and the same draws, on
     the CPU (plain versions) and on the card (kernels); each gradient's
@@ -2576,7 +2626,10 @@ def distill_card_vs_cpu(fb, tvs, torch, kind: str, src: str = "",
     legs replaying the CPU fp32 step's choices at the kinks.  ``src``,
     ``points``, ``label``, ``mlp_checks``: another input run, another
     (clouds, points), the tag and the mlp's (leg, reference, bound,
-    control, control required) checks, if not phase 23's."""
+    control, control required) checks, if not phase 23's.  ``cpu``: the
+    CPU legs' (out, rec), computed by a CpuLegs child beside the card's
+    phases.  ``legs_only``: run only those legs and return (out, rec)
+    (what the child does)."""
     import copy
 
     from pcfm_torch import kinks
@@ -2627,8 +2680,10 @@ def distill_card_vs_cpu(fb, tvs, torch, kind: str, src: str = "",
                   ("fp32_plain_trunk_pinned", "cpu_fp32",
                    HYB_GRAD_REL_TOL_FP32,
                    ("fp32_plain_trunk_pinned_tf32", "cpu_fp32")))
-    out, rec = {}, {}
-    for leg, (dev, over, pinned, tf32, want) in legs.items():
+    out, rec = cpu if cpu is not None else ({}, {})
+    names = legs_only or [k for k in legs if k not in out]
+    for leg in names:
+        dev, over, pinned, tf32, want = legs[leg]
         t0 = time.perf_counter()
         _, bundle, _ = load_run(src, over, dev)
         dstate = init_distill_state(copy.deepcopy(bundle.ema_pf), 1e-4)
@@ -2660,7 +2715,10 @@ def distill_card_vs_cpu(fb, tvs, torch, kind: str, src: str = "",
         del bundle, dstate
         print(f"{tag} step {leg} at ({b}, {n}): "
               f"{time.perf_counter() - t0:.1f} s"
-              + ("" if pinned else f", kinks {rec[leg].counts()}"))
+              + ("" if pinned else f", kinks {rec[leg].counts()}"),
+              flush=True)
+    if legs_only:
+        return out, rec
     torch.cuda.empty_cache()
     res, ok = check_legs(tag, "distill step", points, out, checks)
     if kind == "hybrid" and rec["bf16"].sites:
@@ -3292,15 +3350,119 @@ def wide_phases(fb, tvs, torch, np, distill_check: bool,
 
 
 def distill_phases(fb, tvs, torch, np, heun_ms=None, hyb_heun_ms=None):
-    """Phases 21-23."""
+    """Phases 21-23; the distill step's CPU legs (phase 23's first part)
+    run in a CpuLegs child from here, and ``distill_card_vs_cpu_finish``
+    (the card's legs and the checks) completes the result's
+    ``card_vs_cpu`` later, beside the phases run in between."""
     dm = distill_cli_full_width(fb, tvs, torch, np, "mlp", heun_ms)
     dh = distill_cli_full_width(fb, tvs, torch, np, "hybrid", hyb_heun_ms)
+    cpu = CpuLegs(torch, "distill")
     t0 = time.perf_counter()
-    cv = {kind: distill_card_vs_cpu(fb, tvs, torch, kind)
-          for kind in ("mlp", "hybrid")}
     kn = train_knobs_full_width(fb, tvs, torch)
-    print(f"[distill] phase 23: {time.perf_counter() - t0:.1f} s")
-    return {"mlp": dm, "hybrid": dh, "card_vs_cpu": cv, "knobs": kn}
+    print(f"[distill] phase 23, second part: "
+          f"{time.perf_counter() - t0:.1f} s")
+    return {"mlp": dm, "hybrid": dh, "knobs": kn, "cpu_legs": cpu}
+
+
+def distill_card_vs_cpu_finish(fb, tvs, torch, dist: dict) -> None:
+    """Phase 23's first part: the card's legs of the distill step beside
+    the child's CPU legs, and the checks, into dist["card_vs_cpu"]."""
+    t0 = time.perf_counter()
+    cpu = dist.pop("cpu_legs").result()
+    dist["card_vs_cpu"] = {
+        kind: distill_card_vs_cpu(fb, tvs, torch, kind, cpu=cpu[kind])
+        for kind in ("mlp", "hybrid")}
+    print(f"[distill] phase 23, first part (the card's legs): "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
+# phases 20 and 23: the CPU legs' child process keeps this many threads,
+# the rest of the card machine's cores to the card's phases beside it
+CPU_LEGS_THREADS = 4
+CHILDREN = []
+
+
+class CpuLegs:
+    """The CPU legs of phase 20 (``what`` "hybrid_train") or phase 23's
+    distill step ("distill": the mlp's, then the hybrid's) computed in a
+    child process, ``python3 chip_smoke.py --cpu_legs WHAT``, beside the
+    card's phases: they take minutes of the host's CPU and none of the
+    card.  ``result()`` waits for the child, prints its lines and returns
+    what it wrote: (out, rec) as the phase's own loop fills them, a dict
+    of them by backbone for "distill"."""
+
+    def __init__(self, torch, what: str):
+        self.torch, self.what = torch, what
+        self.path = os.path.join(RUN_DIR, f"cpu_legs_{what}.pt")
+        self.log = self.path + ".log"
+        os.makedirs(RUN_DIR, exist_ok=True)
+        self.t0 = time.perf_counter()
+        with open(self.log, "w") as f:
+            self.proc = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--cpu_legs",
+                 what, "--seed", str(SEED)], stdout=f,
+                stderr=subprocess.STDOUT, cwd=ROOT)
+        CHILDREN.append(self.proc)
+
+    def result(self):
+        from pcfm_torch import kinks
+        rc = self.proc.wait()
+        with open(self.log) as f:
+            text = f.read()
+        print(text, end="")
+        if rc != 0:
+            raise RuntimeError(f"CPU legs ({self.what}): the child exited "
+                               f"{rc}: {text[-3000:]}")
+        print(f"[cpu-legs] {self.what}: the child's legs done "
+              f"{time.perf_counter() - self.t0:.1f} s after its start, "
+              f"{CPU_LEGS_THREADS} threads beside the card's phases")
+        saved = self.torch.load(self.path, weights_only=False)
+
+        def unpack(out, sites):
+            rec = {}
+            for leg, leg_sites in sites.items():
+                rec[leg] = kinks.Kinks()
+                rec[leg].sites = leg_sites
+            return out, rec
+        if self.what == "distill":
+            return {kind: unpack(*saved[kind]) for kind in saved}
+        return unpack(*saved)
+
+
+def cpu_legs_child(what: str) -> int:
+    """``--cpu_legs WHAT``: the CPU legs alone, written for CpuLegs."""
+    import torch
+    torch.set_num_threads(CPU_LEGS_THREADS)
+    from pcfm_torch.ops import film_block as fb
+    from pcfm_torch.ops import voxel_sorted as tvs
+
+    def pack(out, rec):
+        return out, {leg: r.sites for leg, r in rec.items()}
+    if what == "hybrid_train":
+        _, legs = hybrid_step_legs(torch)
+        out, rec = {}, {}
+        run_hybrid_step_legs(fb, tvs, torch,
+                             [k for k in legs if k.startswith("cpu_")],
+                             out, rec)
+        saved = pack(out, rec)
+    else:
+        cpu = {"mlp": ["cpu_fp32", "cpu_bf16"],
+               "hybrid": ["cpu_fp32", "cpu_bf16"]}
+        saved = {kind: pack(*distill_card_vs_cpu(
+            fb, tvs, torch, kind, legs_only=names))
+            for kind, names in cpu.items()}
+    path = os.path.join(RUN_DIR, f"cpu_legs_{what}.pt")
+    torch.save(saved, path + ".tmp")
+    os.replace(path + ".tmp", path)
+    return 0
+
+
+def stop_children() -> None:
+    """Stop any CpuLegs child still running (a phase failed first)."""
+    for proc in CHILDREN:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
 
 
 # ------------------------------------------------------------ parallel
@@ -4406,17 +4568,134 @@ def data_pipeline(fb, torch, np, step_ms=None) -> dict:
     return out
 
 
+def learning_run(fb, tvs, torch, np, kind: str) -> dict:
+    """Phase 33 for one backbone: LEARN_STEPS[kind] steps in bf16 with the
+    kernel trunk and in fp32 with the plain trunk, side by side from the
+    same weights, batches and draws; the curves' summaries and the gates
+    (finite, learning, bf16 against fp32)."""
+    from pcfm_torch.quality.common import (EpochOrder, device_split,
+                                           gather_batch)
+    from pcfm_torch.train.state import init_state
+    from pcfm_torch.train.step import make_draws, train_step
+    steps, tag = LEARN_STEPS[kind], f"[learning] {kind}"
+    mk = hybrid_cfg if kind == "hybrid" else bench_cfg
+    kw = dict(warmup_steps=LEARN_WARMUP, epochs=1)
+    cfgs = {"bf16_kernel": mk(**kw),
+            "fp32_plain": mk(fused_trunk="off", amp=False, ctx_dtype="fp32",
+                             **kw)}
+    states = {p: init_state(c, DEVICE, steps,
+                            torch.Generator().manual_seed(SEED))
+              for p, c in cfgs.items()}
+    ref = states["bf16_kernel"].bundle.modules()
+    for k, m in states["fp32_plain"].bundle.modules().items():
+        m.load_state_dict(ref[k].state_dict())
+    _, split = device_split("train", LEARN_CLOUDS, N, DEVICE, seed=SEED)
+    order = EpochOrder(LEARN_CLOUDS, B, DEVICE, seed=SEED + 1)
+    idx = []
+    while len(idx) < steps:
+        idx += order.next()
+    cfg = cfgs["bf16_kernel"]
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 33)
+    names = ("loss_point", "loss_latent")
+    losses = {p: [] for p in states}
+    events = {p: [] for p in states}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(fb, tvs)
+    t0 = time.perf_counter()
+    for i in range(steps):
+        batch = gather_batch(split, idx[i])
+        draws = make_draws(cfg, batch, gen, cfg.cfg_drop_p)
+        for p, st in states.items():
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            m = train_step(st, batch, None, 1.0, cfg.cfg_drop_p, draws=draws)
+            ev[1].record()
+            events[p].append(ev)
+            losses[p].append(torch.stack([m[k] for k in names]))
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    got = counts(fb, tvs)
+    per_step = (HYB_STEP_LAUNCHES if kind == "hybrid" else
+                {"film_block": FILM_BLOCKS, "film_block_bwd": FILM_BLOCKS})
+    want = {k: per_step.get(k, 0) * steps for k in got}
+    if kind == "hybrid":          # the fp32 run's voxel kernels as well
+        for k in ("voxel_gather", "voxel_scatter"):
+            want[k] *= 2
+    if got != want:
+        raise SystemExit(f"{tag}: launches {got}, expected {want}")
+    late_n = max(1, int(round(LEARN_LATE_SHARE * steps)))
+    out = {"steps": steps, "launches": got, "wall_s": wall_s,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    for p in states:
+        curve = torch.stack(losses[p]).cpu().numpy().astype(np.float64)
+        if not np.isfinite(curve).all():
+            raise SystemExit(f"{tag} {p}: a loss is not finite")
+        early, late = curve[:LEARN_EARLY].mean(0), curve[-late_n:].mean(0)
+        deciles = [int(round(q * (steps - 1))) for q in np.linspace(0, 1, 11)]
+        out[p] = {"ms_per_step": statistics.median(
+                      a.elapsed_time(b) for a, b in events[p]),
+                  **{k: {"first": float(curve[0, j]),
+                         f"early{LEARN_EARLY}": float(early[j]),
+                         "late": float(late[j]),
+                         "min": float(curve[:, j].min()),
+                         "at_steps": {str(s_): float(curve[s_, j])
+                                      for s_ in deciles}}
+                     for j, k in enumerate(names)}}
+        for j, k in enumerate(names):
+            print(f"{tag} {p} {k}: first {curve[0, j]:.4f}, mean of steps "
+                  f"1-{LEARN_EARLY} {early[j]:.4f}, mean of the last "
+                  f"{late_n} {late[j]:.4f}, min {curve[:, j].min():.4f}; "
+                  f"at steps {deciles}: "
+                  f"{[round(float(curve[s_, j]), 4) for s_ in deciles]}")
+            if not late[j] < early[j]:
+                raise SystemExit(f"{tag} {p} {k}: the late mean "
+                                 f"{late[j]:.4f} is not below the early "
+                                 f"mean {early[j]:.4f}")
+        print(f"{tag} {p}: {out[p]['ms_per_step']:.2f} ms/step (CUDA "
+              f"events, median)")
+    rel = {}
+    for k in names:
+        a = out["bf16_kernel"][k]["late"]
+        b = out["fp32_plain"][k]["late"]
+        rel[k] = abs(a - b) / abs(b)
+        print(f"{tag} {k}: late mean bf16 kernel {a:.4f} against fp32 plain "
+              f"{b:.4f}: {rel[k]:.4f} relative (tolerance "
+              f"{LEARN_REL_TOL[k]})")
+        if not rel[k] <= LEARN_REL_TOL[k]:
+            raise SystemExit(f"{tag} {k}: bf16 and fp32 late means differ "
+                             f"by {rel[k]:.4f} > {LEARN_REL_TOL[k]}")
+    out["late_rel_diff"] = rel
+    print(f"{tag}: {steps} steps x 2 runs in {wall_s:.1f} s, launches "
+          f"{got}, peak {out['peak_gib']:.2f} GiB")
+    del states
+    torch.cuda.empty_cache()
+    return out
+
+
+def learning(fb, tvs, torch, np) -> dict:
+    """Phase 33: learning_run for the mlp, then the hybrid."""
+    return {kind: learning_run(fb, tvs, torch, np, kind)
+            for kind in LEARN_STEPS}
+
+
 def main() -> int:
     global SEED
     p = argparse.ArgumentParser(description="on-card smoke run of pcfm_torch")
     p.add_argument("--only", choices=("voxel", "chamfer", "hybrid_train",
                                       "distill", "parallel", "wide",
-                                      "interop", "data"),
+                                      "interop", "data", "learning"),
                    help="phase 1 and one group of phases alone")
     p.add_argument("--seed", type=int, default=SEED,
                    help="seed of every random weight, cloud and draw")
+    p.add_argument("--cpu_legs", choices=("hybrid_train", "distill"),
+                   help=argparse.SUPPRESS)   # CpuLegs' child process
     args = p.parse_args()
     SEED = args.seed
+    if args.cpu_legs:
+        sys.path.insert(0, ROOT)
+        return cpu_legs_child(args.cpu_legs)
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -4453,7 +4732,11 @@ def main() -> int:
     if args.only == "distill":
         # phase 1 and phases 21-23 (which write their own inputs), for
         # work on distillation and the train step's options
-        distill_phases(fb, tvs, torch, np)
+        try:
+            distill_card_vs_cpu_finish(fb, tvs, torch,
+                                       distill_phases(fb, tvs, torch, np))
+        finally:
+            stop_children()
         return 0
     if args.only == "parallel":
         # phase 1 and phases 24-25, for work on parallel training
@@ -4477,6 +4760,10 @@ def main() -> int:
         # phase 1 and phase 32, for work on the input pipeline
         print(json.dumps({"data": data_pipeline(fb, torch, np)}))
         return 0
+    if args.only == "learning":
+        # phase 1 and phase 33, for work on training over many steps
+        print(json.dumps({"learning": learning(fb, tvs, torch, np)}))
+        return 0
     if args.only == "hybrid_train":
         # phase 1, phase 11's checkpoint and phases 17-20 alone, for work
         # on hybrid training
@@ -4484,8 +4771,27 @@ def main() -> int:
         hybrid_train_cli(fb, tvs, torch)
         hybrid_train_step_time(fb, tvs, torch)
         hybrid_determinism(torch)
-        hybrid_grads_card_vs_cpu(fb, tvs, torch)
+        try:
+            hybrid_grads_card_vs_cpu(fb, tvs, torch)
+        finally:
+            stop_children()
         return 0
+    try:
+        return full_run(args, info, fb, tvs, tc, torch, np)
+    finally:
+        stop_children()
+
+
+def full_run(args, info, fb, tvs, tc, torch, np) -> int:
+    """Phases 2-33 and the last two lines (the default run)."""
+    t_start = time.perf_counter()
+
+    def lap(what: str) -> None:
+        """The script's time so far, after a group of phases (the run has
+        a time limit; each slice reads what its phases cost)."""
+        print(f"[time] after {what}: {time.perf_counter() - t_start:.0f} s "
+              f"since the build")
+
     kv, kv_err = kernel_vs_plain(fb, torch)
     launches = main_path(fb, torch, np)
     ms = sample_ms_per_shape(torch)
@@ -4493,29 +4799,46 @@ def main() -> int:
     bw = backward_vs_plain(fb, torch)
     fwd_train, bwd_train, steps = train_cli(fb, torch)
     step = train_step_time(torch)
+    lap("phases 2-9")
     determinism(torch)
     vox, vox_skewed = voxel_vs_plain(tvs, torch)
     hyb = hybrid_main_path(fb, tvs, torch, np)
+    # phase 20's CPU legs, from phase 11's checkpoint, beside phases 12-19
+    hyb_cpu = CpuLegs(torch, "hybrid_train")
     hyb_ms = hybrid_ms_per_shape(torch)
     hyb_rel = hybrid_end_to_end(tvs, torch)
+    lap("phases 10-13")
     cham = chamfer_vs_plain(tc, torch)
     ev = eval_cli_full_width(fb, tvs, tc, torch)
     su = suite_full_width(fb, tvs, tc, torch)
+    lap("phases 14-16")
     htc = hybrid_train_cli(fb, tvs, torch)
     hts = hybrid_train_step_time(fb, tvs, torch)
     hybrid_determinism(torch)
-    htg = hybrid_grads_card_vs_cpu(fb, tvs, torch)
+    htg = hybrid_grads_card_vs_cpu(fb, tvs, torch, hyb_cpu)
+    lap("phases 17-20")
     dist = distill_phases(fb, tvs, torch, np, ms["on"],
                           hyb_ms["ms_per_shape"])
     dm, dh = dist["mlp"]["step"], dist["hybrid"]["step"]
+    lap("phases 21-22 and 23's second part")
     par = parallel_phases(fb, tvs, torch)
+    lap("phases 24-25")
     wide = wide_phases(fb, tvs, torch, np, distill_check=False,
                        build_log=info["log"])
+    lap("phases 26-28")
     inter = interop_import(fb, tvs, tc, torch, np)
     fl = flop_counts(fb, tvs, torch)
     print(json.dumps({"interop": inter, "flops": fl}))
+    lap("phases 29-30")
     odd = odd_channels(fb, tvs, torch, np)
+    lap("phase 31")
+    # phase 23's card legs, its CPU legs' child having run beside 24-31
+    distill_card_vs_cpu_finish(fb, tvs, torch, dist)
+    lap("phase 23's first part")
     print(json.dumps({"data": data_pipeline(fb, torch, np, step["ms_on"])}))
+    lap("phase 32")
+    print(json.dumps({"learning": learning(fb, tvs, torch, np)}))
+    lap("phase 33")
 
     film = film_bounds(B, N, C)
     # the main path's shapes: R = 32 stage, 8 clouds, bf16 features;

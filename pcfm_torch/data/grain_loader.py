@@ -24,6 +24,9 @@ Workers are forked from a fork server that this process starts fresh
 its own) and persist across epochs: the batch sampler, in this process,
 hands them ``(epoch, index)`` keys.  A worker writes each batch into a slot
 of shared memory mapped once on both sides; this process copies it out.
+A batch larger than its slot (the slots are sized from item 0, and a
+dataset's items may differ: an optional key on some of them) goes back
+whole through torch's own transfer, in the same order.
 A worker's exception is raised to the consumer; ``num_workers = 0`` loads
 in this process, as JAX's ``worker_count=0`` does.
 """
@@ -105,14 +108,15 @@ def _collate_into_slot(items) -> tuple:
     """``collate`` in a worker, written into the batch's slot of shared
     memory: the header set to -1, the arrays, then the header to the
     batch's sequence number.  Returns (slot, seq, layout, the keys that
-    are not arrays)."""
+    are not arrays); for a batch larger than its slot, (slot, seq, None,
+    the whole batch), which torch's transfer carries and the slot never
+    sees."""
     slot, seq = items[0]["_slot"]
     batch = collate(items)
     layout, size = _layout(batch)
     raw = get_worker_info().dataset.slots[slot].numpy()
     if size > raw.nbytes:
-        raise ValueError(f"ProcessLoader: a batch of {size} bytes exceeds "
-                         f"its slot's {raw.nbytes} (items of other shapes)")
+        return slot, seq, None, batch
     header = raw[:_HEADER].view(np.int64)
     header[0] = -1
     for k, _, _, at in layout:
@@ -158,7 +162,8 @@ class ProcessLoader(DataLoader):
     def _torch_loader(self) -> TorchDataLoader:
         if self._workers is None:
             # a slot holds a whole batch: its size from one batch of the
-            # first item (the datasets' items have fixed shapes)
+            # first item (the datasets' items have fixed shapes; a larger
+            # batch bypasses its slot, _collate_into_slot)
             _, size = _layout(collate(
                 [load_item(self.ds, self.seed, 0, 0)] * self.batch_size))
             self._slots = [torch.zeros(size, dtype=torch.uint8)
@@ -174,8 +179,11 @@ class ProcessLoader(DataLoader):
 
     def _copy_out(self, shared: tuple) -> Dict:
         """The batch in its slot, copied out (the keys in ``collate``'s
-        order); raises if the slot's header shows another batch."""
+        order); raises if the slot's header shows another batch.  A batch
+        that came whole (``layout`` None) is the batch."""
         slot, seq, layout, rest = shared
+        if layout is None:
+            return rest
         raw = self._slots[slot].numpy()
         header = raw[:_HEADER].view(np.int64)
         if header[0] != seq:

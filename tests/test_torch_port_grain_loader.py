@@ -149,8 +149,9 @@ def test_abandoned_pass_and_close_leave_no_process():
 
 
 def test_slot_guards(monkeypatch):
-    """A worker refuses a batch larger than its slot; the consumer refuses
-    a slot whose header holds another batch."""
+    """A batch larger than its slot bypasses it and arrives whole, equal to
+    ``collate(items)``; a batch that fits goes through its slot; the
+    consumer refuses a slot whose header holds another batch."""
     from types import SimpleNamespace
 
     from pcfm_torch.data import grain_loader as gl
@@ -160,8 +161,10 @@ def test_slot_guards(monkeypatch):
     monkeypatch.setattr(gl, "get_worker_info", lambda: SimpleNamespace(
         dataset=SimpleNamespace(slots=proc._slots)))
     items = [dict(gl.load_item(ds, 0, 0, i), _slot=(0, 7)) for i in range(4)]
-    with pytest.raises(ValueError, match="exceeds its slot"):
-        gl._collate_into_slot(items)
+    big = gl._collate_into_slot(items)
+    assert big[:3] == (0, 7, None)
+    _equal([proc._copy_out(big)], [collate(items)])
+    assert not proc._slots[0].any()            # the slot was not written
     small = [dict(it, train_points=it["train_points"][:2],
                   test_points=it["test_points"][:2],
                   train_rgb=it["train_rgb"][:2],
@@ -171,6 +174,30 @@ def test_slot_guards(monkeypatch):
     _equal([proc._copy_out(shared)], [collate(small)])
     with pytest.raises(RuntimeError, match="holds batch 7, not 8"):
         proc._copy_out((0, 8) + shared[2:])
+
+
+class _CondFromEight(SyntheticDataset):
+    """Items 8-15 add a ``cond`` array that items 0-7 lack: the first batch
+    sizes the slots, the second does not fit them."""
+
+    def get(self, idx, rng):
+        item = super().get(idx, rng)
+        if idx >= 8:
+            item["cond"] = np.asarray([self.thetas[idx]], np.float32)
+        return item
+
+
+def test_oversized_batch_equals_the_thread_loaders():
+    ds = _CondFromEight(**dict(SYN, size=16, with_cond=False))
+    kw = dict(shuffle=False, drop_last=True, seed=0)
+    want = list(DataLoader(ds, 8, num_workers=0, **kw).epoch_batches(0))
+    assert "cond" not in want[0] and "cond" in want[1]
+    proc = ProcessLoader(ds, 8, num_workers=WORKERS, **kw)
+    got = [list(proc.epoch_batches(ep)) for ep in (0, 0)]
+    proc.close()
+    assert mp.active_children() == []
+    for batches in got:
+        _equal(batches, want)
 
 
 def test_make_loader():

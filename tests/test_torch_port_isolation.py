@@ -48,7 +48,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "'pcfm_torch.datagen', 'pcfm_torch.datagen.core', "
         "'pcfm_torch.datagen.glb', 'pcfm_torch.datagen.meshio', "
         "'pcfm_torch.datagen.bullet_kin', 'pcfm_torch.datagen.simulate', "
-        "'pcfm_torch.datagen.cli'} "
+        "'pcfm_torch.datagen.cli', 'pcfm_torch.quality', "
+        "'pcfm_torch.quality.common', 'pcfm_torch.quality.gen_quality', "
+        "'pcfm_torch.quality.convergence_full', "
+        "'pcfm_torch.quality.distill_demo'} "
         "<= set(names), names\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'flax', "
         "'optax', 'orbax') or m == 'pcfm' or m.startswith('pcfm.') "
@@ -265,6 +268,85 @@ def test_entry_points_need_cuda_or_an_explicit_cpu(no_cuda, tmp_path):
         eval_cli.main(["--out_dir", str(tmp_path), "--device", "cpu"])
     with pytest.raises(FileNotFoundError):
         distill_cli.main(["--out_dir", str(tmp_path), "--device", "cpu"])
+
+
+QUALITY = {"gen_quality": "gen_quality_tpu.py",
+           "convergence_full": "convergence_full.py",
+           "distill_demo": "distill_demo.py"}
+
+
+def _quality_main(name):
+    import importlib
+    return importlib.import_module(f"pcfm_torch.quality.{name}").main
+
+
+@pytest.mark.parametrize("name", sorted(QUALITY))
+def test_quality_clis_need_cuda_or_an_explicit_cpu(no_cuda, name,
+                                                   tmp_path):
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        _quality_main(name)(["--out", str(tmp_path)])
+
+
+def _env_knobs(script: str) -> dict:
+    """{knob: default} of a JAX harness's environment knobs, as written
+    in its source (``os.environ.get("KNOB", default)``)."""
+    import ast
+    path = os.path.join(os.path.dirname(__file__), "..", "scripts", script)
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    knobs = {}
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Call) and isinstance(node.func,
+                                                      ast.Attribute)
+                and node.func.attr == "get"
+                and ast.unparse(node.func.value) == "os.environ"):
+            default = (ast.literal_eval(node.args[1])
+                       if len(node.args) > 1 else None)
+            knobs[node.args[0].value] = default
+    return knobs
+
+
+@pytest.mark.parametrize("name", sorted(QUALITY))
+def test_quality_flags_are_the_jax_knobs(name):
+    """Each quality CLI's flags are its JAX script's environment knobs,
+    lower-cased, with their defaults, and ``--device``; the script's
+    switch to the CPU (``GENQ_CPU``) is ``--device cpu``.  ``--out``
+    keeps the default's name under this host's temporary directory."""
+    import importlib
+    mod = importlib.import_module(f"pcfm_torch.quality.{name}")
+    port = _options(mod.build_parser())
+    device = port.pop(("--device",))
+    assert device[1] == "cuda" and tuple(device[3]) == ("cuda", "cpu")
+    port.pop(("-h", "--help"))
+    knobs = _env_knobs(QUALITY[name])
+    knobs.pop("GENQ_CPU", None)
+    assert set(port) == {(f"--{k.lower()}",) for k in knobs}
+    for k, default in knobs.items():
+        _, got, kind, _, _, _ = port[(f"--{k.lower()}",)]
+        if k == "OUT":
+            assert os.path.basename(got) == os.path.basename(default)
+        else:
+            assert got == kind(default), k
+
+
+def test_dyn_parity_harness_takes_the_jax_harness_knobs(monkeypatch):
+    """scripts/torch_dyn_parity.py: scripts/dyn_parity.py's options (its
+    parser is built under ``__main__``: taken at parse) and ``run``'s
+    keywords with their defaults; its JSON goes to a file of its own."""
+    import inspect
+    import runpy
+
+    from scripts import dyn_parity, torch_dyn_parity
+    script = os.path.join(os.path.dirname(__file__), "..", "scripts",
+                          "dyn_parity.py")
+    jax = _options(_grab_parser(monkeypatch, lambda argv: runpy.run_path(
+        script, run_name="__main__"), []))
+    port = _options(torch_dyn_parity.build_parser())
+    out_jax, out_port = jax.pop(("--out_json",)), port.pop(("--out_json",))
+    assert port == jax and out_port[0] == out_jax[0]
+    assert out_port[1] != out_jax[1] == "docs/dyn_parity.json"
+    assert (inspect.signature(torch_dyn_parity.run)
+            == inspect.signature(dyn_parity.run))
 
 
 def test_resolve_device(no_cuda):
