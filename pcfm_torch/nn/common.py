@@ -37,13 +37,25 @@ def kaiming_normal_tensor_(w: torch.Tensor, fan_in: int,
 
 
 @torch.no_grad()
+def trunc_normal_tensor_(w: torch.Tensor, std: float,
+                         generator: torch.Generator) -> None:
+    """Normal(0, std) truncated at +-2 std, by the inverse CDF: one
+    uniform draw an element, mapped through erfinv (as
+    ``jax.random.truncated_normal`` draws).  Not ``nn.init.trunc_normal_``,
+    whose method, and so whose values from one generator, changes with
+    the installed torch (the inverse CDF in 2.11, rejection sampling in
+    2.13): the same seed must give the same weights on every host."""
+    cdf = (1.0 + math.erf(-2.0 / math.sqrt(2.0))) / 2.0
+    w.uniform_(2.0 * cdf - 1.0, 1.0 - 2.0 * cdf, generator=generator)
+    w.erfinv_().mul_(std * math.sqrt(2.0)).clamp_(-2.0 * std, 2.0 * std)
+
+
+@torch.no_grad()
 def lecun_normal_tensor_(w: torch.Tensor, fan_in: int,
                          generator: torch.Generator) -> None:
     """flax lecun_normal on any weight: normal truncated at +-2 sigma with
     sigma = sqrt(1 / fan_in) / 0.8796 (fan_in = in x receptive field)."""
-    std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
-    nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
-                          generator=generator)
+    trunc_normal_tensor_(w, math.sqrt(1.0 / fan_in) / _TRUNC_STD, generator)
 
 
 @torch.no_grad()

@@ -66,9 +66,12 @@ def make_config(args) -> Config:
                   seed=5, fused_trunk="on")
 
 
-def recon_cd(bundle, pf, batch, sampler, steps: int) -> float:
+def recon_cd(bundle, pf, batch, sampler, steps: int,
+             prior_device=None) -> float:
     """Mean train-time CD of the fixed batch reconstructed from one prior
-    (a generator seeded 7) by ``sampler`` x ``steps`` on the field ``pf``."""
+    (a generator seeded 7 on ``prior_device``, the batch's device by
+    default, then moved there) by ``sampler`` x ``steps`` on the field
+    ``pf``."""
     cfg = bundle.cfg
     pts = batch["pts"]
     enc_in = torch.cat([pts, batch["rgb"]], -1) \
@@ -77,18 +80,44 @@ def recon_cd(bundle, pf, batch, sampler, steps: int) -> float:
         z, _ = bundle.enc(enc_in)
         cond_full = torch.cat([z, batch["cond"].to(z.dtype)], 1)
         b, n = pts.shape[:2]
-        x0 = torch.randn((b, n, cfg.pf_point_dim), device=pts.device,
-                         generator=generator_for(pts.device, 7))
+        where = pts.device if prior_device is None else prior_device
+        x0 = torch.randn((b, n, cfg.pf_point_dim), device=where,
+                         generator=generator_for(where, 7)).to(pts.device)
         x = sampler(pf, x0, steps, cond=cond_full)
     return float(chamfer_l2(x[..., :3].float(), pts).mean())
 
 
+def fixed_batch(cfg: Config, device) -> dict:
+    """The fixed test batch: the test split's first FIXED_CLOUDS clouds,
+    on ``device``."""
+    _, te_ds = get_datasets(cfg)
+    return to_device(to_model_batch(next(iter(DataLoader(
+        te_ds, FIXED_CLOUDS, shuffle=False, drop_last=True, seed=0,
+        num_workers=0).epoch_batches(0))), train=False, has_rgb=True,
+        cond_dim=cfg.cond_dim), device)
+
+
+def teacher_rows(bundle, fixed, prior_device=None) -> list:
+    """(sampler, recon CD) of the trained field: Heun x TEACHER_STEPS,
+    then Euler at each halving's step count, undistilled."""
+    rows = [(f"teacher heun x{TEACHER_STEPS} (NFE {2 * TEACHER_STEPS})",
+             recon_cd(bundle, bundle.ema_pf, fixed, heun_sample,
+                      TEACHER_STEPS, prior_device))]
+    steps = TEACHER_STEPS
+    for _ in range(HALVINGS):
+        steps //= 2
+        rows.append((f"UNdistilled euler x{steps} (NFE {steps})",
+                     recon_cd(bundle, bundle.ema_pf, fixed, euler_sample,
+                              steps, prior_device)))
+    return rows
+
+
 def main(argv: Optional[Sequence[str]] = None, overrides=None,
-         steps_per_phase: int = 400) -> dict:
+         steps_per_phase: int = 400, halvings: int = HALVINGS) -> dict:
     """Parse ``argv`` and run; returns {sampler: recon CD} and the times.
-    ``overrides`` replaces Config fields and ``steps_per_phase`` the
-    optimizer steps a halving (for callers that shrink the run, as the CPU
-    tests do)."""
+    ``overrides`` replaces Config fields, ``steps_per_phase`` the
+    optimizer steps a halving and ``halvings`` their number (for callers
+    that shrink the run, as the CPU tests do)."""
     args = build_parser().parse_args(argv)
     device = resolve_device(args.device)
     where = card(device)
@@ -101,23 +130,11 @@ def main(argv: Optional[Sequence[str]] = None, overrides=None,
     path, _ = ckpt.find_latest(args.out)
     cfg, bundle, _ = ckpt.load(path, device)
 
-    tr_ds, te_ds = get_datasets(cfg)
+    tr_ds, _ = get_datasets(cfg)
     loader = DataLoader(tr_ds, cfg.batch_size, shuffle=True, drop_last=True,
                         seed=9, num_workers=0)
-    fixed = to_device(to_model_batch(next(iter(DataLoader(
-        te_ds, FIXED_CLOUDS, shuffle=False, drop_last=True, seed=0,
-        num_workers=0).epoch_batches(0))), train=False, has_rgb=True,
-        cond_dim=cfg.cond_dim), device)
-
-    rows = [(f"teacher heun x{TEACHER_STEPS} (NFE {2 * TEACHER_STEPS})",
-             recon_cd(bundle, bundle.ema_pf, fixed, heun_sample,
-                      TEACHER_STEPS))]
-    steps = TEACHER_STEPS
-    for _ in range(HALVINGS):
-        steps //= 2
-        rows.append((f"UNdistilled euler x{steps} (NFE {steps})",
-                     recon_cd(bundle, bundle.ema_pf, fixed, euler_sample,
-                              steps)))
+    fixed = fixed_batch(cfg, device)
+    rows = teacher_rows(bundle, fixed)
 
     def batches(phase):
         def raw():
@@ -130,7 +147,7 @@ def main(argv: Optional[Sequence[str]] = None, overrides=None,
     print("[demo] distilling...", flush=True)
     t_d = time.time()
     steps = TEACHER_STEPS
-    for phase in range(HALVINGS):
+    for phase in range(halvings):
         student, student_ema, steps = distill_pf(
             bundle, batches, base_steps=steps, phases=1,
             steps_per_phase=steps_per_phase, lr=2e-4,
@@ -144,7 +161,7 @@ def main(argv: Optional[Sequence[str]] = None, overrides=None,
 
     table = dict(rows)
     out = {"recon_cd": table, "device": where, "epochs": args.epochs,
-           "halvings": HALVINGS, "steps_per_phase": steps_per_phase,
+           "halvings": halvings, "steps_per_phase": steps_per_phase,
            "teacher_train_s": round(train_s, 1),
            "distill_s": round(distill_s, 1),
            "total_s": round(time.time() - t_all, 1)}
@@ -156,7 +173,7 @@ def main(argv: Optional[Sequence[str]] = None, overrides=None,
         f.write(f"# Progressive distillation: quality against NFE\n\n"
                 f"`python -m pcfm_torch.quality.distill_demo` on {where}: "
                 f"mlp flow on the synthetic articulated set "
-                f"({args.epochs} epochs), then {HALVINGS} progressive "
+                f"({args.epochs} epochs), then {halvings} progressive "
                 f"halvings ({steps_per_phase} optimizer steps each).  "
                 f"Recon CD on a fixed {FIXED_CLOUDS}-cloud test batch:\n\n"
                 + "\n".join(lines) + "\n")

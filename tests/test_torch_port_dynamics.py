@@ -23,6 +23,8 @@ import pytest
 
 pytest.importorskip("torch")
 
+from tests.torch_threads import one_torch_thread  # noqa: E402,F401
+
 SIZES = dict(size=32, n_points=128, batch=8, latent=32, enc_width=32,
              pf_width=64, lf_width=64, emb=32, sample_steps=8)
 

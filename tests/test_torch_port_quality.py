@@ -34,6 +34,7 @@ from pcfm_torch.quality import (convergence_full, distill_demo,  # noqa: E402
                                 gen_quality)
 from scripts import jax_run_to_torch  # noqa: E402
 from tests.test_torch_port_jax_run import TINY, jax_init_state  # noqa: E402
+from tests.torch_threads import one_torch_thread  # noqa: E402,F401
 
 SEEDS = 5
 WIDEN = 0.2
